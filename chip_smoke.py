@@ -3,21 +3,27 @@
 
     python3 chip_smoke.py            (from the repository root; one GPU)
 
-Drives robosat_tpu_torch's int8 `predict` (the U-Net on the hybrid-int8
-walk, config/model-unet.toml) on the card and checks each hand-written
-kernel against its plain PyTorch version:
+Drives robosat_tpu_torch's `predict` (the U-Net of config/model-unet.toml)
+on the card along four paths and checks each hand-written kernel against
+its plain PyTorch version:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the CUDA kernels from robosat_tpu_torch/csrc;
 3. each kernel against its plain version at main-path shapes (batch 8 at
    576 px buffered tiles, weights and scales of the calibrated model):
-   K3/K4/K5 bit-equal in bf16, K6's uint8 equal up to counted +-1-bin
+   K3/K4/K5/K7/K8/K9 bit-equal in bf16, the uint8 of K6 and of K1 (G = 1,
+   4 and 16 groups, f32 and bf16 features) equal up to counted +-1-bin
    flips; kernel and plain times from CUDA events;
 4. `predict.main` in-process on a generated 512-px slippy-map directory
-   with a random-weight full-width U-Net checkpoint: one decodable palette
-   PNG per tile, launch counters of 13 K3, 3 K4, 5 K5 and 1 K6 per batch,
-   one batch's uint8 against the plain path with the same qtree and
-   scales, and a torch.profiler split of one step's device time.
+   with a random-weight full-width U-Net checkpoint, once per path (the
+   config as it is, int8; a copy with `pallas_tail = "tail"`; one with
+   `"sep"`; one with `int8 = false`, bf16): one decodable palette PNG per
+   tile, each kernel's launch counter per batch (13 K3, 3 K4, 5 K5, 1 K6;
+   13 K3, 3 K4, 5 K5, 1 K7, 1 K1; 13 K3, 3 K4, 4 K5, 1 K8, 1 K9, 1 K1;
+   1 K1; 0 for every other kernel), the "tail" and "sep" PNGs against the
+   int8 run's up to counted +-1 flips, one batch's uint8 against the
+   plain path with the same weights and scales, and a torch.profiler
+   split of one step's device time.
 
 Prints a JSON line of per-kernel results, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failed check raises (non-zero exit);
@@ -42,6 +48,27 @@ OVERLAP = 32
 TILES_SIDE = 8  # an 8 x 8 block of tiles: 64 tiles, 8 batches
 MAX_FLIP_SHARE = 0.001
 SEED = 0  # of the weights and the imagery
+
+# Each kernel: its source, and the TPU kernel it replaces.
+SOURCES = {
+    "K1": ("robosat_tpu_torch/csrc/head.cu", "robosat_tpu/ops/head.py:252"),
+    "K3": ("robosat_tpu_torch/csrc/qenc.cu", "robosat_tpu/models/qenc.py:123"),
+    "K4": ("robosat_tpu_torch/csrc/qenc.cu", "robosat_tpu/models/qenc.py:289"),
+    "K5": ("robosat_tpu_torch/csrc/qdec.cu", "robosat_tpu/models/qdec.py:246"),
+    "K6": ("robosat_tpu_torch/csrc/qtail.cu", "robosat_tpu/models/qtail.py:383"),
+    "K7": ("robosat_tpu_torch/csrc/qtail.cu", "robosat_tpu/models/qtail.py:172"),
+    "K8": ("robosat_tpu_torch/csrc/qdec.cu", "robosat_tpu/models/qdec.py:199"),
+    "K9": ("robosat_tpu_torch/csrc/qtail.cu", "robosat_tpu/models/qtail.py:330"),
+}
+ENCODER = {"K3": 13, "K4": 3}
+# The predict paths: label, model TOML keys over config/model-unet.toml,
+# launches per batch of each kernel (every other kernel: 0).
+PATHS = (
+    ("int8", {}, {**ENCODER, "K5": 5, "K6": 1}),
+    ("int8-tail", {"pallas_tail": "tail"}, {**ENCODER, "K5": 5, "K7": 1, "K1": 1}),
+    ("int8-sep", {"pallas_tail": "sep"}, {**ENCODER, "K5": 4, "K8": 1, "K9": 1, "K1": 1}),
+    ("bf16", {"int8": False, "bf16": True}, {"K1": 1}),
+)
 
 
 def log(*parts):
@@ -102,7 +129,7 @@ def u8_flips(torch, got, ref):
     return int((d != 0).sum()), int(d.max()) if d.numel() else 0
 
 
-def log_step_profile(torch, step, steps=5, top=8):
+def log_step_profile(torch, step, label, steps=5, top=8):
     """Where one step's device time goes: torch.profiler's CUDA kernel rows
     over `steps` steps, against their wall time (host clock, synchronized)."""
     from torch.profiler import ProfilerActivity, profile
@@ -119,13 +146,14 @@ def log_step_profile(torch, step, steps=5, top=8):
             if k.device_type == torch.autograd.DeviceType.CUDA and k.self_device_time_total > 0]
     rows.sort(reverse=True)
     if not rows:
-        log("phase 4: profile of the step: the profiler recorded no kernel time (device split not measured)")
+        log("phase 4: [{}] profile of the step: the profiler recorded no kernel time (device split not measured)"
+            .format(label))
         return
     busy = sum(r[0] for r in rows)
-    log("phase 4: profile of the step: {:.2f} ms wall (profiled), {:.2f} ms of kernels, device idle {:.1%}".format(
-        wall_ms, busy, 1 - busy / wall_ms))
+    log("phase 4: [{}] profile of the step: {:.2f} ms wall (profiled), {:.2f} ms of kernels, device idle {:.1%}"
+        .format(label, wall_ms, busy, 1 - busy / wall_ms))
     for ms, count, key in rows[:top]:
-        log("phase 4:   {:8.3f} ms/step {:4d} launches  {}".format(ms, count, key[:100]))
+        log("phase 4: [{}]   {:8.3f} ms/step {:4d} launches  {}".format(label, ms, count, key[:100]))
 
 
 def write_tiles(root, seed):
@@ -148,18 +176,47 @@ def write_tiles(root, seed):
     return tiles
 
 
+def wrappers():
+    """Each kernel's wrapper, whose `.launches` counts its launches."""
+    from robosat_tpu_torch.models import qdec, qenc, qtail
+    from robosat_tpu_torch.ops import head
+
+    return {"K1": head.margin_head, "K3": qenc.bottleneck_block, "K4": qenc.bottleneck_block_s2,
+            "K5": qdec.parity_up_conv, "K6": qtail.fused_tail, "K7": qtail.fused_tail_features,
+            "K8": qdec.parity_up_conv_separated, "K9": qtail.fused_tail_features_sep}
+
+
+def fine_u8(out):
+    """A step's uint8 (blocked (..., 4) or doubly blocked (..., 16)) as fine tiles on the host."""
+    from robosat_tpu_torch.models.layers import depth_to_space2
+
+    q = out.cpu().numpy()
+    if q.shape[-1] == 16:
+        q = depth_to_space2(q)
+    return depth_to_space2(q)[..., 0]
+
+
+def read_pngs(probs, tiles):
+    from PIL import Image
+
+    return np.stack([np.asarray(Image.open(os.path.join(probs, str(z), str(x), "{}.png".format(y))))
+                     for (x, y, z) in tiles])
+
+
 def run(torch, work, seed, smi):
     from PIL import Image
 
     from robosat_tpu.checkpoint import save_checkpoint
+    from robosat_tpu.config import load_config, save_config
     from robosat_tpu.data.datasets import BufferedSlippyMapDirectory
     from robosat_tpu.data.loader import batches
     from robosat_tpu_torch.checkpoint import load_model_checkpoint, to_jax
     from robosat_tpu_torch.device import configure_device
     from robosat_tpu_torch.models import int8 as q8
     from robosat_tpu_torch.models import qdec, qenc, qtail, unet
-    from robosat_tpu_torch.models.layers import depth_to_space2, space_to_depth4
-    from robosat_tpu_torch.parallel.steps import _normalize_s2d4, make_int8_predict_step
+    from robosat_tpu_torch.models.layers import space_to_depth4
+    from robosat_tpu_torch.ops import head
+    from robosat_tpu_torch.parallel.steps import _normalize_s2d4, make_int8_predict_step, make_predict_step
     from robosat_tpu_torch.tools import predict
 
     device = configure_device(True)
@@ -191,45 +248,60 @@ def run(torch, work, seed, smi):
         scales = q8.scales_from_amaxes(amaxes)
         qtree = q8.quantize_unet_folded(folded)
     enc = qtree["encoder"]
+    w_final, b_final = qtree["final"]["w"], qtree["final"]["b"]
     gen = torch.Generator(device=device).manual_seed(seed)
 
-    def act(shape, site):
-        """bf16 relu'd activations spanning site `site`'s int8 range."""
+    def act(shape, site, dtype=torch.bfloat16):
+        """Relu'd activations spanning site `site`'s int8 range."""
         x = torch.randn(shape, generator=gen, device=device).relu_() * float(amaxes[site] / 3.0)
-        return x.to(torch.bfloat16)
+        return x.to(dtype)
 
     def block_scales(first_site, down):
         return [float(s) for s in scales[first_site:first_site + (4 if down else 3)]]
 
     n, side = BATCH, (TILE + 2 * OVERLAP) // 4  # 144: the stem's output grid
+    s3, s4, s5 = (float(s) for s in scales[56:59])  # dec3, dec4, dec5
+    # (name, site, kernel, plain, args, bit-equal?)
     checks = [
         ("K3", "layer1.0 (projection)", qenc.bottleneck_block, qenc.bottleneck_block_plain,
-         (act((n, side, side, 64), 0), enc["layer1"][0], *block_scales(0, True))),
+         (act((n, side, side, 64), 0), enc["layer1"][0], *block_scales(0, True)), True),
         ("K3", "layer3.1 (identity)", qenc.bottleneck_block, qenc.bottleneck_block_plain,
-         (act((n, side // 4, side // 4, 1024), 27), enc["layer3"][1], *block_scales(27, False))),
+         (act((n, side // 4, side // 4, 1024), 27), enc["layer3"][1], *block_scales(27, False)), True),
         ("K4", "layer2.0", qenc.bottleneck_block_s2, qenc.bottleneck_block_s2_plain,
-         (act((n, side, side, 256), 10), enc["layer2"][0], *block_scales(10, True))),
+         (act((n, side, side, 256), 10), enc["layer2"][0], *block_scales(10, True)), True),
         ("K5", "center", qdec.parity_up_conv, qdec.parity_up_conv_plain,
-         (act((n, side // 16, side // 16, 2048), 52), qtree["center"], float(scales[52]))),
+         (act((n, side // 16, side // 16, 2048), 52), qtree["center"], float(scales[52])), True),
         ("K5", "dec3", qdec.parity_up_conv, qdec.parity_up_conv_plain,
-         (act((n, side, side, 320), 56), qtree["dec3"], float(scales[56]))),
+         (act((n, side, side, 320), 56), qtree["dec3"], s3), True),
         ("K6", "dec3 -> head", qtail.fused_tail, qtail.fused_tail_plain,
-         (act((n, 2 * side, 2 * side, 128), 57), qtree["dec4"], float(scales[57]), qtree["dec5"],
-          float(scales[58]), qtree["final"]["w"], qtree["final"]["b"], OVERLAP)),
+         (act((n, 2 * side, 2 * side, 128), 57), qtree["dec4"], s4, qtree["dec5"], s5, w_final, b_final, OVERLAP),
+         False),
+        ("K7", "dec4 + dec5", qtail.fused_tail_features, qtail.fused_tail_features_plain,
+         (act((n, 2 * side, 2 * side, 128), 57), qtree["dec4"], s4, qtree["dec5"], s5), True),
+        ("K8", "dec3 (separated)", qdec.parity_up_conv_separated, qdec.parity_up_conv_separated_plain,
+         (act((n, side, side, 320), 56), qtree["dec3"], s3), True),
+        ("K9", "dec4 + dec5 (planes)", qtail.fused_tail_features_sep, qtail.fused_tail_features_sep_plain,
+         (act((n, side, side, 512), 57), qtree["dec4"], s4, qtree["dec5"], s5), True),
     ]
+    # K1 on dec5-like features (relu'd, unit scale) of each layout and dtype.
+    for groups, grid in ((1, 4 * side), (4, 2 * side), (16, side)):
+        for dtype in (torch.float32, torch.bfloat16):
+            feats = torch.randn((n, grid, grid, 32 * groups), generator=gen, device=device).relu_().to(dtype)
+            checks.append(("K1", "G = {} {}".format(groups, str(dtype)[6:]), head.margin_head, head.margin_head_plain,
+                           (feats, w_final, b_final, OVERLAP, groups), False))
     per_kernel = {}
     with torch.no_grad():
-        for name, site, kernel, plain, kargs in checks:
+        for name, site, kernel, plain, kargs, bit_equal in checks:
             got = kernel(*kargs)
             ref = plain(*kargs)
             torch.cuda.synchronize()
             if got.shape != ref.shape or got.dtype != ref.dtype:
                 raise AssertionError("{} {}: kernel {} {} vs plain {} {}".format(
                     name, site, tuple(got.shape), got.dtype, tuple(ref.shape), ref.dtype))
-            if name == "K6":
+            if not bit_equal:
                 flips, err = u8_flips(torch, got, ref)
                 if err > 1 or flips > MAX_FLIP_SHARE * got.numel():
-                    raise AssertionError("K6 {}: {} flipped bins (max distance {})".format(site, flips, err))
+                    raise AssertionError("{} {}: {} flipped bins (max distance {})".format(name, site, flips, err))
                 detail = "{} of {} bins flipped by 1".format(flips, got.numel())
             else:
                 err = float((got.float() - ref.float()).abs().max())
@@ -246,75 +318,104 @@ def run(torch, work, seed, smi):
             entry["plain_ms"] += plain_ms
             entry["sites"].append({"site": site, "shape": list(kargs[0].shape), "ms": ms, "plain_ms": plain_ms,
                                    "max_abs_err": err})
-    del checks, kargs, got, ref
+    del checks, kargs, got, ref, feats
     torch.cuda.empty_cache()
 
-    # ---- phase 4: predict on the card, through the kernels ---------------
-    probs = os.path.join(work, "probs")
-    pargs = argparse.Namespace(
-        batch_size=BATCH, checkpoint=checkpoint, overlap=OVERLAP, strip=1, tile_size=TILE, workers=4, shard=None,
-        tiles=tiles_dir, probs=probs, model=os.path.join(ROOT, "config", "model-unet.toml"),
-        dataset=os.path.join(ROOT, "config", "dataset-parking.toml"), profile=None, png_optimize=False,
-    )
-    wrappers = {"K3": qenc.bottleneck_block, "K4": qenc.bottleneck_block_s2, "K5": qdec.parity_up_conv,
-                "K6": qtail.fused_tail}
-    for fn in wrappers.values():
-        fn.launches = 0
-    start = time.perf_counter()
-    out = predict.main(pargs)
-    wall = time.perf_counter() - start
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    # ---- phase 4: predict on the card, along each path -------------------
+    base_config = load_config(os.path.join(ROOT, "config", "model-unet.toml"))
+    counted = wrappers()
     n_batches = -(-len(tiles) // BATCH)
-    expected = {"K3": 13 * n_batches, "K4": 3 * n_batches, "K5": 5 * n_batches, "K6": n_batches}
-    if launches != expected:
-        raise AssertionError("launch counts {} != expected {} for {} batches".format(launches, expected, n_batches))
-    if out["tiles"] != len(tiles):
-        raise AssertionError("predict reported {} tiles, expected {}".format(out["tiles"], len(tiles)))
     steady_tiles = len(tiles) - first.valid
-    log("phase 4: predict wrote {} tiles in {:.2f} s; steady {:.2f} tiles/s over {} tiles ({:.3f} s) on {}; "
-        "launches {}".format(out["tiles"], wall, steady_tiles / out["steady_s"], steady_tiles, out["steady_s"],
-                             smi, launches))
+    launches = {name: 0 for name in SOURCES}
+    by_path = {}
+    default_pngs = None
+    for label, keys, per_batch in PATHS:
+        config = {**base_config, "common": {**base_config["common"], **keys}}
+        model_toml = os.path.join(work, "model-{}.toml".format(label))
+        save_config(config, model_toml)
+        probs = os.path.join(work, "probs-{}".format(label))
+        pargs = argparse.Namespace(
+            batch_size=BATCH, checkpoint=checkpoint, overlap=OVERLAP, strip=1, tile_size=TILE, workers=4, shard=None,
+            tiles=tiles_dir, probs=probs, model=model_toml,
+            dataset=os.path.join(ROOT, "config", "dataset-parking.toml"), profile=None, png_optimize=False,
+        )
+        for fn in counted.values():
+            fn.launches = 0
+        start = time.perf_counter()
+        out = predict.main(pargs)
+        wall = time.perf_counter() - start
+        counts = {name: fn.launches for name, fn in counted.items()}
+        expected = {name: per_batch.get(name, 0) * n_batches for name in counted}
+        if counts != expected:
+            raise AssertionError("[{}] launch counts {} != expected {} for {} batches".format(
+                label, counts, expected, n_batches))
+        if out["tiles"] != len(tiles):
+            raise AssertionError("[{}] predict reported {} tiles, expected {}".format(label, out["tiles"], len(tiles)))
+        by_path[label] = {name: c for name, c in counts.items() if c}
+        for name, c in counts.items():
+            launches[name] += c
+        log("phase 4: [{}] predict wrote {} tiles in {:.2f} s; steady {:.2f} tiles/s over {} tiles ({:.3f} s) on {}; "
+            "launches {}".format(label, out["tiles"], wall, steady_tiles / out["steady_s"], steady_tiles,
+                                 out["steady_s"], smi, by_path[label]))
 
-    for x, y, z in tiles:
-        img = Image.open(os.path.join(probs, str(z), str(x), "{}.png".format(y)))
-        img.load()
-        if img.mode != "P" or img.size != (TILE, TILE):
-            raise AssertionError("tile {}: {} {}".format((x, y, z), img.mode, img.size))
+        for x, y, z in tiles:
+            img = Image.open(os.path.join(probs, str(z), str(x), "{}.png".format(y)))
+            img.load()
+            if img.mode != "P" or img.size != (TILE, TILE):
+                raise AssertionError("[{}] tile {}: {} {}".format(label, (x, y, z), img.mode, img.size))
+        pngs = read_pngs(probs, tiles)
+        if label == "int8":
+            default_pngs = pngs
+        elif label.startswith("int8-"):
+            flips, err = u8_flips(torch, torch.from_numpy(pngs), torch.from_numpy(default_pngs))
+            if err > 1 or flips > MAX_FLIP_SHARE * pngs.size:
+                raise AssertionError("[{}] PNGs vs the int8 run's: {} flipped pixels (max distance {})".format(
+                    label, flips, err))
+            log("phase 4: [{}] PNGs vs the int8 run's: {} of {} pixels flipped by 1".format(label, flips, pngs.size))
 
-    # One batch again, with the same qtree and scales, through the kernels
-    # and through the plain versions; the kernel path must also reproduce
-    # the PNGs predict wrote for that batch.
-    step, qtree = make_int8_predict_step(unet, params_d, state_d, raw48, overlap=OVERLAP, calib_percentile=99.8)
-    got = step(qtree, raw48)
-    start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start_ev.record()
-    ref = step(qtree, raw48, plain=True)
-    end_ev.record()
-    torch.cuda.synchronize()
-    step_ms = cuda_ms(torch, lambda: step(qtree, raw48), 5)
-    flips, err = u8_flips(torch, got, ref)
-    if got.shape != (BATCH, TILE // 2, TILE // 2, 4) or err > 1 or flips > MAX_FLIP_SHARE * got.numel():
-        raise AssertionError("step {}: {} flipped bins vs the plain path (max distance {})".format(
-            tuple(got.shape), flips, err))
-    written = np.stack([np.asarray(Image.open(os.path.join(probs, str(z), str(x), "{}.png".format(y))))
-                        for (x, y, z) in first.meta])
-    fine = depth_to_space2(got.cpu().numpy()[: first.valid])[..., 0]
-    if not np.array_equal(written, fine):
-        raise AssertionError("predict's PNGs differ from the step's output on {} pixels".format(
-            int((written != fine).sum())))
-    log("phase 4: batch of {} through the kernels vs the plain path: {} of {} bins flipped by 1; "
-        "step {:.2f} ms with kernels, {:.2f} ms plain; PNGs match the kernel step".format(
-            BATCH, flips, got.numel(), step_ms, start_ev.elapsed_time(end_ev)))
-    log_step_profile(torch, lambda: step(qtree, raw48))
+        # One batch again, with the same weights and scales, through the
+        # kernels and through the plain versions; the kernel path must also
+        # reproduce the PNGs predict wrote for that batch.
+        if config["common"].get("int8", False):
+            step, qt = make_int8_predict_step(unet, params_d, state_d, raw48, overlap=OVERLAP, calib_percentile=99.8,
+                                              pallas_tail=keys.get("pallas_tail"))
 
-    sources = {"K3": ("robosat_tpu_torch/csrc/qenc.cu", "robosat_tpu/models/qenc.py:123"),
-               "K4": ("robosat_tpu_torch/csrc/qenc.cu", "robosat_tpu/models/qenc.py:289"),
-               "K5": ("robosat_tpu_torch/csrc/qdec.cu", "robosat_tpu/models/qdec.py:246"),
-               "K6": ("robosat_tpu_torch/csrc/qtail.cu", "robosat_tpu/models/qtail.py:383")}
+            def run_step(plain=False, step=step, qt=qt):
+                return step(qt, raw48, plain=plain)
+        else:
+            float_step = make_predict_step(unet, overlap=OVERLAP, compute_dtype=torch.bfloat16, host_s2d=True)
+
+            def run_step(plain=False, float_step=float_step):
+                return float_step(params_d, state_d, raw48, plain=plain)
+        got = run_step()
+        start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start_ev.record()
+        ref = run_step(plain=True)
+        end_ev.record()
+        torch.cuda.synchronize()
+        step_ms = cuda_ms(torch, run_step, 5)
+        flips, err = u8_flips(torch, got, ref)
+        blocked = TILE // 4 if keys.get("pallas_tail") == "sep" else TILE // 2
+        if got.shape[:3] != (BATCH, blocked, blocked) or err > 1 or flips > MAX_FLIP_SHARE * got.numel():
+            raise AssertionError("[{}] step {}: {} flipped bins vs the plain path (max distance {})".format(
+                label, tuple(got.shape), flips, err))
+        written = pngs[: first.valid]
+        fine = fine_u8(got)[: first.valid]
+        if not np.array_equal(written, fine):
+            raise AssertionError("[{}] predict's PNGs differ from the step's output on {} pixels".format(
+                label, int((written != fine).sum())))
+        log("phase 4: [{}] batch of {} through the kernels vs the plain path: {} of {} bins flipped by 1; "
+            "step {:.2f} ms with kernels, {:.2f} ms plain; PNGs match the kernel step".format(
+                label, BATCH, flips, got.numel(), step_ms, start_ev.elapsed_time(end_ev)))
+        log_step_profile(torch, run_step, label)
+        del run_step, got, ref
+        torch.cuda.empty_cache()
+
     return [
-        {"name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
-         "launches": launches[name], **per_kernel[name]}
-        for name in ("K3", "K4", "K5", "K6")
+        {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
+         "launches": launches[name], "launches_by_path": {p: c[name] for p, c in by_path.items() if name in c},
+         **per_kernel[name]}
+        for name in SOURCES
     ]
 
 

@@ -23,6 +23,13 @@
 // a 2x2-tap conv on the coarse grid with weights w[z] and top/left padding
 // pad - di / pad - dj, storing to fine pixel (2 oh + di, 2 ow + dj).
 //
+// Layouts: an activation grid (N, H, W, C) lies in memory either as NHWC or
+// as parity planes, the space_to_depth2 layout (N, H/2, W/2, 4C) in which
+// pixel (y, x) channel c sits at plane pixel (y/2, x/2), channel
+// (2 (y % 2) + x % 2) C + c. The input and the output each have their own
+// layout field: the conv always runs on the (fine) grid, and only the
+// addresses of its loads and stores change.
+//
 // Simple by design: one tile per block, no cp.async pipeline, no wgmma/TMA.
 // Each operand byte is staged once per tap, so the 3x3 sites read their
 // input nine times from L2.
@@ -36,19 +43,21 @@
 namespace rs {
 
 enum Epilogue { EPI_LINEAR = 0, EPI_RELU = 1, EPI_RESIDUAL_RELU = 2 };
+enum Layout { LAYOUT_NHWC = 0, LAYOUT_PLANES = 1 };
 
 struct ConvParams {
-  const __nv_bfloat16* x;         // (N, H, W, Cin) NHWC bf16
+  const __nv_bfloat16* x;         // (N, H, W, Cin) bf16 grid in layout in_layout
   const int8_t* wk;               // (P, Cout, KH * KW, Cin) int8
   const float* scale;             // (Cout,) ws * s, f32
   const float* bias;              // (Cout,) f32, or nullptr
-  const __nv_bfloat16* residual;  // output-shaped bf16 (EPI_RESIDUAL_RELU only)
-  __nv_bfloat16* y;               // (N, out_h, out_w, Cout) bf16
+  const __nv_bfloat16* residual;  // output-shaped bf16 (EPI_RESIDUAL_RELU, NHWC only)
+  __nv_bfloat16* y;               // (N, out_h, out_w, Cout) bf16 grid in layout out_layout
   float inv;                      // host-f32 reciprocal of the input's scale
   int n, h, w, cin;
   int ho, wo, cout;               // conv output grid (per parity in parity mode)
   int kh, kw, stride, pad_h, pad_w;
-  int out_h, out_w, out_mul;      // output tensor extent; 2 = parity interleave
+  int out_h, out_w, out_mul;      // output grid extent; 2 = parity mode
+  int in_layout, out_layout;      // Layout of x and of y
 };
 
 constexpr int kBM = 128;          // output pixels per block
@@ -73,6 +82,18 @@ __device__ __forceinline__ uint32_t quantize4(uint32_t lo, uint32_t hi, float in
          ((static_cast<uint32_t>(q2) & 0xffu) << 16) | ((static_cast<uint32_t>(q3) & 0xffu) << 24);
 }
 
+// Element offset of pixel (y, x) of image img in an (n, h, w, c) grid laid
+// out as LAYOUT (a template parameter: the address arithmetic is fixed at
+// compile time, off the inner loops' critical path).
+template <int LAYOUT>
+__device__ __forceinline__ size_t pixel_offset(int img, int y, int x, int h, int w, int c) {
+  if (LAYOUT == LAYOUT_PLANES) {
+    return ((static_cast<size_t>(img) * (h >> 1) + (y >> 1)) * (w >> 1) + (x >> 1)) * 4 * c +
+           static_cast<size_t>(((y & 1) << 1) | (x & 1)) * c;
+  }
+  return ((static_cast<size_t>(img) * h + y) * w + x) * c;
+}
+
 __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
@@ -94,7 +115,7 @@ __device__ __forceinline__ float epilogue(int acc, float scale, const float* bia
   return r;
 }
 
-template <int EPI>
+template <int EPI, int IN, int OUT>
 __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const ConvParams p) {
   __shared__ __align__(16) int8_t a_s[kBM * kLds];
   __shared__ __align__(16) int8_t b_s[kBN * kLds];
@@ -167,7 +188,7 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const ConvParams p)
         uint2 packed = make_uint2(0u, 0u);
         if (a_img[i] >= 0 && c < p.cin && hi >= 0 && hi < p.h && wi >= 0 && wi < p.w) {
           const uint4 v = *reinterpret_cast<const uint4*>(
-              p.x + ((static_cast<size_t>(a_img[i]) * p.h + hi) * p.w + wi) * p.cin + c);
+              p.x + pixel_offset<IN>(a_img[i], hi, wi, p.h, p.w, p.cin) + c);
           packed.x = quantize4(v.x, v.y, p.inv);
           packed.y = quantize4(v.z, v.w, p.inv);
         }
@@ -224,12 +245,12 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const ConvParams p)
       const int rem = static_cast<int>(m - img * hw_out);
       const int oh = rem / p.wo;
       const int ow = rem - oh * p.wo;
-      const size_t pix = (static_cast<size_t>(img) * p.out_h + oh * p.out_mul + di) * p.out_w + ow * p.out_mul + dj;
+      const size_t base = pixel_offset<OUT>(img, oh * p.out_mul + di, ow * p.out_mul + dj, p.out_h, p.out_w, p.cout);
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
         const int col = n0 + warp_n * 32 + ni * 8 + tq * 2;
         if (col >= p.cout) continue;
-        const size_t off = pix * p.cout + col;
+        const size_t off = base + col;
         float r0 = 0.0f, r1 = 0.0f;
         if (EPI == EPI_RESIDUAL_RELU) {
           const __nv_bfloat162 res = *reinterpret_cast<const __nv_bfloat162*>(p.residual + off);
@@ -245,27 +266,31 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const ConvParams p)
 }
 
 // Launch one conv; returns the launch's CUDA error code (0 on success).
+// The layouts are template parameters; the combinations instantiated are
+// NHWC -> NHWC for every epilogue, and with relu NHWC -> planes (K8) and
+// planes -> planes (K9).
 inline int launch_int8_conv(const ConvParams& p, int epi, cudaStream_t stream) {
   const long long m_total = static_cast<long long>(p.n) * p.ho * p.wo;
   const dim3 grid(static_cast<unsigned>((m_total + kBM - 1) / kBM), static_cast<unsigned>((p.cout + kBN - 1) / kBN),
                   static_cast<unsigned>(p.out_mul * p.out_mul));
-  switch (epi) {
-    case EPI_LINEAR:
-      int8_conv_kernel<EPI_LINEAR><<<grid, kThreads, 0, stream>>>(p);
-      break;
-    case EPI_RELU:
-      int8_conv_kernel<EPI_RELU><<<grid, kThreads, 0, stream>>>(p);
-      break;
-    case EPI_RESIDUAL_RELU:
-      int8_conv_kernel<EPI_RESIDUAL_RELU><<<grid, kThreads, 0, stream>>>(p);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const bool nhwc = p.in_layout == LAYOUT_NHWC && p.out_layout == LAYOUT_NHWC;
+  if (nhwc && epi == EPI_LINEAR) {
+    int8_conv_kernel<EPI_LINEAR, LAYOUT_NHWC, LAYOUT_NHWC><<<grid, kThreads, 0, stream>>>(p);
+  } else if (nhwc && epi == EPI_RELU) {
+    int8_conv_kernel<EPI_RELU, LAYOUT_NHWC, LAYOUT_NHWC><<<grid, kThreads, 0, stream>>>(p);
+  } else if (nhwc && epi == EPI_RESIDUAL_RELU) {
+    int8_conv_kernel<EPI_RESIDUAL_RELU, LAYOUT_NHWC, LAYOUT_NHWC><<<grid, kThreads, 0, stream>>>(p);
+  } else if (epi == EPI_RELU && p.in_layout == LAYOUT_NHWC && p.out_layout == LAYOUT_PLANES) {
+    int8_conv_kernel<EPI_RELU, LAYOUT_NHWC, LAYOUT_PLANES><<<grid, kThreads, 0, stream>>>(p);
+  } else if (epi == EPI_RELU && p.in_layout == LAYOUT_PLANES && p.out_layout == LAYOUT_PLANES) {
+    int8_conv_kernel<EPI_RELU, LAYOUT_PLANES, LAYOUT_PLANES><<<grid, kThreads, 0, stream>>>(p);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// A conv over x with output (n, ho, wo, cout), no parity interleave.
+// A conv over NHWC x with NHWC output (n, ho, wo, cout), no parity mode.
 inline ConvParams conv_params(const void* x, const void* wk, const float* scale, const float* bias, void* y, float inv,
                               int n, int h, int w_in, int cin, int cout, int k, int stride, int pad) {
   ConvParams p;
@@ -291,6 +316,8 @@ inline ConvParams conv_params(const void* x, const void* wk, const float* scale,
   p.out_h = p.ho;
   p.out_w = p.wo;
   p.out_mul = 1;
+  p.in_layout = LAYOUT_NHWC;
+  p.out_layout = LAYOUT_NHWC;
   return p;
 }
 

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) through ctypes.
 
-The sources compile at first use with nvcc for sm_90a into one shared
-library with a plain C interface, cached under `_build/` by the hash of the
-sources (a changed source rebuilds). An exclusive file lock serialises the
-build across processes. Nothing here runs at import time: this module
+The sources compile at first use with nvcc for sm_90a, one nvcc process
+per `.cu` file, all started together, then link into one shared library
+with a plain C interface, cached under `_build/` by the hash of the sources
+(a changed source rebuilds). An exclusive file lock serialises the build
+across processes. Nothing here runs at import time: this module
 imports on machines without nvcc or a GPU, where only the plain PyTorch
 versions of the kernels are used.
 """
@@ -20,7 +21,7 @@ import torch
 
 _CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 _BUILD = os.path.join(os.path.dirname(__file__), "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -30,8 +31,14 @@ _SIGNATURES = {
     "rs_bottleneck_block": [_P] * 13 + [_F] * 4 + [_P] * 4 + [_I] * 7 + [_P],
     # x, w, e, b, inv, out, n, h, w, cin, cout, stream
     "rs_parity_up_conv": [_P, _P, _P, _P, _F, _P] + [_I] * 5 + [_P],
+    "rs_parity_up_conv_separated": [_P, _P, _P, _P, _F, _P] + [_I] * 5 + [_P],
     # x, w4, e4, w5, e5, wmb, inv4, inv5, y4, y5, out, n, h, w, o, stream
     "rs_fused_tail": [_P] * 6 + [_F] * 2 + [_P] * 3 + [_I] * 4 + [_P],
+    # x, w4, e4, w5, e5, inv4, inv5, y4, y5, n, h, w (planes: hc, wc), stream
+    "rs_fused_tail_features": [_P] * 5 + [_F] * 2 + [_P] * 2 + [_I] * 3 + [_P],
+    "rs_fused_tail_features_sep": [_P] * 5 + [_F] * 2 + [_P] * 2 + [_I] * 3 + [_P],
+    # features, wmb, out, n, h, w, groups, o, bf16, stream
+    "rs_margin_head": [_P] * 3 + [_I] * 6 + [_P],
 }
 
 _lib = None
@@ -72,11 +79,28 @@ def build():
             if not os.path.exists(lib_path):
                 start = time.perf_counter()
                 tmp = lib_path + ".tmp{}".format(os.getpid())
-                cu = [p for p in _sources() if p.endswith(".cu")]
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-                proc = subprocess.run(cmd, capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError("nvcc failed ({}):\n{}{}".format(proc.returncode, proc.stdout, proc.stderr))
+                nvcc = _nvcc()
+                objs = []
+                procs = []
+                for src in (p for p in _sources() if p.endswith(".cu")):
+                    obj = "{}.{}.o".format(tmp, os.path.basename(src)[:-3])
+                    objs.append(obj)
+                    cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                    procs.append((src, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+                failed = []
+                for src, proc in procs:
+                    output = proc.communicate()[0]
+                    if proc.returncode != 0:
+                        failed.append("{} ({}):\n{}".format(os.path.basename(src), proc.returncode, output))
+                if not failed:
+                    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+                    if proc.returncode != 0:
+                        failed.append("link ({}):\n{}{}".format(proc.returncode, proc.stdout, proc.stderr))
+                for obj in objs:
+                    if os.path.exists(obj):
+                        os.remove(obj)
+                if failed:
+                    raise RuntimeError("nvcc failed: " + "\n".join(failed))
                 os.replace(tmp, lib_path)
                 build_seconds = time.perf_counter() - start
         finally:

@@ -8,9 +8,10 @@ Counterpart of robosat_tpu/models/int8.py in its per-tensor modes:
 - activations: symmetric per-tensor int8 with static scales from a
   one-batch float calibration (amax or a percentile of |x| per site);
 - every int8 site runs through a hand-written CUDA kernel on the GPU:
-  the bottleneck blocks (qenc, K3/K4), the up-blocks (qdec, K5) and
-  dec4 + dec5 + head (qtail, K6). On CPU tensors the kernels' plain
-  PyTorch versions run instead, and `plain=True` runs those on any device.
+  the bottleneck blocks (qenc, K3/K4), the up-blocks (qdec, K5, or K8 for
+  a parity-separated dec3) and dec4 + dec5 (qtail: K6 with the head, K7
+  and K9 without). On CPU tensors the kernels' plain PyTorch versions run
+  instead, and `plain=True` runs those on any device.
 
 `_int8_conv` is the plain version every kernel is held against: quantize
 with the host-f32 reciprocal of the scale, an exact int32 accumulation
@@ -33,7 +34,7 @@ from robosat_tpu_torch.models.layers import (
     s2d_up_conv3x3_kernel,
 )
 from robosat_tpu_torch.models.layers import fused_k4 as _fused_k4  # the 4x4 parity-combined kernel
-from robosat_tpu_torch.models.resnet import RESNET50_STAGES, stem_folded_s2d4
+from robosat_tpu_torch.models.resnet import RESNET50_STAGES, stem_folded_s2d4, walk_stages
 
 _PER_CHANNEL = "per-channel int8 calibration ('pc' modes) is not ported yet (ROADMAP Queue 1, item 5)"
 _GRID = "the 'mse'/'mae' calibration grids are not ported yet (ROADMAP Queue 1, item 5)"
@@ -180,25 +181,6 @@ def _percentile(flat, percentile):
     return lo * float(lw) + hi * float(hw)
 
 
-def walk_encoder(q_enc, out, conv):
-    """The four float bottleneck stages with a pluggable conv (calibration);
-    site order per block: conv1, conv2, conv3, down_conv. Returns enc1..4."""
-    skips = []
-    for si, (blocks, _) in enumerate(RESNET50_STAGES):
-        name = "layer{}".format(si + 1)
-        for bi in range(blocks):
-            qb = q_enc[name][bi]
-            stride = 2 if (bi == 0 and si > 0) else 1
-            inner = torch.relu(conv(qb["conv1"], out))
-            # Torch-style symmetric padding (SAME would pad (0, 1) at stride 2).
-            inner = torch.relu(conv(qb["conv2"], inner, stride=stride, padding=((1, 1), (1, 1))))
-            inner = conv(qb["conv3"], inner)
-            shortcut = conv(qb["down_conv"], out, stride=stride) if "down_conv" in qb else out
-            out = torch.relu(inner + shortcut)
-        skips.append(out)
-    return tuple(skips)
-
-
 def _walk(q, x, sites, float_mode=False, stop_at=None, plain=False):
     """Blocked stem on 4x4 space-to-depth input, then `_walk_from_stem`."""
     return _walk_from_stem(q, stem_folded_s2d4(q["encoder"]["conv1"], x), sites, float_mode, stop_at, plain)
@@ -211,8 +193,10 @@ def _walk_from_stem(q, out, sites, float_mode=False, stop_at=None, plain=False):
     In float_mode (calibration) `q` is the folded float tree and every site
     runs in float through the rewrites the int8 kernels were built from,
     to the dec5 features. Otherwise every int8 site runs through its kernel
-    (`plain=True`: the kernels' plain versions) and the walk stops at dec3,
-    leaving dec4, dec5 and the head to the fused tail (qtail.fused_tail).
+    (`plain=True`: the kernels' plain versions) and the walk stops at dec3
+    (stop_at="dec3"), leaving dec4, dec5 and the head to the fused tail
+    (qtail), or before dec3 (stop_at="dec3_in"), returning cat(enc1, dec2)
+    for the parity-separated dec3 (qdec.parity_up_conv_separated).
     """
     from robosat_tpu_torch.models import qdec, qenc
 
@@ -222,7 +206,7 @@ def _walk_from_stem(q, out, sites, float_mode=False, stop_at=None, plain=False):
             sites.next_scale(xx)
             return conv_bias_apply(node, xx, stride=stride, padding=padding)
 
-        enc1, enc2, enc3, enc4 = walk_encoder(q["encoder"], out, conv)
+        enc1, enc2, enc3, enc4 = walk_stages(q["encoder"], out, conv)
     else:
         skips = []
         for si, (blocks, _) in enumerate(RESNET50_STAGES):
@@ -245,10 +229,13 @@ def _walk_from_stem(q, out, sites, float_mode=False, stop_at=None, plain=False):
     dec0 = up_block("dec0", torch.cat([enc4, center], dim=-1))
     dec1 = up_block("dec1", torch.cat([enc3, dec0], dim=-1))
     dec2 = up_block("dec2", torch.cat([enc2, dec1], dim=-1))
-    dec3 = up_block("dec3", torch.cat([enc1, dec2], dim=-1))
+    cat3 = torch.cat([enc1, dec2], dim=-1)
+    if stop_at == "dec3_in":
+        return cat3
+    dec3 = up_block("dec3", cat3)
     if not float_mode:
         if stop_at != "dec3":
-            raise NotImplementedError("the int8 walk ends at dec3; dec4, dec5 and the head run in qtail.fused_tail")
+            raise NotImplementedError("the int8 walk ends at dec3; dec4, dec5 and the head run in qtail")
         return dec3
 
     def s2d_block(name, kernel_fn, xx):
@@ -277,6 +264,16 @@ def apply_features_int8_to_dec3(qtree, scales, x, plain=False):
     dec3 = _walk(qtree, x, sites, stop_at="dec3", plain=plain)
     assert sites.idx == len(scales) - 2, "dec4/dec5 scales must remain for the fused tail"
     return dec3, scales[-2], scales[-1]
+
+
+def apply_features_int8_to_dec3_input(qtree, scales, x, plain=False):
+    """The int8 walk stopped before dec3: returns (cat(enc1, dec2), s3, s4,
+    s5), the last three site scales left for the separated dec3 and tail."""
+    scales = list(scales)
+    sites = _Sites(scales=scales)
+    cat3 = _walk(qtree, x, sites, stop_at="dec3_in", plain=plain)
+    assert sites.idx == len(scales) - 3, "dec3/dec4/dec5 scales must remain for the separated tail"
+    return cat3, scales[-3], scales[-2], scales[-1]
 
 
 def scales_from_amaxes(amaxes, margin=1.0):

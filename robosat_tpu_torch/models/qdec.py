@@ -1,4 +1,4 @@
-"""int8 decoder up-blocks: CUDA kernel K5 and its plain version.
+"""int8 decoder up-blocks: CUDA kernels K5 and K8 and their plain versions.
 
 Counterpart of robosat_tpu/models/qdec.py. A decoder block (nearest-2x
 upsample + 3x3 conv + relu) runs as the transposed conv of its 4x4
@@ -10,8 +10,11 @@ parity-combined int8 kernel, split per axis into two 2-tap parities:
 so output parity (di, dj) is a dense 2x2-tap conv on the coarse grid. The
 int32 accumulators equal the lhs-dilated conv's, and the epilogue is
 relu(bf16(acc * (ws * s) + b)), bit for bit the JAX package's up_block.
-On a CUDA tensor `parity_up_conv` launches csrc/qdec.cu; on a CPU tensor
-it runs `parity_up_conv_plain`.
+`parity_up_conv` (K5) interleaves the parities into the fine output
+(N, 2H, 2W, Cout); `parity_up_conv_separated` (K8) groups them by channel,
+(N, H, W, 4 Cout) with parity p = 2 di + dj in channels [p Cout, (p + 1)
+Cout): space_to_depth2 of K5's output. On a CUDA tensor each launches
+csrc/qdec.cu; on a CPU tensor it runs its `_plain` version.
 """
 
 import torch
@@ -42,15 +45,14 @@ def parity_tap_weights(wq):
     return torch.stack(blocks)
 
 
-def parity_up_conv_plain(x, node, s_in):
-    """bf16 x (N, H, W, Cin) -> relu'd bf16 (N, 2H, 2W, Cout): the four
-    parity sub-convs as exact int8 convs, interleaved (any device)."""
-    n, h, w, _ = x.shape
+def _parity_outputs(x, node, s_in):
+    """The four relu'd parity outputs (N, H, W, Cout), p = 2 di + dj, as
+    exact int8 2x2-tap convs."""
     cout = node["wq"].shape[-1]
     xq = _quantize_act(x, s_in)
     wp = parity_tap_weights(node["wq"])
     e = scaled_ws(node, s_in)
-    out = torch.empty((n, 2 * h, 2 * w, cout), dtype=x.dtype, device=x.device)
+    outs = []
     for di in (0, 1):
         for dj in (0, 1):
             w2 = wp[2 * di + dj].reshape(2, 2, -1, cout)
@@ -59,8 +61,25 @@ def parity_up_conv_plain(x, node, s_in):
             y = acc.float() * e
             if "b" in node:
                 y = y + node["b"]
-            out[:, di::2, dj::2, :] = torch.relu(round_to(y, x.dtype)).to(x.dtype)
+            outs.append(torch.relu(round_to(y, x.dtype)).to(x.dtype))
+    return outs
+
+
+def parity_up_conv_plain(x, node, s_in):
+    """bf16 x (N, H, W, Cin) -> relu'd bf16 (N, 2H, 2W, Cout): the four
+    parity sub-convs as exact int8 convs, interleaved (any device)."""
+    n, h, w, _ = x.shape
+    outs = _parity_outputs(x, node, s_in)
+    out = torch.empty((n, 2 * h, 2 * w, outs[0].shape[-1]), dtype=x.dtype, device=x.device)
+    for p, y in enumerate(outs):
+        out[:, p >> 1 :: 2, p & 1 :: 2, :] = y
     return out
+
+
+def parity_up_conv_separated_plain(x, node, s_in):
+    """bf16 x (N, H, W, Cin) -> relu'd bf16 (N, H, W, 4 Cout), parity p in
+    channels [p Cout, (p + 1) Cout) (any device)."""
+    return torch.cat(_parity_outputs(x, node, s_in), dim=-1)
 
 
 def kernel_weights(node):
@@ -72,13 +91,7 @@ def kernel_weights(node):
     return wk
 
 
-def parity_up_conv(x, node, s_in):
-    """int8 up-block: bf16 x (N, H, W, Cin) -> relu'd (N, 2H, 2W, Cout).
-
-    `node` is the quantized tree entry {"wq": (4, 4, Cin, Cout) int8, "ws":
-    (Cout,) f32[, "b"]}; `s_in` the site's static activation scale."""
-    if x.device.type == "cpu":
-        return parity_up_conv_plain(x, node, s_in)
+def _launch(entry, x, node, s_in, out_shape):
     kernels.check_cuda(x, "x", torch.bfloat16)
     n, h, w, cin = x.shape
     cout = node["wq"].shape[-1]
@@ -89,11 +102,35 @@ def parity_up_conv(x, node, s_in):
     b = node.get("b")
     if b is not None:
         b = kernels.check_cuda(b, "b", torch.float32, (cout,))
-    out = torch.empty((n, 2 * h, 2 * w, cout), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty(out_shape(n, h, w, cout), dtype=torch.bfloat16, device=x.device)
     p = kernels.ptr
-    kernels.launch("rs_parity_up_conv", p(x), p(wk), p(e), p(b), _act_inv(s_in), p(out), n, h, w, cin, cout)
+    kernels.launch(entry, p(x), p(wk), p(e), p(b), _act_inv(s_in), p(out), n, h, w, cin, cout)
+    return out
+
+
+def parity_up_conv(x, node, s_in):
+    """int8 up-block: bf16 x (N, H, W, Cin) -> relu'd (N, 2H, 2W, Cout).
+
+    `node` is the quantized tree entry {"wq": (4, 4, Cin, Cout) int8, "ws":
+    (Cout,) f32[, "b"]}; `s_in` the site's static activation scale."""
+    if x.device.type == "cpu":
+        return parity_up_conv_plain(x, node, s_in)
+    out = _launch("rs_parity_up_conv", x, node, s_in, lambda n, h, w, c: (n, 2 * h, 2 * w, c))
     parity_up_conv.launches += 1
     return out
 
 
 parity_up_conv.launches = 0
+
+
+def parity_up_conv_separated(x, node, s_in):
+    """int8 up-block with parity-separated output: bf16 x (N, H, W, Cin) ->
+    relu'd (N, H, W, 4 Cout), space_to_depth2 of `parity_up_conv`'s."""
+    if x.device.type == "cpu":
+        return parity_up_conv_separated_plain(x, node, s_in)
+    out = _launch("rs_parity_up_conv_separated", x, node, s_in, lambda n, h, w, c: (n, h, w, 4 * c))
+    parity_up_conv_separated.launches += 1
+    return out
+
+
+parity_up_conv_separated.launches = 0

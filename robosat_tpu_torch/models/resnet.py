@@ -1,14 +1,22 @@
-"""ResNet-50 encoder parameters, BN fold and the blocked stem.
+"""ResNet-50 encoder: parameters, BN fold and the folded float forward.
 
-Counterpart of robosat_tpu/models/resnet.py for the int8 predict walk: the
-parameter tree (same structure and HWIO layout as the JAX package), its
-inference fold, and the 4x4 space-to-depth stem, which stays a bf16 torch
-conv as the JAX package left it to XLA.
+Counterpart of robosat_tpu/models/resnet.py for inference: the parameter
+tree (same structure and HWIO layout as the JAX package), its inference
+fold, and the folded forward in the compute dtype of its input (fine stem
+or 4x4 space-to-depth stem, then the four bottleneck stages). These run as
+torch (cuDNN) convolutions, as the JAX package leaves them to XLA.
 """
 
 import torch
 
-from robosat_tpu_torch.models.layers import conv_nhwc, fold_conv_bn, pool3s2_from_parity, stem_s2d4_kernel
+from robosat_tpu_torch.models.layers import (
+    conv_bias_apply,
+    conv_nhwc,
+    fold_conv_bn,
+    max_pool,
+    pool3s2_from_parity,
+    stem_s2d4_kernel,
+)
 
 # (blocks, mid_channels) per stage; expansion 4 => stage outputs 256/512/1024/2048.
 RESNET50_STAGES = ((3, 64), (4, 128), (6, 256), (3, 512))
@@ -90,3 +98,40 @@ def stem_folded_s2d4(folded_conv1, x48):
     out = conv_nhwc(x48, stem_s2d4_kernel(w), padding="SAME")
     b4 = folded_conv1["b"].repeat(4).to(out.dtype)
     return pool3s2_from_parity(torch.relu(out + b4), w.shape[-1])
+
+
+def walk_stages(enc, out, conv):
+    """The four bottleneck stages on a pooled stem output with a pluggable
+    conv(node, x, stride=1, padding="SAME"); site order per block: conv1,
+    conv2, conv3, down_conv. Returns (enc1..enc4)."""
+    skips = []
+    for si, (blocks, _) in enumerate(RESNET50_STAGES):
+        name = "layer{}".format(si + 1)
+        for bi in range(blocks):
+            qb = enc[name][bi]
+            stride = 2 if (bi == 0 and si > 0) else 1
+            inner = torch.relu(conv(qb["conv1"], out))
+            # Torch-style symmetric padding (SAME would pad (0, 1) at stride 2).
+            inner = torch.relu(conv(qb["conv2"], inner, stride=stride, padding=((1, 1), (1, 1))))
+            inner = conv(qb["conv3"], inner)
+            shortcut = conv(qb["down_conv"], out, stride=stride) if "down_conv" in qb else out
+            out = torch.relu(inner + shortcut)
+        skips.append(out)
+    return tuple(skips)
+
+
+def apply_folded_stages(folded, out):
+    """The four folded bottleneck stages on a pooled stem output."""
+    return walk_stages(folded, out, conv_bias_apply)
+
+
+def apply_folded(folded, x):
+    """Inference forward over BN-folded params on fine input x (N, H, W, 3):
+    conv 7x7/s2 (pad 3) + bias + relu, maxpool 3/s2 (pad 1), the stages."""
+    out = torch.relu(conv_bias_apply(folded["conv1"], x, stride=2, padding=((3, 3), (3, 3))))
+    return apply_folded_stages(folded, max_pool(out, window=3, stride=2, padding=1))
+
+
+def apply_folded_s2d4(folded, x48):
+    """`apply_folded` on 4x4 space-to-depth (host-blocked) input (N, H/4, W/4, 48)."""
+    return apply_folded_stages(folded, stem_folded_s2d4(folded["conv1"], x48))

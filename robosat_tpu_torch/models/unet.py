@@ -1,18 +1,30 @@
-"""U-Net with a ResNet-50 encoder: parameters and inference fold.
+"""U-Net with a ResNet-50 encoder: parameters, inference fold, float forward.
 
 Counterpart of robosat_tpu/models/unet.py. Channel math matches the
 reference robosat U-Net: center DecoderBlock(2048->256) on a 2x2-pooled
 enc4, dec0(2048+256->256), dec1(1024+256->256), dec2(512+256->64),
 dec3(256+64->128), dec4(128->32), dec5 ConvRelu(32->32), final 1x1 conv.
-The forward pass the port runs is the hybrid-int8 walk in
-robosat_tpu_torch/models/int8.py.
+
+The folded float forward (`apply_features_folded*`) runs in the dtype of
+its input (float32 or bfloat16) as torch convolutions, as the JAX package
+leaves it to XLA; each decoder block is one transposed conv with the 4x4
+parity-combined kernel (`FUSED_DECODER`). The int8 forward is the hybrid
+walk in robosat_tpu_torch/models/int8.py.
 """
 
 import torch
 
 from robosat_tpu_torch.models import resnet
+from robosat_tpu_torch.models.layers import (
+    conv_nhwc,
+    fused_upsample_conv3x3,
+    max_pool,
+    s2d_conv3x3_kernel,
+    s2d_up_conv3x3_kernel,
+)
 
 NUM_FILTERS = 32
+FUSED_DECODER = True  # the only decoder form the port has
 
 
 def init(seed, num_classes=2, num_filters=NUM_FILTERS, in_channels=3):
@@ -45,3 +57,55 @@ def fold(params, state):
     folded = dict(params)
     folded["encoder"] = resnet.fold(params["encoder"], state["encoder"])
     return folded
+
+
+def _decoder_apply(node, x):
+    """Nearest-2x upsample + 3x3 conv + relu, as one transposed conv."""
+    return torch.relu(fused_upsample_conv3x3(node, x))
+
+
+def _convrelu_apply(node, x):
+    return torch.relu(conv_nhwc(x, node["w"]))
+
+
+def _check_side(x):
+    assert x.shape[1] % 32 == 0 and x.shape[2] % 32 == 0, "image resolution has to be divisible by 32 for resnet"
+
+
+def _decode_to_dec3(folded, skips):
+    enc1, enc2, enc3, enc4 = skips
+    center = _decoder_apply(folded["center"], max_pool(enc4, window=2, stride=2, padding=0))
+    dec0 = _decoder_apply(folded["dec0"], torch.cat([enc4, center], dim=-1))
+    dec1 = _decoder_apply(folded["dec1"], torch.cat([enc3, dec0], dim=-1))
+    dec2 = _decoder_apply(folded["dec2"], torch.cat([enc2, dec1], dim=-1))
+    return _decoder_apply(folded["dec3"], torch.cat([enc1, dec2], dim=-1))
+
+
+def apply_features_folded(folded, x):
+    """Fine-grid inference forward on normalized x (N, H, W, 3) up to the
+    dec5 features (N, H, W, 32)."""
+    _check_side(x)
+    dec3 = _decode_to_dec3(folded, resnet.apply_folded(folded["encoder"], x))
+    return _convrelu_apply(folded["dec5"], _decoder_apply(folded["dec4"], dec3))
+
+
+def decode_s2d(folded, skips):
+    """Decoder over the encoder skips with the space-to-depth tail: dec4
+    and dec5 at half resolution on parity-blocked channels. Returns
+    (N, H/2, W/2, 4 * 32) features, parity p = 2 di + dj in channels
+    [32 p, 32 p + 32)."""
+    dec3 = _decode_to_dec3(folded, skips)
+    dec4 = torch.relu(conv_nhwc(dec3, s2d_up_conv3x3_kernel(folded["dec4"]["w"])))
+    return torch.relu(conv_nhwc(dec4, s2d_conv3x3_kernel(folded["dec5"]["w"])))
+
+
+def apply_features_folded_s2d(folded, x):
+    """Fine input (N, H, W, 3), fine stem, then `decode_s2d`."""
+    _check_side(x)
+    return decode_s2d(folded, resnet.apply_folded(folded["encoder"], x))
+
+
+def apply_features_folded_s2d_from48(folded, x48):
+    """4x4 host-blocked normalized input (N, H/4, W/4, 48): blocked stem,
+    stages, `decode_s2d`."""
+    return decode_s2d(folded, resnet.apply_folded_s2d4(folded["encoder"], x48))

@@ -1,13 +1,36 @@
-"""Blocked prediction head: margin, sigmoid, exact 256-bin digitize, crop.
+"""Prediction heads: margin, sigmoid, exact 256-bin digitize, crop; CUDA kernel K1.
 
-Counterpart of the XLA head of robosat_tpu/ops/head.py that the int8
-predict path ends in. For a binary model the softmax foreground probability
-is sigmoid(l1 - l0), so the final 1x1 conv collapses to a margin dot with
-w[:, 1] - w[:, 0]. The head is the plain version of the head pass of the
-fused-tail kernel (robosat_tpu_torch/models/qtail.py).
+Counterpart of robosat_tpu/ops/head.py. For a binary model the softmax
+foreground probability is sigmoid(l1 - l0), so the final 1x1 conv collapses
+to a margin dot with w[:, 1] - w[:, 0]. The heads differ only in layout:
+
+- `fused_prediction_head`: fine-grid features (N, H, W, 32) -> fine uint8
+  (N, H - 2o, W - 2o);
+- `fused_prediction_head_s2d_blocked`: parity-blocked (N, H, W, 4 * 32) ->
+  blocked uint8 (N, H - o, W - o, 4), cropped by o/2 on the blocked grid;
+- `fused_prediction_head_s2d`: the same margin, then the depth-to-space and
+  the fine crop -> (N, 2H - 2o, 2W - 2o);
+- `fused_prediction_head_s2d_blocked_sep`: doubly-blocked (N, H, W, 16 * 32)
+  -> (N, H - o/2, W - o/2, 16), channel p288 * 4 + p576, cropped by o/4.
+
+These are plain PyTorch (any device); their margins sum in the order XLA
+compiles the JAX package's heads to (`_margin`), so their bins equal the
+JAX package's. `margin_head(features, w, b, overlap, groups)` is kernel K1
+(csrc/head.cu) behind all four: G groups of 32 channels per pixel, G = 1,
+4 or 16 for the three layouts. On a CUDA tensor it launches the kernel,
+which sums in the same order; on a CPU tensor it runs the plain head of
+its layout. The kernel's expf and torch's sigmoid may differ in the last
+ulp, which can move a probability across a 1/255 bin edge: a counted +-1
+flip. `pallas_prediction_head` is the G = 1 call with the JAX signature.
 """
 
 import torch
+
+from robosat_tpu_torch import kernels
+from robosat_tpu_torch.models.layers import depth_to_space2
+
+# Features' grid per group count: the crop divisor of the fine overlap.
+_CROP_DIVISOR = {1: 1, 4: 2, 16: 4}
 
 
 def _digitize_exact(p):
@@ -30,21 +53,127 @@ def _to_u8(q):
     return (q & 0xFF).to(torch.uint8)
 
 
+def _margin_weights(w, b, cin):
+    """(wm, bm): the f32 margin weights w[:, 1] - w[:, 0] and bias b1 - b0."""
+    w2 = w.reshape(cin, -1)
+    assert w2.shape[1] == 2, "fused head requires a binary model"
+    b2 = b.reshape(2)
+    return (w2[:, 1] - w2[:, 0]).float(), (b2[1] - b2[0]).float()
+
+
+def _crop(x, o):
+    return x[:, o:-o, o:-o] if o else x
+
+
+def _margin(features, w, b, groups, o):
+    """The f32 margins (N, H - 2o, W - 2o, groups) of `groups` blocks of C
+    channels, after a crop of `o` on the features' grid, summed in the order
+    XLA:CPU compiles the JAX package's heads to:
+
+    - one group (jnp.sum of the products): sequentially in channel order,
+      each product and sum rounded on its own;
+    - blocked (the block-diagonal einsum): four accumulators, channel c
+      into c % 4 by fused multiply-add, then (a0 + a1) + (a2 + a3). The FMA
+      is taken in float64, where the f32 product is exact; the sum's double
+      rounding could differ from one FMA's with probability ~2**-29.
+    """
+    cin = features.shape[-1] // groups
+    wm, bm = _margin_weights(w, b, cin)
+    f = _crop(features, o).float()
+    f = f.reshape(*f.shape[:3], groups, cin)
+    if groups == 1:
+        m = f[..., 0] * wm[0]
+        for c in range(1, cin):
+            m = m + f[..., c] * wm[c]
+    else:
+        w64 = wm.double().tolist()
+        acc = [torch.zeros(f.shape[:-1], dtype=torch.float32, device=f.device) for _ in range(4)]
+        for c in range(cin):
+            acc[c % 4] = (acc[c % 4].double() + f[..., c].double() * w64[c]).float()
+        m = (acc[0] + acc[1]) + (acc[2] + acc[3])
+    return m + bm
+
+
+def _blocked_head(features, w, b, groups, o):
+    """Margin over `groups` blocks of C channels, after a crop of `o` on the
+    features' grid -> (N, H - 2o, W - 2o, groups) uint8."""
+    return _to_u8(_digitize_exact(torch.sigmoid(_margin(features, w, b, groups, o))))
+
+
+def fused_prediction_head(features, w, b, overlap=0):
+    """Decoder features (N, H, W, C) -> quantized fg uint8 (N, H - 2o, W - 2o)."""
+    return _blocked_head(features, w, b, 1, overlap)[..., 0]
+
+
 def fused_prediction_head_s2d_blocked(features, w, b, overlap=0):
     """Parity-blocked decoder features (N, H, W, 4C) -> blocked quantized
     foreground (N, H - overlap, W - overlap, 4) uint8, cropped by overlap/2
     on the blocked grid before the margin."""
-    n, h, w_, c4 = features.shape
-    cin = c4 // 4
-    w2 = w.reshape(cin, -1)
-    assert w2.shape[1] == 2, "fused head requires a binary model"
     assert overlap % 2 == 0, "blocked head crops on the coarse grid"
-    b2 = b.reshape(2)
-    wm = (w2[:, 1] - w2[:, 0]).float()
-    bm = (b2[1] - b2[0]).float()
-    o = overlap // 2
-    if o:
-        features = features[:, o:-o, o:-o, :]
-    wblock = torch.kron(torch.eye(4, dtype=torch.float32, device=wm.device), wm.reshape(cin, 1))  # (4C, 4)
-    margin = features.float() @ wblock + bm
-    return _to_u8(_digitize_exact(torch.sigmoid(margin)))
+    return _blocked_head(features, w, b, 4, overlap // 2)
+
+
+def fine_from_blocked(q, overlap=0):
+    """Blocked uint8 (N, H, W, 4) -> fine (N, 2H - 2 overlap, 2W - 2 overlap):
+    the depth-to-space, then the fine crop (any overlap)."""
+    return _crop(depth_to_space2(q)[..., 0], overlap)
+
+
+def fused_prediction_head_s2d(features, w, b, overlap=0):
+    """Parity-blocked features (N, H, W, 4C) -> fine uint8 (N, 2H - 2o, 2W - 2o)."""
+    return fine_from_blocked(_blocked_head(features, w, b, 4, 0), overlap)
+
+
+def fused_prediction_head_s2d_blocked_sep(features, w, b, overlap=0):
+    """Doubly-blocked features (N, H, W, 16C), channel p288 * 4C + p576 * C
+    + c -> (N, H - overlap/2, W - overlap/2, 16) uint8, channel
+    p288 * 4 + p576, cropped by overlap/4 before the margin."""
+    assert overlap % 4 == 0, "doubly-blocked head crops on the coarse-coarse grid"
+    return _blocked_head(features, w, b, 16, overlap // 4)
+
+
+_PLAIN = {1: fused_prediction_head, 4: fused_prediction_head_s2d_blocked, 16: fused_prediction_head_s2d_blocked_sep}
+
+
+def margin_head_plain(features, w, b, overlap=0, groups=1):
+    """The plain head of `groups`' layout (any device)."""
+    return _PLAIN[groups](features, w, b, overlap=overlap)
+
+
+def margin_head(features, w, b, overlap=0, groups=1):
+    """Margin head over `groups` blocks of 32 channels per pixel: features
+    (N, H, W, 32 G) f32 or bf16 -> uint8 (N, H - 2c, W - 2c, G), squeezed
+    to (N, H - 2c, W - 2c) for G = 1, with the crop c = overlap / (1, 2, 4)
+    for G = (1, 4, 16) on the features' grid."""
+    if groups not in _CROP_DIVISOR:
+        raise ValueError("groups must be 1, 4 or 16 (got {})".format(groups))
+    if features.device.type == "cpu":
+        return margin_head_plain(features, w, b, overlap, groups)
+    if features.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("features must be float32 or bfloat16 (got {})".format(features.dtype))
+    kernels.check_cuda(features, "features", features.dtype)
+    n, h, w_, c = features.shape
+    if c != 32 * groups:
+        raise ValueError("features must have 32 * groups = {} channels (got {})".format(32 * groups, c))
+    if overlap % _CROP_DIVISOR[groups]:
+        raise ValueError("overlap {} does not crop whole pixels of the G = {} grid".format(overlap, groups))
+    o = overlap // _CROP_DIVISOR[groups]
+    if 2 * o >= min(h, w_):
+        raise ValueError("overlap must be smaller than the grid")
+    wm, bm = _margin_weights(w, b, 32)
+    wmb = kernels.check_cuda(torch.cat([wm, bm.reshape(1)]).contiguous(), "final", torch.float32, (33,))
+    shape = (n, h - 2 * o, w_ - 2 * o) + ((groups,) if groups > 1 else ())
+    out = torch.empty(shape, dtype=torch.uint8, device=features.device)
+    p = kernels.ptr
+    kernels.launch("rs_margin_head", p(features), p(wmb), p(out), n, h, w_, groups, o,
+                   int(features.dtype == torch.bfloat16))
+    margin_head.launches += 1
+    return out
+
+
+margin_head.launches = 0
+
+
+def pallas_prediction_head(features, w, b, overlap=0):
+    """K1 on fine-grid features (N, H, W, 32) -> (N, H - 2o, W - 2o) uint8."""
+    return margin_head(features, w, b, overlap=overlap, groups=1)

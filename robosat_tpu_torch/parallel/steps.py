@@ -1,22 +1,31 @@
-"""The int8 predict step of the U-Net.
+"""The predict steps of the U-Net: float (fp32/bf16) and hybrid int8.
 
-Counterpart of robosat_tpu/parallel/steps.py:make_int8_predict_step in the
-one form the port has: 4x4 space-to-depth host-blocked uint8 input, the
-fused head, an even overlap and parity-blocked uint8 output. PyTorch runs
-eagerly, so the step is a plain function; every int8 site of it is a CUDA
-kernel on the GPU (K3/K4 for the 16 bottleneck blocks, K5 for the 5
-up-blocks, K6 for dec4 + dec5 + head).
+Counterpart of robosat_tpu/parallel/steps.py:make_predict_step and
+make_int8_predict_step, for the U-Net with the BN fold and the fused head.
+PyTorch runs eagerly, so a step is a plain function. The float step runs
+the folded forward as torch (cuDNN) convolutions and ends in the margin
+head, kernel K1. Every int8 site of the int8 step is a CUDA kernel on the
+GPU: K3/K4 for the 16 bottleneck blocks, K5 for the up-blocks, and per
+`pallas_tail` the decoder's end:
+
+- None or "full": K6 (dec4 + dec5 + head);
+- "tail": K7 (dec4 + dec5), then K1 on the blocked grid;
+- "sep": dec3 through K8 into parity planes, K9 (dec4 + dec5 on the
+  planes), then K1 on the doubly-blocked grid.
 """
 
 import numpy as np
 import torch
 
 from robosat_tpu_torch.models import int8 as q8
-from robosat_tpu_torch.models import qtail
+from robosat_tpu_torch.models import qdec, qtail
+from robosat_tpu_torch.ops import head
 
 # ImageNet statistics (robosat/tools/train.py:246), as in robosat_tpu/ops/augment.py.
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+PALLAS_TAILS = (None, "full", "tail", "sep")
 
 
 def normalize(images, mean=IMAGENET_MEAN, std=IMAGENET_STD):
@@ -38,6 +47,48 @@ def _normalize_s2d4(raw48):
     return normalize(raw48, mean=IMAGENET_MEAN * 16, std=IMAGENET_STD * 16)
 
 
+def make_predict_step(model, overlap=0, compute_dtype=torch.float32, fused_head=True, fold_bn=True, s2d=True,
+                      host_s2d=False):
+    """Float prediction: raw uint8 -> quantized foreground uint8.
+
+    The forward runs in `compute_dtype` (float32 or bfloat16) over the
+    BN-folded params, folded inside every call against the params passed.
+    `s2d` runs dec4 and dec5 on the parity-blocked half-resolution grid;
+    `host_s2d` (with `s2d`) takes 4x4 host-blocked input (N, H/4, W/4, 48)
+    and runs the blocked stem. Outputs:
+
+    - host_s2d with an even overlap: blocked (N, H/2 - o, W/2 - o, 4);
+    - otherwise fine (N, H - 2o, W - 2o), through the blocked head and a
+      depth-to-space when `s2d` is on, the fine-grid head when it is off.
+
+    Returns step(params, state, raw, plain=False); `plain=True` runs the
+    head's plain version instead of kernel K1.
+    """
+    if not (fused_head and fold_bn):
+        raise NotImplementedError("the float predict runs with fold_bn and fused_head only (ROADMAP Queue 1, item 4)")
+    use_host_s2d = host_s2d and s2d
+    blocked_out = use_host_s2d and overlap % 2 == 0
+
+    def step(params, state, raw, plain=False):
+        margin = head.margin_head_plain if plain else head.margin_head
+        with torch.no_grad():
+            raw = torch.as_tensor(raw).to(params["final"]["w"].device)
+            folded = model.fold(params, state)
+            w, b = folded["final"]["w"], folded["final"]["b"]
+            if use_host_s2d:
+                features = model.apply_features_folded_s2d_from48(folded, _normalize_s2d4(raw).to(compute_dtype))
+            else:
+                x = normalize(raw).to(compute_dtype)
+                if not s2d:
+                    return margin(model.apply_features_folded(folded, x), w, b, overlap, 1)
+                features = model.apply_features_folded_s2d(folded, x)
+            if blocked_out:
+                return margin(features, w, b, overlap, 4)
+            return head.fine_from_blocked(margin(features, w, b, 0, 4), overlap)
+
+    return step
+
+
 def make_int8_predict_step(
     model,
     params,
@@ -46,6 +97,8 @@ def make_int8_predict_step(
     overlap=0,
     calib_percentile=None,
     calib_amaxes=None,
+    pallas_tail=None,
+    pallas_enc=False,
 ):
     """Hybrid-int8 prediction of the U-Net on the device of `params`.
 
@@ -54,13 +107,26 @@ def make_int8_predict_step(
     `calib_amaxes` (a host per-site amax vector) skips calibration and uses
     those exact scales: the QAT contract of the JAX package.
 
-    Returns (step, qtree): step(qtree, raw) -> parity-blocked quantized
-    foreground uint8 (N, H/2 - overlap, W/2 - overlap, 4) on the device;
-    step(qtree, raw, plain=True) runs the kernels' plain versions instead,
-    with the same qtree and scales.
+    `pallas_tail` picks the decoder's end as the JAX package's key does
+    (None/"full", "tail" or "sep"; see the module docstring). "tail" and
+    "sep" need an even overlap, "sep" a multiple of 4. `pallas_enc` is
+    accepted and changes nothing: the port always runs the encoder through
+    K3/K4, which the JAX package pins bit-equal to its XLA walk.
+
+    Returns (step, qtree): step(qtree, raw) -> quantized foreground uint8 on
+    the device, parity-blocked (N, H/2 - overlap, W/2 - overlap, 4), or for
+    "sep" doubly-blocked (N, H/4 - overlap/2, W/4 - overlap/2, 16), channel
+    p288 * 4 + p576; step(qtree, raw, plain=True) runs the kernels' plain
+    versions instead, with the same qtree and scales.
     """
+    if pallas_tail not in PALLAS_TAILS:
+        raise ValueError("pallas_tail must be one of {} (got {!r})".format(PALLAS_TAILS, pallas_tail))
     if overlap % 2:
+        if pallas_tail in ("tail", "sep"):
+            raise ValueError("pallas_tail requires host_s2d + fused_head with an even overlap")
         raise NotImplementedError("the blocked int8 head crops on the coarse grid: overlap must be even")
+    if pallas_tail == "sep" and overlap % 4:
+        raise ValueError("pallas_tail='sep' crops on the coarse-coarse grid: overlap must be a multiple of 4")
     device = params["final"]["w"].device
 
     def to_device(raw):
@@ -76,10 +142,21 @@ def make_int8_predict_step(
         qtree = q8.quantize_unet_folded(folded)
 
     def step(qtree, raw, plain=False):
+        w, b = qtree["final"]["w"], qtree["final"]["b"]
+        margin = head.margin_head_plain if plain else head.margin_head
         with torch.no_grad():
             x = _normalize_s2d4(to_device(raw)).to(torch.bfloat16)
+            if pallas_tail == "sep":
+                cat3, s3, s4, s5 = q8.apply_features_int8_to_dec3_input(qtree, scales, x, plain=plain)
+                up = qdec.parity_up_conv_separated_plain if plain else qdec.parity_up_conv_separated
+                tail = qtail.fused_tail_features_sep_plain if plain else qtail.fused_tail_features_sep
+                feats = tail(up(cat3, qtree["dec3"], s3), qtree["dec4"], s4, qtree["dec5"], s5)
+                return margin(feats, w, b, overlap, 16)
             dec3, s4, s5 = q8.apply_features_int8_to_dec3(qtree, scales, x, plain=plain)
+            if pallas_tail == "tail":
+                tail = qtail.fused_tail_features_plain if plain else qtail.fused_tail_features
+                return margin(tail(dec3, qtree["dec4"], s4, qtree["dec5"], s5), w, b, overlap, 4)
             tail = qtail.fused_tail_plain if plain else qtail.fused_tail
-            return tail(dec3, qtree["dec4"], s4, qtree["dec5"], s5, qtree["final"]["w"], qtree["final"]["b"], overlap)
+            return tail(dec3, qtree["dec4"], s4, qtree["dec5"], s5, w, b, overlap)
 
     return step, qtree

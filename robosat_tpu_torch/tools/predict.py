@@ -3,14 +3,24 @@
 The port of `rs predict` (robosat_tpu/tools/predict.py), with the same
 flags and output contract: quantized foreground probabilities as palette
 PNGs ("pink" continuous palette) in a slippy-map directory, from buffered
-overlap tiles. It runs the int8 U-Net path on the config's device: the
-loader workers decode and 4x4 space-to-depth block the buffered tiles, the
-int8 step (parallel/steps.py) returns parity-blocked uint8, and the writer
-pool interleaves it into the PNG scanlines.
+overlap tiles. It runs the U-Net on the config's device, as the model
+TOML selects:
 
-Not ported yet (ROADMAP Queue 1): `--strip > 1`, `int8 = false` (the
-fp32/bf16 predict), `host_s2d = false` / `s2d = false` / `fused_head =
-false`, an odd overlap, `--profile`, and models other than the U-Net.
+- `int8 = true`: the hybrid-int8 step (parallel/steps.py), with
+  `pallas_tail` choosing the decoder's end (unset/"full", "tail", "sep")
+  and `pallas_enc` accepted without effect;
+- `int8 = false`: the folded float forward in bf16 (`bf16 = true`) or
+  float32, with `host_s2d` and `s2d` as in the JAX package.
+
+With `host_s2d` (the default) the loader workers 4x4 space-to-depth block
+the buffered tiles, the step returns parity-blocked uint8 ("sep": doubly
+blocked, peeled once here) and the writer pool interleaves it into the PNG
+scanlines; otherwise the step returns the fine grid.
+
+Not ported yet (ROADMAP Queue 1): `--strip > 1`, `fused_head = false`,
+`int8 = true` with `host_s2d = false` or `s2d = false`, an odd overlap,
+`--profile`, the 'mse'/'mae'/'pc' calibrations, and models other than the
+U-Net.
 """
 
 import argparse
@@ -20,6 +30,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 from PIL import Image
 from tqdm import tqdm
 
@@ -32,7 +43,7 @@ from robosat_tpu_torch.checkpoint import load_model_checkpoint
 from robosat_tpu_torch.device import configure_device
 from robosat_tpu_torch.models.layers import depth_to_space2, space_to_depth4
 from robosat_tpu_torch.models.registry import get_model
-from robosat_tpu_torch.parallel.steps import make_int8_predict_step
+from robosat_tpu_torch.parallel.steps import make_int8_predict_step, make_predict_step
 
 
 def add_parser(subparser):
@@ -92,16 +103,25 @@ def main(args):
     if getattr(args, "profile", None):
         raise NotImplementedError("--profile is not ported yet (ROADMAP Queue 1, item 6)")
     model = get_model(common.get("model", "unet"))
-    if not common.get("int8", False):
-        raise NotImplementedError("the fp32/bf16 predict (int8 = false) is not ported yet (ROADMAP Queue 1, item 4)")
+    int8_mode = common.get("int8", False)
     use_fused = common.get("fused_head", common.get("pallas_head", True))
-    if not (common.get("host_s2d", True) and common.get("s2d", True) and use_fused):
+    if not use_fused:
+        raise NotImplementedError("fused_head = false (the 2-class conv + softmax head) is not ported yet "
+                                  "(ROADMAP Queue 1, item 4)")
+    use_s2d = common.get("s2d", True)
+    use_host_s2d = common.get("host_s2d", True) and use_s2d
+    if int8_mode and not use_host_s2d:
         raise NotImplementedError(
-            "the port's int8 predict runs host_s2d, s2d and the fused head only (ROADMAP Queue 1, item 4)"
+            "the port's int8 predict runs host_s2d and s2d only (ROADMAP Queue 1, item 4)"
         )
     if args.overlap % 2:
-        raise NotImplementedError("an odd overlap (fine-grid int8 output) is not ported yet (ROADMAP Queue 1, item 4)")
+        raise NotImplementedError("an odd overlap (fine-grid output) is not ported yet (ROADMAP Queue 1, item 4)")
     calib_percentile = _calibration(common)
+    # pallas_tail = "tail" | "sep" | "full" picks the int8 decoder's end
+    # (parallel/steps.py); pallas_enc is accepted and changes nothing.
+    pallas_tail = common.get("pallas_tail", None) or None
+    pallas_enc = common.get("pallas_enc", False)
+    compute_dtype = torch.bfloat16 if common.get("bf16", False) else torch.float32
 
     num_classes = len(dataset["common"]["classes"])
     assert num_classes == 2, "single channel requires binary model"
@@ -127,8 +147,11 @@ def main(args):
     # trained against; predict quantizes with exactly those scales.
     qat_amaxes = ckpt_meta.get("qat_amaxes") if isinstance(ckpt_meta, dict) else None
 
-    def transform(image):
-        return space_to_depth4(image[None])[0]
+    transform = None
+    if use_host_s2d:
+
+        def transform(image):
+            return space_to_depth4(image[None])[0]
 
     directory = BufferedSlippyMapDirectory(
         args.tiles, size=args.tile_size, overlap=args.overlap, transform=transform, shard=shard
@@ -147,10 +170,21 @@ def main(args):
         x, y, z = map(int, tile)
         os.makedirs(os.path.join(args.probs, str(z), str(x)), exist_ok=True)
         path = os.path.join(args.probs, str(z), str(x), "{}.png".format(y))
-        # The native encoder fuses the parity interleave into scanline assembly.
-        if not optimize and imagecodec.encode_palette_png_d2s(path, quantized, palette):
-            return
-        out = Image.fromarray(depth_to_space2(quantized[None])[0, :, :, 0], mode="P")
+        blocked = quantized.ndim == 3
+        if blocked and quantized.shape[-1] == 16:
+            # Doubly-blocked ("sep"): peel the 288-grid parity level first;
+            # the remaining (..., 4) block takes the blocked writer.
+            quantized = depth_to_space2(quantized[None])[0]
+        if not optimize:
+            # The native encoder fuses the parity interleave into scanline assembly.
+            if blocked:
+                if imagecodec.encode_palette_png_d2s(path, quantized, palette):
+                    return
+            elif imagecodec.encode_palette_png(path, quantized, palette):
+                return
+        if blocked:
+            quantized = depth_to_space2(quantized[None])[0, :, :, 0]
+        out = Image.fromarray(np.ascontiguousarray(quantized), mode="P")
         out.putpalette(palette)
         if optimize:
             out.save(path, optimize=True)
@@ -158,6 +192,13 @@ def main(args):
             out.save(path, optimize=False, compress_level=1)
 
     predict_step = qtree = None
+    if not int8_mode:
+        float_step = make_predict_step(model, overlap=args.overlap, compute_dtype=compute_dtype, s2d=use_s2d,
+                                       host_s2d=use_host_s2d)
+
+        def predict_step(_, raw):
+            return float_step(params, state, raw)
+
     setup_done_t = None
     pending = []
     with ThreadPoolExecutor(max_workers=max(args.workers, 2)) as writers:
@@ -169,6 +210,7 @@ def main(args):
                 predict_step, qtree = make_int8_predict_step(
                     model, params, state, images, overlap=args.overlap, calib_percentile=calib_percentile,
                     calib_amaxes=np.asarray(qat_amaxes, np.float64) if qat_amaxes is not None else None,
+                    pallas_tail=pallas_tail, pallas_enc=pallas_enc,
                 )
             quantized = predict_step(qtree, images).cpu().numpy()  # synchronous device -> host copy
             if setup_done_t is None:

@@ -16,6 +16,8 @@ import torch
 
 from robosat_tpu_torch.models import int8 as q8
 from robosat_tpu_torch.models import qdec, qenc, qtail
+from robosat_tpu_torch.models.layers import space_to_depth2
+from robosat_tpu_torch.ops import head
 
 pytestmark = pytest.mark.cuda
 
@@ -91,9 +93,81 @@ def test_fused_tail_kernel_matches_plain(gen, overlap, h, w):
     assert int((d != 0).sum()) <= 0.001 * d.numel()
 
 
+@pytest.mark.parametrize("cin,cout,h,w,bias", [(48, 32, 5, 7, True), (144, 80, 9, 4, False)])
+def test_parity_up_conv_separated_kernel_bit_equal(gen, cin, cout, h, w, bias):
+    node = q8._qkernel(q8._fused_k4(torch.randn(3, 3, cin, cout, generator=gen, device="cuda") * 0.1))
+    if bias:
+        node["b"] = torch.randn(cout, generator=gen, device="cuda") * 0.05
+    x = _act(gen, (2, h, w, cin))
+    before = qdec.parity_up_conv_separated.launches
+    got = qdec.parity_up_conv_separated(x, node, 0.017)
+    torch.cuda.synchronize()
+    assert qdec.parity_up_conv_separated.launches == before + 1
+    assert tuple(got.shape) == (2, h, w, 4 * cout)
+    assert torch.equal(got, qdec.parity_up_conv_separated_plain(x, node, 0.017))
+
+
+def _tail_nodes(gen):
+    return (q8._qkernel(torch.randn(3, 3, 128, 128, generator=gen, device="cuda") * 0.1),
+            q8._qkernel(torch.randn(3, 3, 128, 128, generator=gen, device="cuda") * 0.1))
+
+
+@pytest.mark.parametrize("h,w,const", [(12, 20, None), (16, 16, 3.0)])
+def test_fused_tail_features_kernels_bit_equal(gen, h, w, const):
+    """K7 on the grid and K9 on its parity planes against their plain
+    versions; the constant input makes a wrong zero padding flip the borders."""
+    node4, node5 = _tail_nodes(gen)
+    x = _act(gen, (2, h, w, 128)) if const is None else torch.full((1, h, w, 128), const, device="cuda",
+                                                                   dtype=torch.bfloat16)
+    got = qtail.fused_tail_features(x, node4, 0.021, node5, 0.013)
+    planes = space_to_depth2(x).contiguous()
+    got_sep = qtail.fused_tail_features_sep(planes, node4, 0.021, node5, 0.013)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qtail.fused_tail_features_plain(x, node4, 0.021, node5, 0.013))
+    assert torch.equal(got_sep, qtail.fused_tail_features_sep_plain(planes, node4, 0.021, node5, 0.013))
+    assert torch.equal(got_sep, space_to_depth2(got))
+
+
+@pytest.mark.parametrize("groups,h,w,overlap", [(1, 20, 18, 4), (4, 13, 9, 2), (16, 10, 12, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_margin_head_kernel_matches_plain(gen, groups, h, w, overlap, dtype):
+    feats = (torch.randn(3, h, w, 32 * groups, generator=gen, device="cuda") * 1.5).to(dtype)
+    w_final = torch.randn(1, 1, 32, 2, generator=gen, device="cuda") * 0.3
+    b_final = torch.randn(2, generator=gen, device="cuda") * 0.1
+    before = head.margin_head.launches
+    got = head.margin_head(feats, w_final, b_final, overlap=overlap, groups=groups)
+    ref = head.margin_head_plain(feats, w_final, b_final, overlap=overlap, groups=groups)
+    torch.cuda.synchronize()
+    assert head.margin_head.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == torch.uint8
+    d = (got.int() - ref.int()) % 256
+    d = torch.minimum(d, 256 - d)
+    assert int(d.max()) <= 1
+    assert int((d != 0).sum()) <= max(1, 0.001 * d.numel())
+
+
 def test_kernel_wrappers_reject_bad_operands(gen):
     node = q8._qkernel(q8._fused_k4(torch.randn(3, 3, 24, 32, generator=gen, device="cuda") * 0.1))
     with pytest.raises(ValueError, match="bfloat16"):
         qdec.parity_up_conv(torch.zeros(1, 4, 4, 24, device="cuda"), node, 0.1)
     with pytest.raises(ValueError, match="multiples of 16"):
         qdec.parity_up_conv(torch.zeros(1, 4, 4, 24, device="cuda", dtype=torch.bfloat16), node, 0.1)
+    with pytest.raises(ValueError, match="bfloat16"):
+        qdec.parity_up_conv_separated(torch.zeros(1, 4, 4, 24, device="cuda"), node, 0.1)
+    node4, node5 = _tail_nodes(gen)
+    with pytest.raises(ValueError, match="128 channels"):
+        qtail.fused_tail_features(torch.zeros(1, 4, 4, 64, device="cuda", dtype=torch.bfloat16), node4, 0.1,
+                                  node5, 0.1)
+    with pytest.raises(ValueError, match="512 channels"):
+        qtail.fused_tail_features_sep(torch.zeros(1, 4, 4, 128, device="cuda", dtype=torch.bfloat16), node4, 0.1,
+                                      node5, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        qtail.fused_tail_features(torch.zeros(1, 4, 8, 128, device="cuda", dtype=torch.bfloat16)[:, :, ::2],
+                                  node4, 0.1, node5, 0.1)
+    w_final, b_final = torch.zeros(1, 1, 32, 2, device="cuda"), torch.zeros(2, device="cuda")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        head.margin_head(torch.zeros(1, 4, 4, 32, device="cuda", dtype=torch.float16), w_final, b_final)
+    with pytest.raises(ValueError, match="128 channels"):
+        head.margin_head(torch.zeros(1, 4, 4, 32, device="cuda"), w_final, b_final, groups=4)
+    with pytest.raises(ValueError, match="whole pixels"):
+        head.margin_head(torch.zeros(1, 8, 8, 512, device="cuda"), w_final, b_final, overlap=2, groups=16)

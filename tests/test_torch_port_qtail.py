@@ -1,9 +1,10 @@
-"""robosat_tpu_torch K6: the fused tail's plain version vs the JAX package.
+"""robosat_tpu_torch K6, K7 and K9: the tails' plain versions vs the JAX package.
 
-dec4 + dec5 are bit-exact int8 convs; the head's margin sum and sigmoid may
-differ from XLA's in the last ulps, which could move a probability across a
-1/255 bin edge. At the shapes of tests/test_qtail.py no such flip occurs,
-and the test asserts 0 of them.
+dec4 + dec5 are bit-exact int8 convs: K7 (fused_tail_features) and K9
+(fused_tail_features_sep, on parity planes) are held bit-equal. K6's head's
+margin sum and sigmoid may differ from XLA's in the last ulps, which could
+move a probability across a 1/255 bin edge. At the shapes of
+tests/test_qtail.py no such flip occurs, and the test asserts 0 of them.
 """
 
 import jax.numpy as jnp
@@ -13,8 +14,10 @@ import torch
 
 from robosat_tpu.models import int8 as jq8
 from robosat_tpu.models import qtail as jqtail
+from robosat_tpu.models.layers import space_to_depth2 as jspace_to_depth2
 from robosat_tpu.ops.quantize import ANCHORS
 from robosat_tpu_torch.models import qtail
+from robosat_tpu_torch.models.layers import space_to_depth2
 from robosat_tpu_torch.ops.head import _digitize_exact, _to_u8
 
 
@@ -59,6 +62,42 @@ def test_fused_tail_plain_edge_rows_zero_padded():
     b_final = np.zeros((2,), np.float32)
     ref, got = _run_both(node4, node5, w_final, b_final, x, 0.05, 0.05, 0)
     assert int((got != ref).sum()) == 0
+
+
+def _to_torch(x):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("seed,wscale,const,s4,s5", [(2, 0.1, None, 0.021, 0.013), (5, 0.2, 3.0, 0.05, 0.05)],
+                         ids=["random", "constant-edges"])
+def test_fused_tail_features_plain_bit_equal(seed, wscale, const, s4, s5):
+    """K7's plain version equals the JAX kernel (interpret mode) bit for bit;
+    the constant input makes a wrong zero padding flip the borders."""
+    shape = (2, 24, 24, 128) if const is None else (1, 16, 16, 128)
+    node4, node5, _, _, x = _tail_inputs(seed, shape, wscale=wscale,
+                                         x=None if const is None else np.full(shape, const))
+    ref = np.asarray(jqtail.fused_tail_features(x, node4, s4, node5, s5, strip_rows=8, interpret=True), np.float32)
+    got = qtail.fused_tail_features(_to_torch(x), _tnode(node4), s4, _tnode(node5), s5)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == ref.shape == shape
+    assert int((got.float().numpy() != ref).sum()) == 0
+
+
+@pytest.mark.parametrize("seed,wscale,const,s4,s5", [(3, 0.1, None, 0.021, 0.013), (5, 0.2, 3.0, 0.05, 0.05)],
+                         ids=["random", "constant-edges"])
+def test_fused_tail_features_sep_plain_bit_equal(seed, wscale, const, s4, s5):
+    """K9's plain version equals the JAX separated kernel (interpret mode)
+    on parity planes, and space_to_depth2 of K7's plain version, bit for bit."""
+    shape = (2, 24, 24, 128) if const is None else (1, 16, 16, 128)
+    node4, node5, _, _, x = _tail_inputs(seed, shape, wscale=wscale,
+                                         x=None if const is None else np.full(shape, const))
+    planes = jspace_to_depth2(x)
+    ref = np.asarray(jqtail.fused_tail_features_sep(planes, node4, s4, node5, s5, strip_rows=4, interpret=True),
+                     np.float32)
+    got = qtail.fused_tail_features_sep(_to_torch(planes), _tnode(node4), s4, _tnode(node5), s5)
+    assert tuple(got.shape) == ref.shape == (shape[0], shape[1] // 2, shape[2] // 2, 512)
+    assert int((got.float().numpy() != ref).sum()) == 0
+    fine = qtail.fused_tail_features(_to_torch(x), _tnode(node4), s4, _tnode(node5), s5)
+    assert torch.equal(got, space_to_depth2(fine))
 
 
 def test_digitize_matches_reference_anchors():
