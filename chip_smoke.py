@@ -4,8 +4,8 @@
     python3 chip_smoke.py            (from the repository root; one GPU)
 
 Drives robosat_tpu_torch's `predict` (the U-Net of config/model-unet.toml)
-on the card along four paths and checks each hand-written kernel against
-its plain PyTorch version:
+on the card along four paths, runs the two probe kernels, and checks each
+hand-written kernel against its plain PyTorch version:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the CUDA kernels from robosat_tpu_torch/csrc;
@@ -13,8 +13,17 @@ its plain PyTorch version:
    576 px buffered tiles, weights and scales of the calibrated model):
    K3/K4/K5/K7/K8/K9 bit-equal in bf16, the uint8 of K6 and of K1 (G = 1,
    4 and 16 groups, f32 and bf16 features) equal up to counted +-1-bin
-   flips; kernel and plain times from CUDA events;
-4. `predict.main` in-process on a generated 512-px slippy-map directory
+   flips; kernel and plain times from CUDA events with the inputs
+   rotated through copies larger than the 50 MB L2 (as in phase 4);
+4. the probes path: K2 (int8 matmul + requantize) in both orientations at
+   the 8 contractions of benchmarks/bench_pallas_mm.py, bit-equal to its
+   plain version, its int32 accumulators equal to `torch._int_mm`'s; K10's
+   12 head-stage rungs at the bisect script's (1, 8, 288, 128) and at a full
+   dec5 batch (8, 288, 288, 128), against the plain rungs (bit-equal up to
+   the margins, the sigmoid within 4 ulps, uint8 up to counted +-1 flips);
+   launches counted over one pass (K2 16, K10 24, every other kernel 0),
+   kernel, plain and `_int_mm` times from CUDA events;
+5. `predict.main` in-process on a generated 512-px slippy-map directory
    with a random-weight full-width U-Net checkpoint, once per path (the
    config as it is, int8; a copy with `pallas_tail = "tail"`; one with
    `"sep"`; one with `int8 = false`, bf16): one decodable palette PNG per
@@ -25,14 +34,19 @@ its plain PyTorch version:
    plain path with the same weights and scales, and a torch.profiler
    split of one step's device time.
 
-Prints a JSON line of per-kernel results, the nvidia-smi line, and last
-`{"ok": true, "device": {...}}`. Any failed check raises (non-zero exit);
-without a GPU, or outside the repository, it exits non-zero and prints no
-result.
+Each kernel's line also carries its bound: the least time the card could
+take for the same work, max(bytes / 3.35 TB/s, operations / peak) with each
+input read once and each output written once (int8 ops at 1,979 TOP/s, f32
+at 67 TFLOP/s; NVIDIA's H100 SXM data sheet), computed from this run's
+inputs. Prints a JSON line of per-kernel results, the nvidia-smi line, and
+last `{"ok": true, "device": {...}}`. Any failed check raises (non-zero
+exit); without a GPU, or outside the repository, it exits non-zero and
+prints no result.
 """
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -47,18 +61,25 @@ TILE = 512
 OVERLAP = 32
 TILES_SIDE = 8  # an 8 x 8 block of tiles: 64 tiles, 8 batches
 MAX_FLIP_SHARE = 0.001
+SIGMOID_ULPS = 4
 SEED = 0  # of the weights and the imagery
+# H100 SXM peaks (NVIDIA's data sheet, dense): device memory, int8 tensor
+# cores, float32 outside the tensor cores.
+PEAK = {"bytes": 3.35e12, "int8": 1979e12, "f32": 67e12}
+ROTATE_BYTES = 150e6  # inputs rotated through copies of at least this many bytes (3x the L2)
 
-# Each kernel: its source, and the TPU kernel it replaces.
+# Each kernel: its source, and the pallas_call of the TPU kernel it replaces.
 SOURCES = {
-    "K1": ("robosat_tpu_torch/csrc/head.cu", "robosat_tpu/ops/head.py:252"),
-    "K3": ("robosat_tpu_torch/csrc/qenc.cu", "robosat_tpu/models/qenc.py:123"),
-    "K4": ("robosat_tpu_torch/csrc/qenc.cu", "robosat_tpu/models/qenc.py:289"),
-    "K5": ("robosat_tpu_torch/csrc/qdec.cu", "robosat_tpu/models/qdec.py:246"),
-    "K6": ("robosat_tpu_torch/csrc/qtail.cu", "robosat_tpu/models/qtail.py:383"),
-    "K7": ("robosat_tpu_torch/csrc/qtail.cu", "robosat_tpu/models/qtail.py:172"),
-    "K8": ("robosat_tpu_torch/csrc/qdec.cu", "robosat_tpu/models/qdec.py:199"),
-    "K9": ("robosat_tpu_torch/csrc/qtail.cu", "robosat_tpu/models/qtail.py:330"),
+    "K1": ("robosat_tpu_torch/csrc/head.cu", "robosat_tpu/ops/head.py:278"),
+    "K2": ("robosat_tpu_torch/csrc/int8_mm.cu", "benchmarks/bench_pallas_mm.py:76"),
+    "K3": ("robosat_tpu_torch/csrc/qenc.cu", "robosat_tpu/models/qenc.py:203"),
+    "K4": ("robosat_tpu_torch/csrc/qenc.cu", "robosat_tpu/models/qenc.py:340"),
+    "K5": ("robosat_tpu_torch/csrc/qdec.cu", "robosat_tpu/models/qdec.py:273"),
+    "K6": ("robosat_tpu_torch/csrc/qtail.cu", "robosat_tpu/models/qtail.py:426"),
+    "K7": ("robosat_tpu_torch/csrc/qtail.cu", "robosat_tpu/models/qtail.py:204"),
+    "K8": ("robosat_tpu_torch/csrc/qdec.cu", "robosat_tpu/models/qdec.py:222"),
+    "K9": ("robosat_tpu_torch/csrc/qtail.cu", "robosat_tpu/models/qtail.py:358"),
+    "K10": ("robosat_tpu_torch/csrc/head_rungs.cu", "benchmarks/bisect_mosaic_head.py:108"),
 }
 ENCODER = {"K3": 13, "K4": 3}
 # The predict paths: label, model TOML keys over config/model-unet.toml,
@@ -109,24 +130,92 @@ def main():
                                            "count": torch.cuda.device_count()}}))
 
 
-def cuda_ms(torch, fn, reps):
-    """Mean milliseconds of fn() over `reps` runs after one warm-up, by CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def u8_flips(torch, got, ref):
     """(count of differing bins, largest bin distance modulo 256)."""
     d = (got.int() - ref.int()) % 256
     d = torch.minimum(d, 256 - d)
     return int((d != 0).sum()), int(d.max()) if d.numel() else 0
+
+
+def cuda_ms(torch, fn, arg_sets, reps):
+    """Mean milliseconds of fn(*args) over `reps` runs that cycle through
+    `arg_sets` (copies of the same inputs, so a run finds its inputs out of
+    L2, as the main path would), after one warm-up, by CUDA events."""
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(*arg_sets[i % len(arg_sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def rotated(torch, args):
+    """`args` and enough copies of its tensors that one cycle through them
+    holds at least ROTATE_BYTES."""
+    size = nbytes(*(a for a in args if torch.is_tensor(a)))
+    copies = max(1, math.ceil(ROTATE_BYTES / max(size, 1)))
+    return [args] + [tuple(a.clone() if torch.is_tensor(a) else a for a in args) for _ in range(copies - 1)]
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved, ops, op_type):
+    """(ms, "bytes" or "operations"): the least time the card could take to
+    move `bytes_moved` and do `ops` operations of `op_type`."""
+    t_bytes = bytes_moved / PEAK["bytes"]
+    t_ops = ops / PEAK[op_type]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def site_work(name, kargs, out):
+    """(bytes, operations, operation type) of a phase-3 kernel call: the
+    activations and int8 weights read once, the output written once, two
+    operations per multiply-accumulate (K5/K8: four 2x2-tap parity convs,
+    16 taps per coarse pixel; K6/K7/K9: dec4 the same way, then dec5 at the
+    fine grid; K1: a multiply and an add per feature)."""
+    x = kargs[0]
+    io = nbytes(x, out)
+    if name in ("K3", "K4"):
+        qb, stride = kargs[1], 2 if name == "K4" else 1
+        n, h, w, cin = x.shape
+        cmid, cout = qb["conv1"]["wq"].shape[-1], qb["conv3"]["wq"].shape[-1]
+        lo = n * (h // stride) * (w // stride)
+        macs = n * h * w * cin * cmid + lo * (9 * cmid * cmid + cmid * cout + (cin * cout if "down_conv" in qb else 0))
+        return io + nbytes(*(node["wq"] for node in qb.values())), 2 * macs, "int8"
+    if name in ("K5", "K8"):
+        node = kargs[1]
+        return io + nbytes(node["wq"]), 2 * x.numel() * 16 * node["wq"].shape[-1], "int8"
+    if name in ("K6", "K7", "K9"):
+        # The work the function needs, not that of the s2d weights' dense
+        # 3x3 128 -> 128 form: dec4, nearest-up x2 then 3x3 cin -> c, as four
+        # 2x2-tap parity convs per coarse pixel; dec5, 3x3 c -> c per fine pixel.
+        coarse = x.numel() // 128  # pixels of the 2x2 s2d grid (K9's planes hold four per plane pixel)
+        cin, c = kargs[1]["wq"].shape[-2], kargs[3]["wq"].shape[-1] // 4
+        macs = coarse * (16 * cin * c + 4 * 9 * c * c)
+        return io + nbytes(kargs[1]["wq"], kargs[3]["wq"]), 2 * macs, "int8"
+    return io + 33 * 4, 2 * x.numel(), "f32"  # K1
+
+
+def record(per_kernel, name, site, shape, err, ms, plain_ms, work, library_ms=None, **extra):
+    """Add one site's numbers to kernel `name`'s entry; returns its bound."""
+    bound_ms, bound_by = bound(*work)
+    entry = per_kernel.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                         "bound_by": None, "library_ms": None, "sites": []})
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    entry["ms"] += ms
+    entry["plain_ms"] += plain_ms
+    entry["bound_ms"] += bound_ms
+    if library_ms is not None:
+        entry["library_ms"] = (entry["library_ms"] or 0.0) + library_ms
+    entry["sites"].append({"site": site, "shape": list(shape), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "library_ms": library_ms, "max_abs_err": err, **extra})
+    entry["bound_by"] = max(entry["sites"], key=lambda e: e["bound_ms"])["bound_by"]
+    return bound_ms, bound_by
 
 
 def log_step_profile(torch, step, label, steps=5, top=8):
@@ -146,14 +235,14 @@ def log_step_profile(torch, step, label, steps=5, top=8):
             if k.device_type == torch.autograd.DeviceType.CUDA and k.self_device_time_total > 0]
     rows.sort(reverse=True)
     if not rows:
-        log("phase 4: [{}] profile of the step: the profiler recorded no kernel time (device split not measured)"
+        log("phase 5: [{}] profile of the step: the profiler recorded no kernel time (device split not measured)"
             .format(label))
         return
     busy = sum(r[0] for r in rows)
-    log("phase 4: [{}] profile of the step: {:.2f} ms wall (profiled), {:.2f} ms of kernels, device idle {:.1%}"
+    log("phase 5: [{}] profile of the step: {:.2f} ms wall (profiled), {:.2f} ms of kernels, device idle {:.1%}"
         .format(label, wall_ms, busy, 1 - busy / wall_ms))
     for ms, count, key in rows[:top]:
-        log("phase 4: [{}]   {:8.3f} ms/step {:4d} launches  {}".format(label, ms, count, key[:100]))
+        log("phase 5: [{}]   {:8.3f} ms/step {:4d} launches  {}".format(label, ms, count, key[:100]))
 
 
 def write_tiles(root, seed):
@@ -179,11 +268,12 @@ def write_tiles(root, seed):
 def wrappers():
     """Each kernel's wrapper, whose `.launches` counts its launches."""
     from robosat_tpu_torch.models import qdec, qenc, qtail
-    from robosat_tpu_torch.ops import head
+    from robosat_tpu_torch.ops import head, head_rungs, int8_mm
 
-    return {"K1": head.margin_head, "K3": qenc.bottleneck_block, "K4": qenc.bottleneck_block_s2,
-            "K5": qdec.parity_up_conv, "K6": qtail.fused_tail, "K7": qtail.fused_tail_features,
-            "K8": qdec.parity_up_conv_separated, "K9": qtail.fused_tail_features_sep}
+    return {"K1": head.margin_head, "K2": int8_mm.int8_matmul_requant, "K3": qenc.bottleneck_block,
+            "K4": qenc.bottleneck_block_s2, "K5": qdec.parity_up_conv, "K6": qtail.fused_tail,
+            "K7": qtail.fused_tail_features, "K8": qdec.parity_up_conv_separated,
+            "K9": qtail.fused_tail_features_sep, "K10": head_rungs.head_rung}
 
 
 def fine_u8(out):
@@ -206,11 +296,10 @@ def read_pngs(probs, tiles):
 def run(torch, work, seed, smi):
     from PIL import Image
 
-    from robosat_tpu.checkpoint import save_checkpoint
-    from robosat_tpu.config import load_config, save_config
-    from robosat_tpu.data.datasets import BufferedSlippyMapDirectory
-    from robosat_tpu.data.loader import batches
-    from robosat_tpu_torch.checkpoint import load_model_checkpoint, to_jax
+    from robosat_tpu_torch.checkpoint import load_model_checkpoint, save_checkpoint, to_jax
+    from robosat_tpu_torch.config import load_config, save_config
+    from robosat_tpu_torch.data.datasets import BufferedSlippyMapDirectory
+    from robosat_tpu_torch.data.loader import batches
     from robosat_tpu_torch.device import configure_device
     from robosat_tpu_torch.models import int8 as q8
     from robosat_tpu_torch.models import qdec, qenc, qtail, unet
@@ -308,26 +397,29 @@ def run(torch, work, seed, smi):
                 if not torch.equal(got, ref):
                     raise AssertionError("{} {}: not bit-equal, max |diff| {}".format(name, site, err))
                 detail = "bit-equal"
-            ms = cuda_ms(torch, lambda: kernel(*kargs), 20)
-            plain_ms = cuda_ms(torch, lambda: plain(*kargs), 2)
-            log("phase 3: {} {} {} -> {}: {}; kernel {:.3f} ms, plain {:.3f} ms".format(
-                name, site, tuple(kargs[0].shape), tuple(got.shape), detail, ms, plain_ms))
-            entry = per_kernel.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "sites": []})
-            entry["max_abs_err"] = max(entry["max_abs_err"], err)
-            entry["ms"] += ms
-            entry["plain_ms"] += plain_ms
-            entry["sites"].append({"site": site, "shape": list(kargs[0].shape), "ms": ms, "plain_ms": plain_ms,
-                                   "max_abs_err": err})
+            arg_sets = rotated(torch, kargs)
+            ms = cuda_ms(torch, kernel, arg_sets, 20)
+            plain_ms = cuda_ms(torch, plain, arg_sets, 2)
+            del arg_sets
+            bound_ms, bound_by = record(per_kernel, name, site, kargs[0].shape, err, ms, plain_ms,
+                                        site_work(name, kargs, got))
+            log("phase 3: {} {} {} -> {}: {}; kernel {:.3f} ms, plain {:.3f} ms, bound {:.4f} ms ({})".format(
+                name, site, tuple(kargs[0].shape), tuple(got.shape), detail, ms, plain_ms, bound_ms, bound_by))
     del checks, kargs, got, ref, feats
     torch.cuda.empty_cache()
 
-    # ---- phase 4: predict on the card, along each path -------------------
-    base_config = load_config(os.path.join(ROOT, "config", "model-unet.toml"))
+    # ---- phase 4: the probes path (K2, K10) ------------------------------
     counted = wrappers()
+    launches = {name: 0 for name in SOURCES}
+    by_path = {"probes": run_probes(torch, device, seed, counted, per_kernel)}
+    for name, c in by_path["probes"].items():
+        launches[name] += c
+    torch.cuda.empty_cache()
+
+    # ---- phase 5: predict on the card, along each path -------------------
+    base_config = load_config(os.path.join(ROOT, "config", "model-unet.toml"))
     n_batches = -(-len(tiles) // BATCH)
     steady_tiles = len(tiles) - first.valid
-    launches = {name: 0 for name in SOURCES}
-    by_path = {}
     default_pngs = None
     for label, keys, per_batch in PATHS:
         config = {**base_config, "common": {**base_config["common"], **keys}}
@@ -354,7 +446,7 @@ def run(torch, work, seed, smi):
         by_path[label] = {name: c for name, c in counts.items() if c}
         for name, c in counts.items():
             launches[name] += c
-        log("phase 4: [{}] predict wrote {} tiles in {:.2f} s; steady {:.2f} tiles/s over {} tiles ({:.3f} s) on {}; "
+        log("phase 5: [{}] predict wrote {} tiles in {:.2f} s; steady {:.2f} tiles/s over {} tiles ({:.3f} s) on {}; "
             "launches {}".format(label, out["tiles"], wall, steady_tiles / out["steady_s"], steady_tiles,
                                  out["steady_s"], smi, by_path[label]))
 
@@ -371,7 +463,7 @@ def run(torch, work, seed, smi):
             if err > 1 or flips > MAX_FLIP_SHARE * pngs.size:
                 raise AssertionError("[{}] PNGs vs the int8 run's: {} flipped pixels (max distance {})".format(
                     label, flips, err))
-            log("phase 4: [{}] PNGs vs the int8 run's: {} of {} pixels flipped by 1".format(label, flips, pngs.size))
+            log("phase 5: [{}] PNGs vs the int8 run's: {} of {} pixels flipped by 1".format(label, flips, pngs.size))
 
         # One batch again, with the same weights and scales, through the
         # kernels and through the plain versions; the kernel path must also
@@ -393,7 +485,7 @@ def run(torch, work, seed, smi):
         ref = run_step(plain=True)
         end_ev.record()
         torch.cuda.synchronize()
-        step_ms = cuda_ms(torch, run_step, 5)
+        step_ms = cuda_ms(torch, run_step, [()], 5)
         flips, err = u8_flips(torch, got, ref)
         blocked = TILE // 4 if keys.get("pallas_tail") == "sep" else TILE // 2
         if got.shape[:3] != (BATCH, blocked, blocked) or err > 1 or flips > MAX_FLIP_SHARE * got.numel():
@@ -404,7 +496,7 @@ def run(torch, work, seed, smi):
         if not np.array_equal(written, fine):
             raise AssertionError("[{}] predict's PNGs differ from the step's output on {} pixels".format(
                 label, int((written != fine).sum())))
-        log("phase 4: [{}] batch of {} through the kernels vs the plain path: {} of {} bins flipped by 1; "
+        log("phase 5: [{}] batch of {} through the kernels vs the plain path: {} of {} bins flipped by 1; "
             "step {:.2f} ms with kernels, {:.2f} ms plain; PNGs match the kernel step".format(
                 label, BATCH, flips, got.numel(), step_ms, start_ev.elapsed_time(end_ev)))
         log_step_profile(torch, run_step, label)
@@ -417,6 +509,106 @@ def run(torch, work, seed, smi):
          **per_kernel[name]}
         for name in SOURCES
     ]
+
+
+def run_probes(torch, device, seed, counted, per_kernel):
+    """Phase 4: K2 at the 8 contractions in both orientations and K10's 12
+    rungs at two sizes, once each with every launch counter at 0 (the
+    probes path), then each output against its plain version and the
+    timings. Adds K2's and K10's entries to `per_kernel`; returns the
+    path's launch counts."""
+    from robosat_tpu_torch.ops import head_rungs, int8_mm
+
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=device, dtype=torch.int8)
+
+    k2 = []  # (shape name, orientation, (lhs, rhs, scale))
+    for shape, (cout, cin, p) in int8_mm.PROBE_SHAPES.items():
+        w = int8(cout, cin)
+        scale = torch.empty(cout, device=device).uniform_(math.log(1e-5), math.log(1e-3), generator=gen).exp_()
+        k2.append((shape, "a", (w, int8(cin, p), scale.reshape(cout, 1))))
+        k2.append((shape, "b", (int8(p, cin), w.t().contiguous(), scale.reshape(1, cout))))
+    wm = torch.randn((1, 128), generator=gen, device=device) * 0.3
+    bm = torch.randn((1, 4), generator=gen, device=device) * 0.5
+    side = (TILE + 2 * OVERLAP) // 2  # dec5's grid
+    strip = torch.randn((1, 8, side, 128), generator=gen, device=device).to(torch.bfloat16)
+    dec5 = (torch.randn((BATCH, side, side, 128), generator=gen, device=device) * 1.5).relu_().to(torch.bfloat16)
+    k10 = [(label, rung, (x, wm, bm)) for label, x in (("strip", strip), ("dec5 batch", dec5))
+           for rung in head_rungs.RUNGS]
+
+    for fn in counted.values():
+        fn.launches = 0
+    with torch.no_grad():
+        k2_out = [int8_mm.int8_matmul_requant(*args, orient) for _, orient, args in k2]
+        k10_out = [head_rungs.head_rung(*args, rung) for _, rung, args in k10]
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in counted.items()}
+    expected = {name: {"K2": len(k2), "K10": len(k10)}.get(name, 0) for name in counted}
+    if counts != expected:
+        raise AssertionError("[probes] launch counts {} != expected {}".format(counts, expected))
+    log("phase 4: [probes] launches {}".format({name: c for name, c in counts.items() if c}))
+
+    with torch.no_grad():
+        for (shape, orient, args), got in zip(k2, k2_out):
+            lhs, rhs, scale = args
+            ref = int8_mm.int8_matmul_requant_plain(*args)
+            if got.shape != ref.shape or not torch.equal(got, ref):
+                raise AssertionError("K2 {} {}: {} of {} outputs differ from the plain version".format(
+                    shape, orient, int((got != ref).sum()), ref.numel()))
+            if not torch.equal(torch._int_mm(lhs, rhs), int8_mm.int8_matmul_acc_plain(lhs, rhs)):
+                raise AssertionError("K2 {} {}: torch._int_mm's int32 differs from the plain accumulators".format(
+                    shape, orient))
+            arg_sets = rotated(torch, args)
+            ms = cuda_ms(torch, lambda a, b, s, o=orient: int8_mm.int8_matmul_requant(a, b, s, o), arg_sets, 20)
+            lib_ms = cuda_ms(torch, lambda a, b, s: torch._int_mm(a, b), arg_sets, 20)
+            plain_ms = cuda_ms(torch, int8_mm.int8_matmul_requant_plain, arg_sets, 2)
+            del arg_sets
+            (m, k), n = lhs.shape, rhs.shape[1]
+            work = (nbytes(lhs, rhs, scale, got), 2 * m * n * k, "int8")
+            bound_ms, bound_by = record(per_kernel, "K2", "{} {}".format(shape, orient), (m, k, n), 0.0, ms,
+                                        plain_ms, work, library_ms=lib_ms)
+            log("phase 4: K2 {} {} (M, K, N) = {}: bit-equal, torch._int_mm int32 equal (rhs row-major); kernel "
+                "{:.4f} ms ({:.1f} TOP/s), _int_mm {:.4f} ms, plain {:.3f} ms, bound {:.4f} ms ({})".format(
+                    shape, orient, (m, k, n), ms, 2 * m * n * k / ms / 1e9, lib_ms, plain_ms, bound_ms,
+                    bound_by))
+        del k2, k2_out
+        torch.cuda.empty_cache()
+
+        for (label, rung, args), got in zip(k10, k10_out):
+            ref = head_rungs.head_rung_plain(*args, rung)
+            if got.shape != ref.shape or got.dtype != ref.dtype:
+                raise AssertionError("K10 {} {}: kernel {} {} vs plain {} {}".format(
+                    label, rung, tuple(got.shape), got.dtype, tuple(ref.shape), ref.dtype))
+            if got.dtype == torch.uint8:
+                flips, err = u8_flips(torch, got, ref)
+                if err > 1 or flips > MAX_FLIP_SHARE * got.numel():
+                    raise AssertionError("K10 {} {}: {} flipped bins (max distance {})".format(label, rung, flips, err))
+                detail = "{} of {} bins flipped by 1".format(flips, got.numel())
+            else:
+                err = float((got.float() - ref.float()).abs().max())
+                if rung.startswith("sigmoid"):
+                    ulps = int((got.view(torch.int32).long() - ref.view(torch.int32).long()).abs().max())
+                    if ulps > SIGMOID_ULPS:
+                        raise AssertionError("K10 {} {}: {} ulps from the plain sigmoid".format(label, rung, ulps))
+                    detail = "within {} ulps".format(ulps)
+                elif not torch.equal(got, ref):
+                    raise AssertionError("K10 {} {}: not bit-equal, max |diff| {}".format(label, rung, err))
+                else:
+                    detail = "bit-equal"
+            arg_sets = rotated(torch, args)
+            ms = cuda_ms(torch, lambda x, w, b, r=rung: head_rungs.head_rung(x, w, b, r), arg_sets, 20)
+            plain_ms = cuda_ms(torch, lambda x, w, b, r=rung: head_rungs.head_rung_plain(x, w, b, r), arg_sets, 2)
+            del arg_sets
+            x = args[0]
+            ops = {"base": 0, "mul": x.numel()}.get(rung, 2 * x.numel())
+            bound_ms, bound_by = record(per_kernel, "K10", "{} {}".format(label, rung), x.shape, float(err), ms,
+                                        plain_ms, (nbytes(*args, got), ops, "f32"))
+            log("phase 4: K10 {} {} {} -> {}: {}; kernel {:.4f} ms ({:.0f} GB/s), plain {:.3f} ms, bound {:.4f} ms "
+                "({})".format(label, rung, tuple(x.shape), tuple(got.shape), detail, ms,
+                              nbytes(*args, got) / ms / 1e6, plain_ms, bound_ms, bound_by))
+    return {name: c for name, c in counts.items() if c}
 
 
 if __name__ == "__main__":

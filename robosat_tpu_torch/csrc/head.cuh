@@ -1,4 +1,5 @@
-// The margin head shared by K1 (head.cu) and K6's head pass (qtail.cu).
+// The margin head shared by K1 (head.cu) and K6's head pass (qtail.cu);
+// K10 (head_rungs.cu) takes its sigmoid, digitize and bf16 loads.
 //
 // For a binary model the softmax foreground probability is sigmoid(l1 - l0),
 // so the final 1x1 conv collapses to a 32-wide margin dot with w1 - w0.
@@ -39,9 +40,9 @@ __device__ __forceinline__ unsigned char digitize(float prob) {
   return static_cast<unsigned char>(q & 0xff);
 }
 
-__device__ __forceinline__ unsigned char margin_to_u8(float margin) {
-  return digitize(__fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-margin))));
-}
+__device__ __forceinline__ float sigmoid(float margin) { return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-margin))); }
+
+__device__ __forceinline__ unsigned char margin_to_u8(float margin) { return digitize(sigmoid(margin)); }
 
 // Eight features from f + 8 k (16-byte aligned) as f32, one or two 16-byte loads.
 __device__ __forceinline__ void load8(const float* f, int k, float* v) {

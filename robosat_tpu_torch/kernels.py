@@ -39,6 +39,10 @@ _SIGNATURES = {
     "rs_fused_tail_features_sep": [_P] * 5 + [_F] * 2 + [_P] * 2 + [_I] * 3 + [_P],
     # features, wmb, out, n, h, w, groups, o, bf16, stream
     "rs_margin_head": [_P] * 3 + [_I] * 6 + [_P],
+    # a, b, scale, out, m, n, k, orientation, stream
+    "rs_int8_mm": [_P] * 4 + [_I] * 4 + [_P],
+    # x, wm, bm, out, n, h, w, stage, mm, stream
+    "rs_head_rung": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _lib = None

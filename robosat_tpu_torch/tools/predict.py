@@ -34,15 +34,15 @@ import torch
 from PIL import Image
 from tqdm import tqdm
 
-from robosat_tpu.colors import continuous_palette_for_color
-from robosat_tpu.config import load_config
-from robosat_tpu.data.datasets import BufferedSlippyMapDirectory
-from robosat_tpu.data.loader import batches
-from robosat_tpu.native import imagecodec
 from robosat_tpu_torch.checkpoint import load_model_checkpoint
+from robosat_tpu_torch.colors import continuous_palette_for_color
+from robosat_tpu_torch.config import load_config
+from robosat_tpu_torch.data.datasets import BufferedSlippyMapDirectory
+from robosat_tpu_torch.data.loader import batches
 from robosat_tpu_torch.device import configure_device
 from robosat_tpu_torch.models.layers import depth_to_space2, space_to_depth4
 from robosat_tpu_torch.models.registry import get_model
+from robosat_tpu_torch.native import imagecodec
 from robosat_tpu_torch.parallel.steps import make_int8_predict_step, make_predict_step
 
 

@@ -17,7 +17,7 @@ import torch
 from robosat_tpu_torch.models import int8 as q8
 from robosat_tpu_torch.models import qdec, qenc, qtail
 from robosat_tpu_torch.models.layers import space_to_depth2
-from robosat_tpu_torch.ops import head
+from robosat_tpu_torch.ops import head, head_rungs, int8_mm
 
 pytestmark = pytest.mark.cuda
 
@@ -146,6 +146,47 @@ def test_margin_head_kernel_matches_plain(gen, groups, h, w, overlap, dtype):
     assert int((d != 0).sum()) <= max(1, 0.001 * d.numel())
 
 
+@pytest.mark.parametrize("m,k,n", [(48, 80, 1040), (130, 1280, 64), (64, 64, 16)])
+@pytest.mark.parametrize("orientation", ["a", "b"])
+def test_int8_matmul_requant_kernel_bit_equal(gen, orientation, m, k, n):
+    """K2 at ragged shapes (M and N off the 64/128 tiles, K off the 64
+    chunk), with rows and a column at +-127 (|acc| > 2**24 at K = 1280)."""
+    lhs = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    rhs = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    lhs[0], lhs[1], rhs[:, 0] = 127, -127, 127
+    cols = m if orientation == "a" else n
+    scale = torch.empty(cols, device="cuda").uniform_(2e-6, 2e-3, generator=gen)
+    scale = scale.reshape(cols, 1) if orientation == "a" else scale.reshape(1, cols)
+    before = int8_mm.int8_matmul_requant.launches
+    got = int8_mm.int8_matmul_requant(lhs, rhs, scale, orientation)
+    torch.cuda.synchronize()
+    assert int8_mm.int8_matmul_requant.launches == before + 1
+    assert torch.equal(got, int8_mm.int8_matmul_requant_plain(lhs, rhs, scale))
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 288, 128), (2, 5, 7, 128)])
+@pytest.mark.parametrize("rung", head_rungs.RUNGS)
+def test_head_rung_kernel_matches_plain(gen, rung, shape):
+    x = (torch.randn(shape, generator=gen, device="cuda") * 1.5).to(torch.bfloat16)
+    wm = torch.randn((1, 128), generator=gen, device="cuda") * 0.3
+    bm = torch.randn((1, 4), generator=gen, device="cuda") * 0.5
+    before = head_rungs.head_rung.launches
+    got = head_rungs.head_rung(x, wm, bm, rung)
+    ref = head_rungs.head_rung_plain(x, wm, bm, rung)
+    torch.cuda.synchronize()
+    assert head_rungs.head_rung.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    if got.dtype == torch.uint8:
+        d = (got.int() - ref.int()) % 256
+        d = torch.minimum(d, 256 - d)
+        assert int(d.max()) <= 1
+        assert int((d != 0).sum()) <= max(1, 0.001 * d.numel())
+    elif rung.startswith("sigmoid"):
+        assert int((got.view(torch.int32).long() - ref.view(torch.int32).long()).abs().max()) <= 4
+    else:
+        assert torch.equal(got, ref)
+
+
 def test_kernel_wrappers_reject_bad_operands(gen):
     node = q8._qkernel(q8._fused_k4(torch.randn(3, 3, 24, 32, generator=gen, device="cuda") * 0.1))
     with pytest.raises(ValueError, match="bfloat16"):
@@ -171,3 +212,13 @@ def test_kernel_wrappers_reject_bad_operands(gen):
         head.margin_head(torch.zeros(1, 4, 4, 32, device="cuda"), w_final, b_final, groups=4)
     with pytest.raises(ValueError, match="whole pixels"):
         head.margin_head(torch.zeros(1, 8, 8, 512, device="cuda"), w_final, b_final, overlap=2, groups=16)
+    lhs = torch.zeros(32, 24, device="cuda", dtype=torch.int8)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        int8_mm.int8_matmul_requant(lhs, torch.zeros(24, 32, device="cuda", dtype=torch.int8),
+                                    torch.ones(32, 1, device="cuda"), "a")
+    with pytest.raises(ValueError, match="int8"):
+        int8_mm.int8_matmul_requant(lhs.float(), torch.zeros(24, 32, device="cuda"), torch.ones(32, 1, device="cuda"),
+                                    "a")
+    with pytest.raises(ValueError, match="bfloat16"):
+        head_rungs.head_rung(torch.zeros(1, 2, 2, 128, device="cuda"), torch.ones(1, 128, device="cuda"),
+                             torch.zeros(1, 4, device="cuda"), "reduce")
