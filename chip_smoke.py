@@ -11,10 +11,14 @@ hand-written kernel against its plain PyTorch version:
 2. build of the CUDA kernels from robosat_tpu_torch/csrc;
 3. each kernel against its plain version at main-path shapes (batch 8 at
    576 px buffered tiles, weights and scales of the calibrated model):
-   K3/K4/K5/K7/K8/K9 bit-equal in bf16, the uint8 of K6 and of K1 (G = 1,
+   K3 at one block of every stage (layer1.0 with its projection, layer1.1,
+   layer2.1, layer3.1, layer4.1), K4/K5/K7/K8/K9 bit-equal in bf16, the
+   uint8 of K6 (with its count of skipped weight blocks) and of K1 (G = 1,
    4 and 16 groups, f32 and bf16 features) equal up to counted +-1-bin
-   flips; kernel and plain times from CUDA events with the inputs
-   rotated through copies larger than the 50 MB L2 (as in phase 4);
+   flips; kernel and plain times from CUDA events with the inputs rotated
+   through copies larger than the 50 MB L2 (as in phase 4), and beside
+   each kernel time its device-only time from torch.profiler's kernel rows
+   and its TOP/s against the 1,979 TOP/s int8 peak;
 4. the probes path: K2 (int8 matmul + requantize) in both orientations at
    the 8 contractions of benchmarks/bench_pallas_mm.py, bit-equal to its
    plain version, its int32 accumulators equal to `torch._int_mm`'s; K10's
@@ -32,7 +36,8 @@ hand-written kernel against its plain PyTorch version:
    1 K1; 0 for every other kernel), the "tail" and "sep" PNGs against the
    int8 run's up to counted +-1 flips, one batch's uint8 against the
    plain path with the same weights and scales, and a torch.profiler
-   split of one step's device time.
+   split of one step's device time, the int8 convs summed per routine
+   (csrc/int8_conv_sm90.cuh's wgmma conv, csrc/int8_conv.cuh's).
 
 Each kernel's line also carries its bound: the least time the card could
 take for the same work, max(bytes / 3.35 TB/s, operations / peak) with each
@@ -72,7 +77,7 @@ ROTATE_BYTES = 150e6  # inputs rotated through copies of at least this many byte
 SOURCES = {
     "K1": ("robosat_tpu_torch/csrc/head.cu", "robosat_tpu/ops/head.py:278"),
     "K2": ("robosat_tpu_torch/csrc/int8_mm.cu", "benchmarks/bench_pallas_mm.py:76"),
-    "K3": ("robosat_tpu_torch/csrc/qenc.cu", "robosat_tpu/models/qenc.py:203"),
+    "K3": ("robosat_tpu_torch/csrc/qenc_s1.cu", "robosat_tpu/models/qenc.py:203"),
     "K4": ("robosat_tpu_torch/csrc/qenc.cu", "robosat_tpu/models/qenc.py:340"),
     "K5": ("robosat_tpu_torch/csrc/qdec.cu", "robosat_tpu/models/qdec.py:273"),
     "K6": ("robosat_tpu_torch/csrc/qtail.cu", "robosat_tpu/models/qtail.py:426"),
@@ -82,6 +87,10 @@ SOURCES = {
     "K10": ("robosat_tpu_torch/csrc/head_rungs.cu", "benchmarks/bisect_mosaic_head.py:108"),
 }
 ENCODER = {"K3": 13, "K4": 3}
+# Substrings of the port's kernel names in torch.profiler's rows, and the
+# conv routine of each int8 conv kernel.
+KERNEL_ROWS = ("conv_kernel", "tail_kernel", "margin_head_kernel", "int8_mm_kernel", "head_rung_kernel")
+ROUTINES = (("rs::sm90::", "int8_conv_sm90.cuh (wgmma)"), ("rs::int8_conv_kernel", "int8_conv.cuh"))
 # The predict paths: label, model TOML keys over config/model-unet.toml,
 # launches per batch of each kernel (every other kernel: 0).
 PATHS = (
@@ -152,6 +161,24 @@ def cuda_ms(torch, fn, arg_sets, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, arg_sets, reps):
+    """Mean device milliseconds per fn(*args) of the port's kernels only
+    (torch.profiler's kernel rows; the wrapper's host work and PyTorch's own
+    small kernels excluded), over `reps` runs cycling through `arg_sets`;
+    None when the profiler records no kernel time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    us = sum(k.self_device_time_total for k in prof.key_averages()
+             if k.device_type == torch.autograd.DeviceType.CUDA and any(r in k.key for r in KERNEL_ROWS))
+    return us / 1e3 / reps if us > 0 else None
+
+
 def rotated(torch, args):
     """`args` and enough copies of its tensors that one cycle through them
     holds at least ROTATE_BYTES."""
@@ -220,7 +247,8 @@ def record(per_kernel, name, site, shape, err, ms, plain_ms, work, library_ms=No
 
 def log_step_profile(torch, step, label, steps=5, top=8):
     """Where one step's device time goes: torch.profiler's CUDA kernel rows
-    over `steps` steps, against their wall time (host clock, synchronized)."""
+    over `steps` steps, against their wall time (host clock, synchronized),
+    and the int8 convs' time summed per conv routine."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -243,6 +271,11 @@ def log_step_profile(torch, step, label, steps=5, top=8):
         .format(label, wall_ms, busy, 1 - busy / wall_ms))
     for ms, count, key in rows[:top]:
         log("phase 5: [{}]   {:8.3f} ms/step {:4d} launches  {}".format(label, ms, count, key[:100]))
+    for prefix, routine in ROUTINES:
+        mine = [r for r in rows if prefix in r[2]]
+        if mine:
+            log("phase 5: [{}]   int8 convs on {}: {:.3f} ms/step, {} launches, {} kernels".format(
+                label, routine, sum(r[0] for r in mine), sum(r[1] for r in mine), len(mine)))
 
 
 def write_tiles(root, seed):
@@ -351,11 +384,15 @@ def run(torch, work, seed, smi):
     n, side = BATCH, (TILE + 2 * OVERLAP) // 4  # 144: the stem's output grid
     s3, s4, s5 = (float(s) for s in scales[56:59])  # dec3, dec4, dec5
     # (name, site, kernel, plain, args, bit-equal?)
+    # K3 at one block of each stage: (stage, block, its first site, its input grid and channels)
+    k3_sites = (("layer1", 0, 0, side, 64), ("layer1", 1, 4, side, 256), ("layer2", 1, 14, side // 2, 512),
+                ("layer3", 1, 27, side // 4, 1024), ("layer4", 1, 46, side // 8, 2048))
     checks = [
-        ("K3", "layer1.0 (projection)", qenc.bottleneck_block, qenc.bottleneck_block_plain,
-         (act((n, side, side, 64), 0), enc["layer1"][0], *block_scales(0, True)), True),
-        ("K3", "layer3.1 (identity)", qenc.bottleneck_block, qenc.bottleneck_block_plain,
-         (act((n, side // 4, side // 4, 1024), 27), enc["layer3"][1], *block_scales(27, False)), True),
+        ("K3", "{}.{} ({})".format(stage, bi, "projection" if bi == 0 else "identity"), qenc.bottleneck_block,
+         qenc.bottleneck_block_plain, (act((n, grid, grid, cin), site), enc[stage][bi], *block_scales(site, bi == 0)),
+         True)
+        for stage, bi, site, grid, cin in k3_sites
+    ] + [
         ("K4", "layer2.0", qenc.bottleneck_block_s2, qenc.bottleneck_block_s2_plain,
          (act((n, side, side, 256), 10), enc["layer2"][0], *block_scales(10, True)), True),
         ("K5", "center", qdec.parity_up_conv, qdec.parity_up_conv_plain,
@@ -397,14 +434,28 @@ def run(torch, work, seed, smi):
                 if not torch.equal(got, ref):
                     raise AssertionError("{} {}: not bit-equal, max |diff| {}".format(name, site, err))
                 detail = "bit-equal"
+            extra = {}
+            if name == "K6":
+                listed = [sum(map(len, qtail.nonzero_blocks(node))) for node in (kargs[1], kargs[3])]
+                extra["blocks_listed"] = listed
+                extra["blocks_skipped"] = [9 * 16 - k for k in listed]
+                detail += "; weight blocks skipped: dec4 {} of 144, dec5 {} of 144".format(*extra["blocks_skipped"])
             arg_sets = rotated(torch, kargs)
             ms = cuda_ms(torch, kernel, arg_sets, 20)
+            dev_ms = device_ms(torch, kernel, arg_sets, 20)
             plain_ms = cuda_ms(torch, plain, arg_sets, 2)
             del arg_sets
-            bound_ms, bound_by = record(per_kernel, name, site, kargs[0].shape, err, ms, plain_ms,
-                                        site_work(name, kargs, got))
-            log("phase 3: {} {} {} -> {}: {}; kernel {:.3f} ms, plain {:.3f} ms, bound {:.4f} ms ({})".format(
-                name, site, tuple(kargs[0].shape), tuple(got.shape), detail, ms, plain_ms, bound_ms, bound_by))
+            cost = site_work(name, kargs, got)
+            extra["device_ms"] = dev_ms
+            extra["tops"] = cost[1] / (dev_ms or ms) / 1e9
+            bound_ms, bound_by = record(per_kernel, name, site, kargs[0].shape, err, ms, plain_ms, cost, **extra)
+            peak = PEAK[cost[2]] / 1e12
+            log("phase 3: {} {} {} -> {}: {}; kernel {:.4f} ms (events), {} (device), {:.1f} {} ({:.1%} of {:.0f}), "
+                "plain {:.3f} ms, bound {:.4f} ms ({})".format(
+                    name, site, tuple(kargs[0].shape), tuple(got.shape), detail, ms,
+                    "not measured" if dev_ms is None else "{:.4f} ms".format(dev_ms), extra["tops"],
+                    "TOP/s" if cost[2] == "int8" else "TFLOP/s", extra["tops"] / peak, peak, plain_ms, bound_ms,
+                    bound_by))
     del checks, kargs, got, ref, feats
     torch.cuda.empty_cache()
 

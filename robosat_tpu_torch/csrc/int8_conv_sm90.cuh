@@ -1,0 +1,910 @@
+// The Hopper int8 convolutions of kernels K3 (stride 1) and K6.
+//
+// Replaces, for those two kernels, the shared routine of int8_conv.cuh
+// (which keeps K4, K5, K7, K8 and K9). The TPU kernels it stands in for are
+// robosat_tpu/models/qenc.py:203 (bottleneck_block, stride 1) and
+// robosat_tpu/models/qtail.py:426 (fused_tail).
+//
+// Same arithmetic as int8_conv.cuh, bit for bit: an implicit GEMM over
+// NHWC activations (M = output pixels, N = Cout, K = taps x Cin), exact
+// int32 accumulators, and int8_conv.cuh's dequant epilogue (`epilogue`:
+// __fmul_rn, __fadd_rn, bf16 RNE, then relu or residual-relu).
+//
+// What bounds it on the H100: at the main-path shapes the 1x1 convs of
+// layers 1-2 move more bytes than the tensor cores need time for (64-256
+// channels against ~590 int8 ops per byte at the ridge); the 3x3 convs and
+// layers 3-4 are closer to the 1979 TOP/s int8 peak. The old routine ran at
+// 1-5% of that peak: synchronous loads, a quantize and two barriers per 64
+// channels, mma.sync, and an A tile staged once per 64 output channels.
+// The design here:
+//
+// - wgmma.mma_async m64nNk32 s32.s8.s8 with both operands in shared memory
+//   (K-major, the 16-byte core-matrix layout without swizzle: core matrix
+//   (row / 8, k / 16) at ((row / 8) * 4 + k / 16) * 128 bytes, row % 8 at
+//   16 bytes each), output tiles of 64 pixels (one consumer warpgroup, two
+//   CTAs to an SM; 128-pixel tiles with two consumer warpgroups and one CTA
+//   to an SM measured no faster) by BN = 64 or 128 channels.
+// - Persistent CTAs walk their output tiles; a producer warpgroup runs
+//   ahead through the (tile, K step) items into a ring of shared-memory
+//   stages under mbarriers (full: one arrival per producer warp + the
+//   weight copy's bytes; empty: one arrival per consumer warp), so loads
+//   overlap the MMAs and the previous tile's epilogue. A stage holds one
+//   tap's 64 input channels of 64 pixels and BN output channels of weights.
+//   - int8 activations: cp.async 16 B with zero-fill (src-size 0) for
+//     pixels outside the image or the grid and channels past Cin: the
+//     implicit-GEMM gather with the conv's zero padding. Each thread keeps
+//     two items of copies in flight; its warp arrives for the oldest once
+//     the thread's own group for it has landed (cp.async.wait_group).
+//   - bf16 activations (a block's input, dec3's output): cp.async into a
+//     ring of raw bf16 tiles several items ahead, quantized once per tile
+//     by the thread that copied them (int8_conv.cuh's quantize1), stored
+//     into the stage, then fence.proxy.async before the arrival.
+//   - weights: one cp.async.bulk per stage from a copy packed on the host in
+//     the stage's core-matrix order (qenc.packed_weights).
+// - Epilogues stage the tile in shared memory, then store 16 bytes a thread
+//   along rows. They can store int8 for the next conv (quantize1 of the
+//   bf16 value with the consumer's reciprocal scale: the bytes the
+//   consumer's on-load quantize computed), so h1, h2 and dec4's output
+//   move 1 byte per channel and reach the next conv by plain async copies.
+// - K6 (tail_kernel, below): its two convs keep every nonzero 32 x 32
+//   weight block in shared memory and multiply 8 x 8-pixel output tiles
+//   against a 10 x 10-pixel halo staged once per tile, each tap a window of
+//   it; MMAs run only over the host's list of nonzero blocks. A zero block
+//   adds nothing to an int32 sum, so this is exact for any weights; on the
+//   s2d weights it does the 68 G MACs per batch the function needs instead
+//   of the dense form's 196 G. dec5's epilogue is the head: the staged
+//   bf16 relu activations go through head.cuh's margin in its order
+//   (margin32, four FMA accumulators), then the sigmoid and the exact
+//   digitize; dec5's activations never reach device memory.
+//
+// Where conv_kernel stands (PERF.md): the MMAs are not the limit; a K step
+// is bound by the pipeline's handshakes and by the bytes each stage pulls
+// from L2 (the weight tile re-read per 64-row tile, a 3x3 conv's input once
+// per tap), and the 1x1 convs by their epilogues' device-memory traffic.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "head.cuh"
+#include "int8_conv.cuh"
+
+namespace rs {
+namespace sm90 {
+
+// Epilogues beyond int8_conv.cuh's EPI_LINEAR / EPI_RESIDUAL_RELU (bf16 out).
+constexpr int EPI_RELU_Q8 = 3;  // relu, then int8 with the next conv's reciprocal scale
+constexpr int EPI_HEAD = 4;     // relu, then the blocked margin head to uint8 (Cout = 128)
+
+constexpr int kBM = 64;             // output pixels per tile: one consumer warpgroup, two CTAs to an SM
+constexpr int kBK = 64;             // int8 channels per stage
+constexpr int kCoreBytes = 128;     // one 8 x 16-byte core matrix
+constexpr int kLbo = kCoreBytes;    // next core matrix along K
+constexpr int kSbo = kCoreBytes * (kBK / 16);  // next 8-row group along M or N
+
+struct Params {
+  const void* x;           // (n, h, w, cin): bf16 (IN_BF16) or int8
+  const int8_t* wp;        // packed weights: (steps, cout_pad * 64) core-matrix slabs
+  int n_steps;             // K steps: taps * ceil(cin / 64)
+  const float* scale;      // (cout,) ws * s
+  const float* bias;       // (cout,) or nullptr
+  const __nv_bfloat16* residual;  // (n, h, w, cout) bf16 for EPI_RESIDUAL_RELU
+  void* y;                 // bf16 (linear, residual), int8 (EPI_RELU_Q8) or uint8 (EPI_HEAD) output
+  const float* wmb;        // EPI_HEAD: 32 margin weights and the margin bias
+  float inv_in;            // reciprocal scale of a bf16 input
+  float inv_out;           // EPI_RELU_Q8: reciprocal scale of the next conv's input
+  int n, h, w, cin, cout, cout_pad;
+  int k, pad;              // k x k taps, stride 1, `pad` on every side
+  int crop;                // EPI_HEAD: overlap crop o on each side of the grid
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait for the phase after `parity`. A wait of 2^35 cycles (over 15 s)
+// means a lost arrival: trap (a launch failure at the next synchronize)
+// rather than hang the card. The SM's cycle counter is cheap to read
+// (%globaltimer is not).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity)) {
+    if (clock64() - t0 > (1LL << 35)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// 16 bytes global -> shared; src_bytes = 0 writes zeros without reading.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+               "l"(src), "r"(bytes), "r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Wait until at most N of this thread's cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory matrix descriptor: K-major, no swizzle (layout type 0):
+// 8 x 16-byte core matrices whose rows lie 16 bytes apart, the next core
+// matrix along K `lbo` bytes on, the next 8 rows `sbo` bytes on.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo = kLbo, uint32_t sbo = kSbo) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// int8_conv.cuh's quantize1 of 8 bf16 (4 packed pairs) into 8 int8, in
+// fewer instructions: clip(rint(v * inv), -127, 127) as the clip of the
+// product, then one round-to-nearest-even conversion (the same values,
+// NaN included), bytes packed with byte_perm.
+__device__ __forceinline__ uint32_t quantize_pair(uint32_t bf16x2, float inv) {
+  const int lo = __float2int_rn(fminf(fmaxf(__fmul_rn(__uint_as_float(bf16x2 << 16), inv), -127.0f), 127.0f));
+  const int hi = __float2int_rn(fminf(fmaxf(__fmul_rn(__uint_as_float(bf16x2 & 0xffff0000u), inv), -127.0f), 127.0f));
+  return __byte_perm(lo, hi, 0x0040);  // bytes 0, 1: lo, hi
+}
+
+__device__ __forceinline__ uint2 quantize8(uint4 v, float inv) {
+  return make_uint2(__byte_perm(quantize_pair(v.x, inv), quantize_pair(v.y, inv), 0x5410),
+                    __byte_perm(quantize_pair(v.z, inv), quantize_pair(v.w, inv), 0x5410));
+}
+
+// Byte offset of (row, k) in a tile of 64-byte K rows in core-matrix order.
+__device__ __forceinline__ int tile_offset(int row, int k) {
+  return ((row >> 3) * (kBK / 16) + (k >> 4)) * kCoreBytes + (row & 7) * 16 + (k & 15);
+}
+
+// wgmma.mma_async m64nNk32, s8 x s8 -> s32, d += a * b, both operands from
+// shared memory. Accumulator d[4 j + e] of thread t of the warpgroup is row
+// 16 (t / 32) + (t % 32) / 4 + 8 (e / 2), column 8 j + 2 (t % 4) + e % 2.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(int* d, uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(int* d, uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(int* d, uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+inline int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int device = 0;
+    if (cudaGetDevice(&device) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) {
+      count = 132;
+    }
+  }
+  return count;
+}
+
+// The f32 value of int8_conv.cuh's `epilogue` before its bf16 rounding:
+// f32(acc) * scale (+ bias), two roundings, no FMA. store_tile rounds two
+// at a time to bf16 (RNE) and applies relu to the rounded pair (the same
+// bf16 values; a -0 may come out +0, which no consumer of the staged
+// tile tells apart).
+__device__ __forceinline__ float dequant(int acc, float scale, float bias, bool has_bias) {
+  const float v = __fmul_rn(__int2float_rn(acc), scale);
+  return has_bias ? __fadd_rn(v, bias) : v;
+}
+
+// Two bf16 pairs -> bf16(relu(a + b)) per lane, the f32 add rounded once.
+__device__ __forceinline__ uint32_t residual_relu2(uint32_t a, uint32_t b) {
+  const float lo = fmaxf(__fadd_rn(__uint_as_float(a << 16), __uint_as_float(b << 16)), 0.0f);
+  const float hi = fmaxf(__fadd_rn(__uint_as_float(a & 0xffff0000u), __uint_as_float(b & 0xffff0000u)), 0.0f);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// Bytes of the epilogue's staged tile: kBM rows of BN bf16, padded so the
+// stores from the accumulator layout do not conflict in shared-memory banks.
+template <int BN>
+__host__ __device__ constexpr int out_bytes() {
+  return kBM * (BN + 8) * 2;
+}
+
+// The epilogue of a kBM x BN output tile, run by a consumer warpgroup
+// (`tid` its thread 0-127, `bar` its named barrier): stage
+// bf16(acc * scale (+ b)) (relu'd where the epilogue has it) in `out_s`,
+// then finish 16 bytes a thread with row-contiguous global loads and
+// stores (EPI_HEAD: the margin head, two threads a pixel). `pixel(r)` is
+// tile row r's output pixel, -1 past the grid; acc is in wgmma's
+// accumulator layout for output channels n0...
+// head.cuh's digitize with the anchors read from a table: anchors[i] is
+// fl((i - 1) / 255) for i in [0, 258), the values digitize divides out.
+__device__ __forceinline__ unsigned char digitize_table(float prob, const float* anchors) {
+  const float kf = rintf(__fmul_rn(prob, 255.0f));
+  const int k = static_cast<int>(kf);
+  const int q = (k - 1) + (anchors[k] <= prob) + (anchors[k + 1] <= prob) + (anchors[k + 2] <= prob);
+  return static_cast<unsigned char>(q & 0xff);
+}
+
+// Fill the anchors of digitize_table (258 floats) with `threads` threads.
+__device__ __forceinline__ void fill_anchors(float* anchors, int tid, int threads) {
+  for (int i = tid; i < 258; i += threads) anchors[i] = __fdiv_rn(static_cast<float>(i - 1), 255.0f);
+}
+
+template <int BN, int EPI, typename PixelOf>
+__device__ __forceinline__ void store_tile(const Params& p, const int* acc, __nv_bfloat16* out_s, int n0, int tid,
+                                           int bar, PixelOf pixel, const float* anchors = nullptr) {
+  constexpr int kOutStride = BN + 8;
+  constexpr int kPre = EPI == EPI_LINEAR || EPI == EPI_RESIDUAL_RELU ? EPI_LINEAR : EPI_RELU;
+  const int lane = tid & 31;
+  const int row0 = (tid >> 5) * 16 + (lane >> 2);  // tile row of acc[4 j], +8 for acc[4 j + 2]
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    const int gcol = n0 + col;
+    const bool in = gcol < p.cout;
+    // Read-only loads (ld.global.nc), so they need not wait for the
+    // staging stores.
+    const float s0 = in ? __ldg(p.scale + gcol) : 0.0f;
+    const float s1 = in ? __ldg(p.scale + gcol + 1) : 0.0f;
+    const float b0 = in && p.bias != nullptr ? __ldg(p.bias + gcol) : 0.0f;
+    const float b1 = in && p.bias != nullptr ? __ldg(p.bias + gcol + 1) : 0.0f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      __nv_bfloat162 v = __floats2bfloat162_rn(dequant(acc[4 * j + 2 * half], s0, b0, p.bias != nullptr),
+                                               dequant(acc[4 * j + 2 * half + 1], s1, b1, p.bias != nullptr));
+      if (kPre == EPI_RELU) v = __hmax2(v, __float2bfloat162_rn(0.0f));
+      *reinterpret_cast<__nv_bfloat162*>(out_s + (row0 + 8 * half) * kOutStride + col) = v;
+    }
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(bar) : "memory");
+  if (EPI == EPI_HEAD) {
+    // Two threads per pixel, each taking two of its four 32-channel groups
+    // through the margin head (Cout = BN = 128), cropped by p.crop.
+    const int row = tid >> 1;
+    const int m = pixel(row);
+    if (m >= 0) {
+      const int hw = p.h * p.w;
+      const int img = m / hw;
+      const int rem = m - img * hw;
+      const int y = rem / p.w;
+      const int x = rem - y * p.w;
+      const int o = p.crop;
+      if (y >= o && y < p.h - o && x >= o && x < p.w - o) {
+        unsigned char* out = static_cast<unsigned char*>(p.y) +
+                             ((static_cast<size_t>(img) * (p.h - 2 * o) + (y - o)) * (p.w - 2 * o) + (x - o)) * 4;
+#pragma unroll
+        for (int gg = 0; gg < 2; ++gg) {
+          const int g = 2 * (tid & 1) + gg;
+          out[g] = digitize_table(sigmoid(margin32(out_s + row * kOutStride + 32 * g, p.wmb, 4)), anchors);
+        }
+      }
+    }
+  } else {
+    constexpr int kChunks = BN / 8;               // 16-byte chunks of a staged row
+    constexpr int kPasses = kBM * kChunks / 128;  // chunks per thread
+    uint4 v[kPasses], r[kPasses];
+    bool live[kPasses];
+    size_t off[kPasses];
+    // All loads first (the residual's may not be reordered after the stores).
+#pragma unroll
+    for (int i = 0; i < kPasses; ++i) {
+      const int q = tid + 128 * i;
+      const int row = q / kChunks;
+      const int col = n0 + 8 * (q % kChunks);
+      const int m = pixel(row);
+      live[i] = m >= 0 && col < p.cout;
+      off[i] = static_cast<size_t>(m) * p.cout + col;
+      v[i] = *reinterpret_cast<const uint4*>(out_s + row * kOutStride + 8 * (q % kChunks));
+      if (EPI == EPI_RESIDUAL_RELU && live[i]) r[i] = *reinterpret_cast<const uint4*>(p.residual + off[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < kPasses; ++i) {
+      if (!live[i]) continue;
+      if (EPI == EPI_RELU_Q8) {
+        *reinterpret_cast<uint2*>(static_cast<int8_t*>(p.y) + off[i]) = quantize8(v[i], p.inv_out);
+      } else if (EPI == EPI_RESIDUAL_RELU) {
+        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.y) + off[i]) =
+            make_uint4(residual_relu2(v[i].x, r[i].x), residual_relu2(v[i].y, r[i].y), residual_relu2(v[i].z, r[i].z),
+                       residual_relu2(v[i].w, r[i].w));
+      } else {
+        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.y) + off[i]) = v[i];
+      }
+    }
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(bar) : "memory");  // the staged rows are read: the next tile may stage
+}
+
+// Shared-memory plan of conv_kernel: kRing x (A tile kBM x 64, B tile
+// BN x 64), (IN_BF16) the producer's ring of kRawTiles raw bf16 A tiles
+// (kBM rows of 128 bytes), the staged output tile, then the full and empty
+// barriers. Sized so that two CTAs fit an SM.
+template <int BN, bool IN_BF16>
+struct Smem {
+  static constexpr int kRing = IN_BF16 ? 4 : 6;
+  static constexpr int kRawBytes = 32768;
+  static constexpr int kA = kBM * kBK;
+  static constexpr int kB = BN * kBK;
+  static constexpr int kStage = kA + kB;
+  static constexpr int kRawTile = kBM * kBK * 2;
+  static constexpr int kRawTiles = kRawBytes / kRawTile;
+  static constexpr int kRaw = kStage * kRing;
+  static constexpr int kOut = kRaw + (IN_BF16 ? kRawBytes : 0);
+  static constexpr int kBars = kOut + out_bytes<BN>();
+  static constexpr int kBytes = kBars + 2 * 8 * kRing;
+};
+
+// A dense stride-1 conv (K3). Persistent: CTA b computes output tiles b,
+// b + gridDim.x, ... (tile t is rows [kBM (t / tiles_n), +kBM) and channels
+// [BN (t % tiles_n), +BN), so the CTAs running side by side share their A
+// tiles through L2). Threads [0, 128): the consumer warpgroup, which
+// multiplies and runs the epilogue. Threads [128, 256): the producer
+// warpgroup, which runs through this CTA's (tile, K step) items without
+// waiting for epilogues, so the next tile's loads overlap this tile's
+// epilogue.
+template <int BN, bool IN_BF16, int EPI>
+__global__ void __launch_bounds__(256, 2) conv_kernel(const __grid_constant__ Params p) {
+  using S = Smem<BN, IN_BF16>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int tid = threadIdx.x;
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full0 = base + S::kBars;  // full[s] at full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * S::kRing;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < S::kRing; ++s) {
+      mbar_init(full0 + 8 * s, 4 + 1);  // one arrival per producer warp, one with the weight copy's bytes
+      mbar_init(empty0 + 8 * s, 4);     // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int m_total = p.n * p.h * p.w;  // launch checks it fits
+  const int hw = p.h * p.w;
+  const int tiles_n = (p.cout + BN - 1) / BN;
+  const int n_tiles = (m_total + kBM - 1) / kBM * tiles_n;
+  const int chunks = (p.cin + kBK - 1) / kBK;
+
+  if (tid >= 128) {
+    // ---- producer: item it = (this CTA's tile it / n_steps, K step it % n_steps) -> stage it % kRing ----
+    const int pt = tid - 128;
+    const int lane = pt & 31;
+    // int8 input: a thread keeps kLag items of copies in flight before its
+    // warp arrives for the oldest (the ring must hold kLag + 2 items).
+    constexpr int kLag = 2;
+    static_assert(S::kRing >= kLag + 2, "the ring is too short for the arrival lag");
+    constexpr int kPieces = 4 * (IN_BF16 ? 2 : 1);  // 16-byte pieces per 64-channel row
+    constexpr int kRowsPerPass = 128 / kPieces;
+    constexpr int kItems = kBM / kRowsPerPass;
+    const int piece = pt % kPieces;
+    const int n_items = (static_cast<int>(blockIdx.x) < n_tiles
+                             ? (n_tiles - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x) + 1
+                             : 0) * p.n_steps;
+    // The A copies walk the items in order, one step ahead of (int8) or
+    // kRawTiles ahead of (bf16) the weight copies: each keeps its own
+    // cursor, and the A cursor the pixel coordinates of its tile's rows.
+    int a_tile = blockIdx.x, a_ks = 0;
+    int img[kItems], oh[kItems], ow[kItems];
+    auto locate = [&]() {
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        const int m = a_tile / tiles_n * kBM + pt / kPieces + kRowsPerPass * i;
+        img[i] = m < m_total ? m / hw : -1;
+        const int rem = m - img[i] * hw;
+        oh[i] = rem / p.w;
+        ow[i] = rem - oh[i] * p.w;
+      }
+    };
+    locate();
+    // This thread's 16-byte copies of the A cursor's item: into a raw bf16
+    // tile at `dst` (row r at 128 r), or into an int8 stage (core-matrix
+    // order); then the cursor moves on.
+    auto copy_a = [&](uint32_t dst) {
+      const int tap = a_ks / chunks;
+      const int c = (a_ks - tap * chunks) * kBK + piece * (16 / (IN_BF16 ? 2 : 1));
+      const int dr = tap / p.k - p.pad;
+      const int dc = tap % p.k - p.pad;
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        const int row = pt / kPieces + kRowsPerPass * i;
+        const int hi = oh[i] + dr;
+        const int wi = ow[i] + dc;
+        const bool valid = img[i] >= 0 && c < p.cin && hi >= 0 && hi < p.h && wi >= 0 && wi < p.w;
+        const size_t off = valid ? (((static_cast<size_t>(img[i]) * p.h + hi) * p.w + wi) * p.cin + c) * (IN_BF16 ? 2 : 1) : 0;
+        const uint32_t at = IN_BF16 ? dst + row * (2 * kBK) + piece * 16 : dst + tile_offset(row, piece * 16);
+        cp_async16(at, static_cast<const uint8_t*>(p.x) + off, valid ? 16 : 0);
+      }
+      if (++a_ks == p.n_steps) {
+        a_ks = 0;
+        a_tile += gridDim.x;
+        if (a_tile < n_tiles) locate();
+      }
+    };
+    // The weight tile of the B cursor's item into stage s, counted on full[s].
+    int b_tile = blockIdx.x, b_ks = 0;
+    auto copy_b = [&](int s) {
+      if (pt == 0) {
+        mbar_arrive_expect_tx(full0 + 8 * s, S::kB);
+        bulk_copy(base + s * S::kStage + S::kA,
+                  p.wp + (static_cast<size_t>(b_ks) * p.cout_pad + b_tile % tiles_n * BN) * kBK, S::kB, full0 + 8 * s);
+      }
+      if (++b_ks == p.n_steps) {
+        b_ks = 0;
+        b_tile += gridDim.x;
+      }
+    };
+    const uint32_t raw0 = base + S::kRaw;
+    if (IN_BF16) {
+      // bf16 input: cp.async into a ring of raw tiles kRawTiles items
+      // ahead; each thread quantizes the 16-byte pieces it copied itself
+      // (no barrier), stores the int8 into the stage, then fences the
+      // generic-proxy stores for wgmma before it arrives.
+#pragma unroll
+      for (int r = 0; r < S::kRawTiles; ++r) {
+        if (r < n_items) copy_a(raw0 + r * S::kRawTile);
+        cp_async_commit();
+      }
+    }
+    for (int it = 0; it < n_items; ++it) {
+      const int s = it % S::kRing;
+      if (it >= S::kRing) mbar_wait(empty0 + 8 * s, ((it / S::kRing) - 1) & 1);
+      copy_b(s);
+      if (IN_BF16) {
+        cp_async_wait_group<S::kRawTiles - 1>();
+        const int slot = it % S::kRawTiles;
+#pragma unroll
+        for (int i = 0; i < kItems; ++i) {
+          const int row = pt / kPieces + kRowsPerPass * i;
+          const uint4 v = *reinterpret_cast<const uint4*>(smem + S::kRaw + slot * S::kRawTile + row * (2 * kBK) + piece * 16);
+          *reinterpret_cast<uint2*>(smem + s * S::kStage + tile_offset(row, piece * 8)) = quantize8(v, p.inv_in);
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(full0 + 8 * s);
+        if (it + S::kRawTiles < n_items) copy_a(raw0 + slot * S::kRawTile);
+        cp_async_commit();
+      } else {
+        // int8 input: cp.async straight into the stage; the warp arrives
+        // for item it - kLag once its own copies of that item have landed.
+        copy_a(base + s * S::kStage);
+        cp_async_commit();
+        if (it >= kLag) {
+          cp_async_wait_group<kLag>();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(full0 + 8 * ((it - kLag) % S::kRing));
+        }
+      }
+    }
+    if (!IN_BF16) {
+      cp_async_wait_group<0>();
+      __syncwarp();
+      for (int it = n_items > kLag ? n_items - kLag : 0; it < n_items; ++it) {
+        if (lane == 0) mbar_arrive(full0 + 8 * (it % S::kRing));
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  // ---- consumer warpgroup ----
+  const int lane = tid & 31;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int m0 = tile / tiles_n * kBM;
+    const int n0 = (tile % tiles_n) * BN;
+    int acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    for (int ks = 0; ks < p.n_steps; ++ks) {
+      const int s = it % S::kRing;
+      mbar_wait(full0 + 8 * s, (it / S::kRing) & 1);
+      fence_proxy_async();  // the producer's cp.async bytes, for the async proxy
+      const uint32_t a_addr = base + s * S::kStage;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 32; ++kk) {
+        Wgmma<BN>::mma(acc, desc(a_addr + kk * 2 * kCoreBytes), desc(a_addr + S::kA + kk * 2 * kCoreBytes));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (ks > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % S::kRing));  // the previous stage is read
+      ++it;
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % S::kRing));
+    store_tile<BN, EPI>(p, acc, reinterpret_cast<__nv_bfloat16*>(smem + S::kOut), n0, tid, 1,
+                        [&](int r) { return m0 + r < m_total ? m0 + r : -1; });
+  }
+}
+
+// Launch one dense conv, as many CTAs as fit on the card at once (at most
+// one per tile); returns the CUDA error code (0 on success).
+template <int BN, bool IN_BF16, int EPI>
+int launch(const Params& p, cudaStream_t stream) {
+  using S = Smem<BN, IN_BF16>;
+  const long long m_total = static_cast<long long>(p.n) * p.h * p.w;
+  if (m_total + kBM >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_tiles = (m_total + kBM - 1) / kBM * ((p.cout + BN - 1) / BN);
+  if (n_tiles == 0) return 0;
+  auto kernel = conv_kernel<BN, IN_BF16, EPI>;
+  static long long resident = 0;  // CTAs of this instantiation the card holds at once, found at first launch
+  if (resident == 0) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+    int per_sm = 0;
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 256, S::kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    resident = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sm_count();
+  }
+  kernel<<<static_cast<unsigned>(n_tiles < resident ? n_tiles : resident), 256, S::kBytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A dense conv: BN = 64 up to 64 output channels, else 128.
+template <bool IN_BF16, int EPI>
+int launch_dense(const Params& p, cudaStream_t stream) {
+  return p.cout <= 64 ? launch<64, IN_BF16, EPI>(p, stream) : launch<128, IN_BF16, EPI>(p, stream);
+}
+
+// A stride-1 k x k SAME conv over NHWC x; `wp` packed by
+// qenc.packed_weights as (k * k * ceil(cin / 64), cout_pad * 64).
+inline Params conv_params(const void* x, const void* wp, const float* scale, const float* bias, void* y, float inv_in,
+                          float inv_out, int n, int h, int w, int cin, int cout, int k) {
+  Params p;
+  p.x = x;
+  p.wp = static_cast<const int8_t*>(wp);
+  p.n_steps = k * k * ((cin + kBK - 1) / kBK);
+  p.scale = scale;
+  p.bias = bias;
+  p.residual = nullptr;
+  p.y = y;
+  p.wmb = nullptr;
+  p.inv_in = inv_in;
+  p.inv_out = inv_out;
+  p.n = n;
+  p.h = h;
+  p.w = w;
+  p.cin = cin;
+  p.cout = cout;
+  p.cout_pad = (cout + 127) / 128 * 128;
+  p.k = k;
+  p.pad = k / 2;
+  p.crop = 0;
+  return p;
+}
+
+// ---- K6's convs: dec4 and dec5 over the listed nonzero weight blocks ----
+//
+// A 3x3 SAME conv of 128 -> 128 channels whose int8 weights are cut into
+// (tap, 32-channel input block kb, 32-wide output slice ns) blocks of
+// 32 x 32; the host lists the blocks that are not all zero
+// (qtail.block_operands) and packs them in wgmma's core-matrix order. A
+// CTA keeps all listed blocks in shared memory (one bulk copy per CTA:
+// 64 KB for dec4's s2d weights, 36 KB for dec5's), and computes 8 x 8-pixel
+// output tiles: the producer stages each tile's 10 x 10-pixel halo once
+// (int8; a bf16 input is quantized on the way) in a layout whose rows are
+// single pixels 16 bytes apart, so every tap is a window of it at an
+// offset and every listed block is one m64n32k32 MMA on that window. The
+// MMAs of a tile are one straight run of NB per output slice (NB a
+// template parameter: 9, 16 or 36), so ptxas keeps them asynchronous; a
+// slice with fewer listed blocks is padded with an all-zero block, which
+// only the odd weights whose slices differ in count ever need.
+constexpr int kMaxBlocks = 144;       // 9 taps x 4 input blocks x 4 output slices (+1 zero block)
+constexpr int kBlockBytes = 32 * 32;  // one packed weight block
+constexpr int kHalo = 10;             // halo side of an 8 x 8 output tile
+constexpr int kPlane = kHalo * kHalo * 16;  // one 16-channel plane of an int8 halo: its core matrices' K stride
+constexpr int kHaloBytes = 8 * kPlane;      // 128 channels
+__host__ __device__ constexpr int tail_ring(bool in_bf16) { return in_bf16 ? 3 : 4; }  // int8 halo slots
+constexpr int kSmemMax = 232448;            // shared memory a block may use
+
+struct TailParams {
+  Params conv;           // x, scale, y, inv_in, inv_out, wmb, crop, n, h, w (cin = cout = 128, 3x3)
+  const int8_t* blocks;  // the listed blocks, packed, then one zero block: nb x kBlockBytes
+  int nb;                // packed blocks
+  int per_slice;         // MMAs per output slice (the launched kernel's NB)
+  int raw_tiles;         // bf16 input: raw halo tiles in flight (1-3, as shared memory allows)
+  int mma[kMaxBlocks];   // the MMA b of slice ns at ns * per_slice + b: tap | kb << 4 | packed block << 8
+};
+
+// Shared-memory plan of tail_kernel: the blocks, `ring` int8 halos,
+// (bf16 input) raw_tiles raw halos, a staged output tile per consumer
+// warpgroup (wgs of them), the barriers.
+struct TailSmem {
+  int halos, raw, out, anchors, bars, bytes;
+  __host__ __device__ TailSmem(int nb, int ring, int raw_tiles, int wgs) {
+    halos = nb * kBlockBytes;
+    raw = halos + ring * kHaloBytes;
+    out = raw + raw_tiles * 2 * kHaloBytes;
+    anchors = out + wgs * out_bytes<128>();
+    bars = anchors + 258 * 4 + 8;
+    bytes = bars + 8 * (2 * ring + 1);
+  }
+};
+
+// Threads [0, 128 WGS): WGS consumer warpgroups, taking this CTA's tiles
+// in turn, so one's MMAs overlap another's epilogue (WGS = 1 only where
+// shared memory holds no second staged tile). Threads [128 WGS,
+// 128 WGS + 128): the producer warpgroup.
+template <bool IN_BF16, int EPI, int NB, int WGS>
+__global__ void __launch_bounds__(384, 1) tail_kernel(const __grid_constant__ TailParams tp) {
+  const Params& p = tp.conv;
+  extern __shared__ __align__(128) uint8_t smem[];
+  constexpr int kRing = tail_ring(IN_BF16);
+  const TailSmem L(tp.nb, kRing, IN_BF16 ? tp.raw_tiles : 0, WGS);
+  const int tid = threadIdx.x;
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full0 = base + L.bars;  // full[s] at full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * kRing;
+  const uint32_t wbar = empty0 + 8 * kRing;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(full0 + 8 * s, 4);   // one arrival per producer warp
+      mbar_init(empty0 + 8 * s, 4);  // one arrival per consumer warp
+    }
+    mbar_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  float* anchors = reinterpret_cast<float*>(smem + L.anchors);
+  if (EPI == EPI_HEAD) fill_anchors(anchors, tid, blockDim.x);
+  __syncthreads();
+
+  const int tiles_x = (p.w + 7) / 8;
+  const int tiles_img = (p.h + 7) / 8 * tiles_x;
+  const int n_tiles = p.n * tiles_img;
+
+  if (tid >= 128 * WGS) {
+    // ---- producer: this CTA's tiles in order, halo of tile it -> slot it % kRing ----
+    const int pt = tid - 128 * WGS;
+    const int lane = pt & 31;
+    if (pt == 0) {
+      const uint32_t bytes = tp.nb * kBlockBytes;
+      mbar_arrive_expect_tx(wbar, bytes);
+      for (uint32_t off = 0; off < bytes; off += 16384) {
+        bulk_copy(base + off, tp.blocks + off, bytes - off < 16384 ? bytes - off : 16384, wbar);
+      }
+    }
+    const int my_tiles = static_cast<int>(blockIdx.x) < n_tiles
+                             ? (n_tiles - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x) + 1
+                             : 0;
+    // This thread's 16-byte pieces of local tile `local`'s halo, zero
+    // outside the grid: bf16 into a raw halo at `dst` (piece q at 16 q),
+    // int8 into a halo slot (channel plane c at c * kPlane, pixel hp at 16 hp).
+    constexpr int kPieces = IN_BF16 ? 16 : 8;  // per halo pixel of 128 channels
+    auto copy_halo = [&](int local, uint32_t dst) {
+      const int t = static_cast<int>(blockIdx.x) + local * static_cast<int>(gridDim.x);
+      const int img = t / tiles_img;
+      const int rem = t - img * tiles_img;
+      const int y0 = rem / tiles_x * 8 - 1;
+      const int x0 = rem % tiles_x * 8 - 1;
+#pragma unroll
+      for (int i = 0; i < (kHalo * kHalo * kPieces + 127) / 128; ++i) {
+        const int q = pt + 128 * i;
+        if (q >= kHalo * kHalo * kPieces) break;
+        const int hp = q / kPieces;
+        const int c = q % kPieces;
+        const int y = y0 + hp / kHalo;
+        const int x = x0 + hp % kHalo;
+        const bool valid = y >= 0 && y < p.h && x >= 0 && x < p.w;
+        const size_t off = valid ? ((static_cast<size_t>(img) * p.h + y) * p.w + x) * (128 * (IN_BF16 ? 2 : 1)) + c * 16 : 0;
+        cp_async16(IN_BF16 ? dst + q * 16 : dst + c * kPlane + hp * 16, static_cast<const uint8_t*>(p.x) + off,
+                   valid ? 16 : 0);
+      }
+    };
+    const uint32_t raw0 = base + L.raw;
+    if (IN_BF16) {
+      for (int r = 0; r < tp.raw_tiles; ++r) {
+        if (r < my_tiles) copy_halo(r, raw0 + r * 2 * kHaloBytes);
+        cp_async_commit();
+      }
+    }
+    for (int it = 0; it < my_tiles; ++it) {
+      const int s = it % kRing;
+      if (it >= kRing) mbar_wait(empty0 + 8 * s, ((it / kRing) - 1) & 1);
+      if (IN_BF16) {
+        // Each thread quantizes the pieces it copied itself, then fences
+        // its generic-proxy stores for wgmma before its warp arrives.
+        if (tp.raw_tiles == 3) {
+          cp_async_wait_group<2>();
+        } else if (tp.raw_tiles == 2) {
+          cp_async_wait_group<1>();
+        } else {
+          cp_async_wait_group<0>();
+        }
+        const int slot = it % tp.raw_tiles;
+        for (int q = pt; q < kHalo * kHalo * kPieces; q += 128) {
+          const uint4 v = *reinterpret_cast<const uint4*>(smem + L.raw + slot * 2 * kHaloBytes + q * 16);
+          *reinterpret_cast<uint2*>(smem + L.halos + s * kHaloBytes + (q % 16 >> 1) * kPlane + q / 16 * 16 +
+                                    (q & 1) * 8) = quantize8(v, p.inv_in);
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(full0 + 8 * s);
+        if (it + tp.raw_tiles < my_tiles) copy_halo(it + tp.raw_tiles, raw0 + slot * 2 * kHaloBytes);
+        cp_async_commit();
+      } else {
+        // The warp arrives for tile it - 1 once its own copies of it landed.
+        copy_halo(it, base + L.halos + s * kHaloBytes);
+        cp_async_commit();
+        if (it >= 1) {
+          cp_async_wait_group<1>();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(full0 + 8 * ((it - 1) % kRing));
+        }
+      }
+    }
+    if (!IN_BF16 && my_tiles > 0) {
+      cp_async_wait_group<0>();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(full0 + 8 * ((my_tiles - 1) % kRing));
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  // ---- consumer warpgroup wg: local tiles wg, wg + WGS, ...; a tile's listed blocks as MMAs, then the epilogue ----
+  const int wg = tid >> 7;
+  const int lane = tid & 31;
+  mbar_wait(wbar, 0);
+  for (int it = wg, t = blockIdx.x + wg * gridDim.x; t < n_tiles; it += WGS, t += WGS * gridDim.x) {
+    const int s = it % kRing;
+    mbar_wait(full0 + 8 * s, (it / kRing) & 1);
+    fence_proxy_async();  // the producer's cp.async bytes, for the async proxy
+    const uint32_t halo = base + L.halos + s * kHaloBytes;
+    int acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0;
+    wgmma_fence();
+    // The slices take turns, so consecutive MMAs add into different
+    // accumulators and pipeline.
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+#pragma unroll
+      for (int ns = 0; ns < 4; ++ns) {
+        // Tap (r, c) reads the halo window at pixel (r, c): output row g of
+        // the tile is halo row g + r, 10 pixels (160 bytes) on per row.
+        const int e = tp.mma[ns * NB + b];
+        const int tap = e & 15;
+        const uint32_t a = halo + ((tap / 3) * kHalo + tap % 3) * 16 + (e >> 4 & 15) * 2 * kPlane;
+        Wgmma<32>::mma(acc + 16 * ns, desc(a, kPlane, kHalo * 16), desc(base + (e >> 8) * kBlockBytes, 128, 256));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+    const int img = t / tiles_img;
+    const int rem = t - img * tiles_img;
+    const int ty = rem / tiles_x * 8;
+    const int tx = rem % tiles_x * 8;
+    store_tile<128, EPI>(p, acc, reinterpret_cast<__nv_bfloat16*>(smem + L.out + wg * out_bytes<128>()), 0, tid & 127,
+                         1 + wg, [&](int r) {
+      const int y = ty + (r >> 3);
+      const int x = tx + (r & 7);
+      return y < p.h && x < p.w ? (img * p.h + y) * p.w + x : -1;
+    }, anchors);
+  }
+}
+
+// Launch K6's dec4 (IN_BF16, EPI_RELU_Q8) or dec5 (int8, EPI_HEAD) with
+// tp.per_slice MMAs per slice (9, 16 or 36), one CTA per SM; shared memory
+// decides two consumer warpgroups or one (only dense weights, 36 blocks a
+// slice, need one) and, for bf16 input, how many raw halos are in flight
+// (up to 3).
+template <bool IN_BF16, int EPI>
+int launch_tail(TailParams tp, cudaStream_t stream) {
+  const Params& p = tp.conv;
+  if (tp.nb < 1 || tp.nb > kMaxBlocks + 1 || p.cin != 128 || p.cout != 128 ||
+      static_cast<long long>(p.n) * p.h * p.w >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int kRing = tail_ring(IN_BF16);
+  const int wgs = TailSmem(tp.nb, kRing, IN_BF16 ? 1 : 0, 2).bytes <= kSmemMax ? 2 : 1;
+  tp.raw_tiles = 0;
+  while (IN_BF16 && tp.raw_tiles < 3 && TailSmem(tp.nb, kRing, tp.raw_tiles + 1, wgs).bytes <= kSmemMax) ++tp.raw_tiles;
+  const int bytes = TailSmem(tp.nb, kRing, tp.raw_tiles, wgs).bytes;
+  if (bytes > kSmemMax || (IN_BF16 && tp.raw_tiles == 0)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_tiles = static_cast<long long>(p.n) * ((p.h + 7) / 8) * ((p.w + 7) / 8);
+  if (n_tiles == 0) return 0;
+  void (*kernel)(TailParams) = nullptr;
+  if (wgs == 2) {
+    kernel = tp.per_slice == 9 ? tail_kernel<IN_BF16, EPI, 9, 2>
+             : tp.per_slice == 16 ? tail_kernel<IN_BF16, EPI, 16, 2>
+             : tp.per_slice == 36 ? tail_kernel<IN_BF16, EPI, 36, 2> : nullptr;
+  } else if (tp.per_slice == 36) {
+    kernel = tail_kernel<IN_BF16, EPI, 36, 1>;
+  }
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(n_tiles < sm_count() ? n_tiles : sm_count()), 128 * (wgs + 1), bytes, stream>>>(tp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace sm90
+}  // namespace rs

@@ -1,8 +1,9 @@
-// int8 ResNet-50 bottleneck block on Hopper (kernels K3 and K4).
+// int8 ResNet-50 bottleneck block on Hopper (kernel K4; any stride).
 //
-// Replaces the Pallas kernels robosat_tpu/models/qenc.py:bottleneck_block
-// (_block_kernel, stride 1) and :bottleneck_block_s2 (_block_s2_kernel,
-// stride 2 with torch-style (1, 1) padding and a stride-2 projection).
+// Replaces the Pallas kernel robosat_tpu/models/qenc.py:bottleneck_block_s2
+// (_block_s2_kernel, stride 2 with torch-style (1, 1) padding and a
+// stride-2 projection). The stride-1 block (K3, qenc.py:bottleneck_block)
+// runs qenc_s1.cu on the pipelined wgmma conv instead.
 //
 // What bounds it on the H100: at the main-path shapes (batch 8, 576 px) a
 // block is 11.5-12.2 G int8 MACs (stride 1) or 19.7 G (stride 2). A fused block

@@ -1,0 +1,53 @@
+// int8 ResNet-50 bottleneck block, stride 1, on Hopper (kernel K3).
+//
+// Replaces the Pallas kernel robosat_tpu/models/qenc.py:203
+// (bottleneck_block, _block_kernel). The stride-2 block (K4) stays on
+// int8_conv.cuh in qenc.cu.
+//
+// What bounds it on the H100: at the main-path shapes (batch 8, 576 px) a
+// block is 11.5-12.2 G int8 MACs against its bf16 input and output
+// (~140 ops per byte in layer1, ~1100 in layer4, the ridge at ~590): the
+// blocks of layers 1-2 are bandwidth bound, those of layer 4 compute bound.
+// The design runs the block as 3-4 launches of int8_conv_sm90.cuh's
+// pipelined wgmma conv and passes h1 and h2 through device memory as int8
+// (the bytes conv2's and conv3's on-load quantize computed before), so
+// they move one byte per channel and load with plain async copies; only
+// the projection `sc` stays bf16. Fusing conv3 and the projection into one
+// launch (two accumulators) is not done: at BN = 128 two s32 accumulator
+// sets take 128 of a consumer thread's registers, and the 64-row tiles run
+// two CTAs to an SM within 128.
+//
+//   h1  = q2(relu(bf16(conv1_1x1(q1(x)))))              -> h1 int8 (N, H, W, Cmid)
+//   h2  = q3(relu(bf16(conv2_3x3(h1))))                  -> h2 int8 (N, H, W, Cmid)
+//   sc  = bf16(down_1x1(qd(x)))  or  x                   -> sc bf16 (N, H, W, Cout)
+//   out = bf16(relu(bf16(conv3_1x1(h2)) + sc))           -> out
+//
+// qk(v) = clip(rint(v * invk), -127, 127): the quantize of int8_conv.cuh.
+
+#include "int8_conv_sm90.cuh"
+
+extern "C" int rs_bottleneck_block_s1(const void* x, const void* w1, const float* e1, const float* b1, const void* w2,
+                                      const float* e2, const float* b2, const void* w3, const float* e3,
+                                      const float* b3, const void* wd, const float* ed, const float* bd, float inv1,
+                                      float inv2, float inv3, float invd, void* h1, void* h2, void* sc, void* out,
+                                      int n, int h, int w, int cin, int cmid, int cout, void* stream_ptr) {
+  namespace s9 = rs::sm90;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  int rc;
+  s9::Params p = s9::conv_params(x, w1, e1, b1, h1, inv1, inv2, n, h, w, cin, cmid, 1);
+  if ((rc = s9::launch_dense<true, s9::EPI_RELU_Q8>(p, stream)) != 0) return rc;
+
+  p = s9::conv_params(h1, w2, e2, b2, h2, 0.0f, inv3, n, h, w, cmid, cmid, 3);
+  if ((rc = s9::launch_dense<false, s9::EPI_RELU_Q8>(p, stream)) != 0) return rc;
+
+  const void* shortcut = x;
+  if (wd != nullptr) {
+    p = s9::conv_params(x, wd, ed, bd, sc, invd, 0.0f, n, h, w, cin, cout, 1);
+    if ((rc = s9::launch_dense<true, rs::EPI_LINEAR>(p, stream)) != 0) return rc;
+    shortcut = sc;
+  }
+
+  p = s9::conv_params(h2, w3, e3, b3, out, 0.0f, 0.0f, n, h, w, cmid, cout, 1);
+  p.residual = static_cast<const __nv_bfloat16*>(shortcut);
+  return s9::launch_dense<false, rs::EPI_RESIDUAL_RELU>(p, stream);
+}

@@ -4,28 +4,37 @@
 // from dec4 and dec5, two 128 -> 128 int8 3x3 SAME convs on the 2x2
 // space-to-depth grid (no bias; epilogue relu(bf16(acc * (ws * s)))):
 //
-// - K6 fused_tail (_tail_kernel): the two convs, then the blocked margin
-//   head of head.cuh (G = 4, crop on the blocked grid). The 4 output bytes
-//   per pixel are written directly: the TPU kernel's 128-lane padding was a
-//   Mosaic workaround.
+// - K6 fused_tail (_tail_kernel, qtail.py:426): the two convs, then the
+//   blocked margin head of head.cuh (G = 4, crop on the blocked grid), in
+//   two launches of int8_conv_sm90.cuh's tail_kernel (wgmma over halo
+//   tiles of 8 x 8 pixels). dec4 stores its output as int8 (quantized with
+//   dec5's scale, the bytes dec5's on-load quantize computed before);
+//   dec5's epilogue is the head, so its activations never reach device
+//   memory and the 4 output bytes per pixel are written directly (the TPU
+//   kernel's 128-lane padding was a Mosaic workaround). Both convs issue
+//   MMAs only over the host's list of nonzero 32 x 32 weight blocks
+//   (qtail.block_operands), which each CTA holds in shared memory: on the
+//   s2d weights dec4 keeps 4 of 9 taps per output parity and dec5 9 of 36
+//   (tap, input parity) blocks, 68 G MACs per batch of 8 x 576 px instead
+//   of 196 G.
 // - K7 fused_tail_features (_tail_features_kernel): the two convs, writing
-//   dec5's bf16 activations for the head (K1).
+//   dec5's bf16 activations for the head (K1), on int8_conv.cuh.
 // - K9 fused_tail_features_sep (_tail_features_sep_kernel): the two convs
 //   on parity planes, (N, Hc, Wc, 512) in and out, the space_to_depth2
-//   layout of the (N, 2Hc, 2Wc, 128) grid. Both convs run on that fine grid
-//   with loads and stores addressing the planes (int8_conv.cuh's LAYOUT_PLANES),
-//   so each conv zero-pads its own input: that is the fine grid's SAME
-//   padding, which the TPU kernel rebuilt from strip halos and re-zeroed rows.
+//   layout of the (N, 2Hc, 2Wc, 128) grid, on int8_conv.cuh. Both convs run
+//   on that fine grid with loads and stores addressing the planes
+//   (LAYOUT_PLANES), so each conv zero-pads its own input: that is the fine
+//   grid's SAME padding, which the TPU kernel rebuilt from strip halos and
+//   re-zeroed rows.
 //
-// What bounds it on the H100: each conv is 98 G int8 MACs at batch 8, 576 px
-// (288^2 x 9 x 128 x 128 x 8) against 170 MB of bf16 in and out, ~1150 ops
-// per byte, above the ridge: compute bound. The head reads 170 MB for 2.1 M
-// outputs and is bandwidth bound. This first design runs one launch per
-// conv (and one for the head) and passes dec4's and dec5's bf16 activations
-// through device memory.
+// What bounds it on the H100: K6 needs 68 G int8 MACs (136 G ops, 0.069 ms
+// at 1979 TOP/s) and moves ~255 MB (bf16 in, int8 y4 out and in, uint8
+// out; 0.076 ms at 3.35 TB/s): balanced near the ridge. K7 and K9 write
+// dec5's 170 MB of bf16 and run the dense s2d form on the old routine.
 
 #include "head.cuh"
 #include "int8_conv.cuh"
+#include "int8_conv_sm90.cuh"
 
 namespace {
 
@@ -43,14 +52,42 @@ int tail_convs(const void* x, const void* w4, const float* e4, const void* w5, c
 
 }  // namespace
 
-extern "C" int rs_fused_tail(const void* x, const void* w4, const float* e4, const void* w5, const float* e5,
-                             const float* wmb, float inv4, float inv5, void* y4, void* y5, void* out, int n,
-                             int h, int w, int o, void* stream_ptr) {
+namespace {
+
+// K6's parameters of one conv: `table` (host) holds the MMAs per output
+// slice, then that many MMA entries per slice (qtail.block_operands).
+int tail_params(rs::sm90::TailParams& tp, const void* x, const void* blocks, const int* table, int nb,
+                const float* scale, void* y, float inv_in, float inv_out, int n, int h, int w) {
+  const int per_slice = table[0];
+  if (nb < 1 || nb > rs::sm90::kMaxBlocks + 1 || per_slice < 1 || 4 * per_slice > rs::sm90::kMaxBlocks) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  tp.conv = rs::sm90::conv_params(x, nullptr, scale, nullptr, y, inv_in, inv_out, n, h, w, 128, 128, 3);
+  tp.blocks = static_cast<const int8_t*>(blocks);
+  tp.nb = nb;
+  tp.per_slice = per_slice;
+  for (int i = 0; i < 4 * per_slice; ++i) tp.mma[i] = table[1 + i];
+  return 0;
+}
+
+}  // namespace
+
+// b4 / b5: the listed weight blocks of dec4 / dec5 and a zero block
+// (device, packed), t4 / t5 their MMA tables (host), n4 / n5 packed
+// blocks; y4: (n, h, w, 128) int8 scratch.
+extern "C" int rs_fused_tail(const void* x, const void* b4, const int* t4, int n4, const float* e4, const void* b5,
+                             const int* t5, int n5, const float* e5, const float* wmb, float inv4, float inv5,
+                             void* y4, void* out, int n, int h, int w, int o, void* stream_ptr) {
+  namespace s9 = rs::sm90;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  int rc = tail_convs(x, w4, e4, w5, e5, inv4, inv5, y4, y5, n, h, w, rs::LAYOUT_NHWC, stream);
+  s9::TailParams tp;
+  int rc = tail_params(tp, x, b4, t4, n4, e4, y4, inv4, inv5, n, h, w);
+  if (rc == 0) rc = s9::launch_tail<true, s9::EPI_RELU_Q8>(tp, stream);
   if (rc != 0) return rc;
-  return rs::launch_margin_head(static_cast<const __nv_bfloat16*>(y5), wmb, static_cast<unsigned char*>(out), n, h,
-                                w, 4, o, stream);
+  if ((rc = tail_params(tp, y4, b5, t5, n5, e5, out, 0.0f, 0.0f, n, h, w)) != 0) return rc;
+  tp.conv.wmb = wmb;
+  tp.conv.crop = o;
+  return s9::launch_tail<false, s9::EPI_HEAD>(tp, stream);
 }
 
 extern "C" int rs_fused_tail_features(const void* x, const void* w4, const float* e4, const void* w5, const float* e5,

@@ -29,11 +29,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, (w, e, b) x 4 [conv1, conv2, conv3, down], inv x 4, h1, h2, sc, out, n, h, w, cin, cmid, cout, stride, stream
     "rs_bottleneck_block": [_P] * 13 + [_F] * 4 + [_P] * 4 + [_I] * 7 + [_P],
+    # the same without stride (1): int8 h1 and h2
+    "rs_bottleneck_block_s1": [_P] * 13 + [_F] * 4 + [_P] * 4 + [_I] * 6 + [_P],
     # x, w, e, b, inv, out, n, h, w, cin, cout, stream
     "rs_parity_up_conv": [_P, _P, _P, _P, _F, _P] + [_I] * 5 + [_P],
     "rs_parity_up_conv_separated": [_P, _P, _P, _P, _F, _P] + [_I] * 5 + [_P],
-    # x, w4, e4, w5, e5, wmb, inv4, inv5, y4, y5, out, n, h, w, o, stream
-    "rs_fused_tail": [_P] * 6 + [_F] * 2 + [_P] * 3 + [_I] * 4 + [_P],
+    # x, (blocks, table, n_blocks, e) x 2 [dec4, dec5], wmb, inv4, inv5, y4, out, n, h, w, o, stream
+    "rs_fused_tail": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _F, _F, _P, _P] + [_I] * 4 + [_P],
     # x, w4, e4, w5, e5, inv4, inv5, y4, y5, n, h, w (planes: hc, wc), stream
     "rs_fused_tail_features": [_P] * 5 + [_F] * 2 + [_P] * 2 + [_I] * 3 + [_P],
     "rs_fused_tail_features_sep": [_P] * 5 + [_F] * 2 + [_P] * 2 + [_I] * 3 + [_P],

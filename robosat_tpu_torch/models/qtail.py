@@ -17,14 +17,18 @@ Counterpart of robosat_tpu/models/qtail.py. dec3's activations
   can move a probability across a 1/255 bin edge (a counted +-1 flip).
 
 On a CUDA tensor each launches csrc/qtail.cu; on a CPU tensor it runs its
-`_plain` version.
+`_plain` version. K6's convs (csrc/int8_conv_sm90.cuh's tail_kernel) issue
+MMAs only over the 32 x 32 weight blocks `nonzero_blocks` lists (every
+block of dense weights; on the s2d weights of the model dec4's 4 of 9 taps
+and dec5's 9 of 36 blocks per output parity), packed by `block_operands`;
+`sparse_tail_features_plain` is what that computes, in plain PyTorch.
 """
 
 import torch
 
 from robosat_tpu_torch import kernels
-from robosat_tpu_torch.models.int8 import _act_inv, _int8_conv, scaled_ws
-from robosat_tpu_torch.models.layers import depth_to_space2, space_to_depth2
+from robosat_tpu_torch.models.int8 import _act_inv, _int8_conv, _quantize_act, scaled_ws
+from robosat_tpu_torch.models.layers import conv_nhwc, depth_to_space2, space_to_depth2
 from robosat_tpu_torch.ops.head import _margin_weights, fused_prediction_head_s2d_blocked
 
 
@@ -42,6 +46,72 @@ def conv_weights(node):
     if wk is None:
         wk = node["wk"] = tap_weights(node["wq"]).permute(2, 0, 1).contiguous()
     return wk
+
+
+def nonzero_blocks(node):
+    """For each 32-wide output slice of a node's int8 kernel, the (tap,
+    32-channel input block) pairs whose weights are not all zero, cached on
+    the node (the tree is quantized once). A zero block adds nothing to an
+    int32 sum, so a conv over the listed blocks only is exact."""
+    blocks = node.get("blocks")
+    if blocks is None:
+        wk = conv_weights(node)
+        cout, taps, cin = wk.shape
+        nz = wk.reshape(cout // 32, 32, taps, cin // 32, 32).ne(0).any(dim=4).any(dim=1).cpu()
+        blocks = node["blocks"] = [[(t, kb) for t in range(taps) for kb in range(cin // 32) if nz[ns, t, kb]]
+                                   for ns in range(cout // 32)]
+    return blocks
+
+
+def block_operands(node):
+    """K6's operands for a 3x3 128 -> 128 conv, cached on the node: (the
+    blocks `nonzero_blocks` lists, then one all-zero block, packed, on the
+    weights' device: (nb, 1024) int8, block (tap, kb) of slice ns being
+    wk[32 ns:, tap, 32 kb:][:32, :32] with byte (row, k) at
+    ((row // 8) * 2 + k // 16) * 128 + (row % 8) * 16 + k % 16; and the
+    host int32 table the kernel receives among its parameters: the MMAs per
+    output slice (the most listed in a slice, rounded up to 9, 16 or 36,
+    the counts the kernel is built for), then per slice that many entries
+    tap | kb << 4 | packed block << 8, a slice's extra entries multiplying
+    the zero block)."""
+    ops = node.get("block_ops")
+    if ops is None:
+        wk, blocks = conv_weights(node), nonzero_blocks(node)
+        listed = [(ns, tap, kb) for ns, pairs in enumerate(blocks) for tap, kb in pairs]
+        w = torch.stack([wk[32 * ns:32 * ns + 32, tap, 32 * kb:32 * kb + 32] for ns, tap, kb in listed]
+                        + [torch.zeros((32, 32), dtype=torch.int8, device=wk.device)])
+        packed = w.reshape(len(w), 4, 8, 2, 16).permute(0, 1, 3, 2, 4).reshape(len(w), 1024).contiguous()
+        per_slice = next(k for k in (9, 16, 36) if k >= max(map(len, blocks)))
+        table, b = [per_slice], 0
+        for pairs in blocks:
+            table += [tap | kb << 4 | (b + i) << 8 for i, (tap, kb) in enumerate(pairs)]
+            table += [len(listed) << 8] * (per_slice - len(pairs))
+            b += len(pairs)
+        ops = node["block_ops"] = (packed, torch.tensor(table, dtype=torch.int32))
+    return ops
+
+
+def _int8_conv_blocks(node, x, scale):
+    """`_int8_conv` (3x3 SAME, no bias) summing only the blocks that
+    `nonzero_blocks` lists: one 32 -> 32 single-tap conv per (slice, tap,
+    input block)."""
+    xq = _quantize_act(x, scale).double()
+    wq = node["wq"].double()
+    cout = wq.shape[-1]
+    acc = torch.zeros(x.shape[:3] + (cout,), dtype=torch.float64)
+    for ns, pairs in enumerate(nonzero_blocks(node)):
+        for tap, kb in pairs:
+            w = torch.zeros((3, 3, 32, 32), dtype=torch.float64)
+            w[tap // 3, tap % 3] = wq[tap // 3, tap % 3, 32 * kb:32 * kb + 32, 32 * ns:32 * ns + 32]
+            acc[..., 32 * ns:32 * ns + 32] += conv_nhwc(xq[..., 32 * kb:32 * kb + 32], w)
+    return (acc.to(torch.int32).float() * scaled_ws(node, scale)).to(torch.bfloat16)
+
+
+def sparse_tail_features_plain(x, node4, s4, node5, s5):
+    """dec4 + dec5 over the listed weight blocks only, as K6's convs run on
+    the card (CPU, small shapes): equals `fused_tail_features_plain`."""
+    y4 = torch.relu(_int8_conv_blocks(node4, x, s4))
+    return torch.relu(_int8_conv_blocks(node5, y4, s5))
 
 
 def fused_tail_features_plain(x, node4, s4, node5, s5):
@@ -125,17 +195,20 @@ def fused_tail(x, node4, s4, node5, s5, w_final, b_final, overlap=0):
     n, h, w = _check_input(x, 128)
     if overlap % 2 or overlap >= min(h, w):
         raise ValueError("overlap must be even and smaller than the blocked grid")
-    w4, e4, w5, e5 = _conv_operands(node4, s4, node5, s5)
+    _, e4, _, e5 = _conv_operands(node4, s4, node5, s5)
+    b4, t4 = block_operands(node4)
+    b5, t5 = block_operands(node5)
+    kernels.check_cuda(b4, "dec4 blocks", torch.int8)
+    kernels.check_cuda(b5, "dec5 blocks", torch.int8)
     wm, bm = _margin_weights(w_final, b_final, 32)
     wmb = kernels.check_cuda(torch.cat([wm, bm.reshape(1)]).contiguous(), "final", torch.float32, (33,))
-    y4 = torch.empty_like(x)
-    y5 = torch.empty_like(x)
+    y4 = torch.empty((n, h, w, 128), dtype=torch.int8, device=x.device)
     o = overlap // 2
     out = torch.empty((n, h - 2 * o, w - 2 * o, 4), dtype=torch.uint8, device=x.device)
     p = kernels.ptr
     kernels.launch(
-        "rs_fused_tail", p(x), p(w4), p(e4), p(w5), p(e5), p(wmb), _act_inv(s4), _act_inv(s5),
-        p(y4), p(y5), p(out), n, h, w, o,
+        "rs_fused_tail", p(x), p(b4), p(t4), len(b4), p(e4), p(b5), p(t5), len(b5), p(e5), p(wmb),
+        _act_inv(s4), _act_inv(s5), p(y4), p(out), n, h, w, o,
     )
     fused_tail.launches += 1
     return out

@@ -6,9 +6,10 @@ without the JAX package's test configuration:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
 
-Shapes are small and ragged on purpose (pixel counts off the 128-row tile,
-channel counts off the 64-wide tiles) to reach every masked edge of the
-shared int8 conv; chip_smoke.py checks the main-path shapes.
+Shapes are small and ragged on purpose (pixel counts off the 64- and
+128-row tiles, channel counts off the 64-wide tiles) to reach every masked
+edge of the two int8 conv routines; chip_smoke.py checks the main-path
+shapes.
 """
 
 import pytest
@@ -16,7 +17,7 @@ import torch
 
 from robosat_tpu_torch.models import int8 as q8
 from robosat_tpu_torch.models import qdec, qenc, qtail
-from robosat_tpu_torch.models.layers import space_to_depth2
+from robosat_tpu_torch.models.layers import s2d_conv3x3_kernel, s2d_up_conv3x3_kernel, space_to_depth2
 from robosat_tpu_torch.ops import head, head_rungs, int8_mm
 
 pytestmark = pytest.mark.cuda
@@ -29,8 +30,8 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def _node(gen, kh, kw, cin, cout, bias=True):
-    node = q8._qconv({"w": torch.randn(kh, kw, cin, cout, generator=gen, device="cuda") * 0.1})
+def _node(gen, kh, kw, cin, cout, bias=True, std=0.1):
+    node = q8._qconv({"w": torch.randn(kh, kw, cin, cout, generator=gen, device="cuda") * std})
     if bias:
         node["b"] = torch.randn(cout, generator=gen, device="cuda") * 0.05
     return node
@@ -40,11 +41,24 @@ def _act(gen, shape, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("down,cin,cmid,cout,h,w", [(True, 32, 16, 64, 7, 9), (False, 96, 48, 96, 13, 5)])
+@pytest.mark.parametrize("down,cin,cmid,cout,h,w", [
+    (True, 32, 16, 64, 7, 9),
+    (False, 96, 48, 96, 13, 5),
+    # each stage's widths (the pipelined wgmma conv's tile shapes), ragged pixel counts
+    (True, 64, 64, 256, 9, 11),      # layer1.0
+    (False, 256, 64, 256, 91, 93),   # layer1.1, on a grid large enough for 128-row tiles
+    (True, 256, 128, 512, 7, 5),
+    (False, 512, 128, 512, 9, 7),    # layer2.1
+    (False, 1024, 256, 1024, 6, 7),  # layer3.1
+    (True, 1024, 512, 2048, 5, 3),
+    (False, 2048, 512, 2048, 5, 7),  # layer4.1
+])
 def test_bottleneck_block_kernel_bit_equal(gen, down, cin, cmid, cout, h, w):
-    qb = {"conv1": _node(gen, 1, 1, cin, cmid), "conv2": _node(gen, 3, 3, cmid, cmid), "conv3": _node(gen, 1, 1, cmid, cout)}
+    std = lambda fan_in: fan_in ** -0.5  # unit-scale activations at every width
+    qb = {"conv1": _node(gen, 1, 1, cin, cmid, std=std(cin)), "conv2": _node(gen, 3, 3, cmid, cmid, std=std(9 * cmid)),
+          "conv3": _node(gen, 1, 1, cmid, cout, std=std(cmid))}
     if down:
-        qb["down_conv"] = _node(gen, 1, 1, cin, cout)
+        qb["down_conv"] = _node(gen, 1, 1, cin, cout, std=std(cin))
     x = _act(gen, (3, h, w, cin))
     scales = (0.02, 0.015, 0.01, 0.02 if down else None)
     before = qenc.bottleneck_block.launches
@@ -76,16 +90,40 @@ def test_parity_up_conv_kernel_bit_equal(gen, cin, cout, h, w, bias):
     assert torch.equal(got, qdec.parity_up_conv_plain(x, node, 0.017))
 
 
-@pytest.mark.parametrize("overlap,h,w", [(0, 16, 16), (8, 24, 20)])
-def test_fused_tail_kernel_matches_plain(gen, overlap, h, w):
-    node4 = q8._qkernel(torch.randn(3, 3, 128, 128, generator=gen, device="cuda") * 0.1)
-    node5 = q8._qkernel(torch.randn(3, 3, 128, 128, generator=gen, device="cuda") * 0.1)
+def _s2d_tail_nodes(gen):
+    """dec4 and dec5 as the model builds them: s2d forms of random fine 3x3
+    kernels, quantized, with their structural zero blocks."""
+    return (q8._qkernel(s2d_up_conv3x3_kernel(torch.randn(3, 3, 128, 32, generator=gen, device="cuda") * 0.1)),
+            q8._qkernel(s2d_conv3x3_kernel(torch.randn(3, 3, 32, 32, generator=gen, device="cuda") * 0.1)))
+
+
+def _uneven_tail_nodes(gen):
+    """The s2d nodes with dec5's output slice 0 zeroed and one block of
+    slice 1: slices of 0, 8, 9 and 9 blocks, the kernel padding the short
+    ones with its zero block."""
+    node4, node5 = _s2d_tail_nodes(gen)
+    tap, kb = qtail.nonzero_blocks(dict(node5))[1][0]
+    node5["wq"][..., :32] = 0
+    node5["wq"][tap // 3, tap % 3, 32 * kb:32 * kb + 32, 32:64] = 0
+    return node4, node5
+
+
+@pytest.mark.parametrize("weights,blocks", [("dense", (144, 144)), ("s2d", (64, 36)), ("uneven", (64, 26))])
+@pytest.mark.parametrize("overlap,h,w", [(0, 16, 16), (8, 24, 20), (0, 13, 11)])
+def test_fused_tail_kernel_matches_plain(gen, weights, blocks, overlap, h, w):
+    """K6 over the listed nonzero weight blocks: every block of dense
+    weights, 16 + 9 of 36 per output parity of the s2d ones, and slices of
+    uneven counts."""
+    node4, node5 = {"dense": _tail_nodes, "s2d": _s2d_tail_nodes, "uneven": _uneven_tail_nodes}[weights](gen)
+    assert tuple(sum(map(len, qtail.nonzero_blocks(node))) for node in (node4, node5)) == blocks
     w_final = torch.randn(1, 1, 32, 2, generator=gen, device="cuda") * 0.3
     b_final = torch.randn(2, generator=gen, device="cuda") * 0.1
     x = _act(gen, (2, h, w, 128))
+    before = qtail.fused_tail.launches
     got = qtail.fused_tail(x, node4, 0.021, node5, 0.013, w_final, b_final, overlap=overlap)
     ref = qtail.fused_tail_plain(x, node4, 0.021, node5, 0.013, w_final, b_final, overlap=overlap)
     torch.cuda.synchronize()
+    assert qtail.fused_tail.launches == before + 1
     assert got.shape == ref.shape == (2, h - overlap, w - overlap, 4)
     d = (got.int() - ref.int()) % 256
     d = torch.minimum(d, 256 - d)

@@ -13,7 +13,7 @@ import torch
 
 from robosat_tpu.models import int8 as jq8
 from robosat_tpu.models import qenc as jqenc
-from robosat_tpu_torch.models import qenc
+from robosat_tpu_torch.models import qenc, qtail
 
 
 def _node(rng, kh, kw, cin, cout):
@@ -81,3 +81,23 @@ def test_identity_residual_needs_matching_channels():
     qb = _torch_block(_block(rng, 32, 16, 64, down=False))
     with pytest.raises(ValueError, match="down_conv and its scale"):
         qenc.bottleneck_block(torch.zeros(1, 4, 4, 32, dtype=torch.bfloat16), qb, 0.1, 0.1, 0.1, sd=0.1)
+
+
+@pytest.mark.parametrize("cin,cout,k", [(128, 128, 3), (32, 48, 1), (96, 256, 3)])
+def test_packed_weights_core_matrix_layout(cin, cout, k):
+    """K3's weights as csrc/int8_conv_sm90.cuh's conv_kernel reads them: one
+    slab per (tap, 64-channel chunk), each (cout_pad, 64) tile in wgmma's
+    core-matrix order, zero-padded."""
+    rng = np.random.default_rng(cin + cout)
+    node = {"wq": torch.from_numpy(rng.integers(-127, 128, (k, k, cin, cout)).astype(np.int8))}
+    wk = qtail.conv_weights(node)  # (cout, taps, cin)
+    wp = qenc.packed_weights(node)
+    chunks, cout_pad = -(-cin // 64), -(-cout // 128) * 128
+    assert tuple(wp.shape) == (k * k * chunks, cout_pad * 64)
+    row, kk = np.meshgrid(np.arange(cout_pad), np.arange(64), indexing="ij")
+    offset = torch.from_numpy(((row // 8) * 4 + kk // 16) * 128 + (row % 8) * 16 + kk % 16)
+    for tap in range(k * k):
+        for chunk in range(chunks):
+            tile = torch.zeros((cout_pad, chunks * 64), dtype=torch.int8)
+            tile[:cout, :cin] = wk[:, tap]
+            assert torch.equal(wp[tap * chunks + chunk][offset], tile[:, 64 * chunk:64 * chunk + 64])
