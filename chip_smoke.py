@@ -12,7 +12,8 @@ hand-written kernel against its plain PyTorch version:
 3. each kernel against its plain version at main-path shapes (batch 8 at
    576 px buffered tiles, weights and scales of the calibrated model):
    K3 at one block of every stage (layer1.0 with its projection, layer1.1,
-   layer2.1, layer3.1, layer4.1), K4/K5/K7/K8/K9 bit-equal in bf16, the
+   layer2.1, layer3.1, layer4.1), K4 at the first block of layers 2-4, K5
+   at its five up-blocks (center, dec0-dec3), K7/K8/K9, bit-equal in bf16, the
    uint8 of K6 (with its count of skipped weight blocks) and of K1 (G = 1,
    4 and 16 groups, f32 and bf16 features) equal up to counted +-1-bin
    flips; kernel and plain times from CUDA events with the inputs rotated
@@ -37,7 +38,9 @@ hand-written kernel against its plain PyTorch version:
    int8 run's up to counted +-1 flips, one batch's uint8 against the
    plain path with the same weights and scales, and a torch.profiler
    split of one step's device time, the int8 convs summed per routine
-   (csrc/int8_conv_sm90.cuh's wgmma conv, csrc/int8_conv.cuh's).
+   (csrc/int8_conv_sm90.cuh's wgmma convs, csrc/int8_conv.cuh's) and, by
+   kernel name, K5's up_kernel and K4's blocks (each stride-2 conv2 with
+   the conv launched before it and the two after it).
 
 Each kernel's line also carries its bound: the least time the card could
 take for the same work, max(bytes / 3.35 TB/s, operations / peak) with each
@@ -53,6 +56,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -77,7 +81,7 @@ ROTATE_BYTES = 150e6  # inputs rotated through copies of at least this many byte
 SOURCES = {
     "K1": ("robosat_tpu_torch/csrc/head.cu", "robosat_tpu/ops/head.py:278"),
     "K2": ("robosat_tpu_torch/csrc/int8_mm.cu", "benchmarks/bench_pallas_mm.py:76"),
-    "K3": ("robosat_tpu_torch/csrc/qenc_s1.cu", "robosat_tpu/models/qenc.py:203"),
+    "K3": ("robosat_tpu_torch/csrc/qenc.cu", "robosat_tpu/models/qenc.py:203"),
     "K4": ("robosat_tpu_torch/csrc/qenc.cu", "robosat_tpu/models/qenc.py:340"),
     "K5": ("robosat_tpu_torch/csrc/qdec.cu", "robosat_tpu/models/qdec.py:273"),
     "K6": ("robosat_tpu_torch/csrc/qtail.cu", "robosat_tpu/models/qtail.py:426"),
@@ -89,8 +93,11 @@ SOURCES = {
 ENCODER = {"K3": 13, "K4": 3}
 # Substrings of the port's kernel names in torch.profiler's rows, and the
 # conv routine of each int8 conv kernel.
-KERNEL_ROWS = ("conv_kernel", "tail_kernel", "margin_head_kernel", "int8_mm_kernel", "head_rung_kernel")
+KERNEL_ROWS = ("conv_kernel", "tail_kernel", "up_kernel", "margin_head_kernel", "int8_mm_kernel", "head_rung_kernel")
 ROUTINES = (("rs::sm90::", "int8_conv_sm90.cuh (wgmma)"), ("rs::int8_conv_kernel", "int8_conv.cuh"))
+# K4's conv2: conv_kernel<BN, int8 input, EPI_RELU_Q8, stride 2>; a K4 block
+# launches conv1, conv2, the projection, conv3 in that order.
+K4_CONV2 = re.compile(r"rs::sm90::conv_kernel<\d+, false, 3, 2>")
 # The predict paths: label, model TOML keys over config/model-unet.toml,
 # launches per batch of each kernel (every other kernel: 0).
 PATHS = (
@@ -273,9 +280,20 @@ def log_step_profile(torch, step, label, steps=5, top=8):
         log("phase 5: [{}]   {:8.3f} ms/step {:4d} launches  {}".format(label, ms, count, key[:100]))
     for prefix, routine in ROUTINES:
         mine = [r for r in rows if prefix in r[2]]
-        if mine:
-            log("phase 5: [{}]   int8 convs on {}: {:.3f} ms/step, {} launches, {} kernels".format(
-                label, routine, sum(r[0] for r in mine), sum(r[1] for r in mine), len(mine)))
+        log("phase 5: [{}]   int8 convs on {}: {:.3f} ms/step, {} launches, {} kernels".format(
+            label, routine, sum(r[0] for r in mine), sum(r[1] for r in mine), len(mine)))
+    k5 = [r for r in rows if "rs::sm90::up_kernel" in r[2]]
+    if k5:
+        log("phase 5: [{}]   K5 by kernel name (up_kernel): {:.3f} ms/step, {} launches".format(
+            label, sum(r[0] for r in k5), sum(r[1] for r in k5)))
+    # K4 by kernel name and launch order: the convs in the order they ran.
+    convs = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "rs::sm90::conv_kernel" in e.name), key=lambda e: e.time_range.start)
+    blocks = [convs[i - 1:i + 3] for i, e in enumerate(convs) if i >= 1 and K4_CONV2.search(e.name)]
+    if blocks:
+        log("phase 5: [{}]   K4 by kernel name (conv1, stride-2 conv2, stride-2 projection, conv3): {:.3f} ms/step, "
+            "{} blocks, {} launches".format(label, sum(e.time_range.elapsed_us() for b in blocks for e in b) / 1e3 / steps,
+                                            len(blocks) // steps, sum(map(len, blocks)) // steps))
 
 
 def write_tiles(root, seed):
@@ -387,18 +405,24 @@ def run(torch, work, seed, smi):
     # K3 at one block of each stage: (stage, block, its first site, its input grid and channels)
     k3_sites = (("layer1", 0, 0, side, 64), ("layer1", 1, 4, side, 256), ("layer2", 1, 14, side // 2, 512),
                 ("layer3", 1, 27, side // 4, 1024), ("layer4", 1, 46, side // 8, 2048))
+    # K4 at the first block of layers 2-4 and K5 at every up-block: (name, first site, input grid and channels)
+    k4_sites = (("layer2", 10, side, 256), ("layer3", 23, side // 2, 512), ("layer4", 42, side // 4, 1024))
+    k5_sites = (("center", 52, side // 16, 2048), ("dec0", 53, side // 8, 2304), ("dec1", 54, side // 4, 1280),
+                ("dec2", 55, side // 2, 768), ("dec3", 56, side, 320))
     checks = [
         ("K3", "{}.{} ({})".format(stage, bi, "projection" if bi == 0 else "identity"), qenc.bottleneck_block,
          qenc.bottleneck_block_plain, (act((n, grid, grid, cin), site), enc[stage][bi], *block_scales(site, bi == 0)),
          True)
         for stage, bi, site, grid, cin in k3_sites
     ] + [
-        ("K4", "layer2.0", qenc.bottleneck_block_s2, qenc.bottleneck_block_s2_plain,
-         (act((n, side, side, 256), 10), enc["layer2"][0], *block_scales(10, True)), True),
-        ("K5", "center", qdec.parity_up_conv, qdec.parity_up_conv_plain,
-         (act((n, side // 16, side // 16, 2048), 52), qtree["center"], float(scales[52])), True),
-        ("K5", "dec3", qdec.parity_up_conv, qdec.parity_up_conv_plain,
-         (act((n, side, side, 320), 56), qtree["dec3"], s3), True),
+        ("K4", "{}.0".format(stage), qenc.bottleneck_block_s2, qenc.bottleneck_block_s2_plain,
+         (act((n, grid, grid, cin), site), enc[stage][0], *block_scales(site, True)), True)
+        for stage, site, grid, cin in k4_sites
+    ] + [
+        ("K5", name, qdec.parity_up_conv, qdec.parity_up_conv_plain,
+         (act((n, grid, grid, cin), site), qtree[name], float(scales[site])), True)
+        for name, site, grid, cin in k5_sites
+    ] + [
         ("K6", "dec3 -> head", qtail.fused_tail, qtail.fused_tail_plain,
          (act((n, 2 * side, 2 * side, 128), 57), qtree["dec4"], s4, qtree["dec5"], s5, w_final, b_final, OVERLAP),
          False),

@@ -1,15 +1,16 @@
-// Shared int8 implicit-GEMM convolution for the hybrid-int8 U-Net walk.
+// Shared int8 implicit-GEMM convolution: the first, simple routine of the
+// hybrid-int8 U-Net walk.
 //
-// One routine serves every int8 site of `rs predict`'s main path: the 1x1
-// and 3x3 convs of the bottleneck blocks (qenc.cu), the parity sub-convs of
-// the decoder's upsample+conv3x3 (qdec.cu) and the dec4/dec5 s2d convs
-// (qtail.cu). It reproduces robosat_tpu/models/int8.py:_int8_conv bit for
-// bit:
+// It serves the kernels off the main path: K7 and K9 (the dec4/dec5 s2d
+// convs without the head, qtail.cu) and K8 (the parity sub-convs of dec3
+// with parity-separated output, qdec.cu). K3, K4, K5 and K6 run
+// int8_conv_sm90.cuh, which takes this file's quantize and dequant. It
+// reproduces robosat_tpu/models/int8.py:_int8_conv bit for bit:
 //
 //   xq  = clip(rint(x_f32 * inv), -127, 127)          (int8._quantize_act)
 //   acc = sum over taps and channels of xq * wq        (exact, int32)
 //   y   = acc_f32 * ws_scaled (+ b)                    (two roundings, no FMA)
-//   out = bf16_rne(y), then relu / residual per the epilogue
+//   out = relu(bf16_rne(y))
 //
 // GEMM view: M = output pixels (n, oh, ow), N = Cout, K = taps x Cin. A tile
 // of the input is gathered per tap (zero outside the image: the int8
@@ -42,6 +43,8 @@
 
 namespace rs {
 
+// Epilogues of int8_conv_sm90.cuh's store_tile (it adds two more); the conv
+// of this file always ends in relu.
 enum Epilogue { EPI_LINEAR = 0, EPI_RELU = 1, EPI_RESIDUAL_RELU = 2 };
 enum Layout { LAYOUT_NHWC = 0, LAYOUT_PLANES = 1 };
 
@@ -50,7 +53,6 @@ struct ConvParams {
   const int8_t* wk;               // (P, Cout, KH * KW, Cin) int8
   const float* scale;             // (Cout,) ws * s, f32
   const float* bias;              // (Cout,) f32, or nullptr
-  const __nv_bfloat16* residual;  // output-shaped bf16 (EPI_RESIDUAL_RELU, NHWC only)
   __nv_bfloat16* y;               // (N, out_h, out_w, Cout) bf16 grid in layout out_layout
   float inv;                      // host-f32 reciprocal of the input's scale
   int n, h, w, cin;
@@ -102,20 +104,16 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Dequant epilogue of one accumulator; returns the f32 value whose bf16
-// rounding is stored. Explicit _rn intrinsics keep nvcc from contracting the
-// multiply-add into an FMA (the reference rounds twice).
-template <int EPI>
-__device__ __forceinline__ float epilogue(int acc, float scale, const float* bias, int col, float residual) {
+// Dequant + relu epilogue of one accumulator; returns the f32 value whose
+// bf16 rounding is stored. Explicit _rn intrinsics keep nvcc from
+// contracting the multiply-add into an FMA (the reference rounds twice).
+__device__ __forceinline__ float epilogue(int acc, float scale, const float* bias, int col) {
   float v = __fmul_rn(__int2float_rn(acc), scale);
   if (bias != nullptr) v = __fadd_rn(v, bias[col]);
-  float r = __bfloat162float(__float2bfloat16_rn(v));
-  if (EPI == EPI_RELU) r = fmaxf(r, 0.0f);
-  if (EPI == EPI_RESIDUAL_RELU) r = fmaxf(__fadd_rn(r, residual), 0.0f);
-  return r;
+  return fmaxf(__bfloat162float(__float2bfloat16_rn(v)), 0.0f);
 }
 
-template <int EPI, int IN, int OUT>
+template <int IN, int OUT>
 __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const ConvParams p) {
   __shared__ __align__(16) int8_t a_s[kBM * kLds];
   __shared__ __align__(16) int8_t b_s[kBN * kLds];
@@ -250,40 +248,28 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const ConvParams p)
       for (int ni = 0; ni < 4; ++ni) {
         const int col = n0 + warp_n * 32 + ni * 8 + tq * 2;
         if (col >= p.cout) continue;
-        const size_t off = base + col;
-        float r0 = 0.0f, r1 = 0.0f;
-        if (EPI == EPI_RESIDUAL_RELU) {
-          const __nv_bfloat162 res = *reinterpret_cast<const __nv_bfloat162*>(p.residual + off);
-          r0 = __low2float(res);
-          r1 = __high2float(res);
-        }
-        const float v0 = epilogue<EPI>(acc[mi][ni][2 * half], p.scale[col], p.bias, col, r0);
-        const float v1 = epilogue<EPI>(acc[mi][ni][2 * half + 1], p.scale[col + 1], p.bias, col + 1, r1);
-        *reinterpret_cast<__nv_bfloat162*>(p.y + off) = __floats2bfloat162_rn(v0, v1);
+        const float v0 = epilogue(acc[mi][ni][2 * half], p.scale[col], p.bias, col);
+        const float v1 = epilogue(acc[mi][ni][2 * half + 1], p.scale[col + 1], p.bias, col + 1);
+        *reinterpret_cast<__nv_bfloat162*>(p.y + base + col) = __floats2bfloat162_rn(v0, v1);
       }
     }
   }
 }
 
-// Launch one conv; returns the launch's CUDA error code (0 on success).
-// The layouts are template parameters; the combinations instantiated are
-// NHWC -> NHWC for every epilogue, and with relu NHWC -> planes (K8) and
+// Launch one conv with the relu epilogue; returns the launch's CUDA error
+// code (0 on success). The layouts are template parameters; the
+// combinations instantiated are NHWC -> NHWC (K7), NHWC -> planes (K8) and
 // planes -> planes (K9).
-inline int launch_int8_conv(const ConvParams& p, int epi, cudaStream_t stream) {
+inline int launch_int8_conv(const ConvParams& p, cudaStream_t stream) {
   const long long m_total = static_cast<long long>(p.n) * p.ho * p.wo;
   const dim3 grid(static_cast<unsigned>((m_total + kBM - 1) / kBM), static_cast<unsigned>((p.cout + kBN - 1) / kBN),
                   static_cast<unsigned>(p.out_mul * p.out_mul));
-  const bool nhwc = p.in_layout == LAYOUT_NHWC && p.out_layout == LAYOUT_NHWC;
-  if (nhwc && epi == EPI_LINEAR) {
-    int8_conv_kernel<EPI_LINEAR, LAYOUT_NHWC, LAYOUT_NHWC><<<grid, kThreads, 0, stream>>>(p);
-  } else if (nhwc && epi == EPI_RELU) {
-    int8_conv_kernel<EPI_RELU, LAYOUT_NHWC, LAYOUT_NHWC><<<grid, kThreads, 0, stream>>>(p);
-  } else if (nhwc && epi == EPI_RESIDUAL_RELU) {
-    int8_conv_kernel<EPI_RESIDUAL_RELU, LAYOUT_NHWC, LAYOUT_NHWC><<<grid, kThreads, 0, stream>>>(p);
-  } else if (epi == EPI_RELU && p.in_layout == LAYOUT_NHWC && p.out_layout == LAYOUT_PLANES) {
-    int8_conv_kernel<EPI_RELU, LAYOUT_NHWC, LAYOUT_PLANES><<<grid, kThreads, 0, stream>>>(p);
-  } else if (epi == EPI_RELU && p.in_layout == LAYOUT_PLANES && p.out_layout == LAYOUT_PLANES) {
-    int8_conv_kernel<EPI_RELU, LAYOUT_PLANES, LAYOUT_PLANES><<<grid, kThreads, 0, stream>>>(p);
+  if (p.in_layout == LAYOUT_NHWC && p.out_layout == LAYOUT_NHWC) {
+    int8_conv_kernel<LAYOUT_NHWC, LAYOUT_NHWC><<<grid, kThreads, 0, stream>>>(p);
+  } else if (p.in_layout == LAYOUT_NHWC && p.out_layout == LAYOUT_PLANES) {
+    int8_conv_kernel<LAYOUT_NHWC, LAYOUT_PLANES><<<grid, kThreads, 0, stream>>>(p);
+  } else if (p.in_layout == LAYOUT_PLANES && p.out_layout == LAYOUT_PLANES) {
+    int8_conv_kernel<LAYOUT_PLANES, LAYOUT_PLANES><<<grid, kThreads, 0, stream>>>(p);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -298,7 +284,6 @@ inline ConvParams conv_params(const void* x, const void* wk, const float* scale,
   p.wk = static_cast<const int8_t*>(wk);
   p.scale = scale;
   p.bias = bias;
-  p.residual = nullptr;
   p.y = static_cast<__nv_bfloat16*>(y);
   p.inv = inv;
   p.n = n;

@@ -1,9 +1,11 @@
-// The Hopper int8 convolutions of kernels K3 (stride 1) and K6.
+// The Hopper int8 convolutions of kernels K3, K4, K5 and K6.
 //
-// Replaces, for those two kernels, the shared routine of int8_conv.cuh
-// (which keeps K4, K5, K7, K8 and K9). The TPU kernels it stands in for are
-// robosat_tpu/models/qenc.py:203 (bottleneck_block, stride 1) and
-// robosat_tpu/models/qtail.py:426 (fused_tail).
+// Replaces, for those four kernels, the shared routine of int8_conv.cuh
+// (which keeps K7, K8 and K9). The TPU kernels it stands in for are
+// robosat_tpu/models/qenc.py:203 (bottleneck_block, stride 1) and :340
+// (bottleneck_block_s2), both on conv_kernel; robosat_tpu/models/qdec.py:273
+// (parity_up_conv) on up_kernel; robosat_tpu/models/qtail.py:426
+// (fused_tail) on tail_kernel.
 //
 // Same arithmetic as int8_conv.cuh, bit for bit: an implicit GEMM over
 // NHWC activations (M = output pixels, N = Cout, K = taps x Cin), exact
@@ -56,6 +58,12 @@
 //   bf16 relu activations go through head.cuh's margin in its order
 //   (margin32, four FMA accumulators), then the sigmoid and the exact
 //   digitize; dec5's activations never reach device memory.
+// - K5 (up_kernel, at the end): the four parity convs of an up-block from
+//   one 10 x 10 halo per 8 x 8-pixel coarse tile and 64-channel chunk,
+//   against weight slabs streamed per K step and shared by two consumer
+//   warpgroups on two tiles.
+// - K4: conv_kernel with STRIDE = 2 for conv2 and the projection; only the
+//   producer's gather differs.
 //
 // Where conv_kernel stands (PERF.md): the MMAs are not the limit; a K step
 // is bound by the pipeline's handshakes and by the bytes each stage pulls
@@ -96,7 +104,8 @@ struct Params {
   float inv_in;            // reciprocal scale of a bf16 input
   float inv_out;           // EPI_RELU_Q8: reciprocal scale of the next conv's input
   int n, h, w, cin, cout, cout_pad;
-  int k, pad;              // k x k taps, stride 1, `pad` on every side
+  int ho, wo;              // output grid of conv_kernel: ((h - 1) / stride + 1, (w - 1) / stride + 1)
+  int k, pad;              // k x k taps, `pad` before the first row and column (conv_kernel's stride is a template parameter)
   int crop;                // EPI_HEAD: overlap crop o on each side of the grid
 };
 
@@ -420,7 +429,11 @@ struct Smem {
   static constexpr int kBytes = kBars + 2 * 8 * kRing;
 };
 
-// A dense stride-1 conv (K3). Persistent: CTA b computes output tiles b,
+// A dense conv of stride STRIDE (1: K3 and K4's 1x1 convs; 2: K4's conv2
+// and projection, which gather input pixel (STRIDE oh + tap row - pad,
+// STRIDE ow + tap column - pad) for output pixel (oh, ow): torch's (1, 1)
+// padding, a zero row above and a zero column to the left of an even
+// grid). Persistent: CTA b computes output tiles b,
 // b + gridDim.x, ... (tile t is rows [kBM (t / tiles_n), +kBM) and channels
 // [BN (t % tiles_n), +BN), so the CTAs running side by side share their A
 // tiles through L2). Threads [0, 128): the consumer warpgroup, which
@@ -428,7 +441,7 @@ struct Smem {
 // warpgroup, which runs through this CTA's (tile, K step) items without
 // waiting for epilogues, so the next tile's loads overlap this tile's
 // epilogue.
-template <int BN, bool IN_BF16, int EPI>
+template <int BN, bool IN_BF16, int EPI, int STRIDE>
 __global__ void __launch_bounds__(256, 2) conv_kernel(const __grid_constant__ Params p) {
   using S = Smem<BN, IN_BF16>;
   extern __shared__ __align__(128) uint8_t smem[];
@@ -446,8 +459,8 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(const __grid_constant__ Pa
   }
   __syncthreads();
 
-  const int m_total = p.n * p.h * p.w;  // launch checks it fits
-  const int hw = p.h * p.w;
+  const int m_total = p.n * p.ho * p.wo;  // output pixels; launch checks it fits
+  const int hw = p.ho * p.wo;
   const int tiles_n = (p.cout + BN - 1) / BN;
   const int n_tiles = (m_total + kBM - 1) / kBM * tiles_n;
   const int chunks = (p.cin + kBK - 1) / kBK;
@@ -469,7 +482,8 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(const __grid_constant__ Pa
                              : 0) * p.n_steps;
     // The A copies walk the items in order, one step ahead of (int8) or
     // kRawTiles ahead of (bf16) the weight copies: each keeps its own
-    // cursor, and the A cursor the pixel coordinates of its tile's rows.
+    // cursor, and the A cursor the coordinates of its tile's rows: the
+    // image and the input pixel under the output pixel (STRIDE oh, STRIDE ow).
     int a_tile = blockIdx.x, a_ks = 0;
     int img[kItems], oh[kItems], ow[kItems];
     auto locate = [&]() {
@@ -478,8 +492,9 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(const __grid_constant__ Pa
         const int m = a_tile / tiles_n * kBM + pt / kPieces + kRowsPerPass * i;
         img[i] = m < m_total ? m / hw : -1;
         const int rem = m - img[i] * hw;
-        oh[i] = rem / p.w;
-        ow[i] = rem - oh[i] * p.w;
+        const int r = rem / p.wo;
+        oh[i] = STRIDE * r;
+        ow[i] = STRIDE * (rem - r * p.wo);
       }
     };
     locate();
@@ -606,14 +621,15 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(const __grid_constant__ Pa
 
 // Launch one dense conv, as many CTAs as fit on the card at once (at most
 // one per tile); returns the CUDA error code (0 on success).
-template <int BN, bool IN_BF16, int EPI>
+template <int BN, bool IN_BF16, int EPI, int STRIDE>
 int launch(const Params& p, cudaStream_t stream) {
   using S = Smem<BN, IN_BF16>;
-  const long long m_total = static_cast<long long>(p.n) * p.h * p.w;
+  const long long m_total = static_cast<long long>(p.n) * p.ho * p.wo;
+  if (p.ho != (p.h - 1) / STRIDE + 1 || p.wo != (p.w - 1) / STRIDE + 1) return static_cast<int>(cudaErrorInvalidValue);
   if (m_total + kBM >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   const long long n_tiles = (m_total + kBM - 1) / kBM * ((p.cout + BN - 1) / BN);
   if (n_tiles == 0) return 0;
-  auto kernel = conv_kernel<BN, IN_BF16, EPI>;
+  auto kernel = conv_kernel<BN, IN_BF16, EPI, STRIDE>;
   static long long resident = 0;  // CTAs of this instantiation the card holds at once, found at first launch
   if (resident == 0) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
@@ -627,15 +643,16 @@ int launch(const Params& p, cudaStream_t stream) {
 }
 
 // A dense conv: BN = 64 up to 64 output channels, else 128.
-template <bool IN_BF16, int EPI>
+template <bool IN_BF16, int EPI, int STRIDE = 1>
 int launch_dense(const Params& p, cudaStream_t stream) {
-  return p.cout <= 64 ? launch<64, IN_BF16, EPI>(p, stream) : launch<128, IN_BF16, EPI>(p, stream);
+  return p.cout <= 64 ? launch<64, IN_BF16, EPI, STRIDE>(p, stream) : launch<128, IN_BF16, EPI, STRIDE>(p, stream);
 }
 
-// A stride-1 k x k SAME conv over NHWC x; `wp` packed by
-// qenc.packed_weights as (k * k * ceil(cin / 64), cout_pad * 64).
+// A k x k conv (k odd) of stride `stride` with k / 2 rows and columns of
+// zero padding before the grid over NHWC x (stride 1: SAME); `wp` packed
+// by qenc.packed_weights as (k * k * ceil(cin / 64), cout_pad * 64).
 inline Params conv_params(const void* x, const void* wp, const float* scale, const float* bias, void* y, float inv_in,
-                          float inv_out, int n, int h, int w, int cin, int cout, int k) {
+                          float inv_out, int n, int h, int w, int cin, int cout, int k, int stride = 1) {
   Params p;
   p.x = x;
   p.wp = static_cast<const int8_t*>(wp);
@@ -650,6 +667,8 @@ inline Params conv_params(const void* x, const void* wp, const float* scale, con
   p.n = n;
   p.h = h;
   p.w = w;
+  p.ho = (h - 1) / stride + 1;
+  p.wo = (w - 1) / stride + 1;
   p.cin = cin;
   p.cout = cout;
   p.cout_pad = (cout + 127) / 128 * 128;
@@ -903,6 +922,284 @@ int launch_tail(TailParams tp, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<static_cast<unsigned>(n_tiles < sm_count() ? n_tiles : sm_count()), 128 * (wgs + 1), bytes, stream>>>(tp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- K5: nearest-2x upsample + 3x3 conv, the four parity convs from one halo ----
+//
+// Output parity (di, dj) of the up-block is a 2x2-tap conv on the coarse
+// grid whose tap (a, b) reads coarse pixel (oh + di - 1 + a, ow + dj - 1 + b)
+// (qdec._PARITY_TAPS): the 16 (parity, tap) pairs use each entry of the 4x4
+// parity-combined kernel once, but read only the nine shifted windows
+// (di + a, dj + b) of a 3x3 neighbourhood. So a K step (64 input channels)
+// of an 8 x 8-pixel coarse tile stages the tile's 10 x 10 halo once, in
+// tail_kernel's layout (one 16-channel plane after another, a pixel's 16
+// channels 16 bytes from the next pixel's), and all 16 products read it as
+// windows at a descriptor offset. The weights do not fit in shared memory
+// (0.65-9.4 MB a site), so they stream in stages of 16 slabs of BN output
+// channels x 32 input channels, half a K step (qdec.packed_parity_weights:
+// one contiguous 32 KB piece per (output tile, chunk, half) at BN = 64;
+// a ring of 5, since a stage takes longer to arrive from L2 than its MMAs
+// run), and two consumer warpgroups multiply two different spatial tiles
+// against the same slabs, so every weight byte brought in feeds 128 output
+// rows. Each warpgroup holds the four parities' accumulators (4 x BN / 2
+// registers a thread) and stores them through store_tile into the fine
+// NHWC output at (2 oh + di, 2 ow + dj).
+//
+// Who does what. Each consumer warpgroup loads its own tile's raw bf16
+// halo from device memory into registers one K step ahead (16 bytes a
+// piece, seven pieces a thread; zeros outside the grid, past cin and past
+// the last tile), quantizes it (int8_conv.cuh's quantize1) into one of its
+// two int8 halo slots, fences the stores for wgmma and syncs, asks for the
+// next step's pieces, then starts the step's 2 x 16 MMAs as the two weight
+// stages arrive: the loads of step i + 1 and its quantize run while the
+// MMAs of step i execute. The two warpgroups take turns at the tensor
+// cores (named barriers 3 and 4), so one quantizes while the other's MMAs
+// run. A third warpgroup streams the weight stages (one thread,
+// cp.async.bulk) and hands its registers to the consumers (setmaxnreg: 168
+// a thread at launch, then 40 there and 232 here), enough for the 128
+// accumulators and the 28 of the pieces in flight.
+// Why the consumers and why registers: one producer warpgroup quantizing
+// both halos cannot keep up with the MMAs it feeds (four warps do not hide
+// the latency of 12,800 load-convert-store chains a step), and raw halos
+// staged in shared memory by cp.async hold a K step to the copy's round
+// trip, since only two such slots fit beside the weights.
+//
+// Shared-memory plan (UpSmem): kRing weight stages (16 slabs each), two
+// int8 halo slots of two tiles, a staged output tile per consumer
+// warpgroup, the weights' full and empty barriers: at BN = 64 207,952 of
+// the 232,448 bytes a block may use, one CTA to an SM.
+constexpr int kUpHalo = (kBK / 16) * kPlane;  // int8 halo of one tile and K step
+constexpr int kUpPieces = kHalo * kHalo * 8;  // 16-byte pieces of a raw bf16 halo (64 channels a pixel)
+constexpr int kUpPasses = (kUpPieces + 127) / 128;  // pieces a consumer thread loads per K step
+
+template <int BN>
+struct UpSmem {
+  static constexpr int kRing = 5;
+  static constexpr int kSlab = BN * 32;        // one (parity, tap) weight slab of half a K step: BN x 32 input channels
+  static constexpr int kWeights = 16 * kSlab;  // a stage: the slabs of half a K step, slab 4 parity + tap
+  static constexpr int kHalos = kRing * kWeights;  // int8 halo slot h of tile g at kHalos + (2 h + g) * kUpHalo
+  static constexpr int kOut = kHalos + 2 * 2 * kUpHalo;
+  static constexpr int kBars = kOut + 2 * out_bytes<BN>();
+  static constexpr int kBytes = kBars + 8 * 2 * kRing;
+  static_assert(kBytes <= kSmemMax, "up_kernel's shared memory does not fit a block");
+};
+
+// p: x (n, h, w, cin) bf16, wp from qdec.packed_parity_weights, n_steps the
+// 64-channel chunks of cin, y (n, 2 h, 2 w, cout) bf16. Item i of the grid
+// is (pair of spatial tiles i / tiles_n, output tile i % tiles_n), CTA b
+// taking items b, b + gridDim.x, ...: the CTAs running side by side share
+// their halos through L2. Threads [0, 256): the two consumer warpgroups,
+// warpgroup g on tile 2 pair + g (past the last tile: zeros in, nothing
+// stored). Threads [256, 384): the weights' warpgroup, one thread of it
+// running ahead through the (item, chunk, half) stages.
+template <int BN>
+__global__ void __launch_bounds__(384, 1) up_kernel(const __grid_constant__ Params p) {
+  using S = UpSmem<BN>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int tid = threadIdx.x;
+  const uint32_t base = smem_u32(smem);
+  const uint32_t w_full0 = base + S::kBars;  // barrier [s] at ...0 + 8 s
+  const uint32_t w_empty0 = w_full0 + 8 * S::kRing;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < S::kRing; ++s) {
+      mbar_init(w_full0 + 8 * s, 1);   // the arrival that announces the weight copy's bytes
+      mbar_init(w_empty0 + 8 * s, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int tiles_x = (p.w + 7) / 8;
+  const int tiles_img = (p.h + 7) / 8 * tiles_x;
+  const int n_tiles = p.n * tiles_img;
+  const int tiles_n = (p.cout + BN - 1) / BN;
+  const int n_items = (n_tiles + 1) / 2 * tiles_n;
+  const int chunks = p.n_steps;
+
+  if (tid >= 256) {
+    // ---- the weights: stage wi = (this CTA's item, chunk, half) in order -> ring slot wi % kRing ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid != 256) return;
+    constexpr int kPiece = S::kWeights < 16384 ? S::kWeights : 16384;
+    const int n_mine = (static_cast<int>(blockIdx.x) < n_items
+                            ? (n_items - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x) + 1
+                            : 0) * chunks;
+    int item = blockIdx.x, kc = 0;
+    for (int wi = 0; wi < 2 * n_mine; ++wi) {
+      const int s = wi % S::kRing;
+      if (wi >= S::kRing) mbar_wait(w_empty0 + 8 * s, ((wi / S::kRing) - 1) & 1);
+      mbar_arrive_expect_tx(w_full0 + 8 * s, S::kWeights);
+      const int8_t* src = p.wp + ((static_cast<size_t>(item % tiles_n) * chunks + kc) * 2 + (wi & 1)) * S::kWeights;
+#pragma unroll
+      for (int off = 0; off < S::kWeights; off += kPiece) {
+        bulk_copy(base + s * S::kWeights + off, src + off, kPiece, w_full0 + 8 * s);
+      }
+      if ((wi & 1) && ++kc == chunks) {
+        kc = 0;
+        item += gridDim.x;
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup g: tile 2 pair + g of every item; per K step quantize, 2 x 16 MMAs; then four parity stores ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int g = tid >> 7;
+  const int wt = tid & 127;
+  const int lane = tid & 31;
+  // The two warpgroups take turns at the tensor cores: a warpgroup starts a
+  // step's MMAs only when the other has started its own (named barrier 3 + g:
+  // this warpgroup's turn), so one quantizes while the other's MMAs run.
+  if (g == 1) asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+  // This thread's pieces of its tile's raw halo are q = wt + 128 i: halo
+  // pixel q / 8 (row dy, column dx), 8-channel group q % 8 = wt % 8. Per
+  // piece it keeps the byte offset from the halo's first pixel and (dy, dx);
+  // per item the halo's first pixel and the pieces that lie in the grid.
+  const int piece = wt & 7;
+  int rel[kUpPasses], dyx[kUpPasses];
+#pragma unroll
+  for (int i = 0; i < kUpPasses; ++i) {
+    const int hp = (wt + 128 * i) >> 3;
+    const int dy = hp / kHalo;
+    const int dx = hp - dy * kHalo;
+    rel[i] = (dy * p.w + dx) * p.cin * 2;
+    dyx[i] = dy | dx << 8;
+  }
+  long long origin = 0;  // byte offset of the halo's pixel (0, 0), channel group `piece` (may lie before x)
+  uint32_t inside = 0;   // bit i: piece i of this thread lies in the grid
+  auto locate = [&](int item) {
+    const int t = 2 * (item / tiles_n) + g;
+    const int img = t / tiles_img;
+    const int rem = t - img * tiles_img;
+    const int y0 = rem / tiles_x * 8 - 1;
+    const int x0 = rem % tiles_x * 8 - 1;
+    origin = ((static_cast<long long>(img) * p.h + y0) * p.w + x0) * p.cin * 2 + piece * 16;
+    inside = 0;
+#pragma unroll
+    for (int i = 0; i < kUpPasses; ++i) {
+      const int y = y0 + (dyx[i] & 0xff);
+      const int x = x0 + (dyx[i] >> 8);
+      const bool in = t < n_tiles && wt + 128 * i < kUpPieces && y >= 0 && y < p.h && x >= 0 && x < p.w;
+      inside |= static_cast<uint32_t>(in) << i;
+    }
+  };
+  uint4 raw[kUpPasses];  // the located tile's pieces of one chunk
+  auto load = [&](int kc) {
+    const bool c_in = kc * kBK + piece * 8 < p.cin;
+    const uint8_t* src = static_cast<const uint8_t*>(p.x) + origin + kc * (2 * kBK);
+#pragma unroll
+    for (int i = 0; i < kUpPasses; ++i) {
+      raw[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (c_in && (inside >> i & 1)) raw[i] = __ldg(reinterpret_cast<const uint4*>(src + rel[i]));
+    }
+  };
+  __nv_bfloat16* out_s = reinterpret_cast<__nv_bfloat16*>(smem + S::kOut + g * out_bytes<BN>());
+  int it = 0;  // K steps done; the weight stages done are wi
+  int wi = 0;
+  if (static_cast<int>(blockIdx.x) < n_items) {
+    locate(blockIdx.x);
+    load(0);
+  }
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int t = 2 * (item / tiles_n) + g;
+    const int n0 = (item % tiles_n) * BN;
+    int acc[4][BN / 2];
+#pragma unroll
+    for (int par = 0; par < 4; ++par) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[par][i] = 0;
+    }
+    for (int kc = 0; kc < chunks; ++kc) {
+      const int hs = it & 1;
+      // Quantize this step's pieces into halo slot hs, which the MMAs of
+      // step it - 2 read last (complete: the last wait of step it - 1 left
+      // at most the two groups of that step pending). Piece q = 8 halo
+      // pixel + 8-channel group goes to channel plane q % 8 / 2.
+      uint8_t* halo_s = smem + S::kHalos + (2 * hs + g) * kUpHalo;
+#pragma unroll
+      for (int i = 0; i < kUpPasses; ++i) {
+        const int q = wt + 128 * i;
+        if (q < kUpPieces) {
+          *reinterpret_cast<uint2*>(halo_s + (piece >> 1) * kPlane + (q >> 3) * 16 + (q & 1) * 8) = quantize8(raw[i], p.inv_in);
+        }
+      }
+      fence_proxy_async();  // this thread's generic-proxy stores, for wgmma
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + g) : "memory");  // the whole halo is quantized
+      // Ask for the next step's pieces (the next item's first, past the last chunk).
+      if (kc + 1 < chunks) {
+        load(kc + 1);
+      } else if (item + static_cast<int>(gridDim.x) < n_items) {
+        locate(item + gridDim.x);
+        load(0);
+      }
+      const uint32_t halo = base + S::kHalos + (2 * hs + g) * kUpHalo;
+      asm volatile("bar.sync %0, 256;\n" ::"r"(3 + g) : "memory");
+      // Parity (di, dj), tap (a, b) reads the halo window at pixel
+      // (di + a, dj + b): output row r of the tile is halo row r / 8 + di + a,
+      // 10 pixels (160 bytes) on per row. The parities take turns, so
+      // consecutive MMAs add into different accumulators.
+#pragma unroll
+      for (int kk = 0; kk < kBK / 32; ++kk) {
+        const int s = wi % S::kRing;
+        mbar_wait(w_full0 + 8 * s, (wi / S::kRing) & 1);
+        const uint32_t slabs = base + s * S::kWeights;
+        wgmma_fence();
+#pragma unroll
+        for (int tap = 0; tap < 4; ++tap) {
+#pragma unroll
+          for (int par = 0; par < 4; ++par) {
+            const int wr = (par >> 1) + (tap >> 1);
+            const int wc = (par & 1) + (tap & 1);
+            Wgmma<BN>::mma(acc[par], desc(halo + (wr * kHalo + wc) * 16 + kk * 2 * kPlane, kPlane, kHalo * 16),
+                           desc(slabs + (4 * par + tap) * S::kSlab, kCoreBytes, 2 * kCoreBytes));
+          }
+        }
+        wgmma_commit();
+        // Two groups stay in flight, so the next step's quantize runs beside
+        // this step's MMAs; the stage two back is read.
+        wgmma_wait<2>();
+        if (kc > 0 && lane == 0) mbar_arrive(w_empty0 + 8 * ((wi - 2) % S::kRing));
+        ++wi;
+      }
+      asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - g) : "memory");
+      ++it;
+    }
+    wgmma_wait<0>();
+    if (lane == 0) {
+      mbar_arrive(w_empty0 + 8 * ((wi - 2) % S::kRing));
+      mbar_arrive(w_empty0 + 8 * ((wi - 1) % S::kRing));
+    }
+    const int img = t / tiles_img;
+    const int rem = t - img * tiles_img;
+    const int ty = rem / tiles_x * 8;
+    const int tx = rem % tiles_x * 8;
+#pragma unroll
+    for (int par = 0; par < 4; ++par) {
+      store_tile<BN, EPI_RELU>(p, acc[par], out_s, n0, wt, 1 + g, [&](int row) {
+        const int y = ty + (row >> 3);
+        const int x = tx + (row & 7);
+        return t < n_tiles && y < p.h && x < p.w ? ((img * 2 * p.h + 2 * y + (par >> 1)) * 2 * p.w + 2 * x + (par & 1)) : -1;
+      });
+    }
+  }
+}
+
+// Launch K5's up-block, one CTA per SM (at most one per item).
+template <int BN>
+int launch_up(const Params& p, cudaStream_t stream) {
+  using S = UpSmem<BN>;
+  // Fine pixel indices and a halo's byte offsets are 32-bit in the kernel.
+  if (4LL * p.n * p.h * p.w >= (1LL << 31) || (kHalo * (p.w + 1LL)) * p.cin * 2 >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long n_tiles = static_cast<long long>(p.n) * ((p.h + 7) / 8) * ((p.w + 7) / 8);
+  const long long n_items = (n_tiles + 1) / 2 * ((p.cout + BN - 1) / BN);
+  if (n_items == 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(up_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  up_kernel<BN><<<static_cast<unsigned>(n_items < sm_count() ? n_items : sm_count()), 384, S::kBytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,51 +1,84 @@
-// int8 ResNet-50 bottleneck block on Hopper (kernel K4; any stride).
+// int8 ResNet-50 bottleneck blocks on Hopper (kernels K3, stride 1, and K4, stride 2).
 //
-// Replaces the Pallas kernel robosat_tpu/models/qenc.py:bottleneck_block_s2
-// (_block_s2_kernel, stride 2 with torch-style (1, 1) padding and a
-// stride-2 projection). The stride-1 block (K3, qenc.py:bottleneck_block)
-// runs qenc_s1.cu on the pipelined wgmma conv instead.
+// Replaces the Pallas kernels robosat_tpu/models/qenc.py:203
+// (bottleneck_block, _block_kernel) and robosat_tpu/models/qenc.py:340
+// (bottleneck_block_s2, _block_s2_kernel: stride 2 with torch-style (1, 1)
+// padding on conv2 and a stride-2 projection).
 //
-// What bounds it on the H100: at the main-path shapes (batch 8, 576 px) a
-// block is 11.5-12.2 G int8 MACs (stride 1) or 19.7 G (stride 2). A fused block
-// would move only its bf16 input and output: ~140 ops per byte in layer1
-// (144^2 x 256 channels in and out), ~550 in layer3, ~1100 in layer4,
-// against the ~590 ops per byte of the 1979 TOP/s int8 peak over 3.35 TB/s.
-// Layers 1-2 are bandwidth bound, layer 4 compute bound. This first design
-// keeps the TPU kernel's arithmetic but not its VMEM residency: it runs the
-// block as 3-4 launches of the shared implicit-GEMM conv and passes the bf16
-// intermediates through device memory (2-4x the fused block's bytes).
-// Quantization happens on load, so no int8 copy is written.
+// What bounds it on the H100 (SXM, 700 W: 1979 TOP/s int8, 3.35 TB/s): at
+// the main-path shapes (batch 8, 576 px) a stride-1 block is 11.5-12.2 G
+// int8 MACs and a stride-2 block 19.7 G, against the bf16 input and output
+// and the int8 weights: ~140 ops per byte in layer1, ~1100 in layer4, the
+// ridge at ~590. The blocks of layers 1-2 are bandwidth bound (K4's
+// layer2.0 too: it reads 85 MB of bf16 and writes 42 MB), those of layer 4
+// compute bound, layer3.0 level.
 //
-//   h1  = relu(bf16(conv1_1x1(q(x))))                   -> h1 (N, H, W, Cmid)
-//   h2  = relu(bf16(conv2_3x3/stride(q(h1))))           -> h2 (N, Ho, Wo, Cmid)
-//   sc  = bf16(down_1x1/stride(q(x)))  or  x            -> sc (N, Ho, Wo, Cout)
-//   out = bf16(relu(bf16(conv3_1x1(q(h2))) + sc))       -> out
+// The design runs a block as 3-4 launches of int8_conv_sm90.cuh's
+// pipelined wgmma conv and passes h1 and h2 through device memory as int8
+// (the bytes conv2's and conv3's on-load quantize computed before), so
+// they move one byte per channel and load with plain async copies; only
+// the projection `sc` stays bf16. The stride-2 block differs in its
+// gathers alone: conv2 and the projection run on the half-resolution
+// output grid and read input pixel (2 oh + tap row - pad, 2 ow + tap
+// column - pad), so the projection reads a quarter of x and conv2 of h1
+// only the pixels its taps touch. Fusing conv3 and the projection into one
+// launch (two accumulators) is not done: at BN = 128 two s32 accumulator
+// sets take 128 of a consumer thread's registers, and the 64-row tiles run
+// two CTAs to an SM within 128.
+//
+//   h1  = q2(relu(bf16(conv1_1x1(q1(x)))))              -> h1 int8 (N, H, W, Cmid)
+//   h2  = q3(relu(bf16(conv2_3x3/stride(h1))))           -> h2 int8 (N, Ho, Wo, Cmid)
+//   sc  = bf16(down_1x1/stride(qd(x)))  or  x            -> sc bf16 (N, Ho, Wo, Cout)
+//   out = bf16(relu(bf16(conv3_1x1(h2)) + sc))           -> out
+//
+// qk(v) = clip(rint(v * invk), -127, 127): the quantize of int8_conv.cuh.
 
-#include "int8_conv.cuh"
+#include "int8_conv_sm90.cuh"
 
+namespace {
+
+template <int STRIDE>
+int block(const void* x, const void* w1, const float* e1, const float* b1, const void* w2, const float* e2,
+          const float* b2, const void* w3, const float* e3, const float* b3, const void* wd, const float* ed,
+          const float* bd, float inv1, float inv2, float inv3, float invd, void* h1, void* h2, void* sc, void* out,
+          int n, int h, int w, int cin, int cmid, int cout, cudaStream_t stream) {
+  namespace s9 = rs::sm90;
+  int rc;
+  s9::Params p = s9::conv_params(x, w1, e1, b1, h1, inv1, inv2, n, h, w, cin, cmid, 1);
+  if ((rc = s9::launch_dense<true, s9::EPI_RELU_Q8>(p, stream)) != 0) return rc;
+
+  p = s9::conv_params(h1, w2, e2, b2, h2, 0.0f, inv3, n, h, w, cmid, cmid, 3, STRIDE);
+  if ((rc = s9::launch_dense<false, s9::EPI_RELU_Q8, STRIDE>(p, stream)) != 0) return rc;
+  const int ho = p.ho, wo = p.wo;
+
+  const void* shortcut = x;
+  if (wd != nullptr) {
+    p = s9::conv_params(x, wd, ed, bd, sc, invd, 0.0f, n, h, w, cin, cout, 1, STRIDE);
+    if ((rc = s9::launch_dense<true, rs::EPI_LINEAR, STRIDE>(p, stream)) != 0) return rc;
+    shortcut = sc;
+  }
+
+  p = s9::conv_params(h2, w3, e3, b3, out, 0.0f, 0.0f, n, ho, wo, cmid, cout, 1);
+  p.residual = static_cast<const __nv_bfloat16*>(shortcut);
+  return s9::launch_dense<false, rs::EPI_RESIDUAL_RELU>(p, stream);
+}
+
+}  // namespace
+
+// stride 1 (K3; wd may be null: the identity residual) or 2 (K4; even h and w).
 extern "C" int rs_bottleneck_block(const void* x, const void* w1, const float* e1, const float* b1, const void* w2,
                                    const float* e2, const float* b2, const void* w3, const float* e3, const float* b3,
                                    const void* wd, const float* ed, const float* bd, float inv1, float inv2,
                                    float inv3, float invd, void* h1, void* h2, void* sc, void* out, int n, int h,
                                    int w, int cin, int cmid, int cout, int stride, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  int rc;
-  rs::ConvParams p = rs::conv_params(x, w1, e1, b1, h1, inv1, n, h, w, cin, cmid, 1, 1, 0);
-  if ((rc = rs::launch_int8_conv(p, rs::EPI_RELU, stream)) != 0) return rc;
-
-  p = rs::conv_params(h1, w2, e2, b2, h2, inv2, n, h, w, cmid, cmid, 3, stride, 1);
-  if ((rc = rs::launch_int8_conv(p, rs::EPI_RELU, stream)) != 0) return rc;
-
-  const void* shortcut = x;
-  if (wd != nullptr) {
-    p = rs::conv_params(x, wd, ed, bd, sc, invd, n, h, w, cin, cout, 1, stride, 0);
-    if ((rc = rs::launch_int8_conv(p, rs::EPI_LINEAR, stream)) != 0) return rc;
-    shortcut = sc;
+  if (stride == 1) {
+    return block<1>(x, w1, e1, b1, w2, e2, b2, w3, e3, b3, wd, ed, bd, inv1, inv2, inv3, invd, h1, h2, sc, out, n, h, w,
+                    cin, cmid, cout, stream);
   }
-
-  const int ho = (h - 1) / stride + 1;
-  const int wo = (w - 1) / stride + 1;
-  p = rs::conv_params(h2, w3, e3, b3, out, inv3, n, ho, wo, cmid, cout, 1, 1, 0);
-  p.residual = static_cast<const __nv_bfloat16*>(shortcut);
-  return rs::launch_int8_conv(p, rs::EPI_RESIDUAL_RELU, stream);
+  if (stride == 2 && wd != nullptr) {
+    return block<2>(x, w1, e1, b1, w2, e2, b2, w3, e3, b3, wd, ed, bd, inv1, inv2, inv3, invd, h1, h2, sc, out, n, h, w,
+                    cin, cmid, cout, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -44,10 +44,10 @@ int tail_convs(const void* x, const void* w4, const float* e4, const void* w5, c
   int rc;
   rs::ConvParams p = rs::conv_params(x, w4, e4, nullptr, y4, inv4, n, h, w, 128, 128, 3, 1, 1);
   p.in_layout = p.out_layout = layout;
-  if ((rc = rs::launch_int8_conv(p, rs::EPI_RELU, stream)) != 0) return rc;
+  if ((rc = rs::launch_int8_conv(p, stream)) != 0) return rc;
   p = rs::conv_params(y4, w5, e5, nullptr, y5, inv5, n, h, w, 128, 128, 3, 1, 1);
   p.in_layout = p.out_layout = layout;
-  return rs::launch_int8_conv(p, rs::EPI_RELU, stream);
+  return rs::launch_int8_conv(p, stream);
 }
 
 }  // namespace

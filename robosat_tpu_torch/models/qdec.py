@@ -14,7 +14,9 @@ relu(bf16(acc * (ws * s) + b)), bit for bit the JAX package's up_block.
 (N, 2H, 2W, Cout); `parity_up_conv_separated` (K8) groups them by channel,
 (N, H, W, 4 Cout) with parity p = 2 di + dj in channels [p Cout, (p + 1)
 Cout): space_to_depth2 of K5's output. On a CUDA tensor each launches
-csrc/qdec.cu; on a CPU tensor it runs its `_plain` version.
+csrc/qdec.cu (K5 csrc/int8_conv_sm90.cuh's up_kernel on the weights of
+`packed_parity_weights`, K8 csrc/int8_conv.cuh's conv on `kernel_weights`);
+on a CPU tensor it runs its `_plain` version.
 """
 
 import torch
@@ -83,26 +85,60 @@ def parity_up_conv_separated_plain(x, node, s_in):
 
 
 def kernel_weights(node):
-    """The K4 kernel in the CUDA kernel's (4 parities, Cout, 4 taps, Cin)
-    layout, cached on the node."""
+    """The K4 kernel in K8's (4 parities, Cout, 4 taps, Cin) layout, cached
+    on the node."""
     wk = node.get("wk")
     if wk is None:
         wk = node["wk"] = parity_tap_weights(node["wq"]).permute(0, 3, 1, 2).contiguous()
     return wk
 
 
-def _launch(entry, x, node, s_in, out_shape):
+UP_BN = 64  # output channels per tile of csrc/int8_conv_sm90.cuh's up_kernel
+
+
+def packed_parity_weights(node):
+    """The K4 kernel packed for csrc/int8_conv_sm90.cuh's up_kernel, cached
+    on the node: (tiles_n * chunks * 2 * 16, 64 * 32) int8, row
+    ((tile_n * chunks + chunk) * 2 + half) * 16 + 4 p + tap the slab of
+    output channels [64 tile_n, +64), input channels
+    [64 chunk + 32 half, +32) of `parity_tap_weights`' [p, tap], in the
+    wgmma core-matrix order: byte (row, k) at
+    ((row // 8) * 2 + k // 16) * 128 + (row % 8) * 16 + k % 16. Cin and
+    Cout pad to multiples of 64 with zeros; the 16 slabs of one (tile_n,
+    chunk, half), a weight stage of the kernel, are one contiguous 32 KB
+    piece."""
+    wpp = node.get("wpp")
+    if wpp is None:
+        w = parity_tap_weights(node["wq"])
+        _, _, cin, cout = w.shape
+        chunks, tiles_n = -(-cin // 64), -(-cout // UP_BN)
+        padded = torch.zeros((16, chunks * 64, tiles_n * UP_BN), dtype=torch.int8, device=w.device)
+        padded[:, :cin, :cout] = w.reshape(16, cin, cout)
+        # (slab, chunk, half, k // 16, k % 16, tile_n, row // 8, row % 8)
+        # -> (tile_n, chunk, half, slab, row // 8, k // 16, row % 8, k % 16)
+        slabs = padded.reshape(16, chunks, 2, 2, 16, tiles_n, UP_BN // 8, 8).permute(5, 1, 2, 0, 6, 3, 7, 4)
+        wpp = node["wpp"] = slabs.reshape(tiles_n * chunks * 32, UP_BN * 32).contiguous()
+    return wpp
+
+
+def _launch(x, node, s_in, separated):
     kernels.check_cuda(x, "x", torch.bfloat16)
     n, h, w, cin = x.shape
     cout = node["wq"].shape[-1]
     if cin % 16 or cout % 16:
         raise ValueError("the int8 kernels need channel counts that are multiples of 16")
-    wk = kernels.check_cuda(kernel_weights(node), "wq", torch.int8, (4, cout, 4, cin))
+    if separated:
+        entry, out_shape = "rs_parity_up_conv_separated", (n, h, w, 4 * cout)
+        wk = kernels.check_cuda(kernel_weights(node), "wq", torch.int8, (4, cout, 4, cin))
+    else:
+        entry, out_shape = "rs_parity_up_conv", (n, 2 * h, 2 * w, cout)
+        wk = kernels.check_cuda(packed_parity_weights(node), "wq", torch.int8,
+                                (-(-cout // UP_BN) * -(-cin // 64) * 32, UP_BN * 32))
     e = kernels.check_cuda(scaled_ws(node, s_in).contiguous(), "ws", torch.float32, (cout,))
     b = node.get("b")
     if b is not None:
         b = kernels.check_cuda(b, "b", torch.float32, (cout,))
-    out = torch.empty(out_shape(n, h, w, cout), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty(out_shape, dtype=torch.bfloat16, device=x.device)
     p = kernels.ptr
     kernels.launch(entry, p(x), p(wk), p(e), p(b), _act_inv(s_in), p(out), n, h, w, cin, cout)
     return out
@@ -115,7 +151,7 @@ def parity_up_conv(x, node, s_in):
     (Cout,) f32[, "b"]}; `s_in` the site's static activation scale."""
     if x.device.type == "cpu":
         return parity_up_conv_plain(x, node, s_in)
-    out = _launch("rs_parity_up_conv", x, node, s_in, lambda n, h, w, c: (n, 2 * h, 2 * w, c))
+    out = _launch(x, node, s_in, separated=False)
     parity_up_conv.launches += 1
     return out
 
@@ -128,7 +164,7 @@ def parity_up_conv_separated(x, node, s_in):
     relu'd (N, H, W, 4 Cout), space_to_depth2 of `parity_up_conv`'s."""
     if x.device.type == "cpu":
         return parity_up_conv_separated_plain(x, node, s_in)
-    out = _launch("rs_parity_up_conv_separated", x, node, s_in, lambda n, h, w, c: (n, h, w, 4 * c))
+    out = _launch(x, node, s_in, separated=True)
     parity_up_conv_separated.launches += 1
     return out
 

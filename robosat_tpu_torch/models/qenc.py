@@ -10,12 +10,11 @@ stride-2 projection) compute, bit for bit,
     shortcut = _int8_conv(down_conv, x, sd, stride) if down_conv else x
     relu(inner + shortcut)      # f32 add of the bf16 operands, one rounding
 
-On a CUDA tensor they launch one C entry that runs the block as 3-4 conv
-launches: stride 1 csrc/qenc_s1.cu on the pipelined wgmma conv of
-csrc/int8_conv_sm90.cuh, with h1 and h2 in int8; stride 2 csrc/qenc.cu on
-the shared int8 conv of csrc/int8_conv.cuh, with bf16 intermediates. On a
-CPU tensor they run the plain PyTorch version above. Activations are bf16
-NHWC.
+On a CUDA tensor they launch one C entry (csrc/qenc.cu) that runs the block
+as 3-4 launches of the pipelined wgmma conv of csrc/int8_conv_sm90.cuh,
+with weights packed by `packed_weights` and h1 and h2 in int8; the stride-2
+block's conv2 and projection gather every other input pixel. On a CPU
+tensor they run the plain PyTorch version above. Activations are bf16 NHWC.
 """
 
 import torch
@@ -58,12 +57,9 @@ def bottleneck_block_s2_plain(x, qb, s1, s2, s3, sd):
     return bottleneck_block_plain(x, qb, s1, s2, s3, sd, stride=2)
 
 
-def _site_args(node, scale, name, cin, cout, taps, packed):
-    if packed:
-        wk = kernels.check_cuda(packed_weights(node), name + ".wp", torch.int8,
-                                (taps * -(-cin // 64), -(-cout // 128) * 128 * 64))
-    else:
-        wk = kernels.check_cuda(conv_weights(node), name + ".wq", torch.int8, (cout, taps, cin))
+def _site_args(node, scale, name, cin, cout, taps):
+    wk = kernels.check_cuda(packed_weights(node), name + ".wp", torch.int8,
+                            (taps * -(-cin // 64), -(-cout // 128) * 128 * 64))
     e = kernels.check_cuda(scaled_ws(node, scale).contiguous(), name + ".ws", torch.float32, (cout,))
     b = node.get("b")
     if b is not None:
@@ -93,28 +89,23 @@ def _launch_block(x, qb, s1, s2, s3, sd, stride):
     if cin % 16 or cmid % 16 or cout % 16:
         raise ValueError("the int8 kernels need channel counts that are multiples of 16")
     ho, wo = h // stride, w // stride
-    packed = stride == 1  # qenc_s1.cu's conv takes packed weights and int8 intermediates
 
-    w1, e1, b1 = _site_args(qb["conv1"], s1, "conv1", cin, cmid, 1, packed)
-    w2, e2, b2 = _site_args(qb["conv2"], s2, "conv2", cmid, cmid, 9, packed)
-    w3, e3, b3 = _site_args(qb["conv3"], s3, "conv3", cmid, cout, 1, packed)
+    w1, e1, b1 = _site_args(qb["conv1"], s1, "conv1", cin, cmid, 1)
+    w2, e2, b2 = _site_args(qb["conv2"], s2, "conv2", cmid, cmid, 9)
+    w3, e3, b3 = _site_args(qb["conv3"], s3, "conv3", cmid, cout, 1)
     wd = ed = bd = sc = None
     invd = 0.0
     if has_down:
-        wd, ed, bd = _site_args(qb["down_conv"], sd, "down_conv", cin, cout, 1, packed)
+        wd, ed, bd = _site_args(qb["down_conv"], sd, "down_conv", cin, cout, 1)
         invd = _act_inv(sd)
         sc = torch.empty((n, ho, wo, cout), dtype=torch.bfloat16, device=x.device)
-    mid = torch.int8 if packed else torch.bfloat16
-    h1 = torch.empty((n, h, w, cmid), dtype=mid, device=x.device)
-    h2 = torch.empty((n, ho, wo, cmid), dtype=mid, device=x.device)
+    h1 = torch.empty((n, h, w, cmid), dtype=torch.int8, device=x.device)
+    h2 = torch.empty((n, ho, wo, cmid), dtype=torch.int8, device=x.device)
     out = torch.empty((n, ho, wo, cout), dtype=torch.bfloat16, device=x.device)
     p = kernels.ptr
-    args = (p(x), p(w1), p(e1), p(b1), p(w2), p(e2), p(b2), p(w3), p(e3), p(b3), p(wd), p(ed), p(bd),
-            _act_inv(s1), _act_inv(s2), _act_inv(s3), invd, p(h1), p(h2), p(sc), p(out), n, h, w, cin, cmid, cout)
-    if packed:
-        kernels.launch("rs_bottleneck_block_s1", *args)
-    else:
-        kernels.launch("rs_bottleneck_block", *args, stride)
+    kernels.launch("rs_bottleneck_block", p(x), p(w1), p(e1), p(b1), p(w2), p(e2), p(b2), p(w3), p(e3), p(b3),
+                   p(wd), p(ed), p(bd), _act_inv(s1), _act_inv(s2), _act_inv(s3), invd, p(h1), p(h2), p(sc), p(out),
+                   n, h, w, cin, cmid, cout, stride)
     return out
 
 

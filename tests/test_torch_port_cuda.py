@@ -68,25 +68,50 @@ def test_bottleneck_block_kernel_bit_equal(gen, down, cin, cmid, cout, h, w):
     assert torch.equal(got, qenc.bottleneck_block_plain(x, qb, *scales))
 
 
-def test_bottleneck_block_s2_kernel_bit_equal(gen):
-    qb = {"conv1": _node(gen, 1, 1, 48, 32), "conv2": _node(gen, 3, 3, 32, 32),
-          "conv3": _node(gen, 1, 1, 32, 80), "down_conv": _node(gen, 1, 1, 48, 80)}
-    x = _act(gen, (2, 10, 14, 48))
+@pytest.mark.parametrize("cin,cmid,cout,h,w", [
+    (48, 32, 80, 10, 14),
+    # each stage's widths, on grids whose output pixel counts are off the 64-row tiles
+    (256, 128, 512, 10, 14),   # layer2.0
+    (512, 256, 1024, 6, 10),   # layer3.0
+    (1024, 512, 2048, 4, 6),   # layer4.0
+    (64, 16, 32, 18, 2),       # one output column: every left halo is padding
+])
+def test_bottleneck_block_s2_kernel_bit_equal(gen, cin, cmid, cout, h, w):
+    std = lambda fan_in: fan_in ** -0.5
+    qb = {"conv1": _node(gen, 1, 1, cin, cmid, std=std(cin)), "conv2": _node(gen, 3, 3, cmid, cmid, std=std(9 * cmid)),
+          "conv3": _node(gen, 1, 1, cmid, cout, std=std(cmid)), "down_conv": _node(gen, 1, 1, cin, cout, std=std(cin))}
+    x = _act(gen, (2, h, w, cin))
+    before = qenc.bottleneck_block_s2.launches
     got = qenc.bottleneck_block_s2(x, qb, 0.021, 0.012, 0.009, 0.017)
     torch.cuda.synchronize()
-    assert tuple(got.shape) == (2, 5, 7, 80)
+    assert qenc.bottleneck_block_s2.launches == before + 1
+    assert tuple(got.shape) == (2, h // 2, w // 2, cout)
     assert torch.equal(got, qenc.bottleneck_block_s2_plain(x, qb, 0.021, 0.012, 0.009, 0.017))
 
 
-@pytest.mark.parametrize("cin,cout,h,w,bias", [(48, 32, 5, 7, False), (144, 80, 9, 4, True)])
+@pytest.mark.parametrize("cin,cout,h,w,bias", [
+    (48, 32, 5, 7, False),
+    (144, 80, 9, 4, True),
+    # each site's channel counts on small grids: one tile (5 x 7, so three tiles in all and the last pair
+    # half empty), ragged tiles (9 x 9) and whole tiles (16 x 16)
+    (2048, 256, 9, 9, True),     # center
+    (2304, 256, 5, 7, False),    # dec0
+    (1280, 256, 16, 16, True),   # dec1
+    (768, 64, 9, 9, False),      # dec2
+    (320, 128, 16, 16, True),    # dec3
+    (320, 128, 5, 7, False),
+    (96, 80, 9, 9, True),        # Cin and Cout off the 64-wide tiles
+])
 def test_parity_up_conv_kernel_bit_equal(gen, cin, cout, h, w, bias):
-    node = q8._qkernel(q8._fused_k4(torch.randn(3, 3, cin, cout, generator=gen, device="cuda") * 0.1))
+    node = q8._qkernel(q8._fused_k4(torch.randn(3, 3, cin, cout, generator=gen, device="cuda") * 3 * (9 * cin) ** -0.5))
     if bias:
         node["b"] = torch.randn(cout, generator=gen, device="cuda") * 0.05
-    x = _act(gen, (2, h, w, cin))
+    x = _act(gen, (3, h, w, cin))
+    before = qdec.parity_up_conv.launches
     got = qdec.parity_up_conv(x, node, 0.017)
     torch.cuda.synchronize()
-    assert tuple(got.shape) == (2, 2 * h, 2 * w, cout)
+    assert qdec.parity_up_conv.launches == before + 1
+    assert tuple(got.shape) == (3, 2 * h, 2 * w, cout)
     assert torch.equal(got, qdec.parity_up_conv_plain(x, node, 0.017))
 
 

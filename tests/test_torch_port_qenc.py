@@ -14,6 +14,7 @@ import torch
 from robosat_tpu.models import int8 as jq8
 from robosat_tpu.models import qenc as jqenc
 from robosat_tpu_torch.models import qenc, qtail
+from robosat_tpu_torch.models.int8 import _quantize_act, scaled_ws
 
 
 def _node(rng, kh, kw, cin, cout):
@@ -101,3 +102,64 @@ def test_packed_weights_core_matrix_layout(cin, cout, k):
             tile = torch.zeros((cout_pad, chunks * 64), dtype=torch.int8)
             tile[:cout, :cin] = wk[:, tap]
             assert torch.equal(wp[tap * chunks + chunk][offset], tile[:, 64 * chunk:64 * chunk + 64])
+
+
+def _emulate_conv_kernel(xq, node, k, stride):
+    """csrc/int8_conv_sm90.cuh's conv_kernel in PyTorch, on int8 input: output
+    row m of the (n, ho, wo) grid gathers, per tap, input pixel
+    (stride oh + tap row - k // 2, stride ow + tap column - k // 2), zero
+    outside the image (stride 2, k = 3: torch's (1, 1) padding, a zero row
+    above and a zero column left of an even grid), and each K step
+    (tap, 64-channel chunk) multiplies its slab of `packed_weights`; then the
+    dequant to bf16."""
+    wp = qenc.packed_weights(node)
+    n, h, w, cin = xq.shape
+    cout = node["wq"].shape[-1]
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    chunks, cout_pad = -(-cin // 64), wp.shape[1] // 64
+    xp = torch.zeros((n, h, w, 64 * chunks), dtype=torch.long)
+    xp[..., :cin] = xq.long()
+    m = torch.arange(n * ho * wo)
+    img, rem = m // (ho * wo), m % (ho * wo)
+    oh, ow = rem // wo, rem % wo
+    acc = torch.zeros((n * ho * wo, cout_pad), dtype=torch.long)
+    for tap in range(k * k):
+        hi = stride * oh + tap // k - k // 2
+        wi = stride * ow + tap % k - k // 2
+        valid = (hi >= 0) & (hi < h) & (wi >= 0) & (wi < w)
+        a = xp[img, hi.clamp(0, h - 1), wi.clamp(0, w - 1)] * valid[:, None]
+        for chunk in range(chunks):
+            slab = wp[tap * chunks + chunk].reshape(cout_pad // 8, 4, 8, 16).permute(0, 2, 1, 3).reshape(cout_pad, 64)
+            acc += a[:, 64 * chunk:64 * chunk + 64] @ slab.long().T
+    assert int(acc.abs().max()) < 2 ** 31
+    return acc[:, :cout].reshape(n, ho, wo, cout).to(torch.int32)
+
+
+def _dequant(acc, node, scale):
+    y = acc.float() * scaled_ws(node, scale)
+    if "b" in node:
+        y = y + node["b"]
+    return y.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("cin,cmid,cout,h,w", [(32, 32, 64, 16, 16), (96, 48, 80, 6, 10), (64, 16, 32, 18, 2)])
+def test_stride2_gather_emulation_matches_jax(cin, cmid, cout, h, w):
+    """K4 as csrc/qenc.cu runs it (conv1 at full resolution to int8 h1,
+    conv2 and the projection gathering every other pixel, int8 h2, conv3
+    with the residual) equals the JAX package's stride-2 Pallas block in
+    interpret mode bit for bit."""
+    rng = np.random.default_rng(31 + cin + h)
+    jqb = _block(rng, cin, cmid, cout, down=True)
+    x, xt = _inputs(rng, (2, h, w, cin))
+    s1, s2, s3, sd = 0.021, 0.012, 0.009, 0.017
+    ref = np.asarray(jqenc.bottleneck_block_s2(x, jqb, s1, s2, s3, sd, strip_rows=1, interpret=True), np.float32)
+    qb = _torch_block(jqb)
+    h1 = _quantize_act(torch.relu(_dequant(_emulate_conv_kernel(_quantize_act(xt, s1), qb["conv1"], 1, 1),
+                                           qb["conv1"], s1)), s2)
+    h2 = _quantize_act(torch.relu(_dequant(_emulate_conv_kernel(h1, qb["conv2"], 3, 2), qb["conv2"], s2)), s3)
+    sc = _dequant(_emulate_conv_kernel(_quantize_act(xt, sd), qb["down_conv"], 1, 2), qb["down_conv"], sd)
+    inner = _dequant(_emulate_conv_kernel(h2, qb["conv3"], 1, 1), qb["conv3"], s3)
+    got = torch.relu(inner.float() + sc.float()).to(torch.bfloat16)
+    assert tuple(got.shape) == ref.shape == (2, h // 2, w // 2, cout)
+    assert int((got.float().numpy() != ref).sum()) == 0
+    assert torch.equal(got, qenc.bottleneck_block_s2(xt, qb, s1, s2, s3, sd))
