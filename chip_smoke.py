@@ -4,7 +4,7 @@
     python3 chip_smoke.py            (from the repository root; one GPU)
 
 Drives robosat_tpu_torch's `predict` (the U-Net of config/model-unet.toml)
-on the card along four paths, runs the two probe kernels, and checks each
+on the card along five paths, runs the two probe kernels, and checks each
 hand-written kernel against its plain PyTorch version:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -14,12 +14,12 @@ hand-written kernel against its plain PyTorch version:
    K3 at one block of every stage (layer1.0 with its projection, layer1.1,
    layer2.1, layer3.1, layer4.1), K4 at the first block of layers 2-4, K5
    at its five up-blocks (center, dec0-dec3), K7/K8/K9, bit-equal in bf16, the
-   uint8 of K6 (with its count of skipped weight blocks) and of K1 (G = 1,
-   4 and 16 groups, f32 and bf16 features) equal up to counted +-1-bin
-   flips; kernel and plain times from CUDA events with the inputs rotated
-   through copies larger than the 50 MB L2 (as in phase 4), and beside
-   each kernel time its device-only time from torch.profiler's kernel rows
-   and its TOP/s against the 1,979 TOP/s int8 peak;
+   uint8 of K6 and of K1 (G = 1, 4 and 16 groups, f32 and bf16 features)
+   equal up to counted +-1-bin flips, K6, K7 and K9 with their counts of
+   skipped weight blocks; kernel and plain times from CUDA events with the
+   inputs rotated through copies larger than the 50 MB L2 (as in phase 4),
+   and beside each kernel time its device-only time from torch.profiler's
+   kernel rows and its TOP/s against the 1,979 TOP/s int8 peak;
 4. the probes path: K2 (int8 matmul + requantize) in both orientations at
    the 8 contractions of benchmarks/bench_pallas_mm.py, bit-equal to its
    plain version, its int32 accumulators equal to `torch._int_mm`'s; K10's
@@ -31,16 +31,18 @@ hand-written kernel against its plain PyTorch version:
 5. `predict.main` in-process on a generated 512-px slippy-map directory
    with a random-weight full-width U-Net checkpoint, once per path (the
    config as it is, int8; a copy with `pallas_tail = "tail"`; one with
-   `"sep"`; one with `int8 = false`, bf16): one decodable palette PNG per
-   tile, each kernel's launch counter per batch (13 K3, 3 K4, 5 K5, 1 K6;
-   13 K3, 3 K4, 5 K5, 1 K7, 1 K1; 13 K3, 3 K4, 4 K5, 1 K8, 1 K9, 1 K1;
-   1 K1; 0 for every other kernel), the "tail" and "sep" PNGs against the
-   int8 run's up to counted +-1 flips, one batch's uint8 against the
-   plain path with the same weights and scales, and a torch.profiler
-   split of one step's device time, the int8 convs summed per routine
-   (csrc/int8_conv_sm90.cuh's wgmma convs, csrc/int8_conv.cuh's) and, by
-   kernel name, K5's up_kernel and K4's blocks (each stride-2 conv2 with
-   the conv launched before it and the two after it).
+   `"sep"`; one with `fused_head = false`, int8; one with `int8 = false`,
+   bf16): one decodable palette PNG per tile, each kernel's launch counter
+   per batch (13 K3, 3 K4, 5 K5, 1 K6; 13 K3, 3 K4, 5 K5, 1 K7, 1 K1;
+   13 K3, 3 K4, 4 K5, 1 K8, 1 K9, 1 K1; 13 K3, 3 K4, 5 K5, 1 K7; 1 K1; 0
+   for every other kernel), the "tail" and "sep" PNGs against the int8
+   run's up to counted +-1 flips (the unfused head's are only counted),
+   one batch's uint8 against the plain path with the same weights and
+   scales, and a torch.profiler split of one step's device time, the int8
+   convs summed per routine (csrc/int8_conv_sm90.cuh's wgmma convs,
+   csrc/int8_conv.cuh's, which only K8 may launch) and, by kernel name,
+   tail_kernel (K6, K7, K9), K5's up_kernel and K4's blocks (each stride-2
+   conv2 with the conv launched before it and the two after it).
 
 Each kernel's line also carries its bound: the least time the card could
 take for the same work, max(bytes / 3.35 TB/s, operations / peak) with each
@@ -104,8 +106,11 @@ PATHS = (
     ("int8", {}, {**ENCODER, "K5": 5, "K6": 1}),
     ("int8-tail", {"pallas_tail": "tail"}, {**ENCODER, "K5": 5, "K7": 1, "K1": 1}),
     ("int8-sep", {"pallas_tail": "sep"}, {**ENCODER, "K5": 4, "K8": 1, "K9": 1, "K1": 1}),
+    ("int8-unfused", {"fused_head": False}, {**ENCODER, "K5": 5, "K7": 1}),
     ("bf16", {"int8": False, "bf16": True}, {"K1": 1}),
 )
+# Launches per step of csrc/int8_conv.cuh's conv, by path: K8's alone.
+OLD_ROUTINE_LAUNCHES = {"int8-sep": 1}
 
 
 def log(*parts):
@@ -255,7 +260,8 @@ def record(per_kernel, name, site, shape, err, ms, plain_ms, work, library_ms=No
 def log_step_profile(torch, step, label, steps=5, top=8):
     """Where one step's device time goes: torch.profiler's CUDA kernel rows
     over `steps` steps, against their wall time (host clock, synchronized),
-    and the int8 convs' time summed per conv routine."""
+    and the int8 convs' time summed per conv routine; raises if the old
+    routine ran other launches than OLD_ROUTINE_LAUNCHES allows."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -282,10 +288,14 @@ def log_step_profile(torch, step, label, steps=5, top=8):
         mine = [r for r in rows if prefix in r[2]]
         log("phase 5: [{}]   int8 convs on {}: {:.3f} ms/step, {} launches, {} kernels".format(
             label, routine, sum(r[0] for r in mine), sum(r[1] for r in mine), len(mine)))
-    k5 = [r for r in rows if "rs::sm90::up_kernel" in r[2]]
-    if k5:
-        log("phase 5: [{}]   K5 by kernel name (up_kernel): {:.3f} ms/step, {} launches".format(
-            label, sum(r[0] for r in k5), sum(r[1] for r in k5)))
+        if prefix == "rs::int8_conv_kernel" and sum(r[1] for r in mine) != OLD_ROUTINE_LAUNCHES.get(label, 0):
+            raise AssertionError("[{}] {} launches per step on int8_conv.cuh, expected {}".format(
+                label, sum(r[1] for r in mine), OLD_ROUTINE_LAUNCHES.get(label, 0)))
+    for name, kernel in (("K6/K7/K9", "tail_kernel"), ("K5", "up_kernel")):
+        mine = [r for r in rows if "rs::sm90::" + kernel in r[2]]
+        if mine:
+            log("phase 5: [{}]   {} by kernel name ({}): {:.3f} ms/step, {} launches".format(
+                label, name, kernel, sum(r[0] for r in mine), sum(r[1] for r in mine)))
     # K4 by kernel name and launch order: the convs in the order they ran.
     convs = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                     and "rs::sm90::conv_kernel" in e.name), key=lambda e: e.time_range.start)
@@ -328,10 +338,12 @@ def wrappers():
 
 
 def fine_u8(out):
-    """A step's uint8 (blocked (..., 4) or doubly blocked (..., 16)) as fine tiles on the host."""
+    """A step's uint8 (fine, blocked (..., 4) or doubly blocked (..., 16)) as fine tiles on the host."""
     from robosat_tpu_torch.models.layers import depth_to_space2
 
     q = out.cpu().numpy()
+    if q.ndim == 3:
+        return q
     if q.shape[-1] == 16:
         q = depth_to_space2(q)
     return depth_to_space2(q)[..., 0]
@@ -459,7 +471,7 @@ def run(torch, work, seed, smi):
                     raise AssertionError("{} {}: not bit-equal, max |diff| {}".format(name, site, err))
                 detail = "bit-equal"
             extra = {}
-            if name == "K6":
+            if name in ("K6", "K7", "K9"):
                 listed = [sum(map(len, qtail.nonzero_blocks(node))) for node in (kargs[1], kargs[3])]
                 extra["blocks_listed"] = listed
                 extra["blocks_skipped"] = [9 * 16 - k for k in listed]
@@ -535,22 +547,27 @@ def run(torch, work, seed, smi):
             default_pngs = pngs
         elif label.startswith("int8-"):
             flips, err = u8_flips(torch, torch.from_numpy(pngs), torch.from_numpy(default_pngs))
-            if err > 1 or flips > MAX_FLIP_SHARE * pngs.size:
+            fused = keys.get("fused_head", True)
+            if fused and (err > 1 or flips > MAX_FLIP_SHARE * pngs.size):
                 raise AssertionError("[{}] PNGs vs the int8 run's: {} flipped pixels (max distance {})".format(
                     label, flips, err))
-            log("phase 5: [{}] PNGs vs the int8 run's: {} of {} pixels flipped by 1".format(label, flips, pngs.size))
+            log("phase 5: [{}] PNGs vs the int8 run's{}: {} of {} pixels differ, max distance {}".format(
+                label, "" if fused else " (another head: bf16 logits and a softmax, counted only)", flips, pngs.size,
+                err))
 
         # One batch again, with the same weights and scales, through the
         # kernels and through the plain versions; the kernel path must also
         # reproduce the PNGs predict wrote for that batch.
         if config["common"].get("int8", False):
-            step, qt = make_int8_predict_step(unet, params_d, state_d, raw48, overlap=OVERLAP, calib_percentile=99.8,
+            step, qt = make_int8_predict_step(unet, params_d, state_d, raw48, overlap=OVERLAP,
+                                              fused_head=keys.get("fused_head", True), calib_percentile=99.8,
                                               pallas_tail=keys.get("pallas_tail"))
 
             def run_step(plain=False, step=step, qt=qt):
                 return step(qt, raw48, plain=plain)
         else:
-            float_step = make_predict_step(unet, overlap=OVERLAP, compute_dtype=torch.bfloat16, host_s2d=True)
+            float_step = make_predict_step(unet, overlap=OVERLAP, compute_dtype=torch.bfloat16, fused_head=True,
+                                           host_s2d=True)
 
             def run_step(plain=False, float_step=float_step):
                 return float_step(params_d, state_d, raw48, plain=plain)
@@ -562,8 +579,8 @@ def run(torch, work, seed, smi):
         torch.cuda.synchronize()
         step_ms = cuda_ms(torch, run_step, [()], 5)
         flips, err = u8_flips(torch, got, ref)
-        blocked = TILE // 4 if keys.get("pallas_tail") == "sep" else TILE // 2
-        if got.shape[:3] != (BATCH, blocked, blocked) or err > 1 or flips > MAX_FLIP_SHARE * got.numel():
+        grid = TILE // 4 if keys.get("pallas_tail") == "sep" else TILE // 2 if keys.get("fused_head", True) else TILE
+        if got.shape[:3] != (BATCH, grid, grid) or err > 1 or flips > MAX_FLIP_SHARE * got.numel():
             raise AssertionError("[{}] step {}: {} flipped bins vs the plain path (max distance {})".format(
                 label, tuple(got.shape), flips, err))
         written = pngs[: first.valid]

@@ -1,11 +1,11 @@
 // Shared int8 implicit-GEMM convolution: the first, simple routine of the
 // hybrid-int8 U-Net walk.
 //
-// It serves the kernels off the main path: K7 and K9 (the dec4/dec5 s2d
-// convs without the head, qtail.cu) and K8 (the parity sub-convs of dec3
-// with parity-separated output, qdec.cu). K3, K4, K5 and K6 run
-// int8_conv_sm90.cuh, which takes this file's quantize and dequant. It
-// reproduces robosat_tpu/models/int8.py:_int8_conv bit for bit:
+// It serves one kernel: K8 (the parity sub-convs of dec3 with
+// parity-separated output, qdec.cu). K3-K7 and K9 run int8_conv_sm90.cuh,
+// which takes this file's quantize, dequant and layouts; K2 (int8_mm.cu)
+// its mma_s8. It reproduces robosat_tpu/models/int8.py:_int8_conv bit for
+// bit:
 //
 //   xq  = clip(rint(x_f32 * inv), -127, 127)          (int8._quantize_act)
 //   acc = sum over taps and channels of xq * wq        (exact, int32)
@@ -264,15 +264,9 @@ inline int launch_int8_conv(const ConvParams& p, cudaStream_t stream) {
   const long long m_total = static_cast<long long>(p.n) * p.ho * p.wo;
   const dim3 grid(static_cast<unsigned>((m_total + kBM - 1) / kBM), static_cast<unsigned>((p.cout + kBN - 1) / kBN),
                   static_cast<unsigned>(p.out_mul * p.out_mul));
-  if (p.in_layout == LAYOUT_NHWC && p.out_layout == LAYOUT_NHWC) {
-    int8_conv_kernel<LAYOUT_NHWC, LAYOUT_NHWC><<<grid, kThreads, 0, stream>>>(p);
-  } else if (p.in_layout == LAYOUT_NHWC && p.out_layout == LAYOUT_PLANES) {
-    int8_conv_kernel<LAYOUT_NHWC, LAYOUT_PLANES><<<grid, kThreads, 0, stream>>>(p);
-  } else if (p.in_layout == LAYOUT_PLANES && p.out_layout == LAYOUT_PLANES) {
-    int8_conv_kernel<LAYOUT_PLANES, LAYOUT_PLANES><<<grid, kThreads, 0, stream>>>(p);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  // K8's layouts, the only ones instantiated.
+  if (p.in_layout != LAYOUT_NHWC || p.out_layout != LAYOUT_PLANES) return static_cast<int>(cudaErrorInvalidValue);
+  int8_conv_kernel<LAYOUT_NHWC, LAYOUT_PLANES><<<grid, kThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,11 +1,12 @@
-// The Hopper int8 convolutions of kernels K3, K4, K5 and K6.
+// The Hopper int8 convolutions of kernels K3, K4, K5, K6, K7 and K9.
 //
-// Replaces, for those four kernels, the shared routine of int8_conv.cuh
-// (which keeps K7, K8 and K9). The TPU kernels it stands in for are
+// Replaces, for those six kernels, the shared routine of int8_conv.cuh
+// (which keeps K8). The TPU kernels it stands in for are
 // robosat_tpu/models/qenc.py:203 (bottleneck_block, stride 1) and :340
 // (bottleneck_block_s2), both on conv_kernel; robosat_tpu/models/qdec.py:273
 // (parity_up_conv) on up_kernel; robosat_tpu/models/qtail.py:426
-// (fused_tail) on tail_kernel.
+// (fused_tail), :204 (fused_tail_features) and :358
+// (fused_tail_features_sep) on tail_kernel.
 //
 // Same arithmetic as int8_conv.cuh, bit for bit: an implicit GEMM over
 // NHWC activations (M = output pixels, N = Cout, K = taps x Cin), exact
@@ -54,10 +55,13 @@
 //   it; MMAs run only over the host's list of nonzero blocks. A zero block
 //   adds nothing to an int32 sum, so this is exact for any weights; on the
 //   s2d weights it does the 68 G MACs per batch the function needs instead
-//   of the dense form's 196 G. dec5's epilogue is the head: the staged
+//   of the dense form's 196 G. K6's dec5 epilogue is the head: the staged
 //   bf16 relu activations go through head.cuh's margin in its order
 //   (margin32, four FMA accumulators), then the sigmoid and the exact
-//   digitize; dec5's activations never reach device memory.
+//   digitize; dec5's activations never reach device memory. K7's and K9's
+//   dec5 store them as bf16 (EPI_RELU); K9's tensors are parity planes,
+//   which the halo copy and the store address (input and output layouts
+//   are template parameters; the conv runs on the fine grid).
 // - K5 (up_kernel, at the end): the four parity convs of an up-block from
 //   one 10 x 10 halo per 8 x 8-pixel coarse tile and 64-channel chunk,
 //   against weight slabs streamed per K step and shared by two consumer
@@ -678,7 +682,7 @@ inline Params conv_params(const void* x, const void* wp, const float* scale, con
   return p;
 }
 
-// ---- K6's convs: dec4 and dec5 over the listed nonzero weight blocks ----
+// ---- K6's, K7's and K9's convs: dec4 and dec5 over the listed nonzero weight blocks ----
 //
 // A 3x3 SAME conv of 128 -> 128 channels whose int8 weights are cut into
 // (tap, 32-channel input block kb, 32-wide output slice ns) blocks of
@@ -693,7 +697,10 @@ inline Params conv_params(const void* x, const void* wp, const float* scale, con
 // MMAs of a tile are one straight run of NB per output slice (NB a
 // template parameter: 9, 16 or 36), so ptxas keeps them asynchronous; a
 // slice with fewer listed blocks is padded with an all-zero block, which
-// only the odd weights whose slices differ in count ever need.
+// only the odd weights whose slices differ in count ever need. The input
+// and the output each lie as NHWC or as parity planes (K9: the
+// space_to_depth2 layout of the fine grid), template parameters of the
+// kernel: only the addresses of the halo copy and of the store change.
 constexpr int kMaxBlocks = 144;       // 9 taps x 4 input blocks x 4 output slices (+1 zero block)
 constexpr int kBlockBytes = 32 * 32;  // one packed weight block
 constexpr int kHalo = 10;             // halo side of an 8 x 8 output tile
@@ -701,6 +708,19 @@ constexpr int kPlane = kHalo * kHalo * 16;  // one 16-channel plane of an int8 h
 constexpr int kHaloBytes = 8 * kPlane;      // 128 channels
 __host__ __device__ constexpr int tail_ring(bool in_bf16) { return in_bf16 ? 3 : 4; }  // int8 halo slots
 constexpr int kSmemMax = 232448;            // shared memory a block may use
+
+// Index of pixel (y, x) of image img among the 128-channel pixels of an
+// (n, h, w, 128) grid laid out as LAYOUT: NHWC, or int8_conv.cuh's parity
+// planes (n, h / 2, w / 2, 4 x 128), where plane pixel (y / 2, x / 2) holds
+// the pixels of its 2 x 2 block in the order 2 (y % 2) + x % 2, each pixel's
+// 128 channels together. The launch checks that the count fits an int.
+template <int LAYOUT>
+__device__ __forceinline__ int tail_pixel(int img, int y, int x, int h, int w) {
+  if (LAYOUT == LAYOUT_PLANES) {
+    return (((img * (h >> 1) + (y >> 1)) * (w >> 1) + (x >> 1)) << 2) | ((y & 1) << 1) | (x & 1);
+  }
+  return (img * h + y) * w + x;
+}
 
 struct TailParams {
   Params conv;           // x, scale, y, inv_in, inv_out, wmb, crop, n, h, w (cin = cout = 128, 3x3)
@@ -729,9 +749,11 @@ struct TailSmem {
 // Threads [0, 128 WGS): WGS consumer warpgroups, taking this CTA's tiles
 // in turn, so one's MMAs overlap another's epilogue (WGS = 1 only where
 // shared memory holds no second staged tile). Threads [128 WGS,
-// 128 WGS + 128): the producer warpgroup.
-template <bool IN_BF16, int EPI, int NB, int WGS>
+// 128 WGS + 128): the producer warpgroup. x lies in IN_LAYOUT, y in
+// OUT_LAYOUT (NHWC for the head, which crops on the grid).
+template <bool IN_BF16, int EPI, int NB, int WGS, int IN_LAYOUT, int OUT_LAYOUT>
 __global__ void __launch_bounds__(384, 1) tail_kernel(const __grid_constant__ TailParams tp) {
+  static_assert(EPI != EPI_HEAD || OUT_LAYOUT == LAYOUT_NHWC, "the head stores NHWC");
   const Params& p = tp.conv;
   extern __shared__ __align__(128) uint8_t smem[];
   constexpr int kRing = tail_ring(IN_BF16);
@@ -791,7 +813,9 @@ __global__ void __launch_bounds__(384, 1) tail_kernel(const __grid_constant__ Ta
         const int y = y0 + hp / kHalo;
         const int x = x0 + hp % kHalo;
         const bool valid = y >= 0 && y < p.h && x >= 0 && x < p.w;
-        const size_t off = valid ? ((static_cast<size_t>(img) * p.h + y) * p.w + x) * (128 * (IN_BF16 ? 2 : 1)) + c * 16 : 0;
+        const size_t off =
+            valid ? static_cast<size_t>(tail_pixel<IN_LAYOUT>(img, y, x, p.h, p.w)) * (128 * (IN_BF16 ? 2 : 1)) + c * 16
+                  : 0;
         cp_async16(IN_BF16 ? dst + q * 16 : dst + c * kPlane + hp * 16, static_cast<const uint8_t*>(p.x) + off,
                    valid ? 16 : 0);
       }
@@ -885,21 +909,22 @@ __global__ void __launch_bounds__(384, 1) tail_kernel(const __grid_constant__ Ta
                          1 + wg, [&](int r) {
       const int y = ty + (r >> 3);
       const int x = tx + (r & 7);
-      return y < p.h && x < p.w ? (img * p.h + y) * p.w + x : -1;
+      return y < p.h && x < p.w ? tail_pixel<OUT_LAYOUT>(img, y, x, p.h, p.w) : -1;
     }, anchors);
   }
 }
 
-// Launch K6's dec4 (IN_BF16, EPI_RELU_Q8) or dec5 (int8, EPI_HEAD) with
-// tp.per_slice MMAs per slice (9, 16 or 36), one CTA per SM; shared memory
-// decides two consumer warpgroups or one (only dense weights, 36 blocks a
-// slice, need one) and, for bf16 input, how many raw halos are in flight
-// (up to 3).
-template <bool IN_BF16, int EPI>
+// Launch a dec4 (IN_BF16, EPI_RELU_Q8) or a dec5 (int8; EPI_HEAD for K6,
+// EPI_RELU for K7 and K9) with tp.per_slice MMAs per slice (9, 16 or 36),
+// one CTA per SM; shared memory decides two consumer warpgroups or one
+// (only dense weights, 36 blocks a slice, need one) and, for bf16 input,
+// how many raw halos are in flight (up to 3). Parity planes need an even grid.
+template <bool IN_BF16, int EPI, int IN_LAYOUT = LAYOUT_NHWC, int OUT_LAYOUT = LAYOUT_NHWC>
 int launch_tail(TailParams tp, cudaStream_t stream) {
   const Params& p = tp.conv;
+  const bool planes = IN_LAYOUT == LAYOUT_PLANES || OUT_LAYOUT == LAYOUT_PLANES;
   if (tp.nb < 1 || tp.nb > kMaxBlocks + 1 || p.cin != 128 || p.cout != 128 ||
-      static_cast<long long>(p.n) * p.h * p.w >= (1LL << 31)) {
+      static_cast<long long>(p.n) * p.h * p.w >= (1LL << 31) || (planes && (p.h % 2 || p.w % 2))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   constexpr int kRing = tail_ring(IN_BF16);
@@ -912,11 +937,11 @@ int launch_tail(TailParams tp, cudaStream_t stream) {
   if (n_tiles == 0) return 0;
   void (*kernel)(TailParams) = nullptr;
   if (wgs == 2) {
-    kernel = tp.per_slice == 9 ? tail_kernel<IN_BF16, EPI, 9, 2>
-             : tp.per_slice == 16 ? tail_kernel<IN_BF16, EPI, 16, 2>
-             : tp.per_slice == 36 ? tail_kernel<IN_BF16, EPI, 36, 2> : nullptr;
+    kernel = tp.per_slice == 9 ? tail_kernel<IN_BF16, EPI, 9, 2, IN_LAYOUT, OUT_LAYOUT>
+             : tp.per_slice == 16 ? tail_kernel<IN_BF16, EPI, 16, 2, IN_LAYOUT, OUT_LAYOUT>
+             : tp.per_slice == 36 ? tail_kernel<IN_BF16, EPI, 36, 2, IN_LAYOUT, OUT_LAYOUT> : nullptr;
   } else if (tp.per_slice == 36) {
-    kernel = tail_kernel<IN_BF16, EPI, 36, 1>;
+    kernel = tail_kernel<IN_BF16, EPI, 36, 1, IN_LAYOUT, OUT_LAYOUT>;
   }
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);

@@ -34,9 +34,9 @@ _SIGNATURES = {
     "rs_parity_up_conv_separated": [_P, _P, _P, _P, _F, _P] + [_I] * 5 + [_P],
     # x, (blocks, table, n_blocks, e) x 2 [dec4, dec5], wmb, inv4, inv5, y4, out, n, h, w, o, stream
     "rs_fused_tail": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _F, _F, _P, _P] + [_I] * 4 + [_P],
-    # x, w4, e4, w5, e5, inv4, inv5, y4, y5, n, h, w (planes: hc, wc), stream
-    "rs_fused_tail_features": [_P] * 5 + [_F] * 2 + [_P] * 2 + [_I] * 3 + [_P],
-    "rs_fused_tail_features_sep": [_P] * 5 + [_F] * 2 + [_P] * 2 + [_I] * 3 + [_P],
+    # x, (blocks, table, n_blocks, e) x 2 [dec4, dec5], inv4, inv5, y4, y5, n, h, w (planes: hc, wc), stream
+    "rs_fused_tail_features": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _F, _P, _P] + [_I] * 3 + [_P],
+    "rs_fused_tail_features_sep": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _F, _P, _P] + [_I] * 3 + [_P],
     # features, wmb, out, n, h, w, groups, o, bf16, stream
     "rs_margin_head": [_P] * 3 + [_I] * 6 + [_P],
     # a, b, scale, out, m, n, k, orientation, stream

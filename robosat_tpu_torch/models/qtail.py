@@ -17,10 +17,11 @@ Counterpart of robosat_tpu/models/qtail.py. dec3's activations
   can move a probability across a 1/255 bin edge (a counted +-1 flip).
 
 On a CUDA tensor each launches csrc/qtail.cu; on a CPU tensor it runs its
-`_plain` version. K6's convs (csrc/int8_conv_sm90.cuh's tail_kernel) issue
-MMAs only over the 32 x 32 weight blocks `nonzero_blocks` lists (every
-block of dense weights; on the s2d weights of the model dec4's 4 of 9 taps
-and dec5's 9 of 36 blocks per output parity), packed by `block_operands`;
+`_plain` version. The three kernels' convs (csrc/int8_conv_sm90.cuh's
+tail_kernel, K9's reading and writing the parity planes) issue MMAs only
+over the 32 x 32 weight blocks `nonzero_blocks` lists (every block of dense
+weights; on the s2d weights of the model dec4's 4 of 9 taps and dec5's 9 of
+36 blocks per output parity), packed by `block_operands`;
 `sparse_tail_features_plain` is what that computes, in plain PyTorch.
 """
 
@@ -132,14 +133,32 @@ def fused_tail_plain(x, node4, s4, node5, s5, w_final, b_final, overlap=0):
 
 
 def _conv_operands(node4, s4, node5, s5):
-    """The two convs' int8 weights and dequant scales, checked for the card."""
-    if node4["wq"].shape[-1] != 128 or node5["wq"].shape[-1] != 128:
-        raise ValueError("the fused tail runs 128 -> 128 -> 128 channels")
-    w4 = kernels.check_cuda(conv_weights(node4), "dec4.wq", torch.int8, (128, 9, 128))
-    w5 = kernels.check_cuda(conv_weights(node5), "dec5.wq", torch.int8, (128, 9, 128))
-    e4 = kernels.check_cuda(scaled_ws(node4, s4).contiguous(), "dec4.ws", torch.float32, (128,))
-    e5 = kernels.check_cuda(scaled_ws(node5, s5).contiguous(), "dec5.ws", torch.float32, (128,))
-    return w4, e4, w5, e5
+    """The two convs' operands, checked for the card: per conv its packed
+    weight blocks (device), MMA table (host) and dequant scale ws * s."""
+    ops = []
+    for name, node, scale in (("dec4", node4, s4), ("dec5", node5, s5)):
+        if tuple(node["wq"].shape) != (3, 3, 128, 128):
+            raise ValueError("the fused tail runs 3x3 128 -> 128 convs ({}.wq: {})".format(name, tuple(node["wq"].shape)))
+        blocks, table = block_operands(node)
+        kernels.check_cuda(blocks, name + " blocks", torch.int8)
+        ops.append((blocks, table, kernels.check_cuda(scaled_ws(node, scale).contiguous(), name + ".ws", torch.float32,
+                                                      (128,))))
+    return ops
+
+
+def _launch(entry, x, node4, s4, node5, s5, fine_hw, out, head=None):
+    """Launch a C entry of csrc/qtail.cu: the two convs over the listed
+    blocks from x into `out`, through int8 scratch y4 on the fine grid
+    `fine_hw`; `head` (K6 only): its margin weights and bias, and its crop."""
+    p = kernels.ptr
+    ops = _conv_operands(node4, s4, node5, s5)
+    y4 = torch.empty((x.shape[0], *fine_hw, 128), dtype=torch.int8, device=x.device)
+    args = [p(x)]
+    for blocks, table, e in ops:
+        args += [p(blocks), p(table), len(blocks), p(e)]
+    wmb, crop = ([], []) if head is None else ([p(head[0])], [head[1]])
+    kernels.launch(entry, *args, *wmb, _act_inv(s4), _act_inv(s5), p(y4), p(out), *x.shape[:3], *crop)
+    return out
 
 
 def _check_input(x, channels):
@@ -153,13 +172,8 @@ def fused_tail_features(x, node4, s4, node5, s5):
     """dec3 activations (N, H, W, 128) bf16 -> dec5 activations, same shape."""
     if x.device.type == "cpu":
         return fused_tail_features_plain(x, node4, s4, node5, s5)
-    n, h, w = _check_input(x, 128)
-    w4, e4, w5, e5 = _conv_operands(node4, s4, node5, s5)
-    y4 = torch.empty_like(x)
-    y5 = torch.empty_like(x)
-    p = kernels.ptr
-    kernels.launch("rs_fused_tail_features", p(x), p(w4), p(e4), p(w5), p(e5), _act_inv(s4), _act_inv(s5),
-                   p(y4), p(y5), n, h, w)
+    _, h, w = _check_input(x, 128)
+    y5 = _launch("rs_fused_tail_features", x, node4, s4, node5, s5, (h, w), torch.empty_like(x))
     fused_tail_features.launches += 1
     return y5
 
@@ -173,13 +187,8 @@ def fused_tail_features_sep(x, node4, s4, node5, s5):
     of pixel (2i + p288 // 2, 2j + p288 % 2) of the 2Hc x 2Wc grid."""
     if x.device.type == "cpu":
         return fused_tail_features_sep_plain(x, node4, s4, node5, s5)
-    n, hc, wc = _check_input(x, 512)
-    w4, e4, w5, e5 = _conv_operands(node4, s4, node5, s5)
-    y4 = torch.empty_like(x)
-    y5 = torch.empty_like(x)
-    p = kernels.ptr
-    kernels.launch("rs_fused_tail_features_sep", p(x), p(w4), p(e4), p(w5), p(e5), _act_inv(s4), _act_inv(s5),
-                   p(y4), p(y5), n, hc, wc)
+    _, hc, wc = _check_input(x, 512)
+    y5 = _launch("rs_fused_tail_features_sep", x, node4, s4, node5, s5, (2 * hc, 2 * wc), torch.empty_like(x))
     fused_tail_features_sep.launches += 1
     return y5
 
@@ -195,21 +204,11 @@ def fused_tail(x, node4, s4, node5, s5, w_final, b_final, overlap=0):
     n, h, w = _check_input(x, 128)
     if overlap % 2 or overlap >= min(h, w):
         raise ValueError("overlap must be even and smaller than the blocked grid")
-    _, e4, _, e5 = _conv_operands(node4, s4, node5, s5)
-    b4, t4 = block_operands(node4)
-    b5, t5 = block_operands(node5)
-    kernels.check_cuda(b4, "dec4 blocks", torch.int8)
-    kernels.check_cuda(b5, "dec5 blocks", torch.int8)
     wm, bm = _margin_weights(w_final, b_final, 32)
     wmb = kernels.check_cuda(torch.cat([wm, bm.reshape(1)]).contiguous(), "final", torch.float32, (33,))
-    y4 = torch.empty((n, h, w, 128), dtype=torch.int8, device=x.device)
     o = overlap // 2
     out = torch.empty((n, h - 2 * o, w - 2 * o, 4), dtype=torch.uint8, device=x.device)
-    p = kernels.ptr
-    kernels.launch(
-        "rs_fused_tail", p(x), p(b4), p(t4), len(b4), p(e4), p(b5), p(t5), len(b5), p(e5), p(wmb),
-        _act_inv(s4), _act_inv(s5), p(y4), p(out), n, h, w, o,
-    )
+    _launch("rs_fused_tail", x, node4, s4, node5, s5, (h, w), out, head=(wmb, o))
     fused_tail.launches += 1
     return out
 

@@ -5,9 +5,9 @@ reference robosat U-Net: center DecoderBlock(2048->256) on a 2x2-pooled
 enc4, dec0(2048+256->256), dec1(1024+256->256), dec2(512+256->64),
 dec3(256+64->128), dec4(128->32), dec5 ConvRelu(32->32), final 1x1 conv.
 
-The folded float forward (`apply_features_folded*`) runs in the dtype of
-its input (float32 or bfloat16) as torch convolutions, as the JAX package
-leaves it to XLA; each decoder block is one transposed conv with the 4x4
+The folded float forward (`apply_features_folded*`, and `apply_folded` to
+the logits) runs in the dtype of its input (float32 or bfloat16) as torch
+convolutions, as the JAX package leaves it to XLA; each decoder block is one transposed conv with the 4x4
 parity-combined kernel (`FUSED_DECODER`). The int8 forward is the hybrid
 walk in robosat_tpu_torch/models/int8.py.
 """
@@ -87,6 +87,17 @@ def apply_features_folded(folded, x):
     _check_side(x)
     dec3 = _decode_to_dec3(folded, resnet.apply_folded(folded["encoder"], x))
     return _convrelu_apply(folded["dec5"], _decoder_apply(folded["dec4"], dec3))
+
+
+def final_logits(final, features):
+    """The final 1x1 conv plus bias on features (N, H, W, 32), in their
+    dtype -> logits (N, H, W, classes)."""
+    return conv_nhwc(features, final["w"]) + final["b"].to(features.dtype)
+
+
+def apply_folded(folded, x):
+    """BN-free inference forward on normalized x (N, H, W, 3) -> logits."""
+    return final_logits(folded["final"], apply_features_folded(folded, x))
 
 
 def decode_s2d(folded, skips):

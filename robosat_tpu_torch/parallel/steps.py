@@ -1,25 +1,35 @@
 """The predict steps of the U-Net: float (fp32/bf16) and hybrid int8.
 
 Counterpart of robosat_tpu/parallel/steps.py:make_predict_step and
-make_int8_predict_step, for the U-Net with the BN fold and the fused head.
-PyTorch runs eagerly, so a step is a plain function. The float step runs
-the folded forward as torch (cuDNN) convolutions and ends in the margin
-head, kernel K1. Every int8 site of the int8 step is a CUDA kernel on the
-GPU: K3/K4 for the 16 bottleneck blocks, K5 for the up-blocks, and per
-`pallas_tail` the decoder's end:
+make_int8_predict_step, for the U-Net with the BN fold. PyTorch runs
+eagerly, so a step is a plain function. The float step runs the folded
+forward as torch (cuDNN) convolutions and ends in the margin head, kernel
+K1 (`fused_head`), or in the final 1x1 conv, a softmax and the digitize.
+Every int8 site of the int8 step is a CUDA kernel on the GPU: K3/K4 for the
+16 bottleneck blocks, K5 for the up-blocks, and per `pallas_tail` the
+decoder's end:
 
-- None or "full": K6 (dec4 + dec5 + head);
-- "tail": K7 (dec4 + dec5), then K1 on the blocked grid;
+- None or "full": K6 (dec4 + dec5 + head); without `fused_head`, K7 (dec4
+  + dec5), then the final 1x1 conv, softmax and digitize on the fine grid;
+- "tail": K7, then K1 on the blocked grid;
 - "sep": dec3 through K8 into parity planes, K9 (dec4 + dec5 on the
   planes), then K1 on the doubly-blocked grid.
+
+A step copies its uint8 input to the device without waiting for it (from
+pinned memory the copy is asynchronous), so a caller can issue the next
+batch while the device runs this one.
 """
+
+import functools
 
 import numpy as np
 import torch
 
 from robosat_tpu_torch.models import int8 as q8
 from robosat_tpu_torch.models import qdec, qtail
+from robosat_tpu_torch.models.layers import depth_to_space2
 from robosat_tpu_torch.ops import head
+from robosat_tpu_torch.ops.quantize import softmax_quantize
 
 # ImageNet statistics (robosat/tools/train.py:246), as in robosat_tpu/ops/augment.py.
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -28,14 +38,21 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 PALLAS_TAILS = (None, "full", "tail", "sep")
 
 
+@functools.lru_cache(maxsize=None)
+def _statistics(mean, std, device):
+    """(float64 mean, float32 1 / std) on `device`, copied there once (a
+    host -> device copy from pageable memory would wait for the device)."""
+    inv_std = torch.from_numpy(np.float32(1.0) / np.asarray(std, np.float32)).to(device)
+    return torch.from_numpy(np.asarray(mean, np.float32)).to(device, torch.float64), inv_std
+
+
 def normalize(images, mean=IMAGENET_MEAN, std=IMAGENET_STD):
     """uint8 NHWC -> normalized float32 NHWC, in the arithmetic XLA compiles
     the JAX package's `(x / 255 - mean) / std` to: both divisions become
     multiplies by float32 reciprocals, and `x * (1/255) - mean` one fused
     multiply-add. The float64 form below rounds that once, as the FMA does
     (u8 * f32 and the difference with the f32 mean are exact in float64)."""
-    inv_std = torch.from_numpy(np.float32(1.0) / np.asarray(std, np.float32)).to(images.device)
-    mean = torch.from_numpy(np.asarray(mean, np.float32)).to(images.device, torch.float64)
+    mean, inv_std = _statistics(tuple(mean), tuple(std), images.device)
     centered = (images.double() * float(np.float32(1.0) / np.float32(255.0)) - mean).float()
     return centered * inv_std
 
@@ -47,13 +64,25 @@ def _normalize_s2d4(raw48):
     return normalize(raw48, mean=IMAGENET_MEAN * 16, std=IMAGENET_STD * 16)
 
 
-def make_predict_step(model, overlap=0, compute_dtype=torch.float32, fused_head=True, fold_bn=True, s2d=True,
+def _to_device(raw, device):
+    """The uint8 batch on `device`, copied without waiting for the device."""
+    return torch.as_tensor(raw).to(device, non_blocking=True)
+
+
+def _crop(q, overlap):
+    return q[:, overlap:-overlap, overlap:-overlap] if overlap else q
+
+
+def make_predict_step(model, overlap=0, compute_dtype=torch.float32, fused_head=False, fold_bn=True, s2d=True,
                       host_s2d=False):
     """Float prediction: raw uint8 -> quantized foreground uint8.
 
     The forward runs in `compute_dtype` (float32 or bfloat16) over the
     BN-folded params, folded inside every call against the params passed.
-    `s2d` runs dec4 and dec5 on the parity-blocked half-resolution grid;
+    Without `fused_head` (the JAX package's default) it takes fine input
+    and runs `model.apply_folded` to the logits, then the float32 softmax,
+    the digitize and the crop (N, H - 2o, W - 2o). With `fused_head`, `s2d`
+    runs dec4 and dec5 on the parity-blocked half-resolution grid, and
     `host_s2d` (with `s2d`) takes 4x4 host-blocked input (N, H/4, W/4, 48)
     and runs the blocked stem. Outputs:
 
@@ -64,17 +93,21 @@ def make_predict_step(model, overlap=0, compute_dtype=torch.float32, fused_head=
     Returns step(params, state, raw, plain=False); `plain=True` runs the
     head's plain version instead of kernel K1.
     """
-    if not (fused_head and fold_bn):
-        raise NotImplementedError("the float predict runs with fold_bn and fused_head only (ROADMAP Queue 1, item 4)")
-    use_host_s2d = host_s2d and s2d
+    if not fold_bn:
+        raise NotImplementedError("the float predict runs with fold_bn only (the unfolded forward: ROADMAP Queue 1, "
+                                  "item 6)")
+    use_s2d = s2d and fused_head
+    use_host_s2d = host_s2d and use_s2d
     blocked_out = use_host_s2d and overlap % 2 == 0
 
     def step(params, state, raw, plain=False):
         margin = head.margin_head_plain if plain else head.margin_head
         with torch.no_grad():
-            raw = torch.as_tensor(raw).to(params["final"]["w"].device)
+            raw = _to_device(raw, params["final"]["w"].device)
             folded = model.fold(params, state)
             w, b = folded["final"]["w"], folded["final"]["b"]
+            if not fused_head:
+                return _crop(softmax_quantize(model.apply_folded(folded, normalize(raw).to(compute_dtype))), overlap)
             if use_host_s2d:
                 features = model.apply_features_folded_s2d_from48(folded, _normalize_s2d4(raw).to(compute_dtype))
             else:
@@ -95,6 +128,7 @@ def make_int8_predict_step(
     state,
     calib_raw,
     overlap=0,
+    fused_head=True,
     calib_percentile=None,
     calib_amaxes=None,
     pallas_tail=None,
@@ -104,39 +138,42 @@ def make_int8_predict_step(
 
     Folds BN, calibrates per-site activation scales on `calib_raw` (one
     host-blocked uint8 batch (N, H/4, W/4, 48)) and quantizes the weights.
+    Every step takes host-blocked input, the unfused head too (the JAX
+    package's tool feeds that one the fine grid; the two stems differ only
+    in their bf16 summation order).
     `calib_amaxes` (a host per-site amax vector) skips calibration and uses
     those exact scales: the QAT contract of the JAX package.
 
     `pallas_tail` picks the decoder's end as the JAX package's key does
     (None/"full", "tail" or "sep"; see the module docstring). "tail" and
-    "sep" need an even overlap, "sep" a multiple of 4. `pallas_enc` is
-    accepted and changes nothing: the port always runs the encoder through
-    K3/K4, which the JAX package pins bit-equal to its XLA walk.
+    "sep" need `fused_head` and an even overlap, "sep" a multiple of 4.
+    `pallas_enc` is accepted and changes nothing: the port always runs the
+    encoder through K3/K4, which the JAX package pins bit-equal to its XLA
+    walk.
 
     Returns (step, qtree): step(qtree, raw) -> quantized foreground uint8 on
-    the device, parity-blocked (N, H/2 - overlap, W/2 - overlap, 4), or for
+    the device, parity-blocked (N, H/2 - overlap, W/2 - overlap, 4), for
     "sep" doubly-blocked (N, H/4 - overlap/2, W/4 - overlap/2, 16), channel
-    p288 * 4 + p576; step(qtree, raw, plain=True) runs the kernels' plain
-    versions instead, with the same qtree and scales.
+    p288 * 4 + p576, and without `fused_head` fine (N, H - 2 overlap,
+    W - 2 overlap) from the bf16 logits of the final 1x1 conv;
+    step(qtree, raw, plain=True) runs the kernels' plain versions instead,
+    with the same qtree and scales.
     """
     if pallas_tail not in PALLAS_TAILS:
         raise ValueError("pallas_tail must be one of {} (got {!r})".format(PALLAS_TAILS, pallas_tail))
-    if overlap % 2:
-        if pallas_tail in ("tail", "sep"):
-            raise ValueError("pallas_tail requires host_s2d + fused_head with an even overlap")
+    if pallas_tail and not (fused_head and overlap % 2 == 0):
+        raise ValueError("pallas_tail requires host_s2d + fused_head with an even overlap")
+    if fused_head and overlap % 2:
         raise NotImplementedError("the blocked int8 head crops on the coarse grid: overlap must be even")
     if pallas_tail == "sep" and overlap % 4:
         raise ValueError("pallas_tail='sep' crops on the coarse-coarse grid: overlap must be a multiple of 4")
     device = params["final"]["w"].device
 
-    def to_device(raw):
-        return torch.as_tensor(raw).to(device)
-
     with torch.no_grad():
         folded = model.fold(params, state)
         if calib_amaxes is None:
             calib_amaxes = q8.calibration_amaxes(
-                folded, _normalize_s2d4(to_device(calib_raw)), percentile=calib_percentile
+                folded, _normalize_s2d4(_to_device(calib_raw, device)), percentile=calib_percentile
             )
         scales = tuple(q8.scales_from_amaxes(calib_amaxes))
         qtree = q8.quantize_unet_folded(folded)
@@ -145,7 +182,7 @@ def make_int8_predict_step(
         w, b = qtree["final"]["w"], qtree["final"]["b"]
         margin = head.margin_head_plain if plain else head.margin_head
         with torch.no_grad():
-            x = _normalize_s2d4(to_device(raw)).to(torch.bfloat16)
+            x = _normalize_s2d4(_to_device(raw, device)).to(torch.bfloat16)
             if pallas_tail == "sep":
                 cat3, s3, s4, s5 = q8.apply_features_int8_to_dec3_input(qtree, scales, x, plain=plain)
                 up = qdec.parity_up_conv_separated_plain if plain else qdec.parity_up_conv_separated
@@ -153,9 +190,12 @@ def make_int8_predict_step(
                 feats = tail(up(cat3, qtree["dec3"], s3), qtree["dec4"], s4, qtree["dec5"], s5)
                 return margin(feats, w, b, overlap, 16)
             dec3, s4, s5 = q8.apply_features_int8_to_dec3(qtree, scales, x, plain=plain)
-            if pallas_tail == "tail":
+            if pallas_tail == "tail" or not fused_head:
                 tail = qtail.fused_tail_features_plain if plain else qtail.fused_tail_features
-                return margin(tail(dec3, qtree["dec4"], s4, qtree["dec5"], s5), w, b, overlap, 4)
+                feats = tail(dec3, qtree["dec4"], s4, qtree["dec5"], s5)
+                if fused_head:
+                    return margin(feats, w, b, overlap, 4)
+                return _crop(softmax_quantize(model.final_logits(qtree["final"], depth_to_space2(feats))), overlap)
             tail = qtail.fused_tail_plain if plain else qtail.fused_tail
             return tail(dec3, qtree["dec4"], s4, qtree["dec5"], s5, w, b, overlap)
 

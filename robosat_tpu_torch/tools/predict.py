@@ -10,20 +10,32 @@ TOML selects:
   `pallas_tail` choosing the decoder's end (unset/"full", "tail", "sep")
   and `pallas_enc` accepted without effect;
 - `int8 = false`: the folded float forward in bf16 (`bf16 = true`) or
-  float32, with `host_s2d` and `s2d` as in the JAX package.
+  float32, with `host_s2d` and `s2d` as in the JAX package;
+- `fused_head = false` (either): the final 1x1 conv, a softmax and the
+  digitize on the fine grid in place of the margin head. As in the JAX
+  package the float forward then takes fine input; the int8 step keeps the
+  host-blocked input (the JAX package's feeds it the fine grid: the stems
+  differ only in their bf16 summation order).
 
 With `host_s2d` (the default) the loader workers 4x4 space-to-depth block
 the buffered tiles, the step returns parity-blocked uint8 ("sep": doubly
 blocked, peeled once here) and the writer pool interleaves it into the PNG
 scanlines; otherwise the step returns the fine grid.
 
-Not ported yet (ROADMAP Queue 1): `--strip > 1`, `fused_head = false`,
-`int8 = true` with `host_s2d = false` or `s2d = false`, an odd overlap,
+Batches are dispatched ahead and fetched behind, as in the JAX package:
+the step of a batch is issued (its input copied from pinned memory on the
+card), its output starts back into pinned host memory behind a CUDA event,
+and a batch's PNGs go to the writer pool once two newer batches are in
+flight. The steady clock starts when the first batch is done.
+
+Not ported yet (ROADMAP Queue 1): `--strip > 1`, `int8 = true` with
+`host_s2d = false` or `s2d = false`, an odd overlap with the fused head,
 `--profile`, the 'mse'/'mae'/'pc' calibrations, and models other than the
 U-Net.
 """
 
 import argparse
+import collections
 import os
 import sys
 import time
@@ -83,6 +95,56 @@ def add_parser(subparser):
     parser.set_defaults(func=main)
 
 
+IN_FLIGHT = 2  # batches issued beyond the one being fetched
+
+
+class Dispatched:
+    """A step's output on its way to the host: on the card a copy into
+    pinned memory behind a CUDA event, which `fetch` waits for; `keep`
+    holds the host input the step's copy may still read until then."""
+
+    def __init__(self, out, keep=None):
+        self.keep = keep
+        if out.device.type == "cuda":
+            self.host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            self.host.copy_(out, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host, self.event = out, None
+
+    def fetch(self):
+        """The output as a numpy array, once the device is done with it."""
+        if self.event is not None:
+            self.event.synchronize()
+        self.keep = None
+        return self.host.numpy()
+
+
+def dispatch_ahead(batches, issue, write):
+    """Dispatch ahead, fetch behind (robosat_tpu/tools/predict.py):
+    issue(batch) starts a batch and returns its handle (`.fetch()` -> the
+    output on the host); once more than IN_FLIGHT batches are pending the
+    oldest is fetched and handed to write(batch, output), and the rest at
+    the end. The first batch is fetched before the second is issued.
+    Returns the time (time.perf_counter) at which the first batch was done:
+    the end of the set-up (kernel build, calibration)."""
+    pending = collections.deque()
+    setup_done_t = None
+    for batch in batches:
+        pending.append((batch, issue(batch)))
+        if setup_done_t is None:
+            pending[0][1].fetch()
+            setup_done_t = time.perf_counter()
+        if len(pending) > IN_FLIGHT:
+            batch, handle = pending.popleft()
+            write(batch, handle.fetch())
+    while pending:
+        batch, handle = pending.popleft()
+        write(batch, handle.fetch())
+    return setup_done_t
+
+
 def _calibration(common):
     """The config's `int8_calibration` as the walk's percentile spec."""
     calib = common.get("int8_calibration", 99.8)
@@ -105,17 +167,15 @@ def main(args):
     model = get_model(common.get("model", "unet"))
     int8_mode = common.get("int8", False)
     use_fused = common.get("fused_head", common.get("pallas_head", True))
-    if not use_fused:
-        raise NotImplementedError("fused_head = false (the 2-class conv + softmax head) is not ported yet "
-                                  "(ROADMAP Queue 1, item 4)")
     use_s2d = common.get("s2d", True)
-    use_host_s2d = common.get("host_s2d", True) and use_s2d
+    # The unfused float forward takes fine input, as in the JAX package.
+    use_host_s2d = common.get("host_s2d", True) and use_s2d and (use_fused or int8_mode)
     if int8_mode and not use_host_s2d:
         raise NotImplementedError(
             "the port's int8 predict runs host_s2d and s2d only (ROADMAP Queue 1, item 4)"
         )
-    if args.overlap % 2:
-        raise NotImplementedError("an odd overlap (fine-grid output) is not ported yet (ROADMAP Queue 1, item 4)")
+    if args.overlap % 2 and use_fused:
+        raise NotImplementedError("an odd overlap with the fused head is not ported yet (ROADMAP Queue 1, item 4)")
     calib_percentile = _calibration(common)
     # pallas_tail = "tail" | "sep" | "full" picks the int8 decoder's end
     # (parallel/steps.py); pallas_enc is accepted and changes nothing.
@@ -193,33 +253,41 @@ def main(args):
 
     predict_step = qtree = None
     if not int8_mode:
-        float_step = make_predict_step(model, overlap=args.overlap, compute_dtype=compute_dtype, s2d=use_s2d,
-                                       host_s2d=use_host_s2d)
+        float_step = make_predict_step(model, overlap=args.overlap, compute_dtype=compute_dtype, fused_head=use_fused,
+                                       s2d=use_s2d, host_s2d=use_host_s2d)
 
         def predict_step(_, raw):
             return float_step(params, state, raw)
 
-    setup_done_t = None
     pending = []
+
+    def issue(batch):
+        nonlocal predict_step, qtree
+        (images,) = batch.arrays
+        if predict_step is None:
+            # Calibrate on the first batch as loaded, padded rows included.
+            predict_step, qtree = make_int8_predict_step(
+                model, params, state, images, overlap=args.overlap, fused_head=use_fused,
+                calib_percentile=calib_percentile,
+                calib_amaxes=np.asarray(qat_amaxes, np.float64) if qat_amaxes is not None else None,
+                pallas_tail=pallas_tail, pallas_enc=pallas_enc,
+            )
+        # Pinned, the input's copy to the card does not wait for the device;
+        # the handle keeps it until the batch is fetched.
+        raw = torch.from_numpy(images).pin_memory() if device.type == "cuda" else images
+        return Dispatched(predict_step(qtree, raw), keep=raw)
+
     with ThreadPoolExecutor(max_workers=max(args.workers, 2)) as writers:
         progress = tqdm(total=total_tiles, desc="Eval", unit="tile", ascii=True)
-        for batch in batches(directory, batch_size, workers=max(args.workers, 2)):
-            (images,) = batch.arrays
-            if predict_step is None:
-                # Calibrate on the first batch as loaded, padded rows included.
-                predict_step, qtree = make_int8_predict_step(
-                    model, params, state, images, overlap=args.overlap, calib_percentile=calib_percentile,
-                    calib_amaxes=np.asarray(qat_amaxes, np.float64) if qat_amaxes is not None else None,
-                    pallas_tail=pallas_tail, pallas_enc=pallas_enc,
-                )
-            quantized = predict_step(qtree, images).cpu().numpy()  # synchronous device -> host copy
-            if setup_done_t is None:
-                # The steady clock starts after the first batch (calibration,
-                # quantization and the kernel build stay out of steady_s).
-                setup_done_t = time.perf_counter()
+
+        def write(batch, quantized):
             for tile, q in zip(batch.meta, quantized[: batch.valid]):
                 pending.append(writers.submit(write_png, tile, q))
             progress.update(batch.valid)
+
+        # The steady clock starts after the first batch (calibration,
+        # quantization and the kernel build stay out of steady_s).
+        setup_done_t = dispatch_ahead(batches(directory, batch_size, workers=max(args.workers, 2)), issue, write)
         for fut in pending:
             fut.result()
         progress.close()

@@ -175,18 +175,28 @@ def _tail_nodes(gen):
             q8._qkernel(torch.randn(3, 3, 128, 128, generator=gen, device="cuda") * 0.1))
 
 
-@pytest.mark.parametrize("h,w,const", [(12, 20, None), (16, 16, 3.0)])
-def test_fused_tail_features_kernels_bit_equal(gen, h, w, const):
-    """K7 on the grid and K9 on its parity planes against their plain
-    versions; the constant input makes a wrong zero padding flip the borders."""
-    node4, node5 = _tail_nodes(gen)
+@pytest.mark.parametrize("weights", ["dense", "s2d", "uneven"])
+@pytest.mark.parametrize("h,w,const", [(12, 20, None), (16, 16, 3.0), (13, 11, None), (10, 14, None)])
+def test_fused_tail_features_kernels_bit_equal(gen, weights, h, w, const):
+    """K7 on the grid and K9 on its parity planes (tail_kernel over the
+    listed blocks of dense, s2d and uneven weights) against their plain
+    versions, at grids off the 8-pixel tiles (K9's planes 5 x 7 at
+    10 x 14; K7 alone on the odd 13 x 11); the constant input makes a wrong
+    zero padding flip the borders."""
+    node4, node5 = {"dense": _tail_nodes, "s2d": _s2d_tail_nodes, "uneven": _uneven_tail_nodes}[weights](gen)
     x = _act(gen, (2, h, w, 128)) if const is None else torch.full((1, h, w, 128), const, device="cuda",
                                                                    dtype=torch.bfloat16)
+    before = qtail.fused_tail_features.launches, qtail.fused_tail_features_sep.launches
     got = qtail.fused_tail_features(x, node4, 0.021, node5, 0.013)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qtail.fused_tail_features_plain(x, node4, 0.021, node5, 0.013))
+    if h % 2 or w % 2:
+        return
     planes = space_to_depth2(x).contiguous()
     got_sep = qtail.fused_tail_features_sep(planes, node4, 0.021, node5, 0.013)
     torch.cuda.synchronize()
-    assert torch.equal(got, qtail.fused_tail_features_plain(x, node4, 0.021, node5, 0.013))
+    assert (qtail.fused_tail_features.launches, qtail.fused_tail_features_sep.launches) == (before[0] + 1,
+                                                                                          before[1] + 1)
     assert torch.equal(got_sep, qtail.fused_tail_features_sep_plain(planes, node4, 0.021, node5, 0.013))
     assert torch.equal(got_sep, space_to_depth2(got))
 

@@ -1,14 +1,16 @@
-"""robosat_tpu_torch K6's weight blocks: the host's block lists and packed
-operands, and the conv they describe, against the JAX package.
+"""robosat_tpu_torch K6's, K7's and K9's weight blocks: the host's block
+lists and packed operands, and the conv they describe, against the JAX
+package.
 
-K6 (csrc/int8_conv_sm90.cuh's tail_kernel) issues MMAs only over the
-(tap, 32-channel input block) pairs of each 32-wide output slice whose int8
-weights are not all zero (`qtail.nonzero_blocks`), reading them packed
+K6, K7 and K9 (csrc/int8_conv_sm90.cuh's tail_kernel) issue MMAs only over
+the (tap, 32-channel input block) pairs of each 32-wide output slice whose
+int8 weights are not all zero (`qtail.nonzero_blocks`), reading them packed
 (`qtail.block_operands`). On the model's s2d weights that leaves dec4 4 of
 9 taps and dec5 9 of 36 blocks per output parity; on dense weights it keeps
 every block. The conv over the listed blocks equals the JAX package's
 interpreted tail kernel bit for bit, and so does an emulation of the
-kernel's block loop over the packed operands.
+kernel's two launches over the packed operands, with its addressing of
+NHWC and of parity planes (K9) and its int8 y4 between them.
 """
 
 import jax.numpy as jnp
@@ -19,6 +21,7 @@ import torch
 from robosat_tpu.models import int8 as jq8
 from robosat_tpu.models import qtail as jqtail
 from robosat_tpu.models.layers import s2d_conv3x3_kernel, s2d_up_conv3x3_kernel
+from robosat_tpu.models.layers import space_to_depth2 as jspace_to_depth2
 from robosat_tpu_torch.models import qtail
 from robosat_tpu_torch.models.int8 import _quantize_act, scaled_ws
 
@@ -101,6 +104,44 @@ def test_uneven_slices_pad_with_the_zero_block():
     assert int(_unpack(packed)[26].abs().sum()) == 0
 
 
+def _pixel_index(layout, n, h, w):
+    """tail_kernel's tail_pixel: for each pixel (img, y, x) of the (n, h, w)
+    grid, its index among the 128-channel pixels of the tensor in memory,
+    NHWC or parity planes (space_to_depth2: plane pixel (y // 2, x // 2),
+    slot 2 (y % 2) + x % 2)."""
+    img, y, x = torch.meshgrid(torch.arange(n), torch.arange(h), torch.arange(w), indexing="ij")
+    if layout == "planes":
+        return (((img * (h // 2) + y // 2) * (w // 2) + x // 2) << 2) | ((y % 2) << 1) | (x % 2)
+    return (img * h + y) * w + x
+
+
+def _load(mem, layout, n, h, w):
+    """The (n, h, w, 128) grid the halo copy reads from `mem` in `layout`."""
+    return mem.reshape(-1, 128)[_pixel_index(layout, n, h, w)]
+
+
+def _store(grid, layout, shape):
+    """The tensor of `shape` the epilogue's store writes `grid` into."""
+    n, h, w, _ = grid.shape
+    mem = torch.empty((n * h * w, 128), dtype=grid.dtype)
+    mem[_pixel_index(layout, n, h, w).reshape(-1)] = grid.reshape(-1, 128)
+    return mem.reshape(shape)
+
+
+def _emulate_tail(node4, s4, node5, s5, x, layout, fine_hw):
+    """csrc/qtail.cu's K7 (`layout` "nhwc") or K9 ("planes") on bf16 `x`
+    over the fine grid `fine_hw`: dec4 reads x in `layout`, quantizes with
+    dec4's reciprocal scale, multiplies the listed blocks and stores relu'd
+    bf16 as int8 with dec5's (the NHWC y4); dec5 reads y4 and stores relu'd
+    bf16 in `layout`."""
+    n, (h, w) = x.shape[0], fine_hw
+    acc4 = _emulate_block_conv(node4, _quantize_act(_load(x, layout, n, h, w), s4))
+    y4 = _quantize_act(torch.relu((acc4.float() * scaled_ws(node4, s4)).to(torch.bfloat16)), s5)
+    acc5 = _emulate_block_conv(node5, y4)
+    y5 = torch.relu((acc5.float() * scaled_ws(node5, s5)).to(torch.bfloat16))
+    return _store(y5, layout, x.shape)
+
+
 def _emulate_block_conv(node, xq):
     """int32 accumulators of csrc/int8_conv_sm90.cuh's tail_kernel over
     `block_operands`: per output slice, per MMA entry (tap, kb, block), the
@@ -140,3 +181,38 @@ def test_listed_blocks_conv_matches_jax(weights):
     y5 = torch.relu((_emulate_block_conv(node5, _quantize_act(y4, s5)).float() * scaled_ws(node5, s5))
                     .to(torch.bfloat16))
     assert int((y5.float().numpy() != ref).sum()) == 0
+
+
+@pytest.mark.parametrize("weights", ["s2d", "dense"])
+@pytest.mark.parametrize("layout", ["nhwc", "planes"])
+def test_emulated_tail_features_match_jax(weights, layout):
+    """The emulated K7 (bf16 store on the grid) equals the JAX package's
+    interpreted fused_tail_features, and the emulated K9 (planes read and
+    written by the kernel's addressing) its fused_tail_features_sep, bit
+    for bit, on a grid whose coarse height the strips divide and whose
+    width is off the 8-pixel tiles."""
+    jnode4, jnode5 = _s2d_nodes(6) if weights == "s2d" else _dense_nodes(7)
+    rng = np.random.default_rng(8)
+    fine = jnp.asarray(rng.normal(0, 1.0, (2, 24, 20, 128)), jnp.bfloat16)
+    s4, s5 = 0.021, 0.013
+    if layout == "planes":
+        x = jspace_to_depth2(fine)
+        ref = jqtail.fused_tail_features_sep(x, jnode4, s4, jnode5, s5, strip_rows=4, interpret=True)
+    else:
+        x = fine
+        ref = jqtail.fused_tail_features(x, jnode4, s4, jnode5, s5, strip_rows=8, interpret=True)
+    ref = np.asarray(ref, np.float32)
+    xt = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+    got = _emulate_tail(_tnode(jnode4), s4, _tnode(jnode5), s5, xt, layout, (24, 20))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == ref.shape
+    assert int((got.float().numpy() != ref).sum()) == 0
+
+
+def test_pixel_index_of_planes_is_space_to_depth2():
+    """The planes addressing puts pixel (y, x) where space_to_depth2 does."""
+    from robosat_tpu_torch.models.layers import space_to_depth2
+
+    grid = torch.arange(2 * 6 * 4 * 128).reshape(2, 6, 4, 128)
+    assert torch.equal(_store(grid, "planes", (2, 3, 2, 512)), space_to_depth2(grid))
+    assert torch.equal(_load(space_to_depth2(grid), "planes", 2, 6, 4), grid)
+    assert torch.equal(_store(grid, "nhwc", grid.shape), grid)
