@@ -38,11 +38,12 @@ hand-written kernel against its plain PyTorch version:
    for every other kernel), the "tail" and "sep" PNGs against the int8
    run's up to counted +-1 flips (the unfused head's are only counted),
    one batch's uint8 against the plain path with the same weights and
-   scales, and a torch.profiler split of one step's device time, the int8
-   convs summed per routine (csrc/int8_conv_sm90.cuh's wgmma convs,
-   csrc/int8_conv.cuh's, which only K8 may launch) and, by kernel name,
-   tail_kernel (K6, K7, K9), K5's up_kernel and K4's blocks (each stride-2
-   conv2 with the conv launched before it and the two after it).
+   scales, and a torch.profiler split of one step's device time: the int8
+   convs summed (it fails if one runs outside csrc/int8_conv_sm90.cuh's
+   rs::sm90 kernels) and, by kernel name, tail_kernel (K6, K7, K9),
+   up_kernel (K5 storing NHWC, K8 parity planes; it fails unless the
+   launches are the path's K5 + K8) and K4's blocks (each stride-2 conv2
+   with the conv launched before it and the two after it).
 
 Each kernel's line also carries its bound: the least time the card could
 take for the same work, max(bytes / 3.35 TB/s, operations / peak) with each
@@ -93,10 +94,14 @@ SOURCES = {
     "K10": ("robosat_tpu_torch/csrc/head_rungs.cu", "benchmarks/bisect_mosaic_head.py:108"),
 }
 ENCODER = {"K3": 13, "K4": 3}
-# Substrings of the port's kernel names in torch.profiler's rows, and the
-# conv routine of each int8 conv kernel.
+# Substrings of the port's kernel names in torch.profiler's rows.
 KERNEL_ROWS = ("conv_kernel", "tail_kernel", "up_kernel", "margin_head_kernel", "int8_mm_kernel", "head_rung_kernel")
-ROUTINES = (("rs::sm90::", "int8_conv_sm90.cuh (wgmma)"), ("rs::int8_conv_kernel", "int8_conv.cuh"))
+# An int8 conv kernel by name (any *conv_kernel, tail_kernel, up_kernel);
+# every one must be an instance of csrc/int8_conv_sm90.cuh's, in rs::sm90.
+INT8_CONV = re.compile(r"\b(\w*conv_kernel|tail_kernel|up_kernel)\b")
+SM90 = "rs::sm90::"
+# up_kernel's instances by output layout (template argument): K5 NHWC, K8 planes.
+UP_KERNELS = (("K5", re.compile(r"rs::sm90::up_kernel<\d+, 0>")), ("K8", re.compile(r"rs::sm90::up_kernel<\d+, 1>")))
 # K4's conv2: conv_kernel<BN, int8 input, EPI_RELU_Q8, stride 2>; a K4 block
 # launches conv1, conv2, the projection, conv3 in that order.
 K4_CONV2 = re.compile(r"rs::sm90::conv_kernel<\d+, false, 3, 2>")
@@ -109,8 +114,6 @@ PATHS = (
     ("int8-unfused", {"fused_head": False}, {**ENCODER, "K5": 5, "K7": 1}),
     ("bf16", {"int8": False, "bf16": True}, {"K1": 1}),
 )
-# Launches per step of csrc/int8_conv.cuh's conv, by path: K8's alone.
-OLD_ROUTINE_LAUNCHES = {"int8-sep": 1}
 
 
 def log(*parts):
@@ -257,11 +260,12 @@ def record(per_kernel, name, site, shape, err, ms, plain_ms, work, library_ms=No
     return bound_ms, bound_by
 
 
-def log_step_profile(torch, step, label, steps=5, top=8):
+def log_step_profile(torch, step, label, per_batch, steps=5, top=8):
     """Where one step's device time goes: torch.profiler's CUDA kernel rows
     over `steps` steps, against their wall time (host clock, synchronized),
-    and the int8 convs' time summed per conv routine; raises if the old
-    routine ran other launches than OLD_ROUTINE_LAUNCHES allows."""
+    and the int8 convs' time summed; raises if an int8 conv ran outside
+    rs::sm90 or if up_kernel's launches per step are not the path's K5 + K8
+    (`per_batch`)."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -284,18 +288,25 @@ def log_step_profile(torch, step, label, steps=5, top=8):
         .format(label, wall_ms, busy, 1 - busy / wall_ms))
     for ms, count, key in rows[:top]:
         log("phase 5: [{}]   {:8.3f} ms/step {:4d} launches  {}".format(label, ms, count, key[:100]))
-    for prefix, routine in ROUTINES:
-        mine = [r for r in rows if prefix in r[2]]
-        log("phase 5: [{}]   int8 convs on {}: {:.3f} ms/step, {} launches, {} kernels".format(
-            label, routine, sum(r[0] for r in mine), sum(r[1] for r in mine), len(mine)))
-        if prefix == "rs::int8_conv_kernel" and sum(r[1] for r in mine) != OLD_ROUTINE_LAUNCHES.get(label, 0):
-            raise AssertionError("[{}] {} launches per step on int8_conv.cuh, expected {}".format(
-                label, sum(r[1] for r in mine), OLD_ROUTINE_LAUNCHES.get(label, 0)))
-    for name, kernel in (("K6/K7/K9", "tail_kernel"), ("K5", "up_kernel")):
-        mine = [r for r in rows if "rs::sm90::" + kernel in r[2]]
+    convs = [r for r in rows if INT8_CONV.search(r[2])]
+    outside = [r[2] for r in convs if SM90 not in r[2]]
+    if outside:
+        raise AssertionError("[{}] int8 convs outside {}: {}".format(label, SM90, outside))
+    log("phase 5: [{}]   int8 convs, all on int8_conv_sm90.cuh ({}): {:.3f} ms/step, {} launches, {} kernels".format(
+        label, SM90, sum(r[0] for r in convs), sum(r[1] for r in convs), len(convs)))
+    mine = [r for r in rows if SM90 + "tail_kernel" in r[2]]
+    if mine:
+        log("phase 5: [{}]   K6/K7/K9 by kernel name (tail_kernel): {:.3f} ms/step, {} launches".format(
+            label, sum(r[0] for r in mine), sum(r[1] for r in mine)))
+    for name, pattern in UP_KERNELS:
+        mine = [r for r in rows if pattern.search(r[2])]
+        if sum(r[1] for r in mine) != per_batch.get(name, 0):
+            raise AssertionError("[{}] {} up_kernel launches per step, expected {}".format(
+                label, sum(r[1] for r in mine), per_batch.get(name, 0)))
         if mine:
-            log("phase 5: [{}]   {} by kernel name ({}): {:.3f} ms/step, {} launches".format(
-                label, name, kernel, sum(r[0] for r in mine), sum(r[1] for r in mine)))
+            log("phase 5: [{}]   {} by kernel name (up_kernel, {}): {:.3f} ms/step, {} launches".format(
+                label, name, "parity planes" if name == "K8" else "NHWC", sum(r[0] for r in mine),
+                sum(r[1] for r in mine)))
     # K4 by kernel name and launch order: the convs in the order they ran.
     convs = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                     and "rs::sm90::conv_kernel" in e.name), key=lambda e: e.time_range.start)
@@ -591,7 +602,7 @@ def run(torch, work, seed, smi):
         log("phase 5: [{}] batch of {} through the kernels vs the plain path: {} of {} bins flipped by 1; "
             "step {:.2f} ms with kernels, {:.2f} ms plain; PNGs match the kernel step".format(
                 label, BATCH, flips, got.numel(), step_ms, start_ev.elapsed_time(end_ev)))
-        log_step_profile(torch, run_step, label)
+        log_step_profile(torch, run_step, label, per_batch)
         del run_step, got, ref
         torch.cuda.empty_cache()
 

@@ -1,25 +1,27 @@
-// The Hopper int8 convolutions of kernels K3, K4, K5, K6, K7 and K9.
+// The Hopper int8 convolutions of kernels K3, K4, K5, K6, K7, K8 and K9:
+// every int8 conv of the port.
 //
-// Replaces, for those six kernels, the shared routine of int8_conv.cuh
-// (which keeps K8). The TPU kernels it stands in for are
-// robosat_tpu/models/qenc.py:203 (bottleneck_block, stride 1) and :340
-// (bottleneck_block_s2), both on conv_kernel; robosat_tpu/models/qdec.py:273
-// (parity_up_conv) on up_kernel; robosat_tpu/models/qtail.py:426
+// The TPU kernels it stands in for are robosat_tpu/models/qenc.py:203
+// (bottleneck_block, stride 1) and :340 (bottleneck_block_s2), both on
+// conv_kernel; robosat_tpu/models/qdec.py:273 (parity_up_conv) and :222
+// (parity_up_conv_separated) on up_kernel; robosat_tpu/models/qtail.py:426
 // (fused_tail), :204 (fused_tail_features) and :358
 // (fused_tail_features_sep) on tail_kernel.
 //
-// Same arithmetic as int8_conv.cuh, bit for bit: an implicit GEMM over
-// NHWC activations (M = output pixels, N = Cout, K = taps x Cin), exact
-// int32 accumulators, and int8_conv.cuh's dequant epilogue (`epilogue`:
-// __fmul_rn, __fadd_rn, bf16 RNE, then relu or residual-relu).
+// The arithmetic of robosat_tpu/models/int8.py's _int8_conv, bit for bit:
+// an implicit GEMM over NHWC activations (M = output pixels, N = Cout,
+// K = taps x Cin) of bf16 inputs quantized as clip(rintf(__fmul_rn(v, inv)),
+// -127, 127), exact int32 accumulators, and the dequant epilogue
+// bf16_rne(__fadd_rn(__fmul_rn(f32(acc), ws * s), b)), then relu or
+// residual-relu.
 //
 // What bounds it on the H100: at the main-path shapes the 1x1 convs of
 // layers 1-2 move more bytes than the tensor cores need time for (64-256
 // channels against ~590 int8 ops per byte at the ridge); the 3x3 convs and
-// layers 3-4 are closer to the 1979 TOP/s int8 peak. The old routine ran at
-// 1-5% of that peak: synchronous loads, a quantize and two barriers per 64
-// channels, mma.sync, and an A tile staged once per 64 output channels.
-// The design here:
+// layers 3-4 are closer to the 1979 TOP/s int8 peak. A simple form
+// (synchronous loads, a quantize and two barriers per 64 channels,
+// mma.sync, an A tile staged once per 64 output channels) reaches 1-5% of
+// that peak. The design here:
 //
 // - wgmma.mma_async m64nNk32 s32.s8.s8 with both operands in shared memory
 //   (K-major, the 16-byte core-matrix layout without swizzle: core matrix
@@ -40,12 +42,12 @@
 //     the thread's own group for it has landed (cp.async.wait_group).
 //   - bf16 activations (a block's input, dec3's output): cp.async into a
 //     ring of raw bf16 tiles several items ahead, quantized once per tile
-//     by the thread that copied them (int8_conv.cuh's quantize1), stored
+//     by the thread that copied them (quantize8, below), stored
 //     into the stage, then fence.proxy.async before the arrival.
 //   - weights: one cp.async.bulk per stage from a copy packed on the host in
 //     the stage's core-matrix order (qenc.packed_weights).
 // - Epilogues stage the tile in shared memory, then store 16 bytes a thread
-//   along rows. They can store int8 for the next conv (quantize1 of the
+//   along rows. They can store int8 for the next conv (the quantize of the
 //   bf16 value with the consumer's reciprocal scale: the bytes the
 //   consumer's on-load quantize computed), so h1, h2 and dec4's output
 //   move 1 byte per channel and reach the next conv by plain async copies.
@@ -62,10 +64,12 @@
 //   dec5 store them as bf16 (EPI_RELU); K9's tensors are parity planes,
 //   which the halo copy and the store address (input and output layouts
 //   are template parameters; the conv runs on the fine grid).
-// - K5 (up_kernel, at the end): the four parity convs of an up-block from
-//   one 10 x 10 halo per 8 x 8-pixel coarse tile and 64-channel chunk,
-//   against weight slabs streamed per K step and shared by two consumer
-//   warpgroups on two tiles.
+// - K5 and K8 (up_kernel, at the end): the four parity convs of an
+//   up-block from one 10 x 10 halo per 8 x 8-pixel coarse tile and
+//   64-channel chunk, against weight slabs streamed per K step and shared
+//   by two consumer warpgroups on two tiles; the output layout (K5: the
+//   fine NHWC grid, K8: its parity planes) is a template parameter that
+//   only the store address reads.
 // - K4: conv_kernel with STRIDE = 2 for conv2 and the projection; only the
 //   producer's gather differs.
 //
@@ -81,12 +85,20 @@
 #include <stdint.h>
 
 #include "head.cuh"
-#include "int8_conv.cuh"
 
 namespace rs {
+
+// Epilogues of store_tile with a bf16 output; sm90 adds two more.
+enum Epilogue { EPI_LINEAR = 0, EPI_RELU = 1, EPI_RESIDUAL_RELU = 2 };
+// How an activation grid (N, H, W, C) lies in memory: NHWC, or as parity
+// planes, the space_to_depth2 layout (N, H / 2, W / 2, 4 C) in which pixel
+// (y, x) channel c sits at plane pixel (y / 2, x / 2), channel
+// (2 (y % 2) + x % 2) C + c.
+enum Layout { LAYOUT_NHWC = 0, LAYOUT_PLANES = 1 };
+
 namespace sm90 {
 
-// Epilogues beyond int8_conv.cuh's EPI_LINEAR / EPI_RESIDUAL_RELU (bf16 out).
+// Epilogues beyond EPI_LINEAR / EPI_RELU / EPI_RESIDUAL_RELU (bf16 out).
 constexpr int EPI_RELU_Q8 = 3;  // relu, then int8 with the next conv's reciprocal scale
 constexpr int EPI_HEAD = 4;     // relu, then the blocked margin head to uint8 (Cout = 128)
 
@@ -189,10 +201,10 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo = kLbo, uin
          (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
-// int8_conv.cuh's quantize1 of 8 bf16 (4 packed pairs) into 8 int8, in
-// fewer instructions: clip(rint(v * inv), -127, 127) as the clip of the
-// product, then one round-to-nearest-even conversion (the same values,
-// NaN included), bytes packed with byte_perm.
+// The activation quantize, clip(rintf(__fmul_rn(v, inv)), -127, 127), of
+// 8 bf16 (4 packed pairs) into 8 int8: the clip of the product, then one
+// round-to-nearest-even conversion (the same values, NaN included), bytes
+// packed with byte_perm.
 __device__ __forceinline__ uint32_t quantize_pair(uint32_t bf16x2, float inv) {
   const int lo = __float2int_rn(fminf(fmaxf(__fmul_rn(__uint_as_float(bf16x2 << 16), inv), -127.0f), 127.0f));
   const int hi = __float2int_rn(fminf(fmaxf(__fmul_rn(__uint_as_float(bf16x2 & 0xffff0000u), inv), -127.0f), 127.0f));
@@ -284,11 +296,12 @@ inline int sm_count() {
   return count;
 }
 
-// The f32 value of int8_conv.cuh's `epilogue` before its bf16 rounding:
-// f32(acc) * scale (+ bias), two roundings, no FMA. store_tile rounds two
-// at a time to bf16 (RNE) and applies relu to the rounded pair (the same
-// bf16 values; a -0 may come out +0, which no consumer of the staged
-// tile tells apart).
+// The f32 value of the dequant epilogue before its bf16 rounding:
+// f32(acc) * scale (+ bias), two roundings, no FMA (the explicit _rn
+// intrinsics keep nvcc from contracting them). store_tile rounds two at a
+// time to bf16 (RNE) and applies relu to the rounded pair (the bf16 values
+// of relu before the rounding; a -0 may come out +0, which no consumer of
+// the staged tile tells apart).
 __device__ __forceinline__ float dequant(int acc, float scale, float bias, bool has_bias) {
   const float v = __fmul_rn(__int2float_rn(acc), scale);
   return has_bias ? __fadd_rn(v, bias) : v;
@@ -709,11 +722,12 @@ constexpr int kHaloBytes = 8 * kPlane;      // 128 channels
 __host__ __device__ constexpr int tail_ring(bool in_bf16) { return in_bf16 ? 3 : 4; }  // int8 halo slots
 constexpr int kSmemMax = 232448;            // shared memory a block may use
 
-// Index of pixel (y, x) of image img among the 128-channel pixels of an
-// (n, h, w, 128) grid laid out as LAYOUT: NHWC, or int8_conv.cuh's parity
-// planes (n, h / 2, w / 2, 4 x 128), where plane pixel (y / 2, x / 2) holds
-// the pixels of its 2 x 2 block in the order 2 (y % 2) + x % 2, each pixel's
-// 128 channels together. The launch checks that the count fits an int.
+// Index of pixel (y, x) of image img among the C-channel pixels of an
+// (n, h, w, C) grid laid out as LAYOUT: NHWC, or parity planes
+// (n, h / 2, w / 2, 4 C), where plane pixel (y / 2, x / 2) holds the pixels
+// of its 2 x 2 block in the order 2 (y % 2) + x % 2, each pixel's C channels
+// together: in units of whole pixels, so for any C. The launch checks that
+// the count fits an int.
 template <int LAYOUT>
 __device__ __forceinline__ int tail_pixel(int img, int y, int x, int h, int w) {
   if (LAYOUT == LAYOUT_PLANES) {
@@ -950,7 +964,7 @@ int launch_tail(TailParams tp, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- K5: nearest-2x upsample + 3x3 conv, the four parity convs from one halo ----
+// ---- K5 and K8: nearest-2x upsample + 3x3 conv, the four parity convs from one halo ----
 //
 // Output parity (di, dj) of the up-block is a 2x2-tap conv on the coarse
 // grid whose tap (a, b) reads coarse pixel (oh + di - 1 + a, ow + dj - 1 + b)
@@ -968,13 +982,17 @@ int launch_tail(TailParams tp, cudaStream_t stream) {
 // run), and two consumer warpgroups multiply two different spatial tiles
 // against the same slabs, so every weight byte brought in feeds 128 output
 // rows. Each warpgroup holds the four parities' accumulators (4 x BN / 2
-// registers a thread) and stores them through store_tile into the fine
-// NHWC output at (2 oh + di, 2 ow + dj).
+// registers a thread) and stores them through store_tile at fine pixel
+// (2 oh + di, 2 ow + dj) of the output, which lies as OUT_LAYOUT: the fine
+// NHWC grid (K5) or its parity planes (K8: tail_pixel puts parity
+// p = 2 di + dj of coarse pixel (oh, ow) at pixel 4 (coarse index) + p, so
+// store_tile's m * cout + col is channel p cout + col of the coarse pixel).
+// Either way a tile row stores BN channels, 128 contiguous bytes.
 //
 // Who does what. Each consumer warpgroup loads its own tile's raw bf16
 // halo from device memory into registers one K step ahead (16 bytes a
 // piece, seven pieces a thread; zeros outside the grid, past cin and past
-// the last tile), quantizes it (int8_conv.cuh's quantize1) into one of its
+// the last tile), quantizes it (quantize8) into one of its
 // two int8 halo slots, fences the stores for wgmma and syncs, asks for the
 // next step's pieces, then starts the step's 2 x 16 MMAs as the two weight
 // stages arrive: the loads of step i + 1 and its quantize run while the
@@ -1011,14 +1029,15 @@ struct UpSmem {
 };
 
 // p: x (n, h, w, cin) bf16, wp from qdec.packed_parity_weights, n_steps the
-// 64-channel chunks of cin, y (n, 2 h, 2 w, cout) bf16. Item i of the grid
+// 64-channel chunks of cin, y the bf16 (n, 2 h, 2 w, cout) grid in
+// OUT_LAYOUT (planes: (n, h, w, 4 cout)). Item i of the grid
 // is (pair of spatial tiles i / tiles_n, output tile i % tiles_n), CTA b
 // taking items b, b + gridDim.x, ...: the CTAs running side by side share
 // their halos through L2. Threads [0, 256): the two consumer warpgroups,
 // warpgroup g on tile 2 pair + g (past the last tile: zeros in, nothing
 // stored). Threads [256, 384): the weights' warpgroup, one thread of it
 // running ahead through the (item, chunk, half) stages.
-template <int BN>
+template <int BN, int OUT_LAYOUT>
 __global__ void __launch_bounds__(384, 1) up_kernel(const __grid_constant__ Params p) {
   using S = UpSmem<BN>;
   extern __shared__ __align__(128) uint8_t smem[];
@@ -1205,26 +1224,30 @@ __global__ void __launch_bounds__(384, 1) up_kernel(const __grid_constant__ Para
       store_tile<BN, EPI_RELU>(p, acc[par], out_s, n0, wt, 1 + g, [&](int row) {
         const int y = ty + (row >> 3);
         const int x = tx + (row & 7);
-        return t < n_tiles && y < p.h && x < p.w ? ((img * 2 * p.h + 2 * y + (par >> 1)) * 2 * p.w + 2 * x + (par & 1)) : -1;
+        return t < n_tiles && y < p.h && x < p.w
+                   ? tail_pixel<OUT_LAYOUT>(img, 2 * y + (par >> 1), 2 * x + (par & 1), 2 * p.h, 2 * p.w)
+                   : -1;
       });
     }
   }
 }
 
-// Launch K5's up-block, one CTA per SM (at most one per item).
-template <int BN>
+// Launch an up-block (K5: OUT_LAYOUT NHWC, K8: parity planes), one CTA per
+// SM (at most one per item).
+template <int BN, int OUT_LAYOUT = LAYOUT_NHWC>
 int launch_up(const Params& p, cudaStream_t stream) {
   using S = UpSmem<BN>;
-  // Fine pixel indices and a halo's byte offsets are 32-bit in the kernel.
+  // Fine pixel indices (either layout) and a halo's byte offsets are 32-bit in the kernel.
   if (4LL * p.n * p.h * p.w >= (1LL << 31) || (kHalo * (p.w + 1LL)) * p.cin * 2 >= (1LL << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long n_tiles = static_cast<long long>(p.n) * ((p.h + 7) / 8) * ((p.w + 7) / 8);
   const long long n_items = (n_tiles + 1) / 2 * ((p.cout + BN - 1) / BN);
   if (n_items == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(up_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+  auto kernel = up_kernel<BN, OUT_LAYOUT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  up_kernel<BN><<<static_cast<unsigned>(n_items < sm_count() ? n_items : sm_count()), 384, S::kBytes, stream>>>(p);
+  kernel<<<static_cast<unsigned>(n_items < sm_count() ? n_items : sm_count()), 384, S::kBytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,7 +13,7 @@
 //   B, NHWC-flat:      out(P, cout) = x(P, cin) @ w(cin, cout), s (1, cout)
 //
 // In both, the left operand is K-contiguous and the right one N-contiguous.
-// `mma.sync.m16n8k32` (int8_conv.cuh) takes both K-contiguous, so the right
+// `mma.sync.m16n8k32` (mma_s8, below) takes both K-contiguous, so the right
 // operand's tile is transposed while it is staged into shared memory: each
 // thread loads four K rows of 16 bytes and transposes them as 4 x 4 byte
 // blocks with __byte_perm.
@@ -25,16 +25,26 @@
 // device memory. Each block keeps one (BM, BN) output tile and streams K in
 // chunks of 64; the tiles along the small dimension run next to each other,
 // so the large operand's tile is read from device memory once and from L2
-// by the rest. Simple by design: no cp.async pipeline, no wgmma/TMA.
+// by the rest. Simple by design, its own routine: mma.sync on synchronous
+// loads, no cp.async pipeline, no wgmma/TMA (every int8 conv of the port
+// runs int8_conv_sm90.cuh's wgmma routines instead).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "int8_conv.cuh"
-
 namespace {
 
 enum Orientation { ORIENT_A = 0, ORIENT_B = 1 };
+
+// c += a (16 x 32, row) @ b (32 x 8, col), s8 x s8 -> s32, in mma.sync's
+// fragment layout.
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
 constexpr int kChunk = 64;           // K bytes per staged chunk
 constexpr int kLd = kChunk + 16;     // shared row stride in bytes (fragment loads bank-conflict free)
@@ -169,7 +179,7 @@ __global__ void __launch_bounds__(kMmThreads) int8_mm_kernel(const int8_t* a, co
 #pragma unroll
       for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < NI; ++ni) rs::mma_s8(acc[mi][ni], af[mi], bf[ni]);
+        for (int ni = 0; ni < NI; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
     }
     __syncthreads();
   }

@@ -31,7 +31,7 @@
 //   sc  = bf16(down_1x1/stride(qd(x)))  or  x            -> sc bf16 (N, Ho, Wo, Cout)
 //   out = bf16(relu(bf16(conv3_1x1(h2)) + sc))           -> out
 //
-// qk(v) = clip(rint(v * invk), -127, 127): the quantize of int8_conv.cuh.
+// qk(v) = clip(rintf(__fmul_rn(v, invk)), -127, 127): the activation quantize.
 
 #include "int8_conv_sm90.cuh"
 

@@ -14,9 +14,9 @@ relu(bf16(acc * (ws * s) + b)), bit for bit the JAX package's up_block.
 (N, 2H, 2W, Cout); `parity_up_conv_separated` (K8) groups them by channel,
 (N, H, W, 4 Cout) with parity p = 2 di + dj in channels [p Cout, (p + 1)
 Cout): space_to_depth2 of K5's output. On a CUDA tensor each launches
-csrc/qdec.cu (K5 csrc/int8_conv_sm90.cuh's up_kernel on the weights of
-`packed_parity_weights`, K8 csrc/int8_conv.cuh's conv on `kernel_weights`);
-on a CPU tensor it runs its `_plain` version.
+csrc/qdec.cu: both run csrc/int8_conv_sm90.cuh's up_kernel on the weights of
+`packed_parity_weights`, K5 storing the fine NHWC grid and K8 its parity
+planes. On a CPU tensor each runs its `_plain` version.
 """
 
 import torch
@@ -84,15 +84,6 @@ def parity_up_conv_separated_plain(x, node, s_in):
     return torch.cat(_parity_outputs(x, node, s_in), dim=-1)
 
 
-def kernel_weights(node):
-    """The K4 kernel in K8's (4 parities, Cout, 4 taps, Cin) layout, cached
-    on the node."""
-    wk = node.get("wk")
-    if wk is None:
-        wk = node["wk"] = parity_tap_weights(node["wq"]).permute(0, 3, 1, 2).contiguous()
-    return wk
-
-
 UP_BN = 64  # output channels per tile of csrc/int8_conv_sm90.cuh's up_kernel
 
 
@@ -129,18 +120,17 @@ def _launch(x, node, s_in, separated):
         raise ValueError("the int8 kernels need channel counts that are multiples of 16")
     if separated:
         entry, out_shape = "rs_parity_up_conv_separated", (n, h, w, 4 * cout)
-        wk = kernels.check_cuda(kernel_weights(node), "wq", torch.int8, (4, cout, 4, cin))
     else:
         entry, out_shape = "rs_parity_up_conv", (n, 2 * h, 2 * w, cout)
-        wk = kernels.check_cuda(packed_parity_weights(node), "wq", torch.int8,
-                                (-(-cout // UP_BN) * -(-cin // 64) * 32, UP_BN * 32))
+    wp = kernels.check_cuda(packed_parity_weights(node), "wq", torch.int8,
+                            (-(-cout // UP_BN) * -(-cin // 64) * 32, UP_BN * 32))
     e = kernels.check_cuda(scaled_ws(node, s_in).contiguous(), "ws", torch.float32, (cout,))
     b = node.get("b")
     if b is not None:
         b = kernels.check_cuda(b, "b", torch.float32, (cout,))
     out = torch.empty(out_shape, dtype=torch.bfloat16, device=x.device)
     p = kernels.ptr
-    kernels.launch(entry, p(x), p(wk), p(e), p(b), _act_inv(s_in), p(out), n, h, w, cin, cout)
+    kernels.launch(entry, p(x), p(wp), p(e), p(b), _act_inv(s_in), p(out), n, h, w, cin, cout)
     return out
 
 

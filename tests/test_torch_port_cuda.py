@@ -8,7 +8,7 @@ without the JAX package's test configuration:
 
 Shapes are small and ragged on purpose (pixel counts off the 64- and
 128-row tiles, channel counts off the 64-wide tiles) to reach every masked
-edge of the two int8 conv routines; chip_smoke.py checks the main-path
+edge of the int8 conv kernels; chip_smoke.py checks the main-path
 shapes.
 """
 
@@ -156,8 +156,15 @@ def test_fused_tail_kernel_matches_plain(gen, weights, blocks, overlap, h, w):
     assert int((d != 0).sum()) <= 0.001 * d.numel()
 
 
-@pytest.mark.parametrize("cin,cout,h,w,bias", [(48, 32, 5, 7, True), (144, 80, 9, 4, False)])
+@pytest.mark.parametrize("cin,cout,h,w,bias", [
+    (48, 32, 5, 7, True),
+    (144, 80, 9, 4, False),
+    (320, 128, 11, 13, True),  # dec3's widths on an odd coarse grid
+    (96, 80, 9, 9, False),     # Cout off the 64-channel tile, no bias
+])
 def test_parity_up_conv_separated_kernel_bit_equal(gen, cin, cout, h, w, bias):
+    """K8 (up_kernel storing parity planes) against its plain version and
+    against space_to_depth2 of K5 (the same kernel storing the fine grid)."""
     node = q8._qkernel(q8._fused_k4(torch.randn(3, 3, cin, cout, generator=gen, device="cuda") * 0.1))
     if bias:
         node["b"] = torch.randn(cout, generator=gen, device="cuda") * 0.05
@@ -168,6 +175,7 @@ def test_parity_up_conv_separated_kernel_bit_equal(gen, cin, cout, h, w, bias):
     assert qdec.parity_up_conv_separated.launches == before + 1
     assert tuple(got.shape) == (2, h, w, 4 * cout)
     assert torch.equal(got, qdec.parity_up_conv_separated_plain(x, node, 0.017))
+    assert torch.equal(got, space_to_depth2(qdec.parity_up_conv(x, node, 0.017)))
 
 
 def _tail_nodes(gen):

@@ -1,14 +1,17 @@
-"""robosat_tpu_torch K5's packed weights and tile loop against the JAX package.
+"""robosat_tpu_torch K5's and K8's packed weights, tile loop and store map
+against the JAX package.
 
-K5 (csrc/int8_conv_sm90.cuh's up_kernel) computes the four parity outputs of
-an up-block from one 10 x 10 halo per 8 x 8-pixel coarse tile and 64-channel
-chunk: the 16 (parity, tap) products of a K step read windows of the
-quantized halo at an offset and multiply the step's 2 x 16 weight slabs (one
-set per 32-channel half), which `qdec.packed_parity_weights` packs on the
-host. Here the packing is held against `parity_tap_weights` byte by byte,
-and an emulation of the kernel's loop over the packed operands against the
-JAX package's Pallas kernel in interpret mode, bit for bit: the sums are
-integers and the roundings are the stated ones, so there is no tolerance.
+K5 and K8 (csrc/int8_conv_sm90.cuh's up_kernel) compute the four parity
+outputs of an up-block from one 10 x 10 halo per 8 x 8-pixel coarse tile and
+64-channel chunk: the 16 (parity, tap) products of a K step read windows of
+the quantized halo at an offset and multiply the step's 2 x 16 weight slabs
+(one set per 32-channel half), which `qdec.packed_parity_weights` packs on
+the host. K5 stores the fine NHWC grid, K8 its parity planes, through one
+pixel index (the kernel's tail_pixel). Here the packing is held against
+`parity_tap_weights` byte by byte, and an emulation of the kernel's loop and
+store over the packed operands against the JAX package's Pallas kernels in
+interpret mode, bit for bit: the sums are integers and the roundings are the
+stated ones, so there is no tolerance.
 """
 
 import jax.numpy as jnp
@@ -57,14 +60,25 @@ def test_packed_parity_weights_core_matrix_layout(cin, cout):
                     assert torch.equal(_slab(got), want)
 
 
-def _emulate_up_kernel(x, node, s_in):
+def _tail_pixel(img, y, x, h, w, planes):
+    """The kernel's tail_pixel: index of pixel (y, x) of image img among the
+    pixels of an (n, h, w, C) grid, NHWC or parity planes (plane pixel
+    (y // 2, x // 2), slot 2 (y % 2) + x % 2)."""
+    if planes:
+        return (((img * (h >> 1) + (y >> 1)) * (w >> 1) + (x >> 1)) << 2) | ((y & 1) << 1) | (x & 1)
+    return (img * h + y) * w + x
+
+
+def _emulate_up_kernel(x, node, s_in, separated=False):
     """up_kernel's loop in PyTorch: per (8 x 8 coarse tile, 64-channel output
     tile) and 64-channel chunk, the 10 x 10 halo of the quantized chunk
     (origin one pixel up and left of the tile, zero outside the grid and
     past Cin), and per 32-channel half and (parity, tap) the halo window at
     pixel (di + a, dj + b) times the stage's packed slab; then the dequant
-    epilogue and the store of parity (di, dj) at fine pixel
-    (2 oh + di, 2 ow + dj)."""
+    epilogue and store_tile's store of parity (di, dj) of coarse pixel
+    (oh, ow) at element m * Cout + c of the output, m the index of fine
+    pixel (2 oh + di, 2 ow + dj) in the output's layout: (N, 2H, 2W, Cout)
+    NHWC, or (`separated`) the parity planes (N, H, W, 4 Cout)."""
     packed = qdec.packed_parity_weights(node)
     n, h, w, cin = x.shape
     cout = node["wq"].shape[-1]
@@ -90,28 +104,52 @@ def _emulate_up_kernel(x, node, s_in):
     if "b" in node:
         y = y + node["b"]
     y = torch.relu(y.to(torch.bfloat16))
-    out = torch.empty((n, 2 * h, 2 * w, cout), dtype=torch.bfloat16)
+    out = torch.full((n * 4 * h * w * cout,), float("nan"), dtype=torch.bfloat16)
+    img, oh, ow = torch.meshgrid(torch.arange(n), torch.arange(h), torch.arange(w), indexing="ij")
     for p in range(4):
-        out[:, p >> 1::2, p & 1::2] = y[p]
-    return out
+        m = _tail_pixel(img, 2 * oh + (p >> 1), 2 * ow + (p & 1), 2 * h, 2 * w, separated)
+        out[(m[..., None] * cout + torch.arange(cout)).reshape(-1)] = y[p].reshape(-1)
+    assert not bool(out.isnan().any())  # every element stored
+    return out.reshape((n, h, w, 4 * cout) if separated else (n, 2 * h, 2 * w, cout))
 
 
-@pytest.mark.parametrize("cin,cout,h,w,bias", [
-    (64, 32, 8, 8, False),    # one whole tile
-    (96, 48, 9, 9, True),     # ragged tiles, Cin off the 64-channel chunk
-    (80, 16, 5, 7, True),     # dec3's 320 cut to 80: one partial tile, a partial second chunk
-    (128, 80, 12, 10, False),  # two output tiles, the second partial
-])
-def test_up_kernel_emulation_matches_jax(cin, cout, h, w, bias):
+def _up_case(cin, cout, h, w, bias):
+    """A quantized up-block node (JAX tree), a bf16 input and its scale."""
     rng = np.random.default_rng(7 * cin + cout + h)
     node = jq8._qkernel(jq8._fused_k4(jnp.asarray(rng.normal(0, 0.1, (3, 3, cin, cout)).astype(np.float32))))
     if bias:
         node["b"] = jnp.asarray(rng.normal(0, 0.05, (cout,)).astype(np.float32))
-    x = jnp.asarray(rng.normal(0, 1.0, (2, h, w, cin)), jnp.bfloat16)
-    s = 0.017
+    return node, jnp.asarray(rng.normal(0, 1.0, (2, h, w, cin)), jnp.bfloat16), 0.017
+
+
+UP_CASES = [
+    (64, 32, 8, 8, False),    # one whole tile
+    (96, 48, 9, 9, True),     # ragged tiles, Cin off the 64-channel chunk
+    (80, 16, 5, 7, True),     # dec3's 320 cut to 80: one partial tile, a partial second chunk
+    (128, 80, 12, 10, False),  # two output tiles, the second partial
+]
+
+
+@pytest.mark.parametrize("cin,cout,h,w,bias", UP_CASES)
+def test_up_kernel_emulation_matches_jax(cin, cout, h, w, bias):
+    node, x, s = _up_case(cin, cout, h, w, bias)
     ref = np.asarray(jqdec.parity_up_conv(x, node, s, strip_rows=1, interpret=True), np.float32)
     xt = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
     got = _emulate_up_kernel(xt, _tnode(node), s)
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == ref.shape == (2, 2 * h, 2 * w, cout)
     assert int((got.float().numpy() != ref).sum()) == 0
     assert torch.equal(got, qdec.parity_up_conv(xt, _tnode(node), s))
+
+
+@pytest.mark.parametrize("cin,cout,h,w,bias", UP_CASES)
+def test_up_kernel_separated_emulation_matches_jax(cin, cout, h, w, bias):
+    """K8: the same loop, stored through the planes index, against the JAX
+    package's parity_up_conv_separated (4-row strips where they divide H)."""
+    node, x, s = _up_case(cin, cout, h, w, bias)
+    ref = np.asarray(jqdec.parity_up_conv_separated(x, node, s, strip_rows=4 if h % 4 == 0 else 1, interpret=True),
+                     np.float32)
+    xt = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+    got = _emulate_up_kernel(xt, _tnode(node), s, separated=True)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == ref.shape == (2, h, w, 4 * cout)
+    assert int((got.float().numpy() != ref).sum()) == 0
+    assert torch.equal(got, qdec.parity_up_conv_separated(xt, _tnode(node), s))
