@@ -27,7 +27,8 @@ hand-written kernel against its plain PyTorch version:
    dec5 batch (8, 288, 288, 128), against the plain rungs (bit-equal up to
    the margins, the sigmoid within 4 ulps, uint8 up to counted +-1 flips);
    launches counted over one pass (K2 16, K10 24, every other kernel 0),
-   kernel, plain and `_int_mm` times from CUDA events;
+   kernel, plain and `_int_mm` times from CUDA events, and K2's device-only
+   time from torch.profiler with its GB/s, TOP/s and share of its bound;
 5. `predict.main` in-process on a generated 512-px slippy-map directory
    with a random-weight full-width U-Net checkpoint, once per path (the
    config as it is, int8; a copy with `pallas_tail = "tail"`; one with
@@ -44,6 +45,10 @@ hand-written kernel against its plain PyTorch version:
    up_kernel (K5 storing NHWC, K8 parity planes; it fails unless the
    launches are the path's K5 + K8) and K4's blocks (each stride-2 conv2
    with the conv launched before it and the two after it).
+
+`python3 chip_smoke.py --k2 [--tree DIR]` runs phases 1-2 and K2's part of
+phase 4 only, on the robosat_tpu_torch of checkout DIR (default: this one),
+so that two versions of K2 can be timed in one session.
 
 Each kernel's line also carries its bound: the least time the card could
 take for the same work, max(bytes / 3.35 TB/s, operations / peak) with each
@@ -121,9 +126,16 @@ def log(*parts):
 
 
 def main():
-    if not os.path.isdir(os.path.join(ROOT, "robosat_tpu_torch", "csrc")):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--k2", action="store_true",
+                        help="only phases 1, 2 and K2's part of phase 4 (bit-equality, events and device times)")
+    parser.add_argument("--tree", default=ROOT,
+                        help="with --k2: the checkout whose robosat_tpu_torch to build and time (default: this one)")
+    opts = parser.parse_args()
+    root = os.path.abspath(opts.tree if opts.k2 else ROOT)
+    if not os.path.isdir(os.path.join(root, "robosat_tpu_torch", "csrc")):
         sys.exit("chip_smoke.py must run from a checkout of the repository (robosat_tpu_torch/ not found)")
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, root)
     import torch
 
     if not torch.cuda.is_available():
@@ -143,7 +155,24 @@ def main():
     log("phase 2: kernels built and loaded in {:.1f} s (nvcc {}) -> {}".format(
         time.perf_counter() - start,
         "skipped, cached" if kernels.build_seconds is None else "{:.1f} s".format(kernels.build_seconds),
-        os.path.relpath(kernels.library_path(), ROOT)))
+        os.path.relpath(kernels.library_path(), root)))
+
+    if opts.k2:
+        from robosat_tpu_torch.ops import int8_mm
+
+        device = torch.device("cuda")
+        per_kernel = {}
+        k2 = k2_operands(torch, device, torch.Generator(device=device).manual_seed(SEED + 1), int8_mm)
+        int8_mm.int8_matmul_requant.launches = 0
+        with torch.no_grad():
+            k2_out = [int8_mm.int8_matmul_requant(*args, orient) for _, orient, args in k2]
+        torch.cuda.synchronize()
+        if int8_mm.int8_matmul_requant.launches != len(k2):
+            raise AssertionError("K2: {} launches, expected {}".format(int8_mm.int8_matmul_requant.launches, len(k2)))
+        check_and_time_k2(torch, int8_mm, k2, k2_out, per_kernel, smi)
+        log(json.dumps({"K2": per_kernel["K2"], "tree": root}))
+        log(smi)
+        return
 
     with tempfile.TemporaryDirectory(prefix="rs_chip_smoke_") as work:
         results = run(torch, work, SEED, smi)
@@ -509,7 +538,7 @@ def run(torch, work, seed, smi):
     # ---- phase 4: the probes path (K2, K10) ------------------------------
     counted = wrappers()
     launches = {name: 0 for name in SOURCES}
-    by_path = {"probes": run_probes(torch, device, seed, counted, per_kernel)}
+    by_path = {"probes": run_probes(torch, device, seed, counted, per_kernel, smi)}
     for name, c in by_path["probes"].items():
         launches[name] += c
     torch.cuda.empty_cache()
@@ -614,7 +643,65 @@ def run(torch, work, seed, smi):
     ]
 
 
-def run_probes(torch, device, seed, counted, per_kernel):
+def k2_operands(torch, device, gen, int8_mm):
+    """K2's probe operands: [(shape name, orientation, (lhs, rhs, scale))]
+    for the 8 contractions in both orientations, random int8 and scales
+    from `gen`."""
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=device, dtype=torch.int8)
+
+    k2 = []
+    for shape, (cout, cin, p) in int8_mm.PROBE_SHAPES.items():
+        w = int8(cout, cin)
+        scale = torch.empty(cout, device=device).uniform_(math.log(1e-5), math.log(1e-3), generator=gen).exp_()
+        k2.append((shape, "a", (w, int8(cin, p), scale.reshape(cout, 1))))
+        k2.append((shape, "b", (int8(p, cin), w.t().contiguous(), scale.reshape(1, cout))))
+    return k2
+
+
+def check_and_time_k2(torch, int8_mm, k2, k2_out, per_kernel, smi):
+    """Each K2 output against the plain version (bit-equal) and torch._int_mm's
+    int32 against the plain accumulators, then the kernel's events and device
+    times (device rate in GB/s against 3.35 TB/s and in TOP/s), the plain
+    version's and _int_mm's; adds the sites to per_kernel["K2"]."""
+    with torch.no_grad():
+        for (shape, orient, args), got in zip(k2, k2_out):
+            lhs, rhs, scale = args
+            ref = int8_mm.int8_matmul_requant_plain(*args)
+            if got.shape != ref.shape or not torch.equal(got, ref):
+                raise AssertionError("K2 {} {}: {} of {} outputs differ from the plain version".format(
+                    shape, orient, int((got != ref).sum()), ref.numel()))
+            if not torch.equal(torch._int_mm(lhs, rhs), int8_mm.int8_matmul_acc_plain(lhs, rhs)):
+                raise AssertionError("K2 {} {}: torch._int_mm's int32 differs from the plain accumulators".format(
+                    shape, orient))
+            del ref
+            arg_sets = rotated(torch, args)
+
+            def kernel(a, b, s, o=orient):
+                return int8_mm.int8_matmul_requant(a, b, s, o)
+
+            ms = cuda_ms(torch, kernel, arg_sets, 20)
+            dev_ms = device_ms(torch, kernel, arg_sets, 20)
+            lib_ms = cuda_ms(torch, lambda a, b, s: torch._int_mm(a, b), arg_sets, 20)
+            plain_ms = cuda_ms(torch, int8_mm.int8_matmul_requant_plain, arg_sets, 2)
+            del arg_sets
+            (m, k), n = lhs.shape, rhs.shape[1]
+            moved, ops = nbytes(lhs, rhs, scale, got), 2 * m * n * k
+            t = dev_ms or ms
+            bound_ms, bound_by = bound(moved, ops, "int8")
+            record(per_kernel, "K2", "{} {}".format(shape, orient), (m, k, n), 0.0, ms, plain_ms, (moved, ops, "int8"),
+                   library_ms=lib_ms, device_ms=dev_ms, gbs=moved / t / 1e6, tops=ops / t / 1e9,
+                   share_of_bound=bound_ms / t)
+            site = per_kernel["K2"]["sites"][-1]
+            log("phase 4: K2 {} {} (M, K, N) = {}: bit-equal, torch._int_mm int32 equal (rhs row-major); kernel "
+                "{:.4f} ms (events), {} (device), {:.0f} GB/s ({:.1%} of 3350), {:.1f} TOP/s, {:.1%} of its bound "
+                "by {} time; _int_mm {:.4f} ms, plain {:.3f} ms, bound {:.4f} ms ({}); {}".format(
+                    shape, orient, (m, k, n), ms, "not measured" if dev_ms is None else "{:.4f} ms".format(dev_ms),
+                    site["gbs"], site["gbs"] / 3350, site["tops"], site["share_of_bound"],
+                    "events" if dev_ms is None else "device", lib_ms, plain_ms, bound_ms, bound_by, smi))
+
+
+def run_probes(torch, device, seed, counted, per_kernel, smi):
     """Phase 4: K2 at the 8 contractions in both orientations and K10's 12
     rungs at two sizes, once each with every launch counter at 0 (the
     probes path), then each output against its plain version and the
@@ -623,16 +710,7 @@ def run_probes(torch, device, seed, counted, per_kernel):
     from robosat_tpu_torch.ops import head_rungs, int8_mm
 
     gen = torch.Generator(device=device).manual_seed(seed + 1)
-
-    def int8(*shape):
-        return torch.randint(-127, 128, shape, generator=gen, device=device, dtype=torch.int8)
-
-    k2 = []  # (shape name, orientation, (lhs, rhs, scale))
-    for shape, (cout, cin, p) in int8_mm.PROBE_SHAPES.items():
-        w = int8(cout, cin)
-        scale = torch.empty(cout, device=device).uniform_(math.log(1e-5), math.log(1e-3), generator=gen).exp_()
-        k2.append((shape, "a", (w, int8(cin, p), scale.reshape(cout, 1))))
-        k2.append((shape, "b", (int8(p, cin), w.t().contiguous(), scale.reshape(1, cout))))
+    k2 = k2_operands(torch, device, gen, int8_mm)
     wm = torch.randn((1, 128), generator=gen, device=device) * 0.3
     bm = torch.randn((1, 4), generator=gen, device=device) * 0.5
     side = (TILE + 2 * OVERLAP) // 2  # dec5's grid
@@ -653,32 +731,10 @@ def run_probes(torch, device, seed, counted, per_kernel):
         raise AssertionError("[probes] launch counts {} != expected {}".format(counts, expected))
     log("phase 4: [probes] launches {}".format({name: c for name, c in counts.items() if c}))
 
+    check_and_time_k2(torch, int8_mm, k2, k2_out, per_kernel, smi)
+    del k2, k2_out
+    torch.cuda.empty_cache()
     with torch.no_grad():
-        for (shape, orient, args), got in zip(k2, k2_out):
-            lhs, rhs, scale = args
-            ref = int8_mm.int8_matmul_requant_plain(*args)
-            if got.shape != ref.shape or not torch.equal(got, ref):
-                raise AssertionError("K2 {} {}: {} of {} outputs differ from the plain version".format(
-                    shape, orient, int((got != ref).sum()), ref.numel()))
-            if not torch.equal(torch._int_mm(lhs, rhs), int8_mm.int8_matmul_acc_plain(lhs, rhs)):
-                raise AssertionError("K2 {} {}: torch._int_mm's int32 differs from the plain accumulators".format(
-                    shape, orient))
-            arg_sets = rotated(torch, args)
-            ms = cuda_ms(torch, lambda a, b, s, o=orient: int8_mm.int8_matmul_requant(a, b, s, o), arg_sets, 20)
-            lib_ms = cuda_ms(torch, lambda a, b, s: torch._int_mm(a, b), arg_sets, 20)
-            plain_ms = cuda_ms(torch, int8_mm.int8_matmul_requant_plain, arg_sets, 2)
-            del arg_sets
-            (m, k), n = lhs.shape, rhs.shape[1]
-            work = (nbytes(lhs, rhs, scale, got), 2 * m * n * k, "int8")
-            bound_ms, bound_by = record(per_kernel, "K2", "{} {}".format(shape, orient), (m, k, n), 0.0, ms,
-                                        plain_ms, work, library_ms=lib_ms)
-            log("phase 4: K2 {} {} (M, K, N) = {}: bit-equal, torch._int_mm int32 equal (rhs row-major); kernel "
-                "{:.4f} ms ({:.1f} TOP/s), _int_mm {:.4f} ms, plain {:.3f} ms, bound {:.4f} ms ({})".format(
-                    shape, orient, (m, k, n), ms, 2 * m * n * k / ms / 1e9, lib_ms, plain_ms, bound_ms,
-                    bound_by))
-        del k2, k2_out
-        torch.cuda.empty_cache()
-
         for (label, rung, args), got in zip(k10, k10_out):
             ref = head_rungs.head_rung_plain(*args, rung)
             if got.shape != ref.shape or got.dtype != ref.dtype:

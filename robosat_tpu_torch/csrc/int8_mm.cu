@@ -6,35 +6,120 @@
 //   acc = A(M, K) @ B(K, N)                      (int8 x int8 -> int32, exact)
 //   out = clip(rint(f32(acc) * s), -127, 127)    (int8, half to even)
 //
-// in two orientations, each a template instantiation (the address and
-// scale arithmetic is fixed at compile time, not read from a field):
+// in two orientations, each a template instantiation:
 //
-//   A, channels-major: out(cout, P) = w(cout, cin) @ x(cin, P), s (cout, 1)
-//   B, NHWC-flat:      out(P, cout) = x(P, cin) @ w(cin, cout), s (1, cout)
-//
-// In both, the left operand is K-contiguous and the right one N-contiguous.
-// `mma.sync.m16n8k32` (mma_s8, below) takes both K-contiguous, so the right
-// operand's tile is transposed while it is staged into shared memory: each
-// thread loads four K rows of 16 bytes and transposes them as 4 x 4 byte
-// blocks with __byte_perm.
+//   a, channels-major: out(cout, P) = w(cout, cin) @ x(cin, P), s (cout, 1)
+//   b, NHWC-flat:      out(P, cout) = x(P, cin) @ w(cin, cout), s (1, cout)
 //
 // What bounds it on the H100: at the probe's shapes (cout 64-256, cin
 // 64-1280, P = 165,888 or 41,472) it does 2 cout cin ops per (cin + cout)
 // bytes of x and out, 64-256 ops per byte, below the ~590 int8 ops per byte
 // where the tensor cores would become the limit: every shape is bound by
-// device memory. Each block keeps one (BM, BN) output tile and streams K in
-// chunks of 64; the tiles along the small dimension run next to each other,
-// so the large operand's tile is read from device memory once and from L2
-// by the rest. Simple by design, its own routine: mma.sync on synchronous
-// loads, no cp.async pipeline, no wgmma/TMA (every int8 conv of the port
-// runs int8_conv_sm90.cuh's wgmma routines instead).
+// device memory, so the design moves each byte of x and out once and keeps
+// copies in flight all the time:
+//
+// - The weights stay in shared memory. The weight (w) is the small
+//   operand; a block owns one slab of SLAB = 64, 128 or 256 of its output
+//   channels (the wrapper, ops/int8_mm.py:plan, picks the slab and the ring
+//   depth so that everything fits in the 227 KB a block may have) and loads
+//   it once, K-contiguous as mma.sync reads it, rows padded to Kp + 16 bytes
+//   (bank-conflict-free fragment loads). Orientation b's weight is
+//   N-contiguous: it is byte-transposed (4 x 4 blocks, __byte_perm) once per
+//   block, into a row order that puts each thread's accumulators on 8
+//   neighbouring output channels (below).
+// - A persistent grid over the streamed dimension P: the wrapper launches
+//   about one block per SM in all, slabs x walkers, and walker w of a slab
+//   takes the P tiles w, w + walkers, ...; with one slab (cout <= 256) every
+//   byte of x is read from device memory by exactly one block.
+// - A ring of `stages` x tiles of 64 K bytes each under mbarriers. One
+//   producer warp fills it with cp.async 16-byte copies (zero-fill past K and
+//   P) and signals each stage with cp.async.mbarrier.arrive.noinc, so the
+//   copies land while the 8 consumer warps run mma.sync.m16n8k32.s8 on the
+//   stages that have arrived; a consumer warp frees a stage on its empty
+//   barrier. Stage tiles are XOR-swizzled by 16-byte piece so that the
+//   fragment loads are bank-conflict free.
+// - Orientation a's x tile is P-contiguous, but mma.sync takes its B operand
+//   K-contiguous. The consumers build the B fragments themselves: a thread
+//   loads 4 K rows of one 4-byte word and transposes them with 8 byte_perms
+//   (transpose4x4), giving the fragments of 4 n8 tiles at once. The price is
+//   that fragment column g of n8 tile j is output column 4 g + j of its
+//   32-column group, which leaves each thread 8 neighbouring output columns
+//   (8 tq .. 8 tq + 7) per row: the epilogue writes them as one 8-byte word.
+//   Per k32 step this costs a warp 8 shared loads and 16 byte_perms per 32
+//   columns, against 4 n8 fragments' worth of mma.sync; no second pass over
+//   the stage and no extra barrier.
+// - A staged epilogue: each fragment is requantized (requant, below) into a
+//   shared-memory tile of the output, which is then written as whole rows,
+//   16 bytes a thread, neighbouring threads on neighbouring addresses, while
+//   the producer already fills the ring with the next tile's copies.
+//
+// tensor-core rate: mma.sync, not wgmma. For 8-bit types wgmma reads only
+// K-contiguous operands, and in each orientation one operand (x in a, w in
+// b) is N-contiguous, so a wgmma K2 would rewrite a streamed operand into
+// the core-matrix layout first; at 64-256 ops per byte mma.sync's rate is
+// not the limit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_conv_sm90.cuh"
+
 namespace {
 
+using rs::sm90::cp_async16;
+using rs::sm90::mbar_arrive;
+using rs::sm90::mbar_init;
+using rs::sm90::mbar_wait;
+using rs::sm90::smem_u32;
+
 enum Orientation { ORIENT_A = 0, ORIENT_B = 1 };
+
+constexpr int kKc = 64;                    // K bytes per ring stage
+constexpr int kConsumers = 256;            // 8 MMA warps
+constexpr int kThreads = kConsumers + 32;  // and one copy warp
+constexpr int kMaxSmem = 232448;           // dynamic shared memory a block may have (227 KB)
+
+// P (the streamed dimension) per tile for a slab of weights.
+__host__ __device__ constexpr int tile_p(int slab) { return slab == 64 ? 256 : 128; }
+
+__host__ __device__ constexpr int align128(int x) { return (x + 127) & ~127; }
+
+// Byte offsets of the dynamic shared memory: 2 x `stages` mbarriers, the
+// slab's scales (f32), its weights (SLAB rows of `row_w` bytes), the staged
+// output tile, the ring. ops/int8_mm.py:smem_bytes computes the same total.
+struct Plan {
+  int scale, w, out, ring, bytes, row_w;
+};
+
+__host__ __device__ inline Plan plan(int orient, int slab, int k, int stages) {
+  const int bp = tile_p(slab);
+  Plan p;
+  p.row_w = (k + kKc - 1) / kKc * kKc + 16;
+  p.scale = align128(16 * stages);
+  p.w = align128(p.scale + 4 * slab);
+  p.out = align128(p.w + slab * p.row_w);
+  p.ring = align128(p.out + (orient == ORIENT_A ? slab * (bp + 32) : bp * (slab + 32)));
+  p.bytes = p.ring + stages * kKc * bp;
+  return p;
+}
+
+// The block tile in GEMM terms (TM x TN, the output's own layout) and its
+// split over the 8 consumer warps (WM x WN, each MW x NW: MI m16 tiles and
+// NG groups of 32 columns, four n8 tiles each).
+template <int ORIENT, int SLAB>
+struct Cfg {
+  static constexpr int BP = tile_p(SLAB);
+  static constexpr int TM = ORIENT == ORIENT_A ? SLAB : BP;
+  static constexpr int TN = ORIENT == ORIENT_A ? BP : SLAB;
+  static constexpr int WM = TM >= TN ? 4 : 2;
+  static constexpr int WN = 8 / WM;
+  static constexpr int MW = TM / WM;
+  static constexpr int NW = TN / WN;
+  static constexpr int MI = MW / 16;
+  static constexpr int NG = NW / 32;
+  static constexpr int LDO = TN + 32;  // staged output row stride in bytes
+  static_assert(MW % 16 == 0 && NW % 32 == 0 && BP >= 128, "tile split");
+};
 
 // c += a (16 x 32, row) @ b (32 x 8, col), s8 x s8 -> s32, in mma.sync's
 // fragment layout.
@@ -45,17 +130,6 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
-
-constexpr int kChunk = 64;           // K bytes per staged chunk
-constexpr int kLd = kChunk + 16;     // shared row stride in bytes (fragment loads bank-conflict free)
-constexpr int kMmThreads = 128;      // 4 warps as 2 (M) x 2 (N)
-
-// Block tile: the small dimension (cout) gets 64, the long one (P) 128.
-template <int ORIENT>
-struct Tile {
-  static constexpr int BM = ORIENT == ORIENT_A ? 64 : 128;
-  static constexpr int BN = ORIENT == ORIENT_A ? 128 : 64;
-};
 
 // Four words x0..x3 of four bytes each (row r, byte j) -> word j holds
 // byte j of x0, x1, x2, x3 (a 4 x 4 byte transpose).
@@ -77,70 +151,118 @@ __device__ __forceinline__ uint32_t requant(int acc, float s) {
   return static_cast<uint32_t>(static_cast<int>(fminf(fmaxf(y, -127.0f), 127.0f))) & 0xffu;
 }
 
-// out(m, n) int8 = requant(a(m, k) @ b(k, n)); a K-contiguous, b and out
-// N-contiguous; k and n multiples of 16.
-template <int ORIENT>
-__global__ void __launch_bounds__(kMmThreads) int8_mm_kernel(const int8_t* a, const int8_t* b, const float* scale,
-                                                             int8_t* out, int m, int n, int k) {
-  constexpr int BM = Tile<ORIENT>::BM;
-  constexpr int BN = Tile<ORIENT>::BN;
-  constexpr int MI = BM / 2 / 16;  // m16 tiles per warp
-  constexpr int NI = BN / 2 / 8;   // n8 tiles per warp
-  __shared__ __align__(16) int8_t a_s[BM * kLd];
-  __shared__ __align__(16) int8_t b_s[BN * kLd];  // b's tile transposed: row n holds K contiguous
+// Ring tiles. Orientation a: 64 K rows of BP bytes (P-contiguous), 16-byte
+// piece c of row r at piece c ^ swz_a(r). Orientation b: BP rows of 64 K
+// bytes, piece c of row r at c ^ swz_b(r).
+__device__ __forceinline__ int swz_a(int r) { return ((r >> 2) & 3) << 1; }
+__device__ __forceinline__ int swz_b(int r) { return (r >> 1) & 3; }
 
+// Arrive on `bar` once all of this thread's earlier cp.async have landed
+// (the barrier counts the arrival against its expected count).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory"); }
+
+// Orientation a: a = w (M = cout, K), b = x (K, N = P), out (cout, P).
+// Orientation b: a = x (M = P, K), b = w (K, N = cout), out (P, cout).
+// K and N are multiples of 16; gridDim.x is slabs x walkers.
+template <int ORIENT, int SLAB>
+__global__ void __launch_bounds__(kThreads, 1)
+    int8_mm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b, const float* __restrict__ scale,
+                   int8_t* __restrict__ out, int m, int n, int k, int stages) {
+  using C = Cfg<ORIENT, SLAB>;
+  constexpr int BP = C::BP;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const Plan L = plan(ORIENT, SLAB, k, stages);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full0 = base;                 // full[s] at full0 + 8 s: 32 producer-lane arrivals
+  const uint32_t empty0 = base + 8 * stages;   // empty[s]: one arrival per consumer warp
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int warp_m = warp >> 1;
-  const int warp_n = warp & 1;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full0 + 8 * s, 32);
+      mbar_init(empty0 + 8 * s, kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  // The small dimension's tiles are the fastest-varying block index.
-  int m0, n0;
-  if (ORIENT == ORIENT_A) {
-    const int tiles_m = (m + BM - 1) / BM;
-    m0 = static_cast<int>(blockIdx.x % tiles_m) * BM;
-    n0 = static_cast<int>(blockIdx.x / tiles_m) * BN;
-  } else {
-    const int tiles_n = (n + BN - 1) / BN;
-    n0 = static_cast<int>(blockIdx.x % tiles_n) * BN;
-    m0 = static_cast<int>(blockIdx.x / tiles_n) * BM;
+  const int cout = ORIENT == ORIENT_A ? m : n;
+  const int p_total = ORIENT == ORIENT_A ? n : m;
+  const int slabs = (cout + SLAB - 1) / SLAB;
+  const int c0 = static_cast<int>(blockIdx.x) % slabs * SLAB;
+  const int walkers = static_cast<int>(gridDim.x) / slabs;
+  const int walker = static_cast<int>(blockIdx.x) / slabs;
+  const int tiles = (p_total + BP - 1) / BP;
+  const int chunks = (k + kKc - 1) / kKc;
+  const int8_t* x = ORIENT == ORIENT_A ? b : a;
+  const int8_t* w = ORIENT == ORIENT_A ? a : b;
+
+  if (tid >= kConsumers) {
+    // ---- producer: item it = (this block's tile it / chunks, K chunk it % chunks) -> stage it % stages ----
+    const int lane = tid - kConsumers;
+    int it = 0;
+    for (int t = walker; t < tiles; t += walkers) {
+      const int p0 = t * BP;
+      for (int kc = 0; kc < chunks; ++kc, ++it) {
+        const int s = it % stages;
+        if (it >= stages) mbar_wait(empty0 + 8 * s, ((it / stages) - 1) & 1);
+        const uint32_t dst = base + L.ring + s * (kKc * BP);
+        const int k0 = kc * kKc;
+        if (ORIENT == ORIENT_A) {
+          constexpr int kPieces = BP / 16;
+          for (int i = lane; i < kKc * kPieces; i += 32) {
+            const int r = i / kPieces, c = i % kPieces;
+            const bool ok = k0 + r < k && p0 + 16 * c < p_total;
+            const int8_t* src = ok ? x + static_cast<size_t>(k0 + r) * p_total + p0 + 16 * c : x;
+            cp_async16(dst + r * BP + ((c ^ swz_a(r)) << 4), src, ok ? 16 : 0);
+          }
+        } else {
+          for (int i = lane; i < BP * 4; i += 32) {
+            const int r = i >> 2, c = i & 3;
+            const bool ok = p0 + r < p_total && k0 + 16 * c < k;
+            const int8_t* src = ok ? x + static_cast<size_t>(p0 + r) * k + k0 + 16 * c : x;
+            cp_async16(dst + r * kKc + ((c ^ swz_b(r)) << 4), src, ok ? 16 : 0);
+          }
+        }
+        cp_async_arrive(full0 + 8 * s);
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
   }
 
-  int acc[MI][NI][4];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-
-  for (int k0 = 0; k0 < k; k0 += kChunk) {
-    // a: BM rows of 64 bytes, one 16-byte chunk (tid & 3) of rows (tid >> 2) + 32 i.
-#pragma unroll
-    for (int i = 0; i < BM / 32; ++i) {
-      const int row = (tid >> 2) + 32 * i;
-      const int col = (tid & 3) * 16;
+  // ---- consumers: the slab's scales and weights into shared memory, once ----
+  float* ss = reinterpret_cast<float*>(smem + L.scale);
+  int8_t* ws = reinterpret_cast<int8_t*>(smem + L.w);
+  const int row_w = L.row_w;
+  const int kp = row_w - 16;
+  for (int i = tid; i < SLAB; i += kConsumers) ss[i] = c0 + i < cout ? scale[c0 + i] : 0.0f;
+  if (ORIENT == ORIENT_A) {
+    // w (cout, K): slab row r at r * row_w, zeros past K and cout.
+    const int pieces = kp / 16;
+    for (int i = tid; i < SLAB * pieces; i += kConsumers) {
+      const int r = i / pieces, c = i % pieces;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + row < m && k0 + col < k) {
-        v = *reinterpret_cast<const uint4*>(a + static_cast<size_t>(m0 + row) * k + k0 + col);
-      }
-      *reinterpret_cast<uint4*>(a_s + row * kLd + col) = v;
+      if (c0 + r < cout && 16 * c < k) v = *reinterpret_cast<const uint4*>(w + static_cast<size_t>(c0 + r) * k + 16 * c);
+      *reinterpret_cast<uint4*>(ws + r * row_w + 16 * c) = v;
     }
-    // b: 16 quads of K rows x BN / 16 chunks of 16 bytes; task t reads K
-    // rows 4 (t % 16) .. + 3 of chunk t / 16 and stores 16 transposed words.
-    for (int t = tid; t < 16 * (BN / 16); t += kMmThreads) {
-      const int kq = t & 15;
-      const int col = (t >> 4) * 16;
+  } else {
+    // w (K, cout), N-contiguous: task (K quad kq, 16 channels cc) loads 4
+    // rows of 16 bytes and stores 16 transposed words. Channel 32 G + 4 g + j
+    // of the slab goes to row 32 G + 8 j + g: n8 tile j's fragment column g.
+    const int quads = kp / 4;
+    for (int i = tid; i < quads * (SLAB / 16); i += kConsumers) {
+      const int kq = i % quads, cc = i / quads;
       uint4 r[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int kr = k0 + 4 * kq + j;
+        const int kr = 4 * kq + j;
         r[j] = make_uint4(0u, 0u, 0u, 0u);
-        if (kr < k && n0 + col < n) {
-          r[j] = *reinterpret_cast<const uint4*>(b + static_cast<size_t>(kr) * n + n0 + col);
+        if (kr < k && c0 + 16 * cc < cout) {
+          r[j] = *reinterpret_cast<const uint4*>(w + static_cast<size_t>(kr) * cout + c0 + 16 * cc);
         }
       }
       const uint32_t w0[4] = {r[0].x, r[0].y, r[0].z, r[0].w};
@@ -153,79 +275,173 @@ __global__ void __launch_bounds__(kMmThreads) int8_mm_kernel(const int8_t* a, co
         transpose4x4(w0[q], w1[q], w2[q], w3[q], o);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          *reinterpret_cast<uint32_t*>(b_s + (col + 4 * q + j) * kLd + 4 * kq) = o[j];
+          const int nl = 16 * cc + 4 * q + j;
+          const int row = (nl & ~31) | ((nl & 3) << 3) | ((nl >> 2) & 7);
+          *reinterpret_cast<uint32_t*>(ws + row * row_w + 4 * kq) = o[j];
         }
       }
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kChunk; kk += 32) {
-      uint32_t af[MI][4];
-      uint32_t bf[NI][2];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        const int8_t* base = a_s + (warp_m * (BM / 2) + mi * 16 + g) * kLd + kk + tq * 4;
-        af[mi][0] = *reinterpret_cast<const uint32_t*>(base);
-        af[mi][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kLd);
-        af[mi][2] = *reinterpret_cast<const uint32_t*>(base + 16);
-        af[mi][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kLd + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int8_t* base = b_s + (warp_n * (BN / 2) + ni * 8 + g) * kLd + kk + tq * 4;
-        bf[ni][0] = *reinterpret_cast<const uint32_t*>(base);
-        bf[ni][1] = *reinterpret_cast<const uint32_t*>(base + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
-    }
-    __syncthreads();
   }
+  consumers_sync();
 
-  // Accumulator e of tile (mi, ni) sits at row g + 8 (e >> 1), column
-  // 2 tq + (e & 1); the two columns store as one 16-bit word.
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp / C::WN;
+  const int wn = warp % C::WN;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  uint8_t* stg = smem + L.out;
+  int it = 0;
+  for (int t = walker; t < tiles; t += walkers) {
+    int acc[C::MI][C::NG * 4][4];
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi) {
+    for (int mi = 0; mi < C::MI; ++mi)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + warp_m * (BM / 2) + mi * 16 + g + 8 * half;
-      if (row >= m) continue;
+      for (int ni = 0; ni < C::NG * 4; ++ni)
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int col = n0 + warp_n * (BN / 2) + ni * 8 + 2 * tq;
-        if (col >= n) continue;
-        const float s0 = ORIENT == ORIENT_A ? scale[row] : scale[col];
-        const float s1 = ORIENT == ORIENT_A ? s0 : scale[col + 1];
-        const uint32_t pair = requant(acc[mi][ni][2 * half], s0) | (requant(acc[mi][ni][2 * half + 1], s1) << 8);
-        *reinterpret_cast<uint16_t*>(out + static_cast<size_t>(row) * n + col) = static_cast<uint16_t>(pair);
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+
+    for (int kc = 0; kc < chunks; ++kc, ++it) {
+      const int s = it % stages;
+      mbar_wait(full0 + 8 * s, (it / stages) & 1);
+      const uint8_t* xs = smem + L.ring + s * (kKc * BP);
+#pragma unroll
+      for (int ks = 0; ks < kKc / 32; ++ks) {
+        const int kw = kc * kKc + ks * 32;  // K offset in the resident weights
+        uint32_t af[C::MI][4];
+        uint32_t bf[C::NG * 4][2];
+        if (ORIENT == ORIENT_A) {
+#pragma unroll
+          for (int mi = 0; mi < C::MI; ++mi) {
+            const int8_t* p = ws + (wm * C::MW + mi * 16 + g) * row_w + kw + 4 * tq;
+            af[mi][0] = *reinterpret_cast<const uint32_t*>(p);
+            af[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * row_w);
+            af[mi][2] = *reinterpret_cast<const uint32_t*>(p + 16);
+            af[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * row_w + 16);
+          }
+#pragma unroll
+          for (int gr = 0; gr < C::NG; ++gr) {
+            const int col = wn * C::NW + gr * 32 + 4 * g;  // P column of this thread's word
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              uint32_t v[4];
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj) {
+                const int r = ks * 32 + half * 16 + 4 * tq + jj;
+                v[jj] = *reinterpret_cast<const uint32_t*>(xs + r * BP + (((col >> 4) ^ swz_a(r)) << 4) + (col & 15));
+              }
+              uint32_t o[4];
+              transpose4x4(v[0], v[1], v[2], v[3], o);
+#pragma unroll
+              for (int j = 0; j < 4; ++j) bf[gr * 4 + j][half] = o[j];
+            }
+          }
+        } else {
+#pragma unroll
+          for (int mi = 0; mi < C::MI; ++mi) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = wm * C::MW + mi * 16 + g + 8 * (e & 1);
+              af[mi][e] = *reinterpret_cast<const uint32_t*>(xs + r * kKc + (((2 * ks + (e >> 1)) ^ swz_b(r)) << 4) +
+                                                             4 * tq);
+            }
+          }
+#pragma unroll
+          for (int ni = 0; ni < C::NG * 4; ++ni) {
+            const int8_t* p = ws + (wn * C::NW + ni * 8 + g) * row_w + kw + 4 * tq;
+            bf[ni][0] = *reinterpret_cast<const uint32_t*>(p);
+            bf[ni][1] = *reinterpret_cast<const uint32_t*>(p + 16);
+          }
+        }
+#pragma unroll
+        for (int mi = 0; mi < C::MI; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < C::NG * 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);
+    }
+
+    // ---- epilogue: requantize into the staged tile, then whole rows out ----
+    // Accumulator e of n8 tile 4 G + j sits at row g + 8 (e >> 1), column
+    // 32 G + 4 (2 tq + (e & 1)) + j: byte q of the thread's 8 columns
+    // 32 G + 8 tq + q is acc[..][4 G + (q & 3)][2 half + (q >> 2)].
+    consumers_sync();  // the previous tile's staged rows are written out
+#pragma unroll
+    for (int mi = 0; mi < C::MI; ++mi) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = wm * C::MW + mi * 16 + g + 8 * half;
+#pragma unroll
+        for (int gr = 0; gr < C::NG; ++gr) {
+          const int col = wn * C::NW + gr * 32 + 8 * tq;
+          uint32_t word[2] = {0u, 0u};
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const float sc = ORIENT == ORIENT_A ? ss[row] : ss[col + q];
+            word[q >> 2] |= requant(acc[mi][gr * 4 + (q & 3)][2 * half + (q >> 2)], sc) << (8 * (q & 3));
+          }
+          *reinterpret_cast<uint2*>(stg + row * C::LDO + col) = make_uint2(word[0], word[1]);
+        }
+      }
+    }
+    consumers_sync();
+    const int p0 = t * BP;
+    constexpr int kRowPieces = C::TN / 16;
+    for (int i = tid; i < C::TM * kRowPieces; i += kConsumers) {
+      const int r = i / kRowPieces, c = i % kRowPieces;
+      const uint4 v = *reinterpret_cast<const uint4*>(stg + r * C::LDO + 16 * c);
+      if (ORIENT == ORIENT_A) {
+        if (c0 + r < cout && p0 + 16 * c < p_total) {
+          *reinterpret_cast<uint4*>(out + static_cast<size_t>(c0 + r) * p_total + p0 + 16 * c) = v;
+        }
+      } else if (p0 + r < p_total && c0 + 16 * c < cout) {
+        *reinterpret_cast<uint4*>(out + static_cast<size_t>(p0 + r) * cout + c0 + 16 * c) = v;
       }
     }
   }
 }
 
-template <int ORIENT>
+template <int ORIENT, int SLAB>
 int launch_int8_mm(const int8_t* a, const int8_t* b, const float* scale, int8_t* out, int m, int n, int k,
-                   cudaStream_t stream) {
-  const long long blocks = static_cast<long long>((m + Tile<ORIENT>::BM - 1) / Tile<ORIENT>::BM) *
-                           ((n + Tile<ORIENT>::BN - 1) / Tile<ORIENT>::BN);
-  if (blocks == 0) return 0;
-  int8_mm_kernel<ORIENT><<<static_cast<unsigned>(blocks), kMmThreads, 0, stream>>>(a, b, scale, out, m, n, k);
+                   int stages, int grid, cudaStream_t stream) {
+  const Plan L = plan(ORIENT, SLAB, k, stages);
+  const int cout = ORIENT == ORIENT_A ? m : n;
+  if (stages < 2 || grid <= 0 || L.bytes > kMaxSmem || grid % ((cout + SLAB - 1) / SLAB) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = int8_mm_kernel<ORIENT, SLAB>;
+  static bool sized = false;  // the dynamic shared-memory limit raised for this instantiation
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  kernel<<<grid, kThreads, L.bytes, stream>>>(a, b, scale, out, m, n, k, stages);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int ORIENT>
+int launch_slab(const int8_t* a, const int8_t* b, const float* scale, int8_t* out, int m, int n, int k, int slab,
+                int stages, int grid, cudaStream_t stream) {
+  if (slab == 64) return launch_int8_mm<ORIENT, 64>(a, b, scale, out, m, n, k, stages, grid, stream);
+  if (slab == 128) return launch_int8_mm<ORIENT, 128>(a, b, scale, out, m, n, k, stages, grid, stream);
+  if (slab == 256) return launch_int8_mm<ORIENT, 256>(a, b, scale, out, m, n, k, stages, grid, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// orient 0: A (scale per row of out), 1: B (scale per column). Returns the
-// launch's CUDA error code (0 on success).
+// orient 0: a (scale per row of out), 1: b (scale per column); slab, ring
+// stages and grid from ops/int8_mm.py:plan. Returns the launch's CUDA error
+// code (0 on success).
 extern "C" int rs_int8_mm(const void* a, const void* b, const float* scale, void* out, int m, int n, int k, int orient,
-                          void* stream_ptr) {
+                          int slab, int stages, int grid, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int8_t* pa = static_cast<const int8_t*>(a);
   const int8_t* pb = static_cast<const int8_t*>(b);
   int8_t* po = static_cast<int8_t*>(out);
-  if (orient == ORIENT_A) return launch_int8_mm<ORIENT_A>(pa, pb, scale, po, m, n, k, stream);
-  if (orient == ORIENT_B) return launch_int8_mm<ORIENT_B>(pa, pb, scale, po, m, n, k, stream);
+  if (orient == ORIENT_A) return launch_slab<ORIENT_A>(pa, pb, scale, po, m, n, k, slab, stages, grid, stream);
+  if (orient == ORIENT_B) return launch_slab<ORIENT_B>(pa, pb, scale, po, m, n, k, slab, stages, grid, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -39,8 +39,8 @@ _SIGNATURES = {
     "rs_fused_tail_features_sep": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _F, _P, _P] + [_I] * 3 + [_P],
     # features, wmb, out, n, h, w, groups, o, bf16, stream
     "rs_margin_head": [_P] * 3 + [_I] * 6 + [_P],
-    # a, b, scale, out, m, n, k, orientation, stream
-    "rs_int8_mm": [_P] * 4 + [_I] * 4 + [_P],
+    # a, b, scale, out, m, n, k, orientation, slab, stages, grid, stream
+    "rs_int8_mm": [_P] * 4 + [_I] * 7 + [_P],
     # x, wm, bm, out, n, h, w, stage, mm, stream
     "rs_head_rung": [_P] * 4 + [_I] * 5 + [_P],
 }

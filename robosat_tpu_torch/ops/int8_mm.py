@@ -16,14 +16,17 @@ with round half to even, in one of two orientations:
   out (P, cout).
 
 `int8_matmul_requant` launches csrc/int8_mm.cu on CUDA tensors (the
-orientation is a template parameter there) and runs the plain version on
-CPU tensors. The plain version takes the accumulators from a float64
+orientation and the weight slab are template parameters there, the ring's
+depth and the grid come from `plan`) and runs the plain version on CPU
+tensors. The plain version takes the accumulators from a float64
 matmul over the int8 values, exact while |acc| < 2**53 (here < 2**25),
 then the epilogue in torch; above 2**24 the f32 conversion rounds, as the
 reference's does. The probe's timing harness (the dependent-chain marginal
 timing and the XLA conv baseline) is not ported: chip_smoke.py times the
 kernel beside `torch._int_mm`.
 """
+
+import functools
 
 import torch
 
@@ -43,6 +46,60 @@ PROBE_SHAPES = {
     "dec3par": (128, 1280, P_FULL // 4),
     "dense256": (256, 256, P_FULL),
 }
+
+
+# csrc/int8_mm.cu's shared-memory plan: a block keeps SLAB output channels
+# of weights (rows of K rounded up to 64, + 16 bytes), their f32 scales, a
+# staged output tile (SLAB x (P tile + 32) bytes in "a", P tile x (SLAB +
+# 32) in "b") and a ring of stages of 64 K bytes x the P tile, after two
+# mbarriers per stage; each piece starts on 128 bytes.
+SMEM_LIMIT = 232448  # dynamic shared memory one block may have on the H100 (227 KB)
+SLABS = (64, 128, 256)
+MIN_STAGES, MAX_STAGES = 3, 6
+K_CHUNK = 64
+
+
+def tile_p(slab):
+    """Columns of P (the streamed dimension) per tile for a weight slab."""
+    return 256 if slab == 64 else 128
+
+
+def smem_bytes(orientation, slab, k, stages):
+    """Dynamic shared memory of one block of csrc/int8_mm.cu (its `plan`)."""
+    def align(x):
+        return (x + 127) // 128 * 128
+
+    bp = tile_p(slab)
+    row_w = -(-k // K_CHUNK) * K_CHUNK + 16
+    w = align(align(16 * stages) + 4 * slab)
+    staged = slab * (bp + 32) if orientation == "a" else bp * (slab + 32)
+    return align(align(w + slab * row_w) + staged) + stages * K_CHUNK * bp
+
+
+@functools.lru_cache(maxsize=None)
+def plan(orientation, m, n, k, sms):
+    """(slab, stages, grid) of a launch: the smallest slab that holds every
+    output channel (at most 256), or the largest smaller one whose weights fit
+    beside a ring of MIN_STAGES; the deepest ring up to MAX_STAGES that fits;
+    about one block per SM in all (`sms`), as slabs x walkers with at most one
+    walker per P tile. Raises ValueError when not even a 64-channel slab fits."""
+    cout, p = (m, n) if orientation == "a" else (n, m)
+    first = next((i for i, s in enumerate(SLABS) if s >= cout), len(SLABS) - 1)
+    for slab in reversed(SLABS[:first + 1]):
+        stages = next((st for st in range(MAX_STAGES, MIN_STAGES - 1, -1)
+                       if smem_bytes(orientation, slab, k, st) <= SMEM_LIMIT), None)
+        if stages is not None:
+            slabs = -(-cout // slab)
+            walkers = max(1, min(-(-p // tile_p(slab)), sms // slabs))
+            return slab, stages, slabs * walkers
+    raise ValueError("the int8 matmul keeps a slab of at least {} output channels of weights in shared memory: "
+                     "K = {} needs {} bytes with a ring of {} stages, over the {} a block may have".format(
+                         SLABS[0], k, smem_bytes(orientation, SLABS[0], k, MIN_STAGES), MIN_STAGES, SMEM_LIMIT))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def int8_matmul_acc_plain(lhs, rhs):
@@ -81,9 +138,13 @@ def int8_matmul_requant(lhs, rhs, scale, orientation):
     (m, k), n = lhs.shape, rhs.shape[1]
     if k % 16 or n % 16:
         raise ValueError("the int8 matmul needs K and N that are multiples of 16 (got K {}, N {})".format(k, n))
+    slab, stages, grid = plan(orientation, m, n, k, _sm_count(lhs.device.index))
     out = torch.empty((m, n), dtype=torch.int8, device=lhs.device)
+    if m == 0 or n == 0:
+        return out
     p = kernels.ptr
-    kernels.launch("rs_int8_mm", p(lhs), p(rhs), p(scale), p(out), m, n, k, ORIENTATIONS[orientation])
+    kernels.launch("rs_int8_mm", p(lhs), p(rhs), p(scale), p(out), m, n, k, ORIENTATIONS[orientation], slab, stages,
+                   grid)
     int8_matmul_requant.launches += 1
     return out
 

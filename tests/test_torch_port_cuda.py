@@ -227,11 +227,23 @@ def test_margin_head_kernel_matches_plain(gen, groups, h, w, overlap, dtype):
     assert int((d != 0).sum()) <= max(1, 0.001 * d.numel())
 
 
-@pytest.mark.parametrize("m,k,n", [(48, 80, 1040), (130, 1280, 64), (64, 64, 16)])
+@pytest.mark.parametrize("m,k,n", [
+    (48, 80, 1040), (130, 1280, 64), (64, 64, 16),
+    # "a": fewer P tiles than blocks (4), then ~5 tiles per block; "b": 4
+    # and 648 slabs of weights. The transposed pair swaps the two roles.
+    (64, 64, 1024), (64, 64, 165888), (165888, 64, 64),
+    # dec3par's widths (cout 128, cin 1280) at a P off the 128 tile, in
+    # either orientation's place ("a": (cout, cin, P), "b": (P, cin, cout))
+    (128, 1280, 5200), (5200, 1280, 128),
+    # cout 256 (one slab of 256) at cin 64 and 256, P off the tile
+    (256, 64, 20000), (20000, 64, 256), (256, 256, 20000), (20000, 256, 256),
+])
 @pytest.mark.parametrize("orientation", ["a", "b"])
 def test_int8_matmul_requant_kernel_bit_equal(gen, orientation, m, k, n):
-    """K2 at ragged shapes (M and N off the 64/128 tiles, K off the 64
-    chunk), with rows and a column at +-127 (|acc| > 2**24 at K = 1280)."""
+    """K2 at ragged shapes (M and N off the P tiles and weight slabs, K off
+    the 64 chunk), with rows and a column at +-127 (|acc| > 2**24 at
+    K = 1280), over grids with fewer P tiles than blocks and with many
+    tiles per block."""
     lhs = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
     rhs = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
     lhs[0], lhs[1], rhs[:, 0] = 127, -127, 127
@@ -243,6 +255,19 @@ def test_int8_matmul_requant_kernel_bit_equal(gen, orientation, m, k, n):
     torch.cuda.synchronize()
     assert int8_mm.int8_matmul_requant.launches == before + 1
     assert torch.equal(got, int8_mm.int8_matmul_requant_plain(lhs, rhs, scale))
+
+
+@pytest.mark.parametrize("orientation", ["a", "b"])
+def test_int8_matmul_requant_kernel_rejects_weights_past_shared_memory(gen, orientation):
+    """K = 4096: a 64-channel slab of weights and the smallest ring overflow
+    a block's 227 KB, so the wrapper raises before any launch."""
+    lhs = torch.zeros(64, 4096, device="cuda", dtype=torch.int8)
+    rhs = torch.zeros(4096, 64, device="cuda", dtype=torch.int8)
+    scale = torch.ones((64, 1) if orientation == "a" else (1, 64), device="cuda")
+    before = int8_mm.int8_matmul_requant.launches
+    with pytest.raises(ValueError, match="232448"):
+        int8_mm.int8_matmul_requant(lhs, rhs, scale, orientation)
+    assert int8_mm.int8_matmul_requant.launches == before
 
 
 @pytest.mark.parametrize("shape", [(1, 8, 288, 128), (2, 5, 7, 128)])

@@ -4,8 +4,10 @@
 by `ast` (they are nested in its `main`) and run with a `pl` whose
 `pallas_call` adds `interpret=True`, so the JAX side is the TPU kernels'
 own code, interpreted on the CPU. The plain K2 must equal them bit for bit
-in both orientations, including accumulators above 2**24, where f32(acc)
-rounds.
+in both orientations and at the probes' output widths (cout 64, 128, 256),
+including accumulators above 2**24, where f32(acc) rounds. The kernel's
+shared-memory plan (`int8_mm.plan`) is checked here too: it is plain
+arithmetic that csrc/int8_mm.cu repeats.
 """
 
 import ast
@@ -24,7 +26,7 @@ from jax.experimental.pallas import tpu as pltpu
 from robosat_tpu_torch.ops import int8_mm
 
 _SCRIPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "benchmarks", "bench_pallas_mm.py")
-P, P_BLK, COUT = 1024, 512, 64
+P, P_BLK, COUT = 1024, 512, 64  # COUT: the width of the cases that do not vary it
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,11 +45,11 @@ def _makers():
     return {"a": ns["make_mm_a"], "b": ns["make_mm_b"]}
 
 
-def _operands(orientation, cin, scales, seed, saturate=False):
+def _operands(orientation, cin, scales, seed, saturate=False, cout=COUT):
     """(lhs, rhs, scale) numpy operands of an orientation: w (cout, cin) and
     x (cin, P) for "a", x (P, cin) and w (cin, cout) for "b"."""
     rng = np.random.default_rng(seed)
-    w = rng.integers(-127, 128, (COUT, cin), dtype=np.int8)
+    w = rng.integers(-127, 128, (cout, cin), dtype=np.int8)
     x = rng.integers(-127, 128, (cin, P), dtype=np.int8)
     if saturate:
         # |acc| = (cin - 1) * 127**2 + 127 * 126 (odd, 2**24.3 at cin = 1280)
@@ -55,19 +57,20 @@ def _operands(orientation, cin, scales, seed, saturate=False):
         w[0], w[1], x[:, 0] = 127, -127, 127
         x[0, 0] = 126
     if scales == "const":
-        s = np.full(COUT, 1e-3, np.float32)
+        s = np.full(cout, 1e-3, np.float32)
     elif saturate:
-        s = rng.uniform(2e-6, 6e-6, COUT).astype(np.float32)  # keeps |acc| ~ 2**24 inside +-127
+        s = rng.uniform(2e-6, 6e-6, cout).astype(np.float32)  # keeps |acc| ~ 2**24 inside +-127
     else:
-        s = np.exp(rng.uniform(np.log(1e-5), np.log(1e-3), COUT)).astype(np.float32)
+        s = np.exp(rng.uniform(np.log(1e-5), np.log(1e-3), cout)).astype(np.float32)
     if orientation == "a":
-        return w, x, s.reshape(COUT, 1)
-    return np.ascontiguousarray(x.T), np.ascontiguousarray(w.T), s.reshape(1, COUT)
+        return w, x, s.reshape(cout, 1)
+    return np.ascontiguousarray(x.T), np.ascontiguousarray(w.T), s.reshape(1, cout)
 
 
 def _check(orientation, lhs, rhs, s):
     cin = lhs.shape[1]
-    mm = _makers()[orientation](COUT, cin, P, P_BLK)
+    cout = s.size
+    mm = _makers()[orientation](cout, cin, P, P_BLK)
     ref = np.asarray(mm(jnp.asarray(lhs), jnp.asarray(rhs), jnp.asarray(s)))
     got = int8_mm.int8_matmul_requant(torch.from_numpy(lhs), torch.from_numpy(rhs), torch.from_numpy(s), orientation)
     assert got.dtype == torch.int8 and tuple(got.shape) == ref.shape
@@ -76,11 +79,12 @@ def _check(orientation, lhs, rhs, s):
     return int8_mm.int8_matmul_acc_plain(torch.from_numpy(lhs), torch.from_numpy(rhs))
 
 
+@pytest.mark.parametrize("cout", [64, 128, 256])
 @pytest.mark.parametrize("scales", ["random", "const"])
 @pytest.mark.parametrize("cin", [64, 576, 1280])
 @pytest.mark.parametrize("orientation", ["a", "b"])
-def test_int8_matmul_requant_plain_matches_pallas(orientation, cin, scales):
-    lhs, rhs, s = _operands(orientation, cin, scales, seed=cin + (orientation == "b"))
+def test_int8_matmul_requant_plain_matches_pallas(orientation, cin, scales, cout):
+    lhs, rhs, s = _operands(orientation, cin, scales, seed=cin + (orientation == "b") + cout, cout=cout)
     acc = _check(orientation, lhs, rhs, s)
     # The epilogue saw both signs and both sides of the clip.
     out = int8_mm.requantize(acc, torch.from_numpy(s))
@@ -113,3 +117,50 @@ def test_int8_matmul_requant_rejects_bad_operands():
     # Orientation "b" on the same operands: a scale per output column.
     out = int8_mm.int8_matmul_requant(w, x, torch.ones(1, 48), "b")
     assert out.shape == (64, 48) and int(out.abs().max()) == 0
+
+
+@pytest.mark.parametrize("orientation", ["a", "b"])
+def test_int8_matmul_plan_fits_the_probes(orientation):
+    """Every probe contraction: the smallest slab that holds all its output
+    channels, a ring of at least MIN_STAGES inside the 227 KB, one block per
+    SM (at most one walker per P tile); dec3par's 1280 x 128 weights fit."""
+    for name, (cout, cin, p) in int8_mm.PROBE_SHAPES.items():
+        m, n = (cout, p) if orientation == "a" else (p, cout)
+        slab, stages, grid = int8_mm.plan(orientation, m, n, cin, 132)
+        assert slab == min(s for s in int8_mm.SLABS if s >= cout), name
+        assert int8_mm.MIN_STAGES <= stages <= int8_mm.MAX_STAGES, name
+        assert int8_mm.smem_bytes(orientation, slab, cin, stages) <= int8_mm.SMEM_LIMIT, name
+        assert grid == 132, name
+    bytes_ = int8_mm.smem_bytes(orientation, 128, 1280, 5)
+    assert int8_mm.plan(orientation, *((128, 41472) if orientation == "a" else (41472, 128)), 1280, 132)[:2] == (128, 5)
+    assert 1280 * 128 < bytes_ <= int8_mm.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("orientation", ["a", "b"])
+def test_int8_matmul_plan_grids(orientation):
+    """The grid is slabs x walkers: ragged widths take the next slab or, when
+    its weights do not fit, more slabs of a smaller one; fewer P tiles than
+    SMs give one walker per tile."""
+    def plan(cout, k, p, sms=132):
+        return int8_mm.plan(orientation, *((cout, p) if orientation == "a" else (p, cout)), k, sms)
+
+    assert plan(48, 80, 1040) == (64, 6, -(-1040 // 256))  # one slab, a walker per P tile
+    assert plan(130, 64, 165888) == (256, 6, 132)
+    assert plan(130, 1280, 64)[0::2] == (128, 2)  # 256 x 1296 bytes do not fit: two slabs of 128
+    assert plan(1040, 64, 165888) == (256, 6, 5 * 26)  # five slabs, 26 walkers each
+    assert plan(64, 64, 16) == (64, 6, 1)
+    assert plan(256, 64, 165888, sms=114) == (256, 6, 114)
+    stages = [plan(64, k, 165888)[1] for k in (64, 1280, 2048, 2432)]
+    assert stages == sorted(stages, reverse=True) and stages[-1] == int8_mm.MIN_STAGES
+
+
+def test_int8_matmul_plan_raises_past_the_shared_memory():
+    """K whose 64-channel weight slab and minimal ring overflow the 227 KB:
+    a ValueError naming the limit, in both orientations. The plain version
+    on CPU tensors has no such limit."""
+    for orientation in ("a", "b"):
+        with pytest.raises(ValueError, match="232448"):
+            int8_mm.plan(orientation, 64, 64, 4096, 132)
+    lhs = torch.zeros(64, 4096, dtype=torch.int8)
+    out = int8_mm.int8_matmul_requant(lhs, torch.zeros(4096, 32, dtype=torch.int8), torch.ones(64, 1), "a")
+    assert out.shape == (64, 32)
