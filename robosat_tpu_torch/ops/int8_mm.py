@@ -49,19 +49,22 @@ PROBE_SHAPES = {
 
 
 # csrc/int8_mm.cu's shared-memory plan: a block keeps SLAB output channels
-# of weights (rows of K rounded up to 64, + 16 bytes), their f32 scales, a
-# staged output tile (SLAB x (P tile + 32) bytes in "a", P tile x (SLAB +
-# 32) in "b") and a ring of stages of 64 K bytes x the P tile, after two
-# mbarriers per stage; each piece starts on 128 bytes.
+# of weights (rows of K rounded up to 64, + 16 bytes), their f32 scales, its
+# 8 warps' staged output tiles and a ring of stages of 64 K bytes x the P
+# tile, after three mbarriers per stage; each piece starts on 128 bytes.
 SMEM_LIMIT = 232448  # dynamic shared memory one block may have on the H100 (227 KB)
 SLABS = (64, 128, 256)
-MIN_STAGES, MAX_STAGES = 3, 6
+MIN_STAGES = 3
+RING_BYTES = 65536  # the ring's depth: as many stages as fit in this many bytes
 K_CHUNK = 64
 
 
 def tile_p(slab):
     """Columns of P (the streamed dimension) per tile for a weight slab."""
-    return 256 if slab == 64 else 128
+    return {64: 256, 128: 128, 256: 64}[slab]
+
+
+STAGED_BYTES = 8 * 32 * (64 + 32)  # the 8 consumer warps' staged 32 x 64 output tiles, rows padded by 32 bytes
 
 
 def smem_bytes(orientation, slab, k, stages):
@@ -69,24 +72,23 @@ def smem_bytes(orientation, slab, k, stages):
     def align(x):
         return (x + 127) // 128 * 128
 
-    bp = tile_p(slab)
     row_w = -(-k // K_CHUNK) * K_CHUNK + 16
-    w = align(align(16 * stages) + 4 * slab)
-    staged = slab * (bp + 32) if orientation == "a" else bp * (slab + 32)
-    return align(align(w + slab * row_w) + staged) + stages * K_CHUNK * bp
+    w = align(align(24 * stages) + 4 * slab)
+    return align(align(w + slab * row_w) + STAGED_BYTES) + stages * K_CHUNK * tile_p(slab)
 
 
 @functools.lru_cache(maxsize=None)
 def plan(orientation, m, n, k, sms):
     """(slab, stages, grid) of a launch: the smallest slab that holds every
     output channel (at most 256), or the largest smaller one whose weights fit
-    beside a ring of MIN_STAGES; the deepest ring up to MAX_STAGES that fits;
+    beside a ring of MIN_STAGES; the deepest ring up to RING_BYTES that fits;
     about one block per SM in all (`sms`), as slabs x walkers with at most one
     walker per P tile. Raises ValueError when not even a 64-channel slab fits."""
     cout, p = (m, n) if orientation == "a" else (n, m)
     first = next((i for i, s in enumerate(SLABS) if s >= cout), len(SLABS) - 1)
     for slab in reversed(SLABS[:first + 1]):
-        stages = next((st for st in range(MAX_STAGES, MIN_STAGES - 1, -1)
+        deepest = max(MIN_STAGES, RING_BYTES // (K_CHUNK * tile_p(slab)))
+        stages = next((st for st in range(deepest, MIN_STAGES - 1, -1)
                        if smem_bytes(orientation, slab, k, st) <= SMEM_LIMIT), None)
         if stages is not None:
             slabs = -(-cout // slab)

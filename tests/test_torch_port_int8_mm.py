@@ -128,12 +128,14 @@ def test_int8_matmul_plan_fits_the_probes(orientation):
         m, n = (cout, p) if orientation == "a" else (p, cout)
         slab, stages, grid = int8_mm.plan(orientation, m, n, cin, 132)
         assert slab == min(s for s in int8_mm.SLABS if s >= cout), name
-        assert int8_mm.MIN_STAGES <= stages <= int8_mm.MAX_STAGES, name
+        assert stages >= int8_mm.MIN_STAGES, name
+        assert stages * int8_mm.K_CHUNK * int8_mm.tile_p(slab) <= int8_mm.RING_BYTES, name
         assert int8_mm.smem_bytes(orientation, slab, cin, stages) <= int8_mm.SMEM_LIMIT, name
         assert grid == 132, name
-    bytes_ = int8_mm.smem_bytes(orientation, 128, 1280, 5)
-    assert int8_mm.plan(orientation, *((128, 41472) if orientation == "a" else (41472, 128)), 1280, 132)[:2] == (128, 5)
-    assert 1280 * 128 < bytes_ <= int8_mm.SMEM_LIMIT
+    slab, stages, _ = int8_mm.plan(orientation, *((128, 41472) if orientation == "a" else (41472, 128)), 1280, 132)
+    assert slab == 128 and stages >= int8_mm.MIN_STAGES
+    assert 1280 * 128 < int8_mm.smem_bytes(orientation, 128, 1280, stages) <= int8_mm.SMEM_LIMIT
+    assert int8_mm.smem_bytes(orientation, 128, 1280, stages + 1) > int8_mm.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("orientation", ["a", "b"])
@@ -144,14 +146,24 @@ def test_int8_matmul_plan_grids(orientation):
     def plan(cout, k, p, sms=132):
         return int8_mm.plan(orientation, *((cout, p) if orientation == "a" else (p, cout)), k, sms)
 
-    assert plan(48, 80, 1040) == (64, 6, -(-1040 // 256))  # one slab, a walker per P tile
-    assert plan(130, 64, 165888) == (256, 6, 132)
+    deep = {slab: int8_mm.RING_BYTES // (64 * int8_mm.tile_p(slab)) for slab in int8_mm.SLABS}  # 4, 8, 16 stages
+    assert plan(48, 80, 1040) == (64, deep[64], -(-1040 // int8_mm.tile_p(64)))  # one slab, a walker per P tile
+    assert plan(130, 64, 165888) == (256, deep[256], 132)
     assert plan(130, 1280, 64)[0::2] == (128, 2)  # 256 x 1296 bytes do not fit: two slabs of 128
-    assert plan(1040, 64, 165888) == (256, 6, 5 * 26)  # five slabs, 26 walkers each
-    assert plan(64, 64, 16) == (64, 6, 1)
-    assert plan(256, 64, 165888, sms=114) == (256, 6, 114)
-    stages = [plan(64, k, 165888)[1] for k in (64, 1280, 2048, 2432)]
-    assert stages == sorted(stages, reverse=True) and stages[-1] == int8_mm.MIN_STAGES
+    assert plan(1040, 64, 165888) == (256, deep[256], 5 * 26)  # five slabs, 26 walkers each
+    assert plan(64, 64, 16) == (64, deep[64], 1)
+    assert plan(256, 64, 165888, sms=114) == (256, deep[256], 114)
+    # Deeper K leaves less room for the ring, down to MIN_STAGES at the
+    # largest K that fits at all (a 64-K step of weights is smaller than a stage).
+    stages, k = [], 64
+    while True:
+        try:
+            stages.append(plan(64, k, 165888)[1])
+        except ValueError:
+            break
+        k += 64
+    assert stages == sorted(stages, reverse=True) and stages[0] == deep[64] and stages[-1] == int8_mm.MIN_STAGES
+    assert 2048 < k < 4096
 
 
 def test_int8_matmul_plan_raises_past_the_shared_memory():
