@@ -33,12 +33,12 @@
 //   byte of x is read from device memory by exactly one block.
 // - A ring of `stages` x tiles of 64 K bytes each under mbarriers, about
 //   64 KB deep, filled by a producer warpgroup with cp.async 16-byte copies
-//   (zero-fill past K and P), so the copies land while the 8 consumer warps
-//   run mma.sync.m16n8k32.s8 on the stages that have arrived; each consumer
-//   warp frees a stage on its empty barrier. In orientation b the four
-//   producer warps copy and signal each stage with
-//   cp.async.mbarrier.arrive.noinc; its tiles are permuted by 16-byte piece
-//   for conflict-free ldmatrix.
+//   (zero-fill past K and P), so the copies land while the consumer warps
+//   (8, or 16 at 256-channel slabs: Cfg, below) run mma.sync.m16n8k32.s8 on
+//   the stages that have arrived; each consumer warp frees a stage on its
+//   empty barrier. In orientation b the four producer warps copy and signal
+//   each stage with cp.async.mbarrier.arrive.noinc; its tiles are permuted
+//   by 16-byte piece for conflict-free ldmatrix.
 // - Orientation a's x tile is P-contiguous, but mma.sync takes its B operand
 //   K-contiguous: this is the one transposition left on the streamed
 //   operand, and one pass over each stage in shared memory does it. Producer
@@ -54,10 +54,10 @@
 //   columns) was as fast at slabs of 64 and 128 and up to 1.3x slower at 256
 //   channels; the same pass done by copying warps that wait for their own
 //   copies, or by all consumer warps behind a block barrier, was slower.
-// - A staged epilogue per warp: each warp requantizes its 32 x 64 outputs
-//   (requant, below) into its own shared-memory tile and writes them out as
-//   whole 64-byte rows, 16 bytes a thread, neighbouring threads on
-//   neighbouring addresses. No barrier joins the warps, and the producers
+// - A staged epilogue per warp: each warp requantizes its 32 x 64 (or
+//   32 x 32) outputs (requant, below) into its own shared-memory tile and
+//   writes them out as whole rows, 16 bytes a thread, neighbouring threads
+//   on neighbouring addresses. No barrier joins the warps, and the producers
 //   already fill the ring with the next tiles' copies.
 //
 // tensor-core instruction: mma.sync, not wgmma. For 8-bit types wgmma reads
@@ -80,11 +80,9 @@ using rs::sm90::smem_u32;
 
 enum Orientation { ORIENT_A = 0, ORIENT_B = 1 };
 
-constexpr int kKc = 64;                           // K bytes per ring stage
-constexpr int kConsumers = 256;                   // 8 MMA warps
-constexpr int kProducers = 128;                   // one copy warpgroup
-constexpr int kThreads = kConsumers + kProducers;
-constexpr int kMaxSmem = 232448;                  // dynamic shared memory a block may have (227 KB)
+constexpr int kKc = 64;           // K bytes per ring stage
+constexpr int kProducers = 128;   // one copy warpgroup, after the consumer warps
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may have (227 KB)
 
 // P (the streamed dimension) per tile for a slab of weights: 16384 outputs
 // a tile, 8 warps of 32 x 64.
@@ -93,25 +91,31 @@ __host__ __device__ constexpr int tile_p(int slab) { return slab == 64 ? 256 : s
 __host__ __device__ constexpr int align128(int x) { return (x + 127) & ~127; }
 
 // The block tile in GEMM terms (TM x TN, the output's own layout) and its
-// split over the 8 consumer warps, WM x WN, each warp MW x NW = 32 x 64:
-// MI m16 tiles by NG groups of 32 columns (four n8 tiles each). A warp
-// stages its part of the output in rows of LDW bytes (8-byte stores of rows
-// g = 0..3 on disjoint banks).
+// split over the consumer warps, WM x WN, each warp MW x NW: MI m16 tiles by
+// NG groups of 32 columns (four n8 tiles each). Slabs of 64 and 128 take 8
+// warps of 32 x 64; slabs of 256 take 16 warps of 32 x 32, twice the warps
+// to hide the epilogue's latencies behind each other's MMAs (faster there,
+// slower at the narrower slabs' deeper K). A warp stages its part of the
+// output in rows of LDW bytes (8-byte stores of rows g = 0..3 on disjoint
+// banks).
 template <int ORIENT, int SLAB>
 struct Cfg {
   static constexpr int BP = tile_p(SLAB);
   static constexpr int TM = ORIENT == ORIENT_A ? SLAB : BP;
   static constexpr int TN = ORIENT == ORIENT_A ? BP : SLAB;
-  static constexpr int MW = 32, NW = 64, LDW = NW + 32;
+  static constexpr int WARPS = SLAB == 256 ? 16 : 8;
+  static constexpr int CONSUMERS = 32 * WARPS;
+  static constexpr int THREADS = CONSUMERS + kProducers;
+  static constexpr int MW = 32, NW = SLAB == 256 ? 32 : 64, LDW = NW == 32 ? 32 : NW + 32;
   static constexpr int WN = TN / NW;
-  static constexpr int WM = 8 / WN;
+  static constexpr int WM = WARPS / WN;
   static constexpr int MI = MW / 16;
   static constexpr int NG = NW / 32;
   static_assert(WM * MW == TM && WN * NW == TN, "tile split");
 };
 
 // Byte offsets of the dynamic shared memory: 3 x `stages` mbarriers, the
-// slab's scales (f32), its weights (SLAB rows of `row_w` bytes), the 8
+// slab's scales (f32), its weights (SLAB rows of `row_w` bytes), the
 // consumer warps' staged output tiles, the ring. ops/int8_mm.py:smem_bytes computes
 // the same total.
 struct Plan {
@@ -126,7 +130,7 @@ __host__ __device__ inline Plan plan(int k, int stages) {
   p.scale = align128(24 * stages);
   p.w = align128(p.scale + 4 * SLAB);
   p.out = align128(p.w + SLAB * p.row_w);
-  p.ring = align128(p.out + 8 * C::MW * C::LDW);
+  p.ring = align128(p.out + C::WARPS * C::MW * C::LDW);
   p.bytes = p.ring + stages * kKc * C::BP;
   return p;
 }
@@ -206,7 +210,7 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 // Orientation b: a = x (M = P, K), b = w (K, N = cout), out (P, cout).
 // K and N are multiples of 16; gridDim.x is slabs x walkers.
 template <int ORIENT, int SLAB>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Cfg<ORIENT, SLAB>::THREADS, 1)
     int8_mm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b, const float* __restrict__ scale,
                    int8_t* __restrict__ out, int m, int n, int k, int stages) {
   using C = Cfg<ORIENT, SLAB>;
@@ -222,7 +226,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int s = 0; s < stages; ++s) {
       // full: a, one arrival per transposing warp; b, one per copying thread
       mbar_init(full0 + 8 * s, ORIENT == ORIENT_A ? 2 : kProducers);
-      mbar_init(empty0 + 8 * s, kConsumers / 32);
+      mbar_init(empty0 + 8 * s, C::WARPS);
       mbar_init(landed0 + 8 * s, kProducers / 2);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -240,9 +244,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int8_t* x = ORIENT == ORIENT_A ? b : a;
   const int8_t* w = ORIENT == ORIENT_A ? a : b;
 
-  if (tid >= kConsumers) {
+  if (tid >= C::CONSUMERS) {
     // ---- producers: item it = (this block's tile it / chunks, K chunk it % chunks) -> stage it % stages ----
-    const int pt = tid - kConsumers;
+    const int pt = tid - C::CONSUMERS;
     const int n_items = (walker < tiles ? (tiles - 1 - walker) / walkers + 1 : 0) * chunks;
     int t = walker, kc = 0;  // the item whose copies are issued next
     if (ORIENT == ORIENT_A && pt < kProducers / 2) {
@@ -334,11 +338,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   int8_t* ws = reinterpret_cast<int8_t*>(smem + L.w);
   const int row_w = L.row_w;
   const int kp = row_w - 16;
-  for (int i = tid; i < SLAB; i += kConsumers) ss[i] = c0 + i < cout ? scale[c0 + i] : 0.0f;
+  for (int i = tid; i < SLAB; i += C::CONSUMERS) ss[i] = c0 + i < cout ? scale[c0 + i] : 0.0f;
   if (ORIENT == ORIENT_A) {
     // w (cout, K): slab row r at r * row_w, zeros past K and cout.
     const int pieces = kp / 16;
-    for (int i = tid; i < SLAB * pieces; i += kConsumers) {
+    for (int i = tid; i < SLAB * pieces; i += C::CONSUMERS) {
       const int r = i / pieces, c = i % pieces;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (c0 + r < cout && 16 * c < k) v = *reinterpret_cast<const uint4*>(w + static_cast<size_t>(c0 + r) * k + 16 * c);
@@ -349,7 +353,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // rows of 16 bytes and stores 16 transposed words. Channel 32 G + 4 g + j
     // of the slab goes to row 32 G + 8 j + g: n8 tile j's fragment column g.
     const int quads = kp / 4;
-    for (int i = tid; i < quads * (SLAB / 16); i += kConsumers) {
+    for (int i = tid; i < quads * (SLAB / 16); i += C::CONSUMERS) {
       const int kq = i % quads, cc = i / quads;
       uint4 r[4];
 #pragma unroll
@@ -377,7 +381,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   }
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(C::CONSUMERS) : "memory");
 
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -517,7 +521,7 @@ int launch_int8_mm(const int8_t* a, const int8_t* b, const float* scale, int8_t*
     if (err != cudaSuccess) return static_cast<int>(err);
     sized = true;
   }
-  kernel<<<grid, kThreads, L.bytes, stream>>>(a, b, scale, out, m, n, k, stages);
+  kernel<<<grid, Cfg<ORIENT, SLAB>::THREADS, L.bytes, stream>>>(a, b, scale, out, m, n, k, stages);
   return static_cast<int>(cudaGetLastError());
 }
 

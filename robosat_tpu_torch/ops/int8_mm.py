@@ -50,7 +50,7 @@ PROBE_SHAPES = {
 
 # csrc/int8_mm.cu's shared-memory plan: a block keeps SLAB output channels
 # of weights (rows of K rounded up to 64, + 16 bytes), their f32 scales, its
-# 8 warps' staged output tiles and a ring of stages of 64 K bytes x the P
+# consumer warps' staged output tiles and a ring of stages of 64 K bytes x the P
 # tile, after three mbarriers per stage; each piece starts on 128 bytes.
 SMEM_LIMIT = 232448  # dynamic shared memory one block may have on the H100 (227 KB)
 SLABS = (64, 128, 256)
@@ -64,7 +64,10 @@ def tile_p(slab):
     return {64: 256, 128: 128, 256: 64}[slab]
 
 
-STAGED_BYTES = 8 * 32 * (64 + 32)  # the 8 consumer warps' staged 32 x 64 output tiles, rows padded by 32 bytes
+def staged_bytes(slab):
+    """Shared memory of the consumer warps' staged output tiles: 8 warps of
+    32 x 64, rows padded by 32 bytes; at slabs of 256, 16 warps of 32 x 32."""
+    return 16 * 32 * 32 if slab == 256 else 8 * 32 * (64 + 32)
 
 
 def smem_bytes(orientation, slab, k, stages):
@@ -74,7 +77,7 @@ def smem_bytes(orientation, slab, k, stages):
 
     row_w = -(-k // K_CHUNK) * K_CHUNK + 16
     w = align(align(24 * stages) + 4 * slab)
-    return align(align(w + slab * row_w) + STAGED_BYTES) + stages * K_CHUNK * tile_p(slab)
+    return align(align(w + slab * row_w) + staged_bytes(slab)) + stages * K_CHUNK * tile_p(slab)
 
 
 @functools.lru_cache(maxsize=None)
