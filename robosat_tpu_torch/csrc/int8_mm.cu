@@ -116,8 +116,8 @@ struct Cfg {
 
 // Byte offsets of the dynamic shared memory: 3 x `stages` mbarriers, the
 // slab's scales (f32), its weights (SLAB rows of `row_w` bytes), the
-// consumer warps' staged output tiles, the ring. ops/int8_mm.py:smem_bytes computes
-// the same total.
+// consumer warps' staged output tiles, the ring. ops/int8_mm.py:smem_bytes
+// computes the same total.
 struct Plan {
   int scale, w, out, ring, bytes, row_w;
 };
@@ -345,7 +345,9 @@ __global__ void __launch_bounds__(Cfg<ORIENT, SLAB>::THREADS, 1)
     for (int i = tid; i < SLAB * pieces; i += C::CONSUMERS) {
       const int r = i / pieces, c = i % pieces;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (c0 + r < cout && 16 * c < k) v = *reinterpret_cast<const uint4*>(w + static_cast<size_t>(c0 + r) * k + 16 * c);
+      if (c0 + r < cout && 16 * c < k) {
+        v = *reinterpret_cast<const uint4*>(w + static_cast<size_t>(c0 + r) * k + 16 * c);
+      }
       *reinterpret_cast<uint4*>(ws + r * row_w + 16 * c) = v;
     }
   } else {
@@ -401,9 +403,9 @@ __global__ void __launch_bounds__(Cfg<ORIENT, SLAB>::THREADS, 1)
   // ldmatrix row addresses of this lane in the resident weights (the
   // A operand's rows in a, the B operand's n8 rows in b) and, in b, the
   // streamed A operand's row in a stage.
-  const uint32_t w_lane = ORIENT == ORIENT_A
-                              ? smem_u32(ws + (wm * C::MW + (lane & 7) + 8 * ((lane >> 3) & 1)) * row_w + 16 * (lane >> 4))
-                              : smem_u32(ws + (wn * C::NW + 8 * (lane >> 4) + (lane & 7)) * row_w + 16 * ((lane >> 3) & 1));
+  const int w_row = ORIENT == ORIENT_A ? wm * C::MW + (lane & 7) + 8 * ((lane >> 3) & 1)
+                                       : wn * C::NW + 8 * (lane >> 4) + (lane & 7);
+  const uint32_t w_lane = smem_u32(ws + w_row * row_w + 16 * (ORIENT == ORIENT_A ? lane >> 4 : (lane >> 3) & 1));
   const int a_row = wm * C::MW + (lane & 7) + 8 * ((lane >> 3) & 1);  // b: + 16 mi
   uint8_t* stg = smem + L.out + warp * (C::MW * C::LDW);
   for (int t = walker, it = 0; t < tiles; t += walkers, it += chunks) {
