@@ -48,10 +48,10 @@
 //   as one 16-byte word; the price is that fragment column g of n8 tile j is
 //   output column 4 g + j of its 32-column group, which leaves each thread 8
 //   neighbouring output columns (8 tq .. 8 tq + 7) per row: the epilogue
-//   writes them as one 8-byte word. What the alternatives cost (PERF.md, PR
-//   10): transposing in the consumers' fragment loads (4 shared loads and 8
+//   writes them as one 8-byte word. The alternatives, tried on the card:
+//   transposing in the consumers' fragment loads (4 shared loads and 8
 //   byte_perms per four fragments, repeated by every warp that shares the
-//   columns) was as fast at slabs of 64 and 128 and up to 1.3x slower at 256
+//   columns) was no faster at slabs of 64 and 128 and slower at 256
 //   channels; the same pass done by copying warps that wait for their own
 //   copies, or by all consumer warps behind a block barrier, was slower.
 // - A staged epilogue per warp: each warp requantizes its 32 x 64 (or
