@@ -48,7 +48,7 @@ hand-written kernel against its plain PyTorch version:
 
 `python3 chip_smoke.py --k2 [--tree DIR]` runs phases 1-2 and K2's part of
 phase 4 only, on the robosat_tpu_torch of checkout DIR (default: this one),
-so that two versions of K2 can be timed in one session.
+so that two versions of K2 can be timed on one card, one after the other.
 
 Each kernel's line also carries its bound: the least time the card could
 take for the same work, max(bytes / 3.35 TB/s, operations / peak) with each
