@@ -4,8 +4,8 @@
     python3 chip_smoke.py            (from the repository root; one GPU)
 
 Drives robosat_tpu_torch's `predict` (the U-Net of config/model-unet.toml)
-on the card along five paths, runs the two probe kernels, and checks each
-hand-written kernel against its plain PyTorch version:
+on the card along nine paths and its `masks`, runs the two probe kernels,
+and checks each hand-written kernel against its plain PyTorch version:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the CUDA kernels from robosat_tpu_torch/csrc;
@@ -13,10 +13,12 @@ hand-written kernel against its plain PyTorch version:
    576 px buffered tiles, weights and scales of the calibrated model):
    K3 at one block of every stage (layer1.0 with its projection, layer1.1,
    layer2.1, layer3.1, layer4.1), K4 at the first block of layers 2-4, K5
-   at its five up-blocks (center, dec0-dec3), K7/K8/K9, bit-equal in bf16, the
-   uint8 of K6 and of K1 (G = 1, 4 and 16 groups, f32 and bf16 features)
-   equal up to counted +-1-bin flips, K6, K7 and K9 with their counts of
-   skipped weight blocks; kernel and plain times from CUDA events with the
+   at its five up-blocks (center, dec0-dec3), K7/K8/K9, bit-equal in bf16,
+   the uint8 of K6 and of K1 (G = 1, 4 and 16 groups, f32 and bf16
+   features) equal up to counted +-1-bin flips; K3 (layer1.0, layer4.1),
+   K4 (layer2.0), K5 (center, dec3), K6 (overlap 0) and K1 (G = 4, bf16)
+   also at the shapes of a --strip 8 batch (one 4160 x 576 image); K6, K7
+   and K9 with their counts of skipped weight blocks; kernel and plain times from CUDA events with the
    inputs rotated through copies larger than the 50 MB L2 (as in phase 4),
    and beside each kernel time its device-only time from torch.profiler's
    kernel rows and its TOP/s against the 1,979 TOP/s int8 peak;
@@ -29,22 +31,33 @@ hand-written kernel against its plain PyTorch version:
    launches counted over one pass (K2 16, K10 24, every other kernel 0),
    kernel, plain and `_int_mm` times from CUDA events, and K2's device-only
    time from torch.profiler with its GB/s, TOP/s and share of its bound;
-5. `predict.main` in-process on a generated 512-px slippy-map directory
-   with a random-weight full-width U-Net checkpoint, once per path (the
-   config as it is, int8; a copy with `pallas_tail = "tail"`; one with
-   `"sep"`; one with `fused_head = false`, int8; one with `int8 = false`,
-   bf16): one decodable palette PNG per tile, each kernel's launch counter
-   per batch (13 K3, 3 K4, 5 K5, 1 K6; 13 K3, 3 K4, 5 K5, 1 K7, 1 K1;
-   13 K3, 3 K4, 4 K5, 1 K8, 1 K9, 1 K1; 13 K3, 3 K4, 5 K5, 1 K7; 1 K1; 0
-   for every other kernel), the "tail" and "sep" PNGs against the int8
-   run's up to counted +-1 flips (the unfused head's are only counted),
-   one batch's uint8 against the plain path with the same weights and
-   scales, and a torch.profiler split of one step's device time: the int8
-   convs summed (it fails if one runs outside csrc/int8_conv_sm90.cuh's
-   rs::sm90 kernels) and, by kernel name, tail_kernel (K6, K7, K9),
-   up_kernel (K5 storing NHWC, K8 parity planes; it fails unless the
-   launches are the path's K5 + K8) and K4's blocks (each stride-2 conv2
-   with the conv launched before it and the two after it).
+5. `predict.main` in-process on a generated 8 x 8 block of 512-px tiles
+   with a random-weight full-width U-Net checkpoint, once per path of
+   PATHS, each through a TOML copy in a temp dir: int8 as configured;
+   `pallas_tail = "tail"`; `"sep"`; `fused_head = false` (fine input);
+   `int8 = false`, bf16; `host_s2d = false` (fine input, K6 at overlap 0,
+   fine output); `--strip 8` (one 4160 x 576 strip a batch); `--tile_size
+   510 --overlap 33` (an odd overlap: K6 at overlap 0, fine 510-px PNGs);
+   bf16 with `--strip 8`. The fine-stem int8 paths read phase 3's scales
+   from a QAT checkpoint's qat_amaxes. Per path: one decodable palette PNG
+   per tile; each kernel's launch counter per batch (PATHS: 13 K3, 3 K4 and
+   5 K5 with 1 K6 on every int8 path with the fused head, 1 K7 and 1 K1 on
+   "tail", 4 K5 with 1 K8, 1 K9 and 1 K1 on "sep", 1 K7 unfused; 1 K1 on
+   the bf16 paths; 0 for every other kernel); the "tail" and "sep" PNGs
+   against the int8 run's up to counted +-1 flips (other pairs, COMPARED,
+   only counted: NOT_HELD says why); the first batch's uint8 against the
+   plain path with the same weights and scales, and equal to the PNGs
+   predict wrote for it; and a torch.profiler split of one step's device
+   time: the int8 convs summed (it fails if one runs outside
+   csrc/int8_conv_sm90.cuh's rs::sm90 kernels) and, by kernel name,
+   tail_kernel (K6, K7, K9), up_kernel (K5 storing NHWC, K8 parity planes;
+   it fails unless the launches are the path's K5 + K8) and K4's blocks
+   (each stride-2 conv2 with the conv launched before it and the two after
+   it). Then the int8 path once more under `--profile` (its launches
+   counted again; the trace must hold a predict_batch range per batch and
+   conv_kernel and tail_kernel rows; its PNGs equal the int8 run's), and
+   `masks` over the int8 run's PNGs, each mask equal to
+   softvote(_load_probs(png)) recomputed on the host.
 
 `python3 chip_smoke.py --k2 [--tree DIR]` runs phases 1-2 and K2's part of
 phase 4 only, on the robosat_tpu_torch of checkout DIR (default: this one),
@@ -111,14 +124,35 @@ UP_KERNELS = (("K5", re.compile(r"rs::sm90::up_kernel<\d+, 0>")), ("K8", re.comp
 # launches conv1, conv2, the projection, conv3 in that order.
 K4_CONV2 = re.compile(r"rs::sm90::conv_kernel<\d+, false, 3, 2>")
 # The predict paths: label, model TOML keys over config/model-unet.toml,
-# launches per batch of each kernel (every other kernel: 0).
+# predict's flags other than its defaults here, launches per batch of each
+# kernel (every other kernel: 0).
+STRIP = {"strip": 8}  # 8 strips of 8 tiles from the 8 x 8 block, one 4160 x 576 strip a batch
 PATHS = (
-    ("int8", {}, {**ENCODER, "K5": 5, "K6": 1}),
-    ("int8-tail", {"pallas_tail": "tail"}, {**ENCODER, "K5": 5, "K7": 1, "K1": 1}),
-    ("int8-sep", {"pallas_tail": "sep"}, {**ENCODER, "K5": 4, "K8": 1, "K9": 1, "K1": 1}),
-    ("int8-unfused", {"fused_head": False}, {**ENCODER, "K5": 5, "K7": 1}),
-    ("bf16", {"int8": False, "bf16": True}, {"K1": 1}),
+    ("int8", {}, {}, {**ENCODER, "K5": 5, "K6": 1}),
+    ("int8-tail", {"pallas_tail": "tail"}, {}, {**ENCODER, "K5": 5, "K7": 1, "K1": 1}),
+    ("int8-sep", {"pallas_tail": "sep"}, {}, {**ENCODER, "K5": 4, "K8": 1, "K9": 1, "K1": 1}),
+    ("int8-unfused", {"fused_head": False}, {}, {**ENCODER, "K5": 5, "K7": 1}),
+    ("bf16", {"int8": False, "bf16": True}, {}, {"K1": 1}),
+    ("int8-fine", {"host_s2d": False}, {}, {**ENCODER, "K5": 5, "K6": 1}),
+    ("int8-strip", {}, STRIP, {**ENCODER, "K5": 5, "K6": 1}),
+    ("int8-odd", {}, {"tile_size": 510, "overlap": 33}, {**ENCODER, "K5": 5, "K6": 1}),
+    ("bf16-strip", {"int8": False, "bf16": True}, STRIP, {"K1": 1}),
 )
+EDGE_ROWS = 128  # rows next to a tile edge inside a strip, where a strip's context exceeds the tile's
+# Paths that run on phase 3's scales through a QAT checkpoint's qat_amaxes.
+QAT_PATHS = ("int8-fine", "int8-strip")
+# Each path's PNGs against earlier paths': (other path, held to +-1 bin on
+# <= 0.1% of pixels, or counted only, for the reason in NOT_HELD).
+COMPARED = {
+    "int8-tail": (("int8", True),), "int8-sep": (("int8", True),), "int8-unfused": (("int8", False),),
+    "int8-fine": (("int8", False),), "int8-strip": (("int8-fine", False),), "bf16-strip": (("bf16", False),),
+}
+NOT_HELD = {
+    "int8-unfused": "another head, bf16 logits and a softmax",
+    "int8-fine": "another stem, whose bf16 sums cuDNN orders otherwise",
+    "int8-strip": "a strip's tiles see their column neighbors past the overlap",
+    "bf16-strip": "a strip's tiles see their column neighbors past the overlap",
+}
 
 
 def log(*parts):
@@ -377,6 +411,59 @@ def wrappers():
             "K9": qtail.fused_tail_features_sep, "K10": head_rungs.head_rung}
 
 
+def predict_args(work, tiles_dir, probs, model_toml, checkpoint, **flags):
+    """`predict`'s arguments for one path: batch 8 of 512-px tiles at
+    overlap 32 unless `flags` says otherwise."""
+    args = dict(batch_size=BATCH, checkpoint=checkpoint, overlap=OVERLAP, strip=1, tile_size=TILE, workers=4,
+                shard=None, tiles=tiles_dir, probs=probs, model=model_toml,
+                dataset=os.path.join(ROOT, "config", "dataset-parking.toml"), profile=None, png_optimize=False)
+    args.update(flags)
+    return argparse.Namespace(**args)
+
+
+def strip_edge_shares(differ, tiles, strip):
+    """(share of differing pixels within EDGE_ROWS rows of a tile edge that
+    a strip shares with the next tile, share elsewhere) over `tiles` (x, y,
+    z) and their (n, H, W) mask `differ`; strips start at each column's
+    first y, as the 8 x 8 block's columns do."""
+    first_y = min(y for _, y, _ in tiles)
+    near = np.zeros(differ.shape, bool)
+    for i, (_, y, _) in enumerate(tiles):
+        k = (y - first_y) % strip
+        if k > 0:
+            near[i, :EDGE_ROWS] = True
+        if k < strip - 1:
+            near[i, -EDGE_ROWS:] = True
+    return float(differ[near].mean()), float(differ[~near].mean())
+
+
+def batch_tiles(batch, strip):
+    """A loader batch's tiles in the order of its fine output rows."""
+    if strip > 1:
+        return [tuple(t) for tiles, valid in batch.meta for t in tiles[:valid]]
+    return [tuple(t) for t in batch.meta]
+
+
+def check_trace(trace_dir, n_batches):
+    """`predict --profile`'s trace: one TensorBoard trace file holding a
+    predict_batch range per batch and the port's kernels (conv_kernel for
+    K3/K4, tail_kernel for K6) among its device rows."""
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")] if os.path.isdir(trace_dir) else []
+    if len(traces) != 1:
+        raise AssertionError("[profiled] {} trace files in {}, expected 1".format(len(traces), trace_dir))
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    # The host's ranges (the device timeline repeats each as a gpu_user_annotation).
+    ranges = sum(e.get("name") == "predict_batch" and e.get("cat") == "user_annotation" for e in events)
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    rows = {row: sum(row in k for k in kernels) for row in ("conv_kernel", "tail_kernel")}
+    if ranges != n_batches or not all(rows.values()):
+        raise AssertionError("[profiled] trace holds {} predict_batch ranges (expected {}) and kernel rows {}".format(
+            ranges, n_batches, rows))
+    log("phase 5: [profiled] trace {} ({:.1f} MB): {} predict_batch ranges, {} kernel events, {}".format(
+        traces[0], os.path.getsize(os.path.join(trace_dir, traces[0])) / 1e6, ranges, len(kernels), rows))
+
+
 def fine_u8(out):
     """A step's uint8 (fine, blocked (..., 4) or doubly blocked (..., 16)) as fine tiles on the host."""
     from robosat_tpu_torch.models.layers import depth_to_space2
@@ -397,18 +484,13 @@ def read_pngs(probs, tiles):
 
 
 def run(torch, work, seed, smi):
-    from PIL import Image
-
     from robosat_tpu_torch.checkpoint import load_model_checkpoint, save_checkpoint, to_jax
-    from robosat_tpu_torch.config import load_config, save_config
-    from robosat_tpu_torch.data.datasets import BufferedSlippyMapDirectory
     from robosat_tpu_torch.data.loader import batches
     from robosat_tpu_torch.device import configure_device
     from robosat_tpu_torch.models import int8 as q8
     from robosat_tpu_torch.models import qdec, qenc, qtail, unet
-    from robosat_tpu_torch.models.layers import space_to_depth4
     from robosat_tpu_torch.ops import head
-    from robosat_tpu_torch.parallel.steps import _normalize_s2d4, make_int8_predict_step, make_predict_step
+    from robosat_tpu_torch.parallel.steps import _normalize_s2d4
     from robosat_tpu_torch.tools import predict
 
     device = configure_device(True)
@@ -418,12 +500,9 @@ def run(torch, work, seed, smi):
     checkpoint = os.path.join(work, "unet.npz")
     save_checkpoint(checkpoint, {"params": to_jax(params), "state": to_jax(state)}, meta={"epoch": 0})
 
-    # The first loader batch, exactly as predict builds it.
-    directory = BufferedSlippyMapDirectory(
-        tiles_dir, size=TILE, overlap=OVERLAP, transform=lambda im: space_to_depth4(im[None])[0]
-    )
-    first = next(iter(batches(directory, BATCH, workers=2)))
-    raw48 = first.arrays[0]
+    # The first loader batch of the int8 path, exactly as predict builds it.
+    directory, _ = predict.input_directory(predict_args(work, tiles_dir, None, None, checkpoint), True)
+    raw48 = next(iter(batches(directory, BATCH, workers=2))).arrays[0]
     if raw48.shape != (BATCH, (TILE + 2 * OVERLAP) // 4, (TILE + 2 * OVERLAP) // 4, 48):
         raise AssertionError("first batch has shape {}".format(raw48.shape))
 
@@ -432,8 +511,8 @@ def run(torch, work, seed, smi):
     with torch.no_grad():
         folded = unet.fold(params_d, state_d)
         x48 = _normalize_s2d4(torch.as_tensor(raw48).to(device))
-        amaxes = q8.calibration_amaxes(folded, x48, percentile=99.8)
-        if not torch.equal(amaxes, q8.calibration_amaxes(folded, x48, percentile=99.8)):
+        amaxes = q8.calibration_amaxes(folded, x48, blocked=True, percentile=99.8)
+        if not torch.equal(amaxes, q8.calibration_amaxes(folded, x48, blocked=True, percentile=99.8)):
             raise AssertionError("calibration is not reproducible on the card")
         del x48
         log("phase 3: float32 calibration of {} sites is reproducible".format(len(amaxes)))
@@ -485,7 +564,27 @@ def run(torch, work, seed, smi):
         ("K9", "dec4 + dec5 (planes)", qtail.fused_tail_features_sep, qtail.fused_tail_features_sep_plain,
          (act((n, side, side, 512), 57), qtree["dec4"], s4, qtree["dec5"], s5), True),
     ]
-    # K1 on dec5-like features (relu'd, unit scale) of each layout and dtype.
+    # The sites of a --strip 8 batch: one 4160 x 576 image, its stem grid 1040 x 144.
+    tall = (STRIP["strip"] * TILE + 2 * OVERLAP) // 4
+    checks += [
+        ("K3", "layer1.0 (projection), strip", qenc.bottleneck_block, qenc.bottleneck_block_plain,
+         (act((1, tall, side, 64), 0), enc["layer1"][0], *block_scales(0, True)), True),
+        ("K3", "layer4.1 (identity), strip", qenc.bottleneck_block, qenc.bottleneck_block_plain,
+         (act((1, tall // 8, side // 8, 2048), 46), enc["layer4"][1], *block_scales(46, False)), True),
+        ("K4", "layer2.0, strip", qenc.bottleneck_block_s2, qenc.bottleneck_block_s2_plain,
+         (act((1, tall, side, 256), 10), enc["layer2"][0], *block_scales(10, True)), True),
+        ("K5", "center, strip", qdec.parity_up_conv, qdec.parity_up_conv_plain,
+         (act((1, tall // 16, side // 16, 2048), 52), qtree["center"], float(scales[52])), True),
+        ("K5", "dec3, strip", qdec.parity_up_conv, qdec.parity_up_conv_plain,
+         (act((1, tall, side, 320), 56), qtree["dec3"], float(scales[56])), True),
+        ("K6", "dec3 -> head, strip, overlap 0", qtail.fused_tail, qtail.fused_tail_plain,
+         (act((1, 2 * tall, 2 * side, 128), 57), qtree["dec4"], s4, qtree["dec5"], s5, w_final, b_final, 0), False),
+    ]
+    # K1 on dec5-like features (relu'd, unit scale) of each layout and dtype,
+    # and at G = 4 in bf16 on a strip (overlap 0), as bf16-strip runs it.
+    feats = torch.randn((1, 2 * tall, 2 * side, 128), generator=gen, device=device).relu_().to(torch.bfloat16)
+    checks.append(("K1", "G = 4 bfloat16, strip", head.margin_head, head.margin_head_plain,
+                   (feats, w_final, b_final, 0, 4), False))
     for groups, grid in ((1, 4 * side), (4, 2 * side), (16, side)):
         for dtype in (torch.float32, torch.bfloat16):
             feats = torch.randn((n, grid, grid, 32 * groups), generator=gen, device=device).relu_().to(dtype)
@@ -543,21 +642,58 @@ def run(torch, work, seed, smi):
         launches[name] += c
     torch.cuda.empty_cache()
 
-    # ---- phase 5: predict on the card, along each path -------------------
+    # ---- phase 5: predict on the card, along each path, then masks -------
+    run_paths(torch, work, tiles, checkpoint, params, state, params_d, state_d, amaxes, counted, launches, by_path,
+              smi)
+
+    return [
+        {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
+         "launches": launches[name], "launches_by_path": {p: c[name] for p, c in by_path.items() if name in c},
+         **per_kernel[name]}
+        for name in SOURCES
+    ]
+
+
+def run_paths(torch, work, tiles, checkpoint, params, state, params_d, state_d, amaxes, counted, launches, by_path,
+              smi):
+    """Phase 5: `predict.main` along each of PATHS with every launch count
+    set to 0 just before and read just after, each path's first batch
+    through the kernels and the plain versions, the profiled run and
+    `masks`. Adds each path's launches to `launches` and `by_path`."""
+    from PIL import Image
+
+    from robosat_tpu_torch.checkpoint import save_checkpoint, to_jax
+    from robosat_tpu_torch.config import load_config, save_config
+    from robosat_tpu_torch.data.loader import batches
+    from robosat_tpu_torch.models import unet
+    from robosat_tpu_torch.parallel.steps import make_int8_predict_step, make_predict_step
+    from robosat_tpu_torch.tools import masks, predict
+
+    tiles_dir = os.path.join(work, "tiles")
     base_config = load_config(os.path.join(ROOT, "config", "model-unet.toml"))
-    n_batches = -(-len(tiles) // BATCH)
-    steady_tiles = len(tiles) - first.valid
-    default_pngs = None
-    for label, keys, per_batch in PATHS:
+    # The fine-stem int8 paths quantize with phase 3's scales, which the
+    # int8 run calibrates to again (reproducible, phase 3), through a QAT
+    # checkpoint's qat_amaxes, so that their PNGs compare on equal scales.
+    qat_checkpoint = os.path.join(work, "unet_qat.npz")
+    save_checkpoint(qat_checkpoint, {"params": to_jax(params), "state": to_jax(state)},
+                    meta={"epoch": 0, "qat_amaxes": [float(a) for a in amaxes]})
+    pngs_by_path = {}
+    for label, keys, flags, per_batch in PATHS:
         config = {**base_config, "common": {**base_config["common"], **keys}}
         model_toml = os.path.join(work, "model-{}.toml".format(label))
         save_config(config, model_toml)
         probs = os.path.join(work, "probs-{}".format(label))
-        pargs = argparse.Namespace(
-            batch_size=BATCH, checkpoint=checkpoint, overlap=OVERLAP, strip=1, tile_size=TILE, workers=4, shard=None,
-            tiles=tiles_dir, probs=probs, model=model_toml,
-            dataset=os.path.join(ROOT, "config", "dataset-parking.toml"), profile=None, png_optimize=False,
-        )
+        pargs = predict_args(work, tiles_dir, probs, model_toml, qat_checkpoint if label in QAT_PATHS else checkpoint,
+                             **flags)
+        tile_size = pargs.tile_size
+        # The path's first loader batch, exactly as predict builds it.
+        use_host_s2d = predict.host_s2d_input(config["common"], pargs)
+        directory, _ = predict.input_directory(pargs, use_host_s2d)
+        first = next(iter(batches(directory, predict.batch_items(pargs), workers=2)))
+        first_tiles = batch_tiles(first, pargs.strip)
+        n_batches = -(-len(directory) // predict.batch_items(pargs))
+        steady_tiles = len(tiles) - len(first_tiles)
+
         for fn in counted.values():
             fn.launches = 0
         start = time.perf_counter()
@@ -574,43 +710,47 @@ def run(torch, work, seed, smi):
         for name, c in counts.items():
             launches[name] += c
         log("phase 5: [{}] predict wrote {} tiles in {:.2f} s; steady {:.2f} tiles/s over {} tiles ({:.3f} s) on {}; "
-            "launches {}".format(label, out["tiles"], wall, steady_tiles / out["steady_s"], steady_tiles,
-                                 out["steady_s"], smi, by_path[label]))
+            "{} batches of {} x {}; launches {}".format(
+                label, out["tiles"], wall, steady_tiles / out["steady_s"], steady_tiles, out["steady_s"], smi,
+                n_batches, predict.batch_items(pargs), first.arrays[0].shape[1:], by_path[label]))
 
         for x, y, z in tiles:
             img = Image.open(os.path.join(probs, str(z), str(x), "{}.png".format(y)))
             img.load()
-            if img.mode != "P" or img.size != (TILE, TILE):
+            if img.mode != "P" or img.size != (tile_size, tile_size):
                 raise AssertionError("[{}] tile {}: {} {}".format(label, (x, y, z), img.mode, img.size))
-        pngs = read_pngs(probs, tiles)
-        if label == "int8":
-            default_pngs = pngs
-        elif label.startswith("int8-"):
-            flips, err = u8_flips(torch, torch.from_numpy(pngs), torch.from_numpy(default_pngs))
-            fused = keys.get("fused_head", True)
-            if fused and (err > 1 or flips > MAX_FLIP_SHARE * pngs.size):
-                raise AssertionError("[{}] PNGs vs the int8 run's: {} flipped pixels (max distance {})".format(
-                    label, flips, err))
-            log("phase 5: [{}] PNGs vs the int8 run's{}: {} of {} pixels differ, max distance {}".format(
-                label, "" if fused else " (another head: bf16 logits and a softmax, counted only)", flips, pngs.size,
+        pngs = pngs_by_path[label] = read_pngs(probs, tiles)
+        for other, held in COMPARED.get(label, ()):
+            flips, err = u8_flips(torch, torch.from_numpy(pngs), torch.from_numpy(pngs_by_path[other]))
+            if held and (err > 1 or flips > MAX_FLIP_SHARE * pngs.size):
+                raise AssertionError("[{}] PNGs vs the {} run's: {} flipped pixels (max distance {})".format(
+                    label, other, flips, err))
+            log("phase 5: [{}] PNGs vs the {} run's{}: {} of {} pixels differ, max distance {}".format(
+                label, other, "" if held else " (counted only: {})".format(NOT_HELD[label]), flips, pngs.size,
                 err))
+            if pargs.strip > 1:
+                near, far = strip_edge_shares(pngs != pngs_by_path[other], tiles, pargs.strip)
+                log("phase 5: [{}]   differing share within {} rows of a tile edge inside a strip {:.4%}, "
+                    "elsewhere {:.4%}".format(label, EDGE_ROWS, near, far))
 
-        # One batch again, with the same weights and scales, through the
-        # kernels and through the plain versions; the kernel path must also
-        # reproduce the PNGs predict wrote for that batch.
+        # The first batch again, with the same weights and scales, through
+        # the kernels and through the plain versions; the kernel path must
+        # also reproduce the PNGs predict wrote for that batch.
+        raw = first.arrays[0]
         if config["common"].get("int8", False):
-            step, qt = make_int8_predict_step(unet, params_d, state_d, raw48, overlap=OVERLAP,
-                                              fused_head=keys.get("fused_head", True), calib_percentile=99.8,
-                                              pallas_tail=keys.get("pallas_tail"))
+            step, qt = make_int8_predict_step(
+                unet, params_d, state_d, raw, overlap=pargs.overlap, fused_head=keys.get("fused_head", True),
+                host_s2d=use_host_s2d, calib_percentile=99.8, calib_amaxes=amaxes if label in QAT_PATHS else None,
+                pallas_tail=keys.get("pallas_tail"))
 
-            def run_step(plain=False, step=step, qt=qt):
-                return step(qt, raw48, plain=plain)
+            def run_step(plain=False, step=step, qt=qt, raw=raw):
+                return step(qt, raw, plain=plain)
         else:
-            float_step = make_predict_step(unet, overlap=OVERLAP, compute_dtype=torch.bfloat16, fused_head=True,
-                                           host_s2d=True)
+            float_step = make_predict_step(unet, overlap=pargs.overlap, compute_dtype=torch.bfloat16, fused_head=True,
+                                           host_s2d=use_host_s2d)
 
-            def run_step(plain=False, float_step=float_step):
-                return float_step(params_d, state_d, raw48, plain=plain)
+            def run_step(plain=False, float_step=float_step, raw=raw):
+                return float_step(params_d, state_d, raw, plain=plain)
         got = run_step()
         start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start_ev.record()
@@ -619,28 +759,58 @@ def run(torch, work, seed, smi):
         torch.cuda.synchronize()
         step_ms = cuda_ms(torch, run_step, [()], 5)
         flips, err = u8_flips(torch, got, ref)
-        grid = TILE // 4 if keys.get("pallas_tail") == "sep" else TILE // 2 if keys.get("fused_head", True) else TILE
-        if got.shape[:3] != (BATCH, grid, grid) or err > 1 or flips > MAX_FLIP_SHARE * got.numel():
+        fine = fine_u8(got)
+        if fine.shape != (raw.shape[0], pargs.strip * tile_size, tile_size) or err > 1 \
+                or flips > MAX_FLIP_SHARE * got.numel():
             raise AssertionError("[{}] step {}: {} flipped bins vs the plain path (max distance {})".format(
                 label, tuple(got.shape), flips, err))
-        written = pngs[: first.valid]
-        fine = fine_u8(got)[: first.valid]
+        fine = fine.reshape(-1, tile_size, tile_size)[: len(first_tiles)]
+        written = read_pngs(probs, first_tiles)
         if not np.array_equal(written, fine):
             raise AssertionError("[{}] predict's PNGs differ from the step's output on {} pixels".format(
                 label, int((written != fine).sum())))
-        log("phase 5: [{}] batch of {} through the kernels vs the plain path: {} of {} bins flipped by 1; "
+        log("phase 5: [{}] batch {} through the kernels vs the plain path: {} of {} bins flipped by 1; "
             "step {:.2f} ms with kernels, {:.2f} ms plain; PNGs match the kernel step".format(
-                label, BATCH, flips, got.numel(), step_ms, start_ev.elapsed_time(end_ev)))
+                label, raw.shape, flips, got.numel(), step_ms, start_ev.elapsed_time(end_ev)))
         log_step_profile(torch, run_step, label, per_batch)
         del run_step, got, ref
         torch.cuda.empty_cache()
 
-    return [
-        {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
-         "launches": launches[name], "launches_by_path": {p: c[name] for p, c in by_path.items() if name in c},
-         **per_kernel[name]}
-        for name in SOURCES
-    ]
+    # ---- phase 5: predict under --profile, then masks --------------------
+    label, keys, flags, per_batch = PATHS[0]
+    n_batches = -(-len(tiles) // BATCH)
+    trace_dir = os.path.join(work, "trace")
+    pargs = predict_args(work, tiles_dir, os.path.join(work, "probs-profiled"),
+                         os.path.join(work, "model-{}.toml".format(label)), checkpoint, profile=trace_dir, **flags)
+    for fn in counted.values():
+        fn.launches = 0
+    predict.main(pargs)
+    counts = {name: fn.launches for name, fn in counted.items()}
+    expected = {name: per_batch.get(name, 0) * n_batches for name in counted}
+    if counts != expected:
+        raise AssertionError("[profiled] launch counts {} != expected {}".format(counts, expected))
+    for name, c in counts.items():
+        launches[name] += c
+    check_trace(trace_dir, n_batches)
+    if not np.array_equal(read_pngs(pargs.probs, tiles), pngs_by_path[label]):
+        raise AssertionError("[profiled] PNGs differ from the {} run's".format(label))
+
+    masks_dir = os.path.join(work, "masks")
+    start = time.perf_counter()
+    masks.main(argparse.Namespace(masks=masks_dir, probs=[os.path.join(work, "probs-int8")], weights=None))
+    wall = time.perf_counter() - start
+    for x, y, z in tiles:
+        mask = np.asarray(Image.open(os.path.join(masks_dir, str(z), str(x), "{}.png".format(y))))
+        png = os.path.join(work, "probs-int8", str(z), str(x), "{}.png".format(y))
+        want = masks.softvote([masks._load_probs(png)], axis=0).astype(np.uint8)
+        if not np.array_equal(mask, want):
+            raise AssertionError("masks: tile {} differs from softvote(_load_probs) on {} pixels".format(
+                (x, y, z), int((mask != want).sum())))
+    log("phase 5: [masks] {} masks from the int8 run's PNGs in {:.2f} s, each equal to softvote(_load_probs(png)) "
+        "on the host; foreground share {:.4f}".format(
+            len(tiles), wall, float(np.mean([np.asarray(Image.open(os.path.join(
+                masks_dir, str(z), str(x), "{}.png".format(y)))) for x, y, z in tiles]))))
+
 
 
 def k2_operands(torch, device, gen, int8_mm):

@@ -1,9 +1,9 @@
-"""Color palettes for the probability PNGs.
+"""Color palettes for the probability PNGs and the masks.
 
-Counterpart of robosat_tpu/colors.py, limited to what `predict` uses: the
-named colors and the continuous palette, byte for byte those of the
-reference robosat (robosat/colors.py:19-95), so the palette PNGs are
-interchangeable with both packages'.
+Counterpart of robosat_tpu/colors.py, limited to what `predict` and `masks`
+use: the named colors, the mask palette and the continuous palette, byte
+for byte those of the reference robosat (robosat/colors.py:19-95), so the
+palette PNGs are interchangeable with both packages'.
 """
 
 import colorsys
@@ -29,6 +29,17 @@ NAMED_COLORS = {
     "red": (0xE5, 0x5E, 0x5E),
     "pink": (0xED, 0x64, 0x98),
 }
+
+
+def make_palette(*colors):
+    """Flat PIL palette [r0, g0, b0, r1, ...] from color names.
+
+    Parity: robosat/colors.py:45-54.
+    """
+    palette = []
+    for name in colors:
+        palette.extend(NAMED_COLORS[name])
+    return palette
 
 
 def continuous_palette_for_color(color, bins=256):

@@ -6,7 +6,11 @@ Counterpart of robosat_tpu/models/int8.py in its per-tensor modes:
   decoder in its rewritten forms (4x4 parity-combined kernels for
   center..dec3, the s2d kernels for dec4/dec5);
 - activations: symmetric per-tensor int8 with static scales from a
-  one-batch float calibration (amax or a percentile of |x| per site);
+  one-batch float calibration (per site: amax, a percentile of |x|, or the
+  clip of a grid of amax fractions that minimizes the mean squared ("mse")
+  or absolute ("mae") quantize-dequantize error);
+- the stem stays bf16: the fine 7x7/s2 conv and max pool, or on 4x4
+  host-blocked input (`blocked`) their space-to-depth form;
 - every int8 site runs through a hand-written CUDA kernel on the GPU:
   the bottleneck blocks (qenc, K3/K4), the up-blocks (qdec, K5, or K8 for
   a parity-separated dec3) and dec4 + dec5 (qtail: K6 with the head, K7
@@ -34,11 +38,13 @@ from robosat_tpu_torch.models.layers import (
     s2d_up_conv3x3_kernel,
 )
 from robosat_tpu_torch.models.layers import fused_k4 as _fused_k4  # the 4x4 parity-combined kernel
-from robosat_tpu_torch.models.resnet import RESNET50_STAGES, stem_folded_s2d4, walk_stages
+from robosat_tpu_torch.models.resnet import RESNET50_STAGES, stem_folded, stem_folded_s2d4, walk_stages
 
-_PER_CHANNEL = "per-channel int8 calibration ('pc' modes) is not ported yet (ROADMAP Queue 1, item 5)"
-_GRID = "the 'mse'/'mae' calibration grids are not ported yet (ROADMAP Queue 1, item 5)"
-_QAT = "fake quantization (QAT training) is not ported yet (ROADMAP Queue 1, item 9)"
+_PER_CHANNEL = "per-channel int8 calibration ('pc' modes) is not ported yet (ROADMAP Queue 1, item 3)"
+_QAT = "fake quantization (QAT training) is not ported yet (ROADMAP Queue 1, item 7)"
+
+# Candidate clip fractions of the site amax for the "mse"/"mae" grids.
+_MSE_GRID = np.geomspace(0.02, 1.0, 28).astype(np.float32)
 
 # XLA rewrites `amax / 127.0` into a multiply by the f32 reciprocal; the
 # port does the same so weight scales agree bit for bit.
@@ -144,9 +150,7 @@ class _Sites:
     """Positional conv-site cursor shared by calibration and inference."""
 
     def __init__(self, scales=None, percentile=None):
-        if percentile in ("mse", "mae"):
-            raise NotImplementedError(_GRID)
-        if isinstance(percentile, str):
+        if isinstance(percentile, str) and percentile not in ("mse", "mae"):
             raise NotImplementedError(_PER_CHANNEL)
         self.scales = scales
         self.percentile = percentile
@@ -158,12 +162,32 @@ class _Sites:
             a = x.detach().float().abs()
             if self.percentile is None:
                 self.taps.append(a.amax())
+            elif self.percentile in ("mse", "mae"):
+                self.taps.append(_grid_clip(a, self.percentile == "mse"))
             else:
                 self.taps.append(_percentile(a.reshape(-1), self.percentile))
             return 1.0  # calibration runs in float; the scale is unused
         s = self.scales[self.idx]
         self.idx += 1
         return float(s)
+
+
+def _grid_clip(a, squared):
+    """The clip of |x| `a` (float32) among the `_MSE_GRID` fractions of its
+    amax that minimizes the mean squared (`squared`) or absolute error of
+    the symmetric int8 quantize-dequantize, in float32 on a's device, in
+    the arithmetic XLA compiles the JAX package's grid to: step = clip *
+    f32(1/127), q = min(round(a / step), 127), and the residual q * step - a
+    as one fused multiply-add (rounded once from float64, where q * step is
+    exact). Only the means' summation order differs."""
+    amax = a.amax()
+    errs = []
+    for frac in _MSE_GRID:
+        step = torch.clamp_min(amax * float(frac), 1e-12) * _RECIP_127
+        q = torch.clamp_max(torch.round(a / step), 127.0)
+        resid = (q.double() * step.double() - a.double()).float()
+        errs.append((resid.square() if squared else resid.abs()).mean())
+    return amax * float(_MSE_GRID[int(torch.argmin(torch.stack(errs)))])
 
 
 def _percentile(flat, percentile):
@@ -181,9 +205,11 @@ def _percentile(flat, percentile):
     return lo * float(lw) + hi * float(hw)
 
 
-def _walk(q, x, sites, float_mode=False, stop_at=None, plain=False):
-    """Blocked stem on 4x4 space-to-depth input, then `_walk_from_stem`."""
-    return _walk_from_stem(q, stem_folded_s2d4(q["encoder"]["conv1"], x), sites, float_mode, stop_at, plain)
+def _walk(q, x, sites, float_mode=False, blocked=False, stop_at=None, plain=False):
+    """The stem (on fine input, or with `blocked` on 4x4 space-to-depth
+    input), then `_walk_from_stem`."""
+    stem = stem_folded_s2d4 if blocked else stem_folded
+    return _walk_from_stem(q, stem(q["encoder"]["conv1"], x), sites, float_mode, stop_at, plain)
 
 
 def _walk_from_stem(q, out, sites, float_mode=False, stop_at=None, plain=False):
@@ -246,32 +272,33 @@ def _walk_from_stem(q, out, sites, float_mode=False, stop_at=None, plain=False):
     return s2d_block("dec5", s2d_conv3x3_kernel, dec4)
 
 
-def calibration_amaxes(folded, x, percentile=None):
-    """Per-conv-site input amaxes (or |activation| percentiles) from one
-    float32 forward over the normalized 4x4-blocked batch `x`; a float32
-    vector on the host in conv-site order."""
+def calibration_amaxes(folded, x, blocked=False, percentile=None):
+    """Per-conv-site input amaxes (or |activation| percentiles, or grid
+    clips) from one float32 forward over the normalized batch `x` (fine, or
+    4x4-blocked with `blocked`); a float32 vector on the host in conv-site
+    order."""
     sites = _Sites(scales=None, percentile=percentile)
     with torch.no_grad():
-        _walk(folded, x.float(), sites, float_mode=True)
+        _walk(folded, x.float(), sites, float_mode=True, blocked=blocked)
     return torch.stack(sites.taps).float().cpu()
 
 
-def apply_features_int8_to_dec3(qtree, scales, x, plain=False):
+def apply_features_int8_to_dec3(qtree, scales, x, blocked=False, plain=False):
     """The int8 walk stopped at dec3: returns (dec3 activations, s4, s5),
     the last two site scales left for the fused tail."""
     scales = list(scales)
     sites = _Sites(scales=scales)
-    dec3 = _walk(qtree, x, sites, stop_at="dec3", plain=plain)
+    dec3 = _walk(qtree, x, sites, blocked=blocked, stop_at="dec3", plain=plain)
     assert sites.idx == len(scales) - 2, "dec4/dec5 scales must remain for the fused tail"
     return dec3, scales[-2], scales[-1]
 
 
-def apply_features_int8_to_dec3_input(qtree, scales, x, plain=False):
+def apply_features_int8_to_dec3_input(qtree, scales, x, blocked=False, plain=False):
     """The int8 walk stopped before dec3: returns (cat(enc1, dec2), s3, s4,
     s5), the last three site scales left for the separated dec3 and tail."""
     scales = list(scales)
     sites = _Sites(scales=scales)
-    cat3 = _walk(qtree, x, sites, stop_at="dec3_in", plain=plain)
+    cat3 = _walk(qtree, x, sites, blocked=blocked, stop_at="dec3_in", plain=plain)
     assert sites.idx == len(scales) - 3, "dec3/dec4/dec5 scales must remain for the separated tail"
     return cat3, scales[-3], scales[-2], scales[-1]
 

@@ -1,7 +1,7 @@
 """Model registry of the port: the U-Net only.
 
 Counterpart of robosat_tpu/models/registry.py; the other families
-(DeepLab, SegFormer, FastNet) are not ported yet (ROADMAP Queue 1, item 10).
+(DeepLab, SegFormer, FastNet) are not ported yet (ROADMAP Queue 1, item 8).
 """
 
 from robosat_tpu_torch.models import unet
@@ -14,7 +14,7 @@ def get_model(name="unet"):
         return _REGISTRY[name]
     except KeyError:
         raise NotImplementedError(
-            "model '{}' is not ported to robosat_tpu_torch yet (ROADMAP Queue 1, item 10); available: {}".format(
+            "model '{}' is not ported to robosat_tpu_torch yet (ROADMAP Queue 1, item 8); available: {}".format(
                 name, ", ".join(sorted(_REGISTRY))
             )
         ) from None

@@ -125,11 +125,17 @@ def apply_folded_stages(folded, out):
     return walk_stages(folded, out, conv_bias_apply)
 
 
+def stem_folded(folded_conv1, x):
+    """The folded stem on fine input x (N, H, W, 3): conv 7x7/s2 (pad 3) +
+    bias + relu, then maxpool 3/s2 (pad 1)."""
+    out = torch.relu(conv_bias_apply(folded_conv1, x, stride=2, padding=((3, 3), (3, 3))))
+    return max_pool(out, window=3, stride=2, padding=1)
+
+
 def apply_folded(folded, x):
     """Inference forward over BN-folded params on fine input x (N, H, W, 3):
-    conv 7x7/s2 (pad 3) + bias + relu, maxpool 3/s2 (pad 1), the stages."""
-    out = torch.relu(conv_bias_apply(folded["conv1"], x, stride=2, padding=((3, 3), (3, 3))))
-    return apply_folded_stages(folded, max_pool(out, window=3, stride=2, padding=1))
+    the stem, then the stages."""
+    return apply_folded_stages(folded, stem_folded(folded["conv1"], x))
 
 
 def apply_folded_s2d4(folded, x48):

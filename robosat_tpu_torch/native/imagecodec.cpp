@@ -1,11 +1,12 @@
-// Native image codec for the host side of `predict`.
+// Native image codec for the host side of `predict` and `masks`.
 //
 // Counterpart of robosat_tpu/native/imagecodec.cpp, limited to what the
-// port's `predict` uses: RGB tile decode (PNG hand-rolled over zlib, JPEG
-// via libjpeg(-turbo), WebP via libwebp) and the two palette-PNG encoders
-// (plain, and from the parity-blocked layout with the interleave fused into
-// scanline assembly). Called per tile through ctypes, which releases the
-// GIL, so the loader and writer thread pools scale across host cores.
+// port's tools use: RGB tile decode (PNG hand-rolled over zlib, JPEG via
+// libjpeg(-turbo), WebP via libwebp), the index decode of palette PNGs and
+// the two palette-PNG encoders (plain, and from the parity-blocked layout
+// with the interleave fused into scanline assembly). Called per tile through
+// ctypes, which releases the GIL, so the loader and writer thread pools
+// scale across host cores.
 //
 // Every entry point returns 0 on success and a negative code otherwise;
 // callers fall back to PIL on any failure (interlaced PNG, 16-bit depth,
@@ -426,6 +427,32 @@ int rs_decode_rgb(const char* path, uint8_t* out, int w, int h) {
     default:
       return ERR_FORMAT;
   }
+}
+
+// Decode an 8-bit palette or grayscale PNG as its raw index array (no
+// palette applied): `masks` reads the quantized probability indices.
+int rs_decode_indices(const char* path, uint8_t* out, int w, int h) {
+  std::vector<uint8_t> buf;
+  if (!read_file(path, buf)) return ERR_IO;
+  if (sniff(buf) != FMT_PNG) return ERR_UNSUPPORTED;
+  PngHeader hdr;
+  std::vector<uint8_t> idat;
+  uint8_t palette[256][3];
+  int pal_count = 0;
+  int rc = png_parse(buf, hdr, idat, palette, &pal_count);
+  if (rc) return rc;
+  if (hdr.depth != 8 || hdr.interlace != 0) return ERR_UNSUPPORTED;
+  if (hdr.color != 3 && hdr.color != 0) return ERR_UNSUPPORTED;  // palette or gray
+  if (int(hdr.w) != w || int(hdr.h) != h) return ERR_DIMS;
+  size_t stride = hdr.w;
+  std::vector<uint8_t> raw((stride + 1) * hdr.h);
+  rc = zlib_inflate_all(idat, raw);
+  if (rc) return rc;
+  rc = png_unfilter(raw, hdr.h, stride, 1);
+  if (rc) return rc;
+  for (uint32_t y = 0; y < hdr.h; y++)
+    std::memcpy(out + size_t(y) * hdr.w, &raw[y * (stride + 1) + 1], stride);
+  return 0;
 }
 
 // Encode an (h, w) uint8 index tile as a palette PNG at `path`.

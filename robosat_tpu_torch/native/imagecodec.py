@@ -1,7 +1,8 @@
 """Native image codec bindings: build-on-demand ctypes over imagecodec.cpp.
 
 Counterpart of robosat_tpu/native/imagecodec.py, limited to what `predict`
-uses: RGB tile decode (PNG/JPEG/WebP) and the two palette-PNG encoders.
+and `masks` use: RGB tile decode (PNG/JPEG/WebP), the index decode of
+palette PNGs and the two palette-PNG encoders.
 The library builds with g++ from this package's own copy of the source at
 first use, into `robosat_tpu_torch/_build/` (rebuilt when the source is
 newer). Any failure (build, a missing libjpeg or libwebp, an unsupported
@@ -47,6 +48,8 @@ def load():
         lib.rs_image_info.argtypes = [ctypes.c_char_p, i32p, i32p]
         lib.rs_decode_rgb.restype = ctypes.c_int
         lib.rs_decode_rgb.argtypes = [ctypes.c_char_p, u8p, ctypes.c_int, ctypes.c_int]
+        lib.rs_decode_indices.restype = ctypes.c_int
+        lib.rs_decode_indices.argtypes = lib.rs_decode_rgb.argtypes
         lib.rs_encode_palette_png.restype = ctypes.c_int
         lib.rs_encode_palette_png.argtypes = [
             ctypes.c_char_p, u8p, ctypes.c_int, ctypes.c_int, u8p, ctypes.c_int, ctypes.c_int,
@@ -60,9 +63,9 @@ def load():
     return _lib
 
 
-def decode_rgb(path):
-    """Decode an image file to an (H, W, 3) uint8 array, or None if the
-    native fast path can't handle it (caller falls back to PIL)."""
+def _decode(path, entry, channels):
+    """Run a native decode entry into a fresh (H, W, *channels) uint8
+    array, or None if the native path can't handle the file."""
     lib = load()
     if lib is None:
         return None
@@ -70,11 +73,21 @@ def decode_rgb(path):
     h = ctypes.c_int32(0)
     if lib.rs_image_info(path.encode(), ctypes.byref(w), ctypes.byref(h)) != 0:
         return None
-    out = np.empty((h.value, w.value, 3), np.uint8)
-    rc = lib.rs_decode_rgb(
-        path.encode(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), w.value, h.value
-    )
+    out = np.empty((h.value, w.value, *channels), np.uint8)
+    rc = getattr(lib, entry)(path.encode(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), w.value, h.value)
     return out if rc == 0 else None
+
+
+def decode_rgb(path):
+    """Decode an image file to an (H, W, 3) uint8 array, or None if the
+    native fast path can't handle it (caller falls back to PIL)."""
+    return _decode(path, "rs_decode_rgb", (3,))
+
+
+def decode_indices(path):
+    """Decode an 8-bit palette/gray PNG as its raw (H, W) uint8 index array
+    (no palette applied), or None for the PIL fallback."""
+    return _decode(path, "rs_decode_indices", ())
 
 
 def _as_palette(palette):

@@ -5,12 +5,15 @@ make_int8_predict_step, for the U-Net with the BN fold. PyTorch runs
 eagerly, so a step is a plain function. The float step runs the folded
 forward as torch (cuDNN) convolutions and ends in the margin head, kernel
 K1 (`fused_head`), or in the final 1x1 conv, a softmax and the digitize.
-Every int8 site of the int8 step is a CUDA kernel on the GPU: K3/K4 for the
-16 bottleneck blocks, K5 for the up-blocks, and per `pallas_tail` the
-decoder's end:
+The int8 step's stem stays bf16 (fine, or on 4x4 host-blocked input its
+space-to-depth form); every int8 site after it is a CUDA kernel on the
+GPU: K3/K4 for the 16 bottleneck blocks, K5 for the up-blocks, and per
+`pallas_tail` the decoder's end:
 
-- None or "full": K6 (dec4 + dec5 + head); without `fused_head`, K7 (dec4
-  + dec5), then the final 1x1 conv, softmax and digitize on the fine grid;
+- None or "full": K6 (dec4 + dec5 + head; for fine output, from fine
+  input or with an odd overlap, at overlap 0, then the depth-to-space and
+  the fine crop); without `fused_head`, K7 (dec4 + dec5), then the final
+  1x1 conv, softmax and digitize on the fine grid;
 - "tail": K7, then K1 on the blocked grid;
 - "sep": dec3 through K8 into parity planes, K9 (dec4 + dec5 on the
   planes), then K1 on the doubly-blocked grid.
@@ -129,6 +132,7 @@ def make_int8_predict_step(
     calib_raw,
     overlap=0,
     fused_head=True,
+    host_s2d=False,
     calib_percentile=None,
     calib_amaxes=None,
     pallas_tail=None,
@@ -137,43 +141,48 @@ def make_int8_predict_step(
     """Hybrid-int8 prediction of the U-Net on the device of `params`.
 
     Folds BN, calibrates per-site activation scales on `calib_raw` (one
-    host-blocked uint8 batch (N, H/4, W/4, 48)) and quantizes the weights.
-    Every step takes host-blocked input, the unfused head too (the JAX
-    package's tool feeds that one the fine grid; the two stems differ only
-    in their bf16 summation order).
-    `calib_amaxes` (a host per-site amax vector) skips calibration and uses
-    those exact scales: the QAT contract of the JAX package.
+    uint8 batch as the steps take it) and quantizes the weights. The steps
+    take fine uint8 input (N, H, W, 3), which the fine stem runs, or with
+    `host_s2d` 4x4 host-blocked input (N, H/4, W/4, 48) for the blocked
+    stem. `calib_amaxes` (a host per-site amax vector) skips calibration
+    and uses those exact scales: the QAT contract of the JAX package.
 
     `pallas_tail` picks the decoder's end as the JAX package's key does
-    (None/"full", "tail" or "sep"; see the module docstring). "tail" and
-    "sep" need `fused_head` and an even overlap, "sep" a multiple of 4.
-    `pallas_enc` is accepted and changes nothing: the port always runs the
-    encoder through K3/K4, which the JAX package pins bit-equal to its XLA
-    walk.
+    (None/"full", "tail" or "sep"; see the module docstring); "full",
+    "tail" and "sep" need blocked output (`host_s2d`, `fused_head` and an
+    even overlap), "sep" an overlap that is a multiple of 4. `pallas_enc`
+    is accepted and changes nothing: the port always runs the encoder
+    through K3/K4, which the JAX package pins bit-equal to its XLA walk.
 
     Returns (step, qtree): step(qtree, raw) -> quantized foreground uint8 on
-    the device, parity-blocked (N, H/2 - overlap, W/2 - overlap, 4), for
-    "sep" doubly-blocked (N, H/4 - overlap/2, W/4 - overlap/2, 16), channel
-    p288 * 4 + p576, and without `fused_head` fine (N, H - 2 overlap,
-    W - 2 overlap) from the bf16 logits of the final 1x1 conv;
+    the device:
+
+    - blocked output (`host_s2d`, `fused_head`, even overlap):
+      parity-blocked (N, H/2 - overlap, W/2 - overlap, 4), for "sep"
+      doubly-blocked (N, H/4 - overlap/2, W/4 - overlap/2, 16), channel
+      p288 * 4 + p576;
+    - otherwise fine (N, H - 2 overlap, W - 2 overlap): with `fused_head`
+      K6 at overlap 0, then the depth-to-space and the fine crop; without
+      it from the bf16 logits of the final 1x1 conv.
+
     step(qtree, raw, plain=True) runs the kernels' plain versions instead,
     with the same qtree and scales.
     """
     if pallas_tail not in PALLAS_TAILS:
         raise ValueError("pallas_tail must be one of {} (got {!r})".format(PALLAS_TAILS, pallas_tail))
-    if pallas_tail and not (fused_head and overlap % 2 == 0):
+    blocked_out = host_s2d and fused_head and overlap % 2 == 0
+    if pallas_tail and not blocked_out:
         raise ValueError("pallas_tail requires host_s2d + fused_head with an even overlap")
-    if fused_head and overlap % 2:
-        raise NotImplementedError("the blocked int8 head crops on the coarse grid: overlap must be even")
     if pallas_tail == "sep" and overlap % 4:
         raise ValueError("pallas_tail='sep' crops on the coarse-coarse grid: overlap must be a multiple of 4")
     device = params["final"]["w"].device
+    norm = _normalize_s2d4 if host_s2d else normalize
 
     with torch.no_grad():
         folded = model.fold(params, state)
         if calib_amaxes is None:
             calib_amaxes = q8.calibration_amaxes(
-                folded, _normalize_s2d4(_to_device(calib_raw, device)), percentile=calib_percentile
+                folded, norm(_to_device(calib_raw, device)), blocked=host_s2d, percentile=calib_percentile
             )
         scales = tuple(q8.scales_from_amaxes(calib_amaxes))
         qtree = q8.quantize_unet_folded(folded)
@@ -182,14 +191,14 @@ def make_int8_predict_step(
         w, b = qtree["final"]["w"], qtree["final"]["b"]
         margin = head.margin_head_plain if plain else head.margin_head
         with torch.no_grad():
-            x = _normalize_s2d4(_to_device(raw, device)).to(torch.bfloat16)
+            x = norm(_to_device(raw, device)).to(torch.bfloat16)
             if pallas_tail == "sep":
-                cat3, s3, s4, s5 = q8.apply_features_int8_to_dec3_input(qtree, scales, x, plain=plain)
+                cat3, s3, s4, s5 = q8.apply_features_int8_to_dec3_input(qtree, scales, x, blocked=True, plain=plain)
                 up = qdec.parity_up_conv_separated_plain if plain else qdec.parity_up_conv_separated
                 tail = qtail.fused_tail_features_sep_plain if plain else qtail.fused_tail_features_sep
                 feats = tail(up(cat3, qtree["dec3"], s3), qtree["dec4"], s4, qtree["dec5"], s5)
                 return margin(feats, w, b, overlap, 16)
-            dec3, s4, s5 = q8.apply_features_int8_to_dec3(qtree, scales, x, plain=plain)
+            dec3, s4, s5 = q8.apply_features_int8_to_dec3(qtree, scales, x, blocked=host_s2d, plain=plain)
             if pallas_tail == "tail" or not fused_head:
                 tail = qtail.fused_tail_features_plain if plain else qtail.fused_tail_features
                 feats = tail(dec3, qtree["dec4"], s4, qtree["dec5"], s5)
@@ -197,6 +206,10 @@ def make_int8_predict_step(
                     return margin(feats, w, b, overlap, 4)
                 return _crop(softmax_quantize(model.final_logits(qtree["final"], depth_to_space2(feats))), overlap)
             tail = qtail.fused_tail_plain if plain else qtail.fused_tail
-            return tail(dec3, qtree["dec4"], s4, qtree["dec5"], s5, w, b, overlap)
+            if blocked_out:
+                return tail(dec3, qtree["dec4"], s4, qtree["dec5"], s5, w, b, overlap)
+            # The head works per pixel: the blocked head at overlap 0, then
+            # the fine crop, is the JAX package's fused_prediction_head_s2d.
+            return head.fine_from_blocked(tail(dec3, qtree["dec4"], s4, qtree["dec5"], s5, w, b, 0), overlap)
 
     return step, qtree

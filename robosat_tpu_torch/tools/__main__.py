@@ -1,14 +1,14 @@
 """`python -m robosat_tpu_torch.tools <tool>`: the port's command line.
 
-Only `predict` is ported so far; it keeps the flags and the output
-contract of `rs predict` (robosat_tpu/tools/predict.py).
+The ported tools, `predict` and `masks`, keep the flags and the output
+contracts of `rs predict` and `rs masks` (robosat_tpu/tools/).
 """
 
 import argparse
 
-from robosat_tpu_torch.tools import predict
+from robosat_tpu_torch.tools import masks, predict
 
-TOOLS = (predict,)
+TOOLS = (predict, masks)
 
 
 def main():

@@ -12,15 +12,24 @@ TOML selects:
 - `int8 = false`: the folded float forward in bf16 (`bf16 = true`) or
   float32, with `host_s2d` and `s2d` as in the JAX package;
 - `fused_head = false` (either): the final 1x1 conv, a softmax and the
-  digitize on the fine grid in place of the margin head. As in the JAX
-  package the float forward then takes fine input; the int8 step keeps the
-  host-blocked input (the JAX package's feeds it the fine grid: the stems
-  differ only in their bf16 summation order).
+  digitize on the fine grid in place of the margin head, on fine input as
+  in the JAX package.
 
-With `host_s2d` (the default) the loader workers 4x4 space-to-depth block
-the buffered tiles, the step returns parity-blocked uint8 ("sep": doubly
-blocked, peeled once here) and the writer pool interleaves it into the PNG
-scanlines; otherwise the step returns the fine grid.
+With `host_s2d` (the default; it takes `s2d`, the fused head, `--strip 1`
+and a buffered side that is a multiple of 4, as the JAX tool does) the
+loader workers 4x4 space-to-depth block the buffered tiles and the step
+runs the blocked stem. With an even overlap it then returns parity-blocked
+uint8 ("sep": doubly blocked, peeled once here), which the writer pool
+interleaves into the PNG scanlines; otherwise the step returns the fine
+grid.
+
+`--strip K` predicts K vertically consecutive tiles of a column as one
+(K * size + 2 * overlap)-tall image on the fine grid (data/datasets.py's
+StripBufferedSlippyMapDirectory); a batch then holds batch_size // K
+strips, and the writer cuts each strip's output into its tiles.
+`--profile DIR` records the dispatch loop with torch.profiler (host, and
+the card's kernels on the GPU), one `predict_batch` range per batch, and
+writes a trace that TensorBoard's profile plugin reads to DIR.
 
 Batches are dispatched ahead and fetched behind, as in the JAX package:
 the step of a batch is issued (its input copied from pinned memory on the
@@ -28,14 +37,13 @@ card), its output starts back into pinned host memory behind a CUDA event,
 and a batch's PNGs go to the writer pool once two newer batches are in
 flight. The steady clock starts when the first batch is done.
 
-Not ported yet (ROADMAP Queue 1): `--strip > 1`, `int8 = true` with
-`host_s2d = false` or `s2d = false`, an odd overlap with the fused head,
-`--profile`, the 'mse'/'mae'/'pc' calibrations, and models other than the
-U-Net.
+Not ported yet (ROADMAP Queue 1): the per-channel 'pc' calibrations and
+models other than the U-Net.
 """
 
 import argparse
 import collections
+import contextlib
 import os
 import sys
 import time
@@ -49,7 +57,7 @@ from tqdm import tqdm
 from robosat_tpu_torch.checkpoint import load_model_checkpoint
 from robosat_tpu_torch.colors import continuous_palette_for_color
 from robosat_tpu_torch.config import load_config
-from robosat_tpu_torch.data.datasets import BufferedSlippyMapDirectory
+from robosat_tpu_torch.data.datasets import BufferedSlippyMapDirectory, StripBufferedSlippyMapDirectory
 from robosat_tpu_torch.data.loader import batches
 from robosat_tpu_torch.device import configure_device
 from robosat_tpu_torch.models.layers import depth_to_space2, space_to_depth4
@@ -71,7 +79,7 @@ def add_parser(subparser):
         "--strip",
         type=int,
         default=1,
-        help="predict this many vertically-consecutive tiles as one image (not ported yet: must be 1)",
+        help="predict this many vertically-consecutive tiles as one image (less halo re-compute)",
     )
     parser.add_argument("--tile_size", type=int, required=True, help="side length of the input tiles in pixels")
     parser.add_argument("--workers", type=int, default=0, help="decode/encode worker threads")
@@ -86,7 +94,7 @@ def add_parser(subparser):
     parser.add_argument("probs", type=str, help="slippy map directory for the probability tiles")
     parser.add_argument("--model", type=str, required=True, help="path to model configuration file")
     parser.add_argument("--dataset", type=str, required=True, help="path to dataset configuration file")
-    parser.add_argument("--profile", type=str, default=None, help="device trace directory (not ported yet)")
+    parser.add_argument("--profile", type=str, default=None, help="write a TensorBoard device trace to this directory")
     parser.add_argument(
         "--png_optimize",
         action="store_true",
@@ -146,13 +154,69 @@ def dispatch_ahead(batches, issue, write):
 
 
 def _calibration(common):
-    """The config's `int8_calibration` as the walk's percentile spec."""
+    """The config's `int8_calibration` as the walk's percentile spec: None
+    for "amax", "mse"/"mae" as they are, a float percentile, or a "pc..."
+    spec, whose percentile is checked here (the walk then raises: the
+    per-channel modes are not ported yet)."""
     calib = common.get("int8_calibration", 99.8)
     if calib in ("amax", None):
         return None
-    if isinstance(calib, str):
-        return calib  # "mse"/"mae"/"pc..." raise NotImplementedError in the calibration walk
+    if calib in ("mse", "mae"):
+        return calib
+    if isinstance(calib, str) and calib.startswith("pc"):
+        if calib[2:] not in ("", "amax"):
+            float(calib[2:])  # fail at config read, not in the step build
+        return calib
     return float(calib)
+
+
+def host_s2d_input(common, args):
+    """Whether the loader 4x4-blocks the input (the JAX tool's rule): the
+    config's `host_s2d` with `s2d` and the fused head, per tile only, and a
+    buffered side that is a multiple of 4."""
+    use_fused = common.get("fused_head", common.get("pallas_head", True))
+    return bool(common.get("host_s2d", True) and common.get("s2d", True) and use_fused and args.strip <= 1
+                and (args.tile_size + 2 * args.overlap) % 4 == 0)
+
+
+def input_directory(args, use_host_s2d, shard=None):
+    """The dataset `predict` batches, and the number of tiles it holds:
+    column strips for `--strip > 1`, buffered tiles otherwise (4x4-blocked
+    by the loader with `use_host_s2d`)."""
+    if args.strip > 1:
+        directory = StripBufferedSlippyMapDirectory(
+            args.tiles, size=args.tile_size, overlap=args.overlap, strip=args.strip, shard=shard
+        )
+        return directory, sum(len(strip) for strip in directory.strips)
+    transform = None
+    if use_host_s2d:
+
+        def transform(image):
+            return space_to_depth4(image[None])[0]
+
+    directory = BufferedSlippyMapDirectory(
+        args.tiles, size=args.tile_size, overlap=args.overlap, transform=transform, shard=shard
+    )
+    return directory, len(directory)
+
+
+def batch_items(args):
+    """Items per batch: tiles, or with strips the strips of --strip tiles
+    that fit the batch size (at least one)."""
+    return max(args.batch_size // max(args.strip, 1), 1)
+
+
+def _profiler(trace_dir, device):
+    """torch.profiler over the dispatch loop when `trace_dir` is set: the
+    host's ranges, and on the card its kernels, written to `trace_dir` as a
+    trace TensorBoard's profile plugin reads; otherwise no profiler."""
+    if not trace_dir:
+        return contextlib.nullcontext()
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=activities,
+                                  on_trace_ready=torch.profiler.tensorboard_trace_handler(trace_dir))
 
 
 def main(args):
@@ -160,22 +224,10 @@ def main(args):
     dataset = load_config(args.dataset)
     common = model_config["common"]
 
-    if args.strip > 1:
-        raise NotImplementedError("--strip > 1 is not ported yet (ROADMAP Queue 1, item 4)")
-    if getattr(args, "profile", None):
-        raise NotImplementedError("--profile is not ported yet (ROADMAP Queue 1, item 6)")
     model = get_model(common.get("model", "unet"))
     int8_mode = common.get("int8", False)
     use_fused = common.get("fused_head", common.get("pallas_head", True))
     use_s2d = common.get("s2d", True)
-    # The unfused float forward takes fine input, as in the JAX package.
-    use_host_s2d = common.get("host_s2d", True) and use_s2d and (use_fused or int8_mode)
-    if int8_mode and not use_host_s2d:
-        raise NotImplementedError(
-            "the port's int8 predict runs host_s2d and s2d only (ROADMAP Queue 1, item 4)"
-        )
-    if args.overlap % 2 and use_fused:
-        raise NotImplementedError("an odd overlap with the fused head is not ported yet (ROADMAP Queue 1, item 4)")
     calib_percentile = _calibration(common)
     # pallas_tail = "tail" | "sep" | "full" picks the int8 decoder's end
     # (parallel/steps.py); pallas_enc is accepted and changes nothing.
@@ -191,6 +243,7 @@ def main(args):
     buffered_side = args.tile_size + 2 * args.overlap
     if buffered_side % 64:
         sys.exit("Error: tile_size + 2*overlap must be a multiple of 64 (got {})".format(buffered_side))
+    use_host_s2d = host_s2d_input(common, args)
 
     shard = None
     if args.shard is not None:
@@ -207,21 +260,12 @@ def main(args):
     # trained against; predict quantizes with exactly those scales.
     qat_amaxes = ckpt_meta.get("qat_amaxes") if isinstance(ckpt_meta, dict) else None
 
-    transform = None
-    if use_host_s2d:
-
-        def transform(image):
-            return space_to_depth4(image[None])[0]
-
-    directory = BufferedSlippyMapDirectory(
-        args.tiles, size=args.tile_size, overlap=args.overlap, transform=transform, shard=shard
-    )
+    directory, total_tiles = input_directory(args, use_host_s2d, shard)
     if shard is not None and len(directory) == 0:
         print("shard {}/{}: no tiles in this block, nothing to do".format(*shard))
         return {"tiles": 0, "steady_s": 0.0}
     assert len(directory) > 0, "at least one tile in dataset"
-    total_tiles = len(directory)
-    batch_size = max(args.batch_size, 1)
+    batch_size = batch_items(args)
 
     palette = continuous_palette_for_color("pink", 256)
     optimize = getattr(args, "png_optimize", False)
@@ -267,7 +311,7 @@ def main(args):
         if predict_step is None:
             # Calibrate on the first batch as loaded, padded rows included.
             predict_step, qtree = make_int8_predict_step(
-                model, params, state, images, overlap=args.overlap, fused_head=use_fused,
+                model, params, state, images, overlap=args.overlap, fused_head=use_fused, host_s2d=use_host_s2d,
                 calib_percentile=calib_percentile,
                 calib_amaxes=np.asarray(qat_amaxes, np.float64) if qat_amaxes is not None else None,
                 pallas_tail=pallas_tail, pallas_enc=pallas_enc,
@@ -275,19 +319,28 @@ def main(args):
         # Pinned, the input's copy to the card does not wait for the device;
         # the handle keeps it until the batch is fetched.
         raw = torch.from_numpy(images).pin_memory() if device.type == "cuda" else images
-        return Dispatched(predict_step(qtree, raw), keep=raw)
+        with torch.profiler.record_function("predict_batch"):
+            return Dispatched(predict_step(qtree, raw), keep=raw)
 
+    size = args.tile_size
     with ThreadPoolExecutor(max_workers=max(args.workers, 2)) as writers:
         progress = tqdm(total=total_tiles, desc="Eval", unit="tile", ascii=True)
 
         def write(batch, quantized):
-            for tile, q in zip(batch.meta, quantized[: batch.valid]):
-                pending.append(writers.submit(write_png, tile, q))
-            progress.update(batch.valid)
+            for meta, q in zip(batch.meta, quantized[: batch.valid]):
+                if args.strip > 1:
+                    strip_tiles, valid = meta
+                    for i, tile in enumerate(strip_tiles[:valid]):
+                        pending.append(writers.submit(write_png, tile, q[i * size : (i + 1) * size]))
+                    progress.update(valid)
+                else:
+                    pending.append(writers.submit(write_png, meta, q))
+                    progress.update(1)
 
-        # The steady clock starts after the first batch (calibration,
-        # quantization and the kernel build stay out of steady_s).
-        setup_done_t = dispatch_ahead(batches(directory, batch_size, workers=max(args.workers, 2)), issue, write)
+        with _profiler(args.profile, device):
+            # The steady clock starts after the first batch (calibration,
+            # quantization and the kernel build stay out of steady_s).
+            setup_done_t = dispatch_ahead(batches(directory, batch_size, workers=max(args.workers, 2)), issue, write)
         for fut in pending:
             fut.result()
         progress.close()

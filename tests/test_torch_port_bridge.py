@@ -195,13 +195,86 @@ def test_calibration_amaxes_match_jax(jax_unet, percentile):
         )
     )
     tf, _ = from_jax(folded, {})
-    got = q8.calibration_amaxes(tf, _normalize_s2d4(torch.from_numpy(raw48)), percentile=percentile).numpy()
+    got = q8.calibration_amaxes(tf, _normalize_s2d4(torch.from_numpy(raw48)), blocked=True,
+                                percentile=percentile).numpy()
     assert got.shape == ref.shape == (59,)
     np.testing.assert_allclose(got, ref, rtol=1e-5)
     np.testing.assert_allclose(q8.scales_from_amaxes(got), jq8.scales_from_amaxes(ref), rtol=1e-5)
 
 
-@pytest.mark.parametrize("spec", ["mse", "mae", "pc", "pc99.8"])
+@pytest.mark.parametrize("percentile", [None, 99.8], ids=["amax", "p99.8"])
+def test_calibration_amaxes_fine_match_jax(jax_unet, percentile):
+    """`blocked=False`: the calibration walk from the fine stem (7x7/s2 conv
+    and max pool) on fine input, against the JAX package's, rtol 1e-5."""
+    from robosat_tpu.parallel.steps import normalize as jax_normalize
+    from robosat_tpu_torch.parallel.steps import normalize
+
+    _, _, folded = jax_unet
+    raw = np.random.default_rng(7).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    ref = np.asarray(
+        jax.jit(lambda f, r: jq8.calibration_amaxes(f, jax_normalize(r), blocked=False, percentile=percentile))(
+            folded, raw
+        )
+    )
+    tf, _ = from_jax(folded, {})
+    got = q8.calibration_amaxes(tf, normalize(torch.from_numpy(raw)), blocked=False, percentile=percentile).numpy()
+    assert got.shape == ref.shape == (59,)
+    np.testing.assert_allclose(got, ref, rtol=1e-5)
+
+
+def _grid_fractions(clips, amaxes):
+    """The index into the grid of each site's clip / amax."""
+    return np.abs(clips[:, None] / amaxes[:, None] - q8._MSE_GRID[None, :]).argmin(axis=1)
+
+
+@pytest.mark.parametrize("spec", ["mse", "mae"])
+def test_grid_calibration_matches_jax(jax_unet, spec):
+    """The "mse"/"mae" grids over the 59 sites of a full-width U-Net at 64
+    px, host-blocked input: the port picks the JAX package's grid fraction
+    at every site, and the clips agree to rtol 1e-5 (their amaxes differ by
+    float32 summation order)."""
+    _, _, folded = jax_unet
+    raw48 = jax_space_to_depth4(np.random.default_rng(7).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8))
+    jfold = jax.jit(lambda f, r, p: jq8.calibration_amaxes(f, jax_normalize_s2d4(r), blocked=True, percentile=p),
+                    static_argnums=2)
+    ref, ref_amax = (np.asarray(jfold(folded, raw48, p)) for p in (spec, None))
+    tf, _ = from_jax(folded, {})
+    x = _normalize_s2d4(torch.from_numpy(raw48))
+    got, got_amax = (q8.calibration_amaxes(tf, x, blocked=True, percentile=p).numpy() for p in (spec, None))
+    assert got.shape == ref.shape == (59,)
+    assert np.all(got <= got_amax) and np.all(got > 0)
+    frac_got, frac_ref = _grid_fractions(got, got_amax), _grid_fractions(ref, ref_amax)
+    print("{}: grid fractions {}".format(spec, frac_got.tolist()))
+    np.testing.assert_array_equal(frac_got, frac_ref)
+    np.testing.assert_allclose(got, ref, rtol=1e-5)
+
+
+@pytest.mark.parametrize("spec,squared", [("mse", True), ("mae", False)])
+def test_grid_calibration_oracle(spec, squared):
+    """The grid's argmin against a numpy replica on a synthetic site with
+    one huge outlier (tests/test_int8.py's oracle), rel 1e-5; the L1 grid
+    clips the outlier to the bulk's edge, the L2 grid cannot."""
+    a = np.abs(np.random.default_rng(4).standard_normal(4096).astype(np.float32))
+    a[0] = 500.0
+
+    best_clip, best_err = None, np.inf
+    for frac in q8._MSE_GRID:
+        clip = float(a.max()) * float(frac)
+        step = max(clip, 1e-12) / 127.0
+        resid = np.minimum(np.round(a / step), 127.0) * step - a
+        err = float(np.mean(resid**2 if squared else np.abs(resid)))
+        if err < best_err:
+            best_clip, best_err = clip, err
+
+    sites = q8._Sites(scales=None, percentile=spec)
+    assert sites.next_scale(torch.from_numpy(a)) == 1.0
+    got = float(sites.taps[0])
+    assert got == pytest.approx(best_clip, rel=1e-5)
+    assert (got < 0.05 * a.max()) == (not squared)
+    assert np.array_equal(q8._MSE_GRID, jq8._MSE_GRID)
+
+
+@pytest.mark.parametrize("spec", ["pc", "pc99.8"])
 def test_unported_calibration_modes_raise(spec):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         q8._Sites(percentile=spec)

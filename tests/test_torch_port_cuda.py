@@ -52,6 +52,11 @@ def _act(gen, shape, scale=1.0):
     (False, 1024, 256, 1024, 6, 7),  # layer3.1
     (True, 1024, 512, 2048, 5, 3),
     (False, 2048, 512, 2048, 5, 7),  # layer4.1
+    # --strip 8 at 512/32 (one 4160 x 576 image): H >> W at every stage, and a ragged tall grid
+    (True, 64, 64, 256, 1040, 144),     # layer1.0
+    (False, 1024, 256, 1024, 260, 36),  # layer3.1
+    (False, 2048, 512, 2048, 130, 18),  # layer4.1
+    (False, 256, 64, 256, 67, 5),
 ])
 def test_bottleneck_block_kernel_bit_equal(gen, down, cin, cmid, cout, h, w):
     std = lambda fan_in: fan_in ** -0.5  # unit-scale activations at every width
@@ -75,6 +80,10 @@ def test_bottleneck_block_kernel_bit_equal(gen, down, cin, cmid, cout, h, w):
     (512, 256, 1024, 6, 10),   # layer3.0
     (1024, 512, 2048, 4, 6),   # layer4.0
     (64, 16, 32, 18, 2),       # one output column: every left halo is padding
+    # --strip 8 at 512/32: layer2.0 and layer4.0 of a 4160 x 576 strip, and a ragged tall grid
+    (256, 128, 512, 1040, 144),
+    (1024, 512, 2048, 260, 36),
+    (64, 16, 32, 66, 6),
 ])
 def test_bottleneck_block_s2_kernel_bit_equal(gen, cin, cmid, cout, h, w):
     std = lambda fan_in: fan_in ** -0.5
@@ -101,6 +110,11 @@ def test_bottleneck_block_s2_kernel_bit_equal(gen, cin, cmid, cout, h, w):
     (320, 128, 16, 16, True),    # dec3
     (320, 128, 5, 7, False),
     (96, 80, 9, 9, True),        # Cin and Cout off the 64-wide tiles
+    # --strip 8 at 512/32: center on 65 x 9 (partial 8 x 8 tiles in both dimensions), dec1 and dec3
+    (2048, 256, 65, 9, True),
+    (1280, 256, 260, 36, True),
+    (320, 128, 1040, 144, True),
+    (96, 80, 37, 3, False),
 ])
 def test_parity_up_conv_kernel_bit_equal(gen, cin, cout, h, w, bias):
     node = q8._qkernel(q8._fused_k4(torch.randn(3, 3, cin, cout, generator=gen, device="cuda") * 3 * (9 * cin) ** -0.5))
@@ -134,7 +148,9 @@ def _uneven_tail_nodes(gen):
 
 
 @pytest.mark.parametrize("weights,blocks", [("dense", (144, 144)), ("s2d", (64, 36)), ("uneven", (64, 26))])
-@pytest.mark.parametrize("overlap,h,w", [(0, 16, 16), (8, 24, 20), (0, 13, 11)])
+@pytest.mark.parametrize("overlap,h,w", [(0, 16, 16), (8, 24, 20), (0, 13, 11),
+                                         # overlap 0 on tall grids: --strip 8's 2080 x 288, and ragged ones
+                                         (0, 2080, 288), (0, 130, 18), (0, 67, 9)])
 def test_fused_tail_kernel_matches_plain(gen, weights, blocks, overlap, h, w):
     """K6 over the listed nonzero weight blocks: every block of dense
     weights, 16 + 9 of 36 per output parity of the s2d ones, and slices of

@@ -61,6 +61,11 @@ def test_continuous_palette(color, bins):
     assert colors.continuous_palette_for_color(color, bins) == jcolors.continuous_palette_for_color(color, bins)
 
 
+@pytest.mark.parametrize("names", [("denim", "orange"), ("dark", "pink", "white")])
+def test_make_palette(names):
+    assert colors.make_palette(*names) == jcolors.make_palette(*names)
+
+
 def _write_slippy_map(root, size=64):
     """A 3 x 3 block of tiles at z18 (one a JPEG) with a gap, plus a
     non-numeric entry the walk skips."""
@@ -100,10 +105,51 @@ def test_buffered_directory_and_batches(tmp_path, s2d, shard):
     assert datasets._shard_slice(list(range(10)), (2, 3)) == jdatasets._shard_slice(list(range(10)), (2, 3))
 
 
-@pytest.mark.parametrize("kind", ["decode_png", "decode_jpeg", "encode", "encode_d2s"])
+@pytest.mark.parametrize("strip", [1, 3])
+@pytest.mark.parametrize("shard", [None, (1, 2)], ids=["all", "shard1of2"])
+def test_strip_directory_and_batches(tmp_path, strip, shard):
+    """StripBufferedSlippyMapDirectory against its original: the strips
+    (runs of consecutive y per column, chunked, sharded whole) and the
+    composites and metadata that the loader batches."""
+    _write_slippy_map(tmp_path / "tiles")
+    (tmp_path / "tiles" / "18" / "101" / "204.png").parent.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(np.full((64, 64, 3), 9, np.uint8)).save(str(tmp_path / "tiles" / "18" / "101" / "204.png"))
+    port = datasets.StripBufferedSlippyMapDirectory(str(tmp_path / "tiles"), size=64, overlap=16, strip=strip,
+                                                    shard=shard)
+    ref = jdatasets.StripBufferedSlippyMapDirectory(str(tmp_path / "tiles"), size=64, overlap=16, strip=strip,
+                                                    shard=shard)
+    assert [[tuple(t) for t in s] for s in port.strips] == [[tuple(t) for t in s] for s in ref.strips]
+    assert len(port) == len(ref) == {(1, None): 9, (1, (1, 2)): 5, (3, None): 4, (3, (1, 2)): 2}[strip, shard]
+    got = list(loader.batches(port, 2, workers=2))
+    want = list(jloader.batches(ref, 2, workers=2))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.valid == w.valid
+        assert [([tuple(t) for t in tiles], valid) for tiles, valid in g.meta] == [
+            ([tuple(t) for t in tiles], valid) for tiles, valid in w.meta]
+        assert g.arrays[0].shape == (2, strip * 64 + 32, 96, 3) and np.array_equal(g.arrays[0], w.arrays[0])
+
+
+@pytest.mark.parametrize("kind", ["decode_png", "decode_jpeg", "encode", "encode_d2s", "decode_indices"])
 def test_image_codec(tmp_path, kind):
     assert (imagecodec.load() is None) == (jimagecodec.load() is None)
     rng = np.random.default_rng(5)
+    if kind == "decode_indices":
+        palette = colors.continuous_palette_for_color("pink", 256)
+        data = rng.integers(0, 256, (40, 24), dtype=np.uint8)
+        img = Image.fromarray(data, mode="P")
+        img.putpalette(palette)
+        img.save(str(tmp_path / "probs.png"))
+        Image.fromarray(data[::2], mode="L").save(str(tmp_path / "gray.png"))
+        Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).save(str(tmp_path / "rgb.png"))
+        for name, want in (("probs.png", data), ("gray.png", data[::2]), ("rgb.png", None)):
+            got, ref = (m.decode_indices(str(tmp_path / name)) for m in (imagecodec, jimagecodec))
+            assert (got is None) == (ref is None)
+            if imagecodec.load() is not None:
+                assert (got is None) == (want is None), name
+            if got is not None:
+                assert got.dtype == np.uint8 and np.array_equal(got, ref) and np.array_equal(got, want)
+        return
     if kind.startswith("decode"):
         path = str(tmp_path / ("tile.png" if kind == "decode_png" else "tile.jpg"))
         Image.fromarray(rng.integers(0, 256, (48, 40, 3), dtype=np.uint8)).save(path)

@@ -12,6 +12,10 @@
   With `pallas_tail = "tail"` or `"sep"` no bin differs.
 - The unfused heads (`fused_head = false`: the final 1x1 conv, softmax and
   digitize) of the int8 step and of `predict` give the JAX package's bins.
+- The int8 step on fine input (`host_s2d=False`: the fine stem; fine output
+  through K6 at overlap 0) and `predict` with `--strip`, `host_s2d =
+  false` and an odd overlap give the JAX package's bins; the port's strips
+  equal its per-tile PNGs in float32; `--profile` writes a trace.
 - The float step (fp32 and bf16; host_s2d, s2d, fine-grid and unfused
   forms) and the float `predict` hold the tolerances stated in their tests.
 - `predict` dispatches ahead and fetches behind: batch k + 1 is issued
@@ -41,6 +45,7 @@ from robosat_tpu.models import unet as junet
 from robosat_tpu.models.layers import space_to_depth4 as jax_space_to_depth4
 from robosat_tpu.parallel.steps import _normalize_s2d4 as jax_normalize_s2d4
 from robosat_tpu.parallel.steps import make_int8_predict_step as jax_make_int8_predict_step
+from robosat_tpu.parallel.steps import normalize as jax_normalize
 from robosat_tpu_torch.checkpoint import from_jax
 from robosat_tpu_torch.models import int8 as q8
 from robosat_tpu_torch.models import unet
@@ -113,7 +118,7 @@ def test_int8_predict_step_matches_jax(model):
         junet, params, state, raw48, overlap=0, fused_head=True, host_s2d=True, calib_amaxes=amaxes
     )
     tp, ts = from_jax(params, state)
-    step, qtree = make_int8_predict_step(unet, tp, ts, raw48, overlap=0, calib_amaxes=amaxes)
+    step, qtree = make_int8_predict_step(unet, tp, ts, raw48, overlap=0, host_s2d=True, calib_amaxes=amaxes)
     got = step(qtree, raw48)
     assert tuple(got.shape) == (2, 32, 32, 4)
     _assert_close_bins(got.numpy(), np.asarray(jstep(jqt, raw48)))
@@ -121,15 +126,22 @@ def test_int8_predict_step_matches_jax(model):
 
 
 def test_int8_predict_step_crops_overlap(model):
+    """An even overlap crops the blocked output on its grid; an odd one
+    gives the fine output, cropped on the fine grid (K6 at overlap 0, then
+    the depth-to-space)."""
+    from robosat_tpu_torch.ops.head import fine_from_blocked
+
     params, state, raw48, amaxes = model
     tp, ts = from_jax(params, state)
-    step, qtree = make_int8_predict_step(unet, tp, ts, raw48, overlap=8, calib_amaxes=amaxes)
-    full, _ = make_int8_predict_step(unet, tp, ts, raw48, overlap=0, calib_amaxes=amaxes)
+    step, qtree = make_int8_predict_step(unet, tp, ts, raw48, overlap=8, host_s2d=True, calib_amaxes=amaxes)
+    full, _ = make_int8_predict_step(unet, tp, ts, raw48, overlap=0, host_s2d=True, calib_amaxes=amaxes)
     cropped = step(qtree, raw48)
     assert tuple(cropped.shape) == (2, 24, 24, 4)
     assert torch.equal(cropped, full(qtree, raw48)[:, 4:-4, 4:-4])
-    with pytest.raises(NotImplementedError):
-        make_int8_predict_step(unet, tp, ts, raw48, overlap=3, calib_amaxes=amaxes)
+    odd, _ = make_int8_predict_step(unet, tp, ts, raw48, overlap=3, host_s2d=True, calib_amaxes=amaxes)
+    fine = odd(qtree, raw48)
+    assert tuple(fine.shape) == (2, 58, 58)
+    assert torch.equal(fine, fine_from_blocked(full(qtree, raw48), 3))
 
 
 @pytest.mark.parametrize("pallas_tail,overlap,shape", [("tail", 8, (2, 24, 24, 4)), ("sep", 8, (2, 12, 12, 16))])
@@ -143,7 +155,7 @@ def test_int8_predict_step_pallas_tail_matches_jax(model, pallas_tail, overlap, 
         pallas_tail=pallas_tail,
     )
     tp, ts = from_jax(params, state)
-    step, qtree = make_int8_predict_step(unet, tp, ts, raw48, overlap=overlap, calib_amaxes=amaxes,
+    step, qtree = make_int8_predict_step(unet, tp, ts, raw48, overlap=overlap, host_s2d=True, calib_amaxes=amaxes,
                                          pallas_tail=pallas_tail)
     got = step(qtree, raw48)
     assert tuple(got.shape) == shape
@@ -155,34 +167,83 @@ def test_int8_predict_step_pallas_tail_matches_jax(model, pallas_tail, overlap, 
 
 @pytest.mark.parametrize("overlap,shape", [(0, (2, 64, 64)), (8, (2, 48, 48)), (3, (2, 58, 58))])
 def test_int8_predict_step_unfused_matches_jax(model, overlap, shape):
-    """`fused_head=False`: K7's dec5 features, the depth-to-space, the bf16
-    final 1x1 conv, softmax and digitize on the fine grid (any overlap)
-    against the JAX step's; within one bin on at most 0.1% of the pixels
-    (measured on the CPU: 0 differ)."""
+    """`fused_head=False` on host-blocked input: K7's dec5 features, the
+    depth-to-space, the bf16 final 1x1 conv, softmax and digitize on the
+    fine grid (any overlap) against the JAX step's; within one bin on at
+    most 0.1% of the pixels (measured on the CPU: 0 differ)."""
     params, state, raw48, amaxes = model
     jstep, jqt = jax_make_int8_predict_step(
         junet, params, state, raw48, overlap=overlap, fused_head=False, host_s2d=True, calib_amaxes=amaxes
     )
     tp, ts = from_jax(params, state)
-    step, qtree = make_int8_predict_step(unet, tp, ts, raw48, overlap=overlap, fused_head=False, calib_amaxes=amaxes)
+    step, qtree = make_int8_predict_step(unet, tp, ts, raw48, overlap=overlap, fused_head=False, host_s2d=True,
+                                         calib_amaxes=amaxes)
     got = step(qtree, raw48)
     assert tuple(got.shape) == shape
     _assert_close_bins(got.numpy(), np.asarray(jstep(jqt, raw48)))
     assert torch.equal(step(qtree, raw48, plain=True), got)
 
 
+@pytest.fixture(scope="module")
+def fine_model(model):
+    """Fine uint8 input and the JAX package's amaxes from a fine-stem
+    calibration of it (blocked=False)."""
+    params, state, _, _ = model
+    raw = np.random.default_rng(7).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    folded = jax.jit(junet.fold)(params, state)
+    amaxes = np.asarray(
+        jax.jit(lambda f, r: jq8.calibration_amaxes(f, jax_normalize(r), blocked=False, percentile=99.8))(folded, raw)
+    )
+    return params, state, raw, amaxes
+
+
+@pytest.mark.parametrize("overlap", [0, 2, 3])
+@pytest.mark.parametrize("fused_head", [True, False], ids=["fused", "unfused"])
+def test_int8_predict_step_fine_input_matches_jax(fine_model, fused_head, overlap):
+    """`host_s2d=False`: the fine bf16 stem (7x7/s2 conv and max pool), the
+    int8 walk, then K6 at overlap 0 and the fine crop (fused head) or K7
+    and the unfused head, against the JAX step with `host_s2d=False` on the
+    same amaxes. Bit-equal uint8 is the target; the allowance is one bin on
+    at most 0.1% of the pixels, counted and printed (measured on the CPU: 0
+    differ)."""
+    params, state, raw, amaxes = fine_model
+    jstep, jqt = jax_make_int8_predict_step(
+        junet, params, state, raw, overlap=overlap, fused_head=fused_head, host_s2d=False, calib_amaxes=amaxes
+    )
+    tp, ts = from_jax(params, state)
+    step, qtree = make_int8_predict_step(unet, tp, ts, raw, overlap=overlap, fused_head=fused_head,
+                                         calib_amaxes=amaxes)
+    got = step(qtree, raw)
+    assert tuple(got.shape) == (2, 64 - 2 * overlap, 64 - 2 * overlap)
+    _assert_close_bins(got.numpy(), np.asarray(jstep(jqt, raw)))
+    assert torch.equal(step(qtree, raw, plain=True), got)
+
+
+def test_int8_predict_step_rejects_blocked_input_on_the_fine_stem(model):
+    """A 4x4-blocked batch fed to the fine stem fails on its 48 channels."""
+    params, state, raw48, amaxes = model
+    tp, ts = from_jax(params, state)
+    step, qtree = make_int8_predict_step(unet, tp, ts, raw48, overlap=0, calib_amaxes=amaxes)
+    with pytest.raises(RuntimeError):
+        step(qtree, raw48)
+
+
 def test_int8_predict_step_pallas_tail_errors(model):
     params, state, raw48, amaxes = model
     tp, ts = from_jax(params, state)
     with pytest.raises(ValueError, match="even overlap"):
-        make_int8_predict_step(unet, tp, ts, raw48, overlap=3, calib_amaxes=amaxes, pallas_tail="tail")
+        make_int8_predict_step(unet, tp, ts, raw48, overlap=3, host_s2d=True, calib_amaxes=amaxes, pallas_tail="tail")
     with pytest.raises(ValueError, match="multiple of 4"):
-        make_int8_predict_step(unet, tp, ts, raw48, overlap=6, calib_amaxes=amaxes, pallas_tail="sep")
+        make_int8_predict_step(unet, tp, ts, raw48, overlap=6, host_s2d=True, calib_amaxes=amaxes, pallas_tail="sep")
     with pytest.raises(ValueError, match="pallas_tail"):
-        make_int8_predict_step(unet, tp, ts, raw48, overlap=0, calib_amaxes=amaxes, pallas_tail="strips")
+        make_int8_predict_step(unet, tp, ts, raw48, overlap=0, host_s2d=True, calib_amaxes=amaxes,
+                               pallas_tail="strips")
     with pytest.raises(ValueError, match="fused_head"):
-        make_int8_predict_step(unet, tp, ts, raw48, overlap=0, fused_head=False, calib_amaxes=amaxes,
+        make_int8_predict_step(unet, tp, ts, raw48, overlap=0, fused_head=False, host_s2d=True, calib_amaxes=amaxes,
                                pallas_tail="tail")
+    # "full", "tail" and "sep" need blocked output, which fine input never gives.
+    with pytest.raises(ValueError, match="host_s2d"):
+        make_int8_predict_step(unet, tp, ts, raw48, overlap=0, calib_amaxes=amaxes, pallas_tail="full")
 
 
 @pytest.fixture(scope="module")
@@ -304,8 +365,7 @@ def test_predict_tool_matches_jax(predict_fixture):
 def test_predict_tool_model_keys_match_jax(tmp_path, predict_fixture, common, tolerance):
     """`rs predict` through a `pallas_tail = "sep"` TOML (the doubly-blocked
     output, peeled once by the writer), an `int8 = false` TOML (the bf16
-    float predict) and `fused_head = false` TOMLs (the fine grid; the JAX
-    tool's unfused int8 step takes fine input, the port's host-blocked)
+    float predict) and `fused_head = false` TOMLs (fine input and output)
     against the JAX tool: the "sep" PNGs equal, the int8 and float32
     unfused ones within one bin on at most 0.1% of the pixels (measured on
     the CPU: equal), the bf16 ones within one bin on >= 99% of pixels."""
@@ -336,19 +396,116 @@ def test_predict_tool_model_keys_match_jax(tmp_path, predict_fixture, common, to
 
 
 @pytest.mark.parametrize(
-    "common,overrides",
-    [({"host_s2d": False}, {}), ({}, {"strip": 2}), ({}, {"profile": "trace"}),
-     ({"model": "deeplabv3plus"}, {}), ({"int8_calibration": "pc"}, {}), ({}, {"overlap": 3})],
-    ids=["no-host-s2d", "strip", "profile", "deeplab", "per-channel", "odd-overlap"],
+    "common,overrides,tolerance",
+    [({"int8": True}, {"strip": 3}, None), ({"int8": False}, {"strip": 3}, None),
+     ({"int8": False, "bf16": True}, {"strip": 3}, 0.99), ({"int8": True, "host_s2d": False}, {}, None),
+     ({"int8": True}, {"tile_size": 62, "overlap": 1}, None), ({"int8": False}, {"tile_size": 62, "overlap": 1}, None)],
+    ids=["int8-strip", "fp32-strip", "bf16-strip", "int8-fine", "int8-odd", "fp32-odd"],
 )
-def test_predict_tool_unported_modes_raise(tmp_path, predict_fixture, common, overrides):
+def test_predict_tool_modes_match_jax(tmp_path, predict_fixture, common, overrides, tolerance):
+    """`rs predict` with `--strip 3` (the fixture's two tiles as one strip
+    of a column, fine input and output), with `host_s2d = false`, and with
+    an odd overlap (`--tile_size 62 --overlap 1`: fine output from the
+    fused head) against the JAX tool on the same checkpoint and
+    `qat_amaxes`: int8 and fp32 PNGs equal, bf16 ones within one bin on
+    >= 99% of pixels."""
+    from robosat_tpu.tools import predict as jax_predict
+    from robosat_tpu_torch.tools import predict
+
+    root, _, checkpoint = predict_fixture
+    size = overrides.get("tile_size", 64)
+    save_config({"common": {"cuda": False, "batch_size": 2, "image_size": 64, "checkpoint": str(root), **common}},
+                str(tmp_path / "model.toml"))
+    save_config({"common": {"dataset": str(root), "classes": ["background", "parking"],
+                            "colors": ["denim", "orange"]}}, str(tmp_path / "dataset.toml"))
+    out = predict.main(_predict_args(tmp_path, root / "tiles", tmp_path / "probs_torch", checkpoint, **overrides))
+    assert out["tiles"] == 2
+    jax_predict.main(_predict_args(tmp_path, root / "tiles", tmp_path / "probs_jax", checkpoint, **overrides))
+    pngs = sorted(p.relative_to(tmp_path / "probs_jax") for p in (tmp_path / "probs_jax").rglob("*.png"))
+    assert len(pngs) == 2
+    for rel in pngs:
+        ref_img, got_img = Image.open(tmp_path / "probs_jax" / rel), Image.open(tmp_path / "probs_torch" / rel)
+        assert got_img.mode == "P" and got_img.size == ref_img.size == (size, size)
+        assert got_img.getpalette() == ref_img.getpalette()
+        d = _bin_distance(np.asarray(got_img), np.asarray(ref_img))
+        print("{}: {} of {} pixels differ, max distance {}".format(rel, int((d != 0).sum()), d.size, d.max()))
+        if tolerance is None:
+            assert int((d != 0).sum()) == 0
+        else:
+            assert (d <= 1).mean() >= tolerance
+
+
+@pytest.fixture(scope="module")
+def column_tiles(tmp_path_factory):
+    """Two columns of 64-px tiles with a gap in y (strips of 3 split into
+    runs and chunks), as in tests/test_strip_predict.py."""
+    root = tmp_path_factory.mktemp("port_strips")
+    rng = np.random.default_rng(0)
+    for x, y in [(100, y) for y in (50, 51, 52, 53, 55)] + [(101, 50), (101, 51)]:
+        d = root / "18" / str(x)
+        d.mkdir(parents=True, exist_ok=True)
+        Image.fromarray(rng.integers(0, 255, (64, 64, 3), np.uint8)).save(d / "{}.png".format(y))
+    return root
+
+
+def test_predict_tool_strip_equals_per_tile(tmp_path, predict_fixture, column_tiles):
+    """The port's `--strip 3` PNGs equal its per-tile ones in float32 (the
+    strips carry the same context and the convolutions are translation
+    invariant), over seven tiles in five strips."""
+    from robosat_tpu_torch.tools import predict
+
+    _, checkpoint, _ = predict_fixture
+    save_config({"common": {"cuda": False, "int8": False}}, str(tmp_path / "model.toml"))
+    save_config({"common": {"classes": ["background", "parking"]}}, str(tmp_path / "dataset.toml"))
+    for strip in (1, 3):
+        out = predict.main(_predict_args(tmp_path, column_tiles, tmp_path / "probs{}".format(strip), checkpoint,
+                                         overlap=32, strip=strip, batch_size=4))
+        assert out["tiles"] == 7
+    singles = sorted(p.relative_to(tmp_path / "probs1") for p in (tmp_path / "probs1").rglob("*.png"))
+    assert len(singles) == 7
+    for rel in singles:
+        np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "probs3" / rel)),
+                                      np.asarray(Image.open(tmp_path / "probs1" / rel)), err_msg=str(rel))
+
+
+def test_predict_tool_profile_writes_trace(tmp_path, predict_fixture):
+    """`--profile DIR` on the CPU: a TensorBoard trace in DIR whose events
+    hold one `predict_batch` range per batch."""
+    import json
+
+    from robosat_tpu_torch.tools import predict
+
+    root, checkpoint, _ = predict_fixture
+    save_config({"common": {"cuda": False, "int8": True}}, str(tmp_path / "model.toml"))
+    save_config({"common": {"classes": ["background", "parking"]}}, str(tmp_path / "dataset.toml"))
+    trace_dir = tmp_path / "trace"
+    out = predict.main(_predict_args(tmp_path, root / "tiles", tmp_path / "probs", checkpoint, batch_size=1,
+                                     profile=str(trace_dir)))
+    assert out["tiles"] == 2
+    traces = list(trace_dir.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert sum(e.get("name") == "predict_batch" and e.get("cat") == "user_annotation" for e in events) == 2
+
+
+@pytest.mark.parametrize(
+    "common,overrides,error",
+    [({"model": "deeplabv3plus"}, {}, NotImplementedError), ({"int8_calibration": "pc"}, {}, NotImplementedError),
+     ({"int8_calibration": "pcx"}, {}, ValueError)],
+    ids=["deeplab", "per-channel", "pc-bad-spec"],
+)
+def test_predict_tool_unported_modes_raise(tmp_path, predict_fixture, common, overrides, error):
+    """The modes still to port raise NotImplementedError, citing the
+    ROADMAP; a "pc<percentile>" spec whose percentile is no number fails
+    when the config is read, with the JAX tool's ValueError."""
     from robosat_tpu_torch.tools import predict
 
     root, checkpoint, _ = predict_fixture
     save_config({"common": {"cuda": False, "int8": True, **common}}, str(tmp_path / "model.toml"))
     save_config({"common": {"classes": ["background", "parking"]}}, str(tmp_path / "dataset.toml"))
-    with pytest.raises(NotImplementedError, match="ROADMAP|not ported"):
+    with pytest.raises(error, match="ROADMAP|not ported" if error is NotImplementedError else "pcx|float"):
         predict.main(_predict_args(tmp_path, root / "tiles", tmp_path / "probs", checkpoint, **overrides))
+    assert not (tmp_path / "probs").exists()
 
 
 def test_dispatch_ahead_issues_before_fetching():
