@@ -5,7 +5,8 @@
 
 Drives robosat_tpu_torch's `predict` (the U-Net of config/model-unet.toml)
 on the card along nine paths and its `masks`, runs the two probe kernels,
-and checks each hand-written kernel against its plain PyTorch version:
+checks each hand-written kernel against its plain PyTorch version, and
+trains the U-Net (`train`, then `predict` from what it wrote):
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the CUDA kernels from robosat_tpu_torch/csrc;
@@ -58,6 +59,28 @@ and checks each hand-written kernel against its plain PyTorch version:
    conv_kernel and tail_kernel rows; its PNGs equal the int8 run's), and
    `masks` over the int8 run's PNGs, each mask equal to
    softvote(_load_probs(png)) recomputed on the host.
+
+6. `train` (no kernel of the port runs in training; cuDNN convolutions,
+   torch.sort and plain tensor ops stand where the JAX package leaves
+   XLA): 6a, the float32 train step (TF32 off) at 64 px, batch 2,
+   augmentation off, 3 steps with CrossEntropy (dataset-parking's weights)
+   and 3 with Lovasz on the card and on the CPU in this process, from the
+   same weights: step-0 loss within 1e-4 relative, the gradient cosines of
+   tests/test_torch_train_parity.py's five leaves at or above its floors,
+   steps 1-2 within 5%, bn1's running statistics within 5e-3; 6b,
+   config/model-unet.toml's step as it stands (bf16, Lovasz, batch 64 at
+   512 px, remat off, augmentation on, `unet.init`) for 10 steps on one
+   learnable batch: each step's loss (finite, step 10's below step 1's),
+   the median step by CUDA events over steps 3-10 and images/s,
+   `torch.cuda.max_memory_allocated`, the device idle share and the 8
+   costliest kernels from torch.profiler over 3 steps, and 4 steps with
+   cuDNN's nondeterministic algorithms for comparison (with remat = true
+   instead, said so, if batch 64 does not fit); 6c, `train.main` on 64
+   training and 16 validation tiles of 512 px (a TOML copy with batch 16):
+   epoch 1, then `--resume` to epoch 2 (the restored count equal to the
+   steps taken), the log's lines and both checkpoints, then int8 `predict`
+   from `checkpoint-00002-of-00002.npz` over the training tiles, one PNG a
+   tile and 13 K3, 3 K4, 5 K5 and 1 K6 launches a batch.
 
 `python3 chip_smoke.py --k2 [--tree DIR]` runs phases 1-2 and K2's part of
 phase 4 only, on the robosat_tpu_torch of checkout DIR (default: this one),
@@ -137,6 +160,30 @@ PATHS = (
     ("int8-strip", {}, STRIP, {**ENCODER, "K5": 5, "K6": 1}),
     ("int8-odd", {}, {"tile_size": 510, "overlap": 33}, {**ENCODER, "K5": 5, "K6": 1}),
     ("bf16-strip", {"int8": False, "bf16": True}, STRIP, {"K1": 1}),
+)
+# Phase 6 (train): dataset-parking's class weights; the gradient leaves and
+# cosine floors of tests/test_torch_train_parity.py; steps of the card-vs-CPU
+# check, of the configured step, of its profile and of the comparison with
+# cuDNN's nondeterministic algorithms; the tool's dataset (8 x 8 training and
+# 4 x 4 validation tiles) and batch.
+PARKING_WEIGHTS = [1.6248, 5.762827]
+COSINE_FLOORS = ((("final", "w"), 0.9999), (("dec3", "w"), 0.999), (("encoder", "layer3", 0, "conv2", "w"), 0.995),
+                 (("encoder", "conv1", "w"), 0.99), (("encoder", "bn1", "scale"), 0.99))
+TRAIN_CHECK_STEPS = 3
+TRAIN_STEPS = 10
+PROFILE_STEPS = 3
+TIMED_STEPS = 4
+TRAIN_TILES_SIDE = 8
+VAL_TILES_SIDE = 4
+TOOL_BATCH = 16
+# The configured step's kernels by kind, by name (first match wins).
+TRAIN_KERNEL_GROUPS = (
+    ("batch norm", re.compile(r"batch_norm|Welford")),
+    ("convolution and matmul (cuDNN, cuBLAS)", re.compile(r"cudnn|xmma|conv|gemm|cutlass|sm90_|sm80_|wgrad|dgrad",
+                                                          re.IGNORECASE)),
+    ("sort (Lovasz)", re.compile(r"sort|radix", re.IGNORECASE)),
+    ("Adam (foreach)", re.compile(r"multi_tensor_apply")),
+    ("float copies and casts", re.compile(r"direct_copy|copy_kernel")),
 )
 EDGE_ROWS = 128  # rows next to a tile edge inside a strip, where a strip's context exceeds the tile's
 # Paths that run on phase 3's scales through a QAT checkpoint's qat_amaxes.
@@ -323,12 +370,11 @@ def record(per_kernel, name, site, shape, err, ms, plain_ms, work, library_ms=No
     return bound_ms, bound_by
 
 
-def log_step_profile(torch, step, label, per_batch, steps=5, top=8):
-    """Where one step's device time goes: torch.profiler's CUDA kernel rows
-    over `steps` steps, against their wall time (host clock, synchronized),
-    and the int8 convs' time summed; raises if an int8 conv ran outside
-    rs::sm90 or if up_kernel's launches per step are not the path's K5 + K8
-    (`per_batch`)."""
+def profile_kernels(torch, step, steps):
+    """torch.profiler over `steps` calls of step() after one warm-up: (wall
+    ms per step on the host's clock, synchronized; the CUDA kernel rows as
+    (device ms per step, launches per step, name), costliest first; the
+    profile)."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -342,6 +388,16 @@ def log_step_profile(torch, step, label, per_batch, steps=5, top=8):
     rows = [(k.self_device_time_total / 1e3 / steps, k.count // steps, k.key) for k in prof.key_averages()
             if k.device_type == torch.autograd.DeviceType.CUDA and k.self_device_time_total > 0]
     rows.sort(reverse=True)
+    return wall_ms, rows, prof
+
+
+def log_step_profile(torch, step, label, per_batch, steps=5, top=8):
+    """Where one step's device time goes: torch.profiler's CUDA kernel rows
+    over `steps` steps, against their wall time (host clock, synchronized),
+    and the int8 convs' time summed; raises if an int8 conv ran outside
+    rs::sm90 or if up_kernel's launches per step are not the path's K5 + K8
+    (`per_batch`)."""
+    wall_ms, rows, prof = profile_kernels(torch, step, steps)
     if not rows:
         log("phase 5: [{}] profile of the step: the profiler recorded no kernel time (device split not measured)"
             .format(label))
@@ -645,6 +701,13 @@ def run(torch, work, seed, smi):
     # ---- phase 5: predict on the card, along each path, then masks -------
     run_paths(torch, work, tiles, checkpoint, params, state, params_d, state_d, amaxes, counted, launches, by_path,
               smi)
+    del params_d, state_d
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: train ----------------------------------------------------
+    train_card_vs_cpu(torch, seed)
+    configured_train_step(torch, seed, smi)
+    train_tool(torch, work, seed, counted, launches, by_path, smi)
 
     return [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
@@ -811,6 +874,302 @@ def run_paths(torch, work, tiles, checkpoint, params, state, params_d, state_d, 
             len(tiles), wall, float(np.mean([np.asarray(Image.open(os.path.join(
                 masks_dir, str(z), str(x), "{}.png".format(y)))) for x, y, z in tiles]))))
 
+
+
+def learnable_batches(rng, steps, batch, size):
+    """uint8 image and int64 mask batches: noise with brightened square
+    blobs as class 1, so that the task is learnable (the blobs of
+    tests/test_torch_train_parity.py, scaled with the side)."""
+    out = []
+    half = max(size * 10 // 64, 2)
+    yy, xx = np.mgrid[0:size, 0:size]
+    for _ in range(steps):
+        images = rng.integers(0, 256, (batch, size, size, 3), dtype=np.uint8)
+        masks = np.zeros((batch, size, size), np.int64)
+        for b in range(batch):
+            cy, cx = rng.integers(size // 4, size - size // 4, 2)
+            blob = (np.abs(yy - cy) < half) & (np.abs(xx - cx) < half)
+            masks[b][blob] = 1
+            images[b][blob] = np.clip(images[b][blob].astype(np.int32) + 80, 0, 255).astype(np.uint8)
+        out.append((images, masks))
+    return out
+
+
+def reference_style(torch, params, seed):
+    """`params` with every conv kernel redrawn from N(0, 0.05^2), the scale
+    of tests/test_torch_checkpoint.py's reference-layout weights, whose
+    losses stay in the range where two faithful trajectories can be held
+    to 5% (He-initialized full depth starts at losses of ~50)."""
+    from robosat_tpu_torch.checkpoint import _map
+
+    gen = torch.Generator().manual_seed(seed)
+    return _map(params, lambda t: torch.randn(t.shape, generator=gen) * 0.05 if t.dim() == 4 else t.clone())
+
+
+def cosine(torch, a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm() + 1e-30))
+
+
+def leaf(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def train_card_vs_cpu(torch, seed):
+    """Phase 6a: the float32 train step (TF32 off) on the card and on the
+    CPU, from the same weights on the same batches, per loss."""
+    from robosat_tpu_torch import optim
+    from robosat_tpu_torch.checkpoint import from_jax, to_jax
+    from robosat_tpu_torch.models import unet
+    from robosat_tpu_torch.ops.losses import get_loss
+    from robosat_tpu_torch.parallel.steps import make_train_step
+
+    params, state = unet.init(seed)
+    params = reference_style(torch, params, seed)
+    batches = learnable_batches(np.random.default_rng(seed + 6), TRAIN_CHECK_STEPS, 2, 64)
+    for loss_name, weight in (("CrossEntropy", PARKING_WEIGHTS), ("Lovasz", None)):
+        runs = {}
+        for device in ("cpu", "cuda"):
+            p, s = from_jax(to_jax(params), to_jax(state), device)
+            step = make_train_step(unet, get_loss(loss_name), optim.adam(p, 1e-4), weight=weight, augment=False)
+            start = time.perf_counter()
+            losses, grads = [], None
+            for images, masks in batches:
+                s, loss, _ = step(p, s, images, masks)
+                losses.append(float(loss))
+                if grads is None:
+                    grads = {path: leaf(p, path).grad.detach().cpu().clone() for path, _ in COSINE_FLOORS}
+            runs[device] = losses, grads, s, time.perf_counter() - start
+        (want, want_grads, want_state, cpu_s), (got, got_grads, got_state, card_s) = runs["cpu"], runs["cuda"]
+        if abs(got[0] - want[0]) > 1e-4 * abs(want[0]):
+            raise AssertionError("6a {}: step-0 loss {} on the card, {} on the CPU".format(loss_name, got[0], want[0]))
+        if any(abs(got[i] - want[i]) > 0.05 * abs(want[i]) for i in (1, 2)):
+            raise AssertionError("6a {}: losses {} on the card, {} on the CPU".format(loss_name, got, want))
+        cosines = {}
+        for path, floor in COSINE_FLOORS:
+            cosines["/".join(map(str, path))] = c = cosine(torch, got_grads[path], want_grads[path])
+            if c < floor:
+                raise AssertionError("6a {}: gradient cosine {} < {} at {}".format(loss_name, c, floor, path))
+        bn_err = max(float((got_state["encoder"]["bn1"][k].cpu() - want_state["encoder"]["bn1"][k]).abs().max())
+                     for k in ("mean", "var"))
+        if bn_err > 5e-3:
+            raise AssertionError("6a {}: bn1 running statistics differ by {}".format(loss_name, bn_err))
+        log("phase 6: [6a] {} float32, 64 px, batch 2, {} steps: losses card {} CPU {}; step-0 cosines {}; bn1 "
+            "running statistics within {:.2e}; {:.2f} s on the card, {:.2f} s on the CPU".format(
+                loss_name, len(batches), ["{:.6f}".format(v) for v in got], ["{:.6f}".format(v) for v in want],
+                {k: round(v, 7) for k, v in cosines.items()}, bn_err, card_s, cpu_s))
+
+
+def configured_train_step(torch, seed, smi):
+    """Phase 6b: config/model-unet.toml's train step as it stands (bf16,
+    its loss, batch and image size, remat, augmentation on) from
+    `unet.init`, TRAIN_STEPS steps on one learnable batch; then the device
+    profile of PROFILE_STEPS more, and TIMED_STEPS with cuDNN's
+    deterministic algorithms off for comparison. Returns the numbers."""
+    from robosat_tpu_torch import optim
+    from robosat_tpu_torch.checkpoint import from_jax, to_jax
+    from robosat_tpu_torch.config import load_config
+    from robosat_tpu_torch.models import unet
+    from robosat_tpu_torch.ops.losses import get_loss
+    from robosat_tpu_torch.parallel.steps import make_train_step
+
+    config = load_config(os.path.join(ROOT, "config", "model-unet.toml"))
+    common, opt = config["common"], config["opt"]
+    batch, size = common["batch_size"], common["image_size"]
+    dtype = torch.bfloat16 if common.get("bf16", False) else torch.float32
+    weight = PARKING_WEIGHTS if opt["loss"] != "Lovasz" else None
+    images, masks = learnable_batches(np.random.default_rng(seed + 7), 1, batch, size)[0]
+    images, masks = torch.from_numpy(images).pin_memory(), torch.from_numpy(masks).pin_memory()
+    params0, state0 = unet.init(seed)
+    remat = common.get("remat", False)
+
+    def attempt(remat):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, state = from_jax(to_jax(params0), to_jax(state0), "cuda")
+        step = make_train_step(unet, get_loss(opt["loss"]), optim.adam(params, opt["lr"]), weight=weight,
+                               compute_dtype=dtype, remat=remat)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        losses, events = [], []
+        for _ in range(TRAIN_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, loss, _ = step(params, state, images, masks, gen)
+            end.record()
+            losses.append(loss)
+            events.append((start, end))
+        torch.cuda.synchronize()
+        return params, state, step, gen, [float(v) for v in losses], [a.elapsed_time(b) for a, b in events]
+
+    try:
+        params, state, step, gen, losses, step_ms = attempt(remat)
+        oom = None
+    except torch.cuda.OutOfMemoryError as exc:
+        if remat:
+            raise
+        oom = str(exc).splitlines()[0][:160]
+    if oom is not None:  # retried outside the handler, whose traceback holds the first attempt's tensors
+        log("phase 6: [6b] batch {} at {} px does not fit without remat ({}); running remat = true".format(
+            batch, size, oom))
+        remat = True
+        params, state, step, gen, losses, step_ms = attempt(remat)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError("6b: {} losses {}".format(opt["loss"], losses))
+    median_ms = float(np.median(step_ms[2:]))
+    log("phase 6: [6b] {} {} batch {} at {} px, remat {}, augmentation on, unet.init({}): {} losses {}".format(
+        smi, str(dtype)[6:], batch, size, str(remat).lower(), seed, opt["loss"], ["{:.5f}".format(v) for v in losses]))
+    log("phase 6: [6b] step ms by CUDA events {}; median over steps 3-{} {:.2f} ms = {:.1f} images/s; "
+        "max_memory_allocated {:.2f} GB".format(["{:.2f}".format(v) for v in step_ms], TRAIN_STEPS, median_ms,
+                                                batch / median_ms * 1e3, peak_gb))
+
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], _, _ = step(params, holder["state"], images, masks, gen)
+
+    wall_ms, rows, _ = profile_kernels(torch, one_step, PROFILE_STEPS)
+    busy = sum(r[0] for r in rows)
+    idle = 1 - busy / wall_ms if rows else None
+    if rows:
+        log("phase 6: [6b] profile of {} steps: {:.2f} ms wall a step (profiled), {:.2f} ms of kernels, device idle "
+            "{:.1%}".format(PROFILE_STEPS, wall_ms, busy, idle))
+        for ms, count, key in rows[:8]:
+            log("phase 6: [6b]   {:8.3f} ms/step {:4d} launches  {}".format(ms, count, key[:110]))
+        groups = {}
+        for ms, count, key in rows:
+            group = next((g for g, pattern in TRAIN_KERNEL_GROUPS if pattern.search(key)), "other elementwise")
+            total, launched = groups.get(group, (0.0, 0))
+            groups[group] = (total + ms, launched + count)
+        log("phase 6: [6b]   by kind (ms/step, launches/step): {}".format(
+            {g: (round(ms, 3), n) for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])}))
+    else:
+        log("phase 6: [6b] the profiler recorded no kernel time (idle share not measured)")
+
+    torch.backends.cudnn.deterministic = False
+    try:
+        nondet = []
+        for _ in range(TIMED_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            one_step()
+            end.record()
+            nondet.append((start, end))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = True
+    nondet_ms = [a.elapsed_time(b) for a, b in nondet]
+    log("phase 6: [6b] cudnn.deterministic = False (for comparison only): step ms {}; median of the last {} {:.2f} ms "
+        "against {:.2f} with the deterministic algorithms".format(
+            ["{:.2f}".format(v) for v in nondet_ms], TIMED_STEPS - 1, float(np.median(nondet_ms[1:])), median_ms))
+    del params, state, holder, step
+    torch.cuda.empty_cache()
+    return {"median_ms": median_ms, "images_per_s": batch / median_ms * 1e3, "peak_gb": peak_gb, "idle": idle,
+            "remat": remat, "losses": losses, "nondeterministic_ms": float(np.median(nondet_ms[1:]))}
+
+
+def write_training_set(root, seed):
+    """A slippy-map training set of 512-px tiles at z18: TRAIN_TILES_SIDE^2
+    training and VAL_TILES_SIDE^2 validation tiles, RGB images with
+    learnable blobs and "P" labels (class 1 the blobs)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for split, side, x0 in (("training", TRAIN_TILES_SIDE, 69620), ("validation", VAL_TILES_SIDE, 69700)):
+        (batch,) = learnable_batches(rng, 1, side * side, TILE)
+        for i in range(side * side):
+            x, y = x0 + i // side, 104940 + i % side
+            label = Image.fromarray(batch[1][i].astype(np.uint8), mode="P")
+            label.putpalette([0, 0, 0, 255, 255, 255])
+            for sub, img in (("images", Image.fromarray(batch[0][i])), ("labels", label)):
+                os.makedirs(os.path.join(root, split, sub, "18", str(x)), exist_ok=True)
+                img.save(os.path.join(root, split, sub, "18", str(x), "{}.png".format(y)), compress_level=1)
+
+
+def train_tool(torch, work, seed, counted, launches, by_path, smi):
+    """Phase 6c: `train.main` in-process for epoch 1, `--resume` to epoch
+    2, then int8 `predict` (as configured) from the trained checkpoint over
+    the training tiles, its launches counted."""
+    from PIL import Image
+
+    from robosat_tpu_torch.checkpoint import load_checkpoint
+    from robosat_tpu_torch.config import load_config, save_config
+    from robosat_tpu_torch.tools import predict, train
+
+    root = os.path.join(work, "slippy")
+    start = time.perf_counter()
+    write_training_set(root, seed)
+    log("phase 6: [6c] wrote {} training and {} validation tiles of {} px in {:.2f} s".format(
+        TRAIN_TILES_SIDE ** 2, VAL_TILES_SIDE ** 2, TILE, time.perf_counter() - start))
+    base = load_config(os.path.join(ROOT, "config", "model-unet.toml"))
+    ckpt_dir = os.path.join(work, "train-checkpoints")
+    dataset = load_config(os.path.join(ROOT, "config", "dataset-parking.toml"))
+    dataset["common"]["dataset"] = root
+    dataset_toml = os.path.join(work, "dataset-train.toml")
+    save_config(dataset, dataset_toml)
+    outs = []
+    for epochs in (1, 2):
+        config = {**base, "common": {**base["common"], "batch_size": TOOL_BATCH, "checkpoint": ckpt_dir},
+                  "opt": {**base["opt"], "epochs": epochs}}
+        model_toml = os.path.join(work, "model-train-{}.toml".format(epochs))
+        save_config(config, model_toml)
+        resume = os.path.join(ckpt_dir, "checkpoint-00001-of-00001.npz") if epochs == 2 else None
+        args = argparse.Namespace(model=model_toml, dataset=dataset_toml, checkpoint=resume, resume=resume is not None,
+                                  workers=4, profile=None)
+        start = time.perf_counter()
+        outs.append(train.main(args))
+        log("phase 6: [6c] train epochs {} -> {}: {} steps in {:.2f} s (resumed at count {}, now {})".format(
+            outs[-1]["resume_epoch"], epochs, outs[-1]["steps"], time.perf_counter() - start,
+            outs[-1]["restored_count"], outs[-1]["count"]))
+    steps = TRAIN_TILES_SIDE ** 2 // TOOL_BATCH
+    if (outs[0]["steps"], outs[0]["count"]) != (steps, steps) or outs[1]["restored_count"] != outs[0]["count"] \
+            or outs[1]["count"] != 2 * steps:
+        raise AssertionError("6c: step counts {} / {}".format(outs[0], outs[1]))
+    files = sorted(os.listdir(ckpt_dir))
+    for name in ("checkpoint-00001-of-00001.npz", "checkpoint-00002-of-00002.npz"):
+        trees, meta = load_checkpoint(os.path.join(ckpt_dir, name))
+        count = int(trees["opt_state"][0])
+        if name not in files or count != steps * meta["epoch"]:
+            raise AssertionError("6c: {} (files {}), opt_state count {}".format(name, files, count))
+        log("phase 6: [6c] {}: {:.1f} MB, meta {}, opt_state count {}, {} leaves".format(
+            name, os.path.getsize(os.path.join(ckpt_dir, name)) / 1e6, meta, count, len(trees["opt_state"])))
+    log("phase 6: [6c] files {}; matplotlib {}".format(
+        files, "present (history charts written)" if any(f.startswith("history-") for f in files) else "missing"))
+    for line in open(os.path.join(ckpt_dir, "log")).read().splitlines():
+        log("phase 6: [6c] log | {}".format(line))
+
+    tiles_dir = os.path.join(root, "training", "images")
+    probs = os.path.join(work, "probs-trained")
+    pargs = predict_args(work, tiles_dir, probs, os.path.join(ROOT, "config", "model-unet.toml"),
+                         os.path.join(ckpt_dir, "checkpoint-00002-of-00002.npz"))
+    n_batches = -(-TRAIN_TILES_SIDE ** 2 // BATCH)
+    for fn in counted.values():
+        fn.launches = 0
+    start = time.perf_counter()
+    out = predict.main(pargs)
+    wall = time.perf_counter() - start
+    counts = {name: fn.launches for name, fn in counted.items()}
+    expected = {name: PATHS[0][3].get(name, 0) * n_batches for name in counted}
+    if counts != expected or out["tiles"] != TRAIN_TILES_SIDE ** 2:
+        raise AssertionError("6c predict: {} tiles, launch counts {} != expected {}".format(out["tiles"], counts,
+                                                                                           expected))
+    pngs = 0
+    for dirpath, _, names in os.walk(probs):
+        for name in names:
+            img = Image.open(os.path.join(dirpath, name))
+            img.load()
+            if img.mode != "P" or img.size != (TILE, TILE):
+                raise AssertionError("6c predict: {} is {} {}".format(name, img.mode, img.size))
+            pngs += 1
+    if pngs != TRAIN_TILES_SIDE ** 2:
+        raise AssertionError("6c predict: {} PNGs for {} tiles".format(pngs, TRAIN_TILES_SIDE ** 2))
+    by_path["train-predict"] = {name: c for name, c in counts.items() if c}
+    for name, c in counts.items():
+        launches[name] += c
+    log("phase 6: [6c] predict (int8 as configured) from checkpoint-00002-of-00002.npz: {} PNGs in {:.2f} s on {}; "
+        "launches {} ({} batches)".format(pngs, wall, smi, by_path["train-predict"], n_batches))
 
 
 def k2_operands(torch, device, gen, int8_mm):

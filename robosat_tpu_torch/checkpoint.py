@@ -1,13 +1,17 @@
 """Checkpoints: the npz archive format, the reference-.pth converter, and
 the bridge between its numpy trees and the port's tensors.
 
-Counterpart of robosat_tpu/checkpoint.py, limited to what `predict` uses,
-in numpy: a checkpoint is one `.npz` archive in which every leaf is stored
-under its flattened tree path ("params/encoder/layer1/#0/conv1/w"; list
-items as "#i") beside a `__meta__` JSON blob, so archives written by either
-package load in the other. The port keeps the JAX pytree's structure and
-layouts (HWIO conv kernels, BN params and state as vectors) with torch
-tensors for leaves.
+Counterpart of robosat_tpu/checkpoint.py, limited to what `train` and
+`predict` use, in numpy: a checkpoint is one `.npz` archive in which every
+leaf is stored under its flattened tree path
+("params/encoder/layer1/#0/conv1/w"; list items as "#i") beside a
+`__meta__` JSON blob, so archives written by either package load in the
+other. The port keeps the JAX pytree's structure and layouts (HWIO conv
+kernels, BN params and state as vectors) with torch tensors for leaves.
+The optimizer state is stored as optax.adam's leaf list ("opt_state/#i":
+the step count, then the first moments, then the second, each in the JAX
+tree order of the params), so a training run resumes in either package
+from the other's checkpoint.
 """
 
 import json
@@ -17,6 +21,16 @@ import numpy as np
 import torch
 
 _META_KEY = "__meta__"
+
+
+def tree_leaves(tree):
+    """The leaves of a tree in the JAX package's tree order (dict keys
+    sorted, list items by index), as jax.tree_util.tree_leaves gives them."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
 
 
 def _flatten(tree, prefix, out):
@@ -148,15 +162,52 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def from_jax(params, state, device="cpu"):
+def from_jax(params, state, device="cpu", opt_state=None):
     """(params, state) trees of numpy arrays -> the same trees of torch
-    tensors on `device` (float leaves as float32)."""
+    tensors on `device` (float leaves as float32). With `opt_state`, the
+    leaf list of an optax.adam state (as a checkpoint stores it), also
+    returns those leaves as tensors on `device` (the count int32), for
+    `leaves_to_opt_state`."""
 
     def leaf(a):
         a = np.asarray(a)
         return torch.from_numpy(np.array(a, dtype=np.float32 if a.dtype.kind == "f" else a.dtype)).to(device)
 
-    return _map(params, leaf), _map(state, leaf)
+    if opt_state is None:
+        return _map(params, leaf), _map(state, leaf)
+    return _map(params, leaf), _map(state, leaf), [leaf(a) for a in opt_state]
+
+
+def _optimizer_params(optimizer):
+    return [p for group in optimizer.param_groups for p in group["params"]]
+
+
+def opt_state_to_leaves(optimizer):
+    """An `optim.Adam`'s state as optax.adam's leaf list, numpy on the host:
+    [count (int32), mu per parameter..., nu per parameter...], the
+    parameters in the optimizer's order (`optim.adam` builds it over the
+    params' JAX tree order)."""
+    params = _optimizer_params(optimizer)
+    mus, nus = zip(*(optimizer.moments(p) for p in params))
+    return [np.asarray(optimizer.count, np.int32)] + [t.detach().cpu().numpy() for t in mus + nus]
+
+
+def leaves_to_opt_state(optimizer, leaves):
+    """Load optax.adam's leaf list (numpy arrays or tensors, in the order of
+    `opt_state_to_leaves`) into `optimizer`; returns it."""
+    params = _optimizer_params(optimizer)
+    n = len(params)
+    if len(leaves) != 1 + 2 * n:
+        raise ValueError("optimizer state has {} leaves, expected 1 + 2 x {} parameters".format(len(leaves), n))
+    optimizer.count = int(leaves[0])
+    for i, p in enumerate(params):
+        for moment, value in zip(optimizer.moments(p), (leaves[1 + i], leaves[1 + n + i])):
+            value = torch.as_tensor(np.asarray(value) if not torch.is_tensor(value) else value)
+            if tuple(value.shape) != tuple(p.shape):
+                raise ValueError("optimizer leaf of shape {} for a parameter of shape {}".format(
+                    tuple(value.shape), tuple(p.shape)))
+            moment.copy_(value)
+    return optimizer
 
 
 def to_jax(tree):

@@ -1,9 +1,11 @@
-"""Buffered slippy-map tiles for `predict`, numpy-first.
+"""Slippy-map datasets for `train` and `predict`, numpy-first.
 
-Counterpart of robosat_tpu/data/datasets.py, limited to what `predict`
-uses: `BufferedSlippyMapDirectory` with its `--shard` slice, the column
-strips of `--strip > 1` (`StripBufferedSlippyMapDirectory`) and the native
-decode. Indexable + length, so both plug into the threaded prefetch loader
+Counterpart of robosat_tpu/data/datasets.py, limited to what `train` and
+`predict` use: the aligned image and label tiles of training
+(`SlippyMapTiles`, `SlippyMapTilesConcatenation`), and
+`BufferedSlippyMapDirectory` with its `--shard` slice, the column strips of
+`--strip > 1` (`StripBufferedSlippyMapDirectory`) and the native decode.
+Indexable + length, so each plugs into the threaded prefetch loader
 (robosat_tpu_torch/data/loader.py).
 """
 
@@ -25,6 +27,55 @@ def _decode_rgb(path):
         with Image.open(path) as img:
             decoded = np.asarray(img.convert("RGB"))
     return decoded
+
+
+class SlippyMapTiles:
+    """Tiles from one slippy-map directory, sorted by (x, y, z) like the
+    reference's tile sort (robosat/datasets.py:27); resized with PIL when
+    `size` differs (NEAREST for "P" labels, BILINEAR otherwise)."""
+
+    def __init__(self, root, mode="RGB", size=None):
+        self.mode = mode
+        self.size = size
+        self.tiles = sorted(tiles_from_slippy_map(root), key=lambda t: t[0])
+
+    def __len__(self):
+        return len(self.tiles)
+
+    def __getitem__(self, i):
+        tile, path = self.tiles[i]
+        img = Image.open(path).convert(self.mode)
+        if self.size is not None and img.size != (self.size, self.size):
+            resample = Image.NEAREST if self.mode == "P" else Image.BILINEAR
+            img = img.resize((self.size, self.size), resample)
+        return np.asarray(img), tile
+
+
+class SlippyMapTilesConcatenation:
+    """Aligned (inputs..., target) tiles from several slippy-map directories.
+
+    Returns (images stacked along channels, mask HW int32, tile); raises if
+    the directories are not tile-aligned (robosat/datasets.py:58-75).
+    """
+
+    def __init__(self, inputs, target, size=None):
+        self.inputs = [SlippyMapTiles(path, mode="RGB", size=size) for path in inputs]
+        self.target = SlippyMapTiles(target, mode="P", size=size)
+
+        assert len({len(ds) for ds in self.inputs}) == 1, "same number of tiles in all image directories"
+        assert len(self.target) == len(self.inputs[0]), "same number of tiles in images and label directories"
+
+    def __len__(self):
+        return len(self.target)
+
+    def __getitem__(self, i):
+        images, tiles = zip(*(ds[i] for ds in self.inputs))
+        mask, mask_tile = self.target[i]
+
+        assert len(set(tiles)) == 1, "all images are for the same tile"
+        assert tiles[0] == mask_tile, "image tile is the same as label tile"
+
+        return np.concatenate(images, axis=-1), mask.astype(np.int32), tiles[0]
 
 
 def _shard_slice(items, shard):

@@ -1,9 +1,10 @@
-"""Layer helpers and weight rewrites of the U-Net walk (NHWC, HWIO).
+"""Layer helpers and weight rewrites of the U-Net (NHWC, HWIO).
 
-Counterpart of robosat_tpu/models/layers.py, limited to what the int8
-predict walk and its float calibration need. Activations stay NHWC and conv
-kernels HWIO at every public function; the convs themselves run through
-torch's NCHW operators on permuted views.
+Counterpart of robosat_tpu/models/layers.py, limited to what the U-Net's
+training forward, the int8 predict walk and its float calibration need.
+Activations stay NHWC and conv kernels HWIO at every public function; the
+convs and the batch norm run through torch's NCHW operators on permuted
+views (channels-last in memory).
 """
 
 import numpy as np
@@ -31,6 +32,32 @@ def conv_nhwc(x, w, stride=1, padding="SAME", dilation=1):
     else:
         y = F.conv2d(F.pad(xc, (pl, pr, pt, pb)), wc, stride=stride, dilation=dilation)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def bn_apply(params, state, x, train, momentum=0.1, eps=1e-5):
+    """Batch normalization of NHWC `x` over (N, H, W); returns (y in x's
+    dtype, new state).
+
+    In training mode the statistics are the batch's, in float32, with the
+    biased variance both in the normalization and in the running update
+    (the JAX package's `bn_apply`; torch's own running update would take
+    the unbiased variance, so the update here is computed apart from
+    F.batch_norm and outside autograd). In eval mode the running
+    statistics normalize and the state passes through.
+    """
+    xc = x.permute(0, 3, 1, 2)
+    if train:
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 1, 2), correction=0)
+        new_state = {
+            "mean": (1 - momentum) * state["mean"] + momentum * mean,
+            "var": (1 - momentum) * state["var"] + momentum * var,
+        }
+        y = F.batch_norm(xc, None, None, params["scale"], params["bias"], training=True, eps=eps)
+    else:
+        new_state = state
+        y = F.batch_norm(xc, state["mean"], state["var"], params["scale"], params["bias"], training=False, eps=eps)
+    return y.permute(0, 2, 3, 1), new_state
 
 
 def fold_conv_bn(conv_params, bn_params, bn_state, eps=1e-5):

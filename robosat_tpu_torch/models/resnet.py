@@ -1,15 +1,19 @@
-"""ResNet-50 encoder: parameters, BN fold and the folded float forward.
+"""ResNet-50 encoder: parameters, the train/eval forward, BN fold and the
+folded float forward.
 
-Counterpart of robosat_tpu/models/resnet.py for inference: the parameter
-tree (same structure and HWIO layout as the JAX package), its inference
-fold, and the folded forward in the compute dtype of its input (fine stem
-or 4x4 space-to-depth stem, then the four bottleneck stages). These run as
-torch (cuDNN) convolutions, as the JAX package leaves them to XLA.
+Counterpart of robosat_tpu/models/resnet.py: the parameter tree (same
+structure and HWIO layout as the JAX package), the unfolded forward with
+batch norm in training or eval mode (`apply`, what training runs), the
+inference fold, and the folded forward (fine stem or 4x4 space-to-depth
+stem, then the four bottleneck stages). Each runs in the compute dtype of
+its input as torch (cuDNN) convolutions, as the JAX package leaves them to
+XLA; parameters stay float32 and are cast at each conv.
 """
 
 import torch
 
 from robosat_tpu_torch.models.layers import (
+    bn_apply,
     conv_bias_apply,
     conv_nhwc,
     fold_conv_bn,
@@ -67,6 +71,51 @@ def init(gen, in_channels=3):
         params["layer{}".format(si + 1)] = stage_p
         state["layer{}".format(si + 1)] = stage_s
     return params, state
+
+
+def _bottleneck_apply(params, state, x, stride, train):
+    """One bottleneck block with batch norm in training or eval mode;
+    returns (output, the block's new BN state)."""
+    new_state = {}
+    out = conv_nhwc(x, params["conv1"]["w"])
+    out, new_state["bn1"] = bn_apply(params["bn1"], state["bn1"], out, train)
+    out = torch.relu(out)
+    # Torch-style symmetric padding (SAME would pad (0, 1) at stride 2).
+    out = conv_nhwc(out, params["conv2"]["w"], stride=stride, padding=((1, 1), (1, 1)))
+    out, new_state["bn2"] = bn_apply(params["bn2"], state["bn2"], out, train)
+    out = torch.relu(out)
+    out = conv_nhwc(out, params["conv3"]["w"])
+    out, new_state["bn3"] = bn_apply(params["bn3"], state["bn3"], out, train)
+
+    if "down_conv" in params:
+        shortcut = conv_nhwc(x, params["down_conv"]["w"], stride=stride)
+        shortcut, new_state["down_bn"] = bn_apply(params["down_bn"], state["down_bn"], shortcut, train)
+    else:
+        shortcut = x
+    return torch.relu(out + shortcut), new_state
+
+
+def apply(params, state, x, train=False):
+    """The encoder on normalized x (N, H, W, 3); returns ((enc1, enc2, enc3,
+    enc4), new_state): the four stage outputs (256/512/1024/2048 channels at
+    1/4..1/32 resolution), the U-Net's skips, and the BN state (the batch
+    statistics' running update in training mode, `state` in eval mode)."""
+    new_state = {}
+    out = conv_nhwc(x, params["conv1"]["w"], stride=2, padding=((3, 3), (3, 3)))
+    out, new_state["bn1"] = bn_apply(params["bn1"], state["bn1"], out, train)
+    out = max_pool(torch.relu(out), window=3, stride=2, padding=1)
+
+    skips = []
+    for si, (blocks, _) in enumerate(RESNET50_STAGES):
+        name = "layer{}".format(si + 1)
+        stage_state = []
+        for bi in range(blocks):
+            stride = 2 if (bi == 0 and si > 0) else 1
+            out, bs = _bottleneck_apply(params[name][bi], state[name][bi], out, stride, train)
+            stage_state.append(bs)
+        new_state[name] = stage_state
+        skips.append(out)
+    return tuple(skips), new_state
 
 
 def fold(params, state):

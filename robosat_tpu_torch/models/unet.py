@@ -1,15 +1,21 @@
-"""U-Net with a ResNet-50 encoder: parameters, inference fold, float forward.
+"""U-Net with a ResNet-50 encoder: parameters, the train/eval forward,
+inference fold, float forward.
 
 Counterpart of robosat_tpu/models/unet.py. Channel math matches the
 reference robosat U-Net: center DecoderBlock(2048->256) on a 2x2-pooled
 enc4, dec0(2048+256->256), dec1(1024+256->256), dec2(512+256->64),
 dec3(256+64->128), dec4(128->32), dec5 ConvRelu(32->32), final 1x1 conv.
 
-The folded float forward (`apply_features_folded*`, and `apply_folded` to
-the logits) runs in the dtype of its input (float32 or bfloat16) as torch
-convolutions, as the JAX package leaves it to XLA; each decoder block is one transposed conv with the 4x4
-parity-combined kernel (`FUSED_DECODER`). The int8 forward is the hybrid
-walk in robosat_tpu_torch/models/int8.py.
+The unfolded forward (`apply_features`, `apply`, and `apply_s2d` with the
+space-to-depth tail, which training runs) takes the params as they train:
+the encoder's batch norms in training or eval mode, float32 parameters cast
+to the activations' dtype at each conv (not torch.autocast, which rounds in
+other places). The decoder has no batch norm. The folded float forward
+(`apply_features_folded*`, and `apply_folded` to the logits) runs in the
+dtype of its input (float32 or bfloat16). Both run as torch convolutions,
+as the JAX package leaves them to XLA; each decoder block is one
+transposed conv with the 4x4 parity-combined kernel (`FUSED_DECODER`). The
+int8 forward is the hybrid walk in robosat_tpu_torch/models/int8.py.
 """
 
 import torch
@@ -17,6 +23,7 @@ import torch
 from robosat_tpu_torch.models import resnet
 from robosat_tpu_torch.models.layers import (
     conv_nhwc,
+    depth_to_space2,
     fused_upsample_conv3x3,
     max_pool,
     s2d_conv3x3_kernel,
@@ -72,13 +79,57 @@ def _check_side(x):
     assert x.shape[1] % 32 == 0 and x.shape[2] % 32 == 0, "image resolution has to be divisible by 32 for resnet"
 
 
+def _center(node, enc4):
+    """The center block on a 2x2 max pool of enc4. At a 32-px input enc4 is
+    1 x 1 and its pool empty; the JAX package's lhs-dilated conv then reads
+    one pixel of zero padding, so its center is relu(0) = 0 at 1 x 1, and
+    the center's weights get no gradient."""
+    if enc4.shape[1] == 1 and enc4.shape[2] == 1:
+        return enc4.new_zeros(enc4.shape[:3] + (node["w"].shape[-1],))
+    return _decoder_apply(node, max_pool(enc4, window=2, stride=2, padding=0))
+
+
 def _decode_to_dec3(folded, skips):
     enc1, enc2, enc3, enc4 = skips
-    center = _decoder_apply(folded["center"], max_pool(enc4, window=2, stride=2, padding=0))
+    center = _center(folded["center"], enc4)
     dec0 = _decoder_apply(folded["dec0"], torch.cat([enc4, center], dim=-1))
     dec1 = _decoder_apply(folded["dec1"], torch.cat([enc3, dec0], dim=-1))
     dec2 = _decoder_apply(folded["dec2"], torch.cat([enc2, dec1], dim=-1))
     return _decoder_apply(folded["dec3"], torch.cat([enc1, dec2], dim=-1))
+
+
+def apply_features(params, state, x, train=False):
+    """Encoder (batch norm in training or eval mode) and decoder up to dec5
+    on normalized x (N, H, W, 3); returns (features (N, H, W, 32),
+    new_state)."""
+    _check_side(x)
+    skips, enc_state = resnet.apply(params["encoder"], state["encoder"], x, train)
+    dec5 = _convrelu_apply(params["dec5"], _decoder_apply(params["dec4"], _decode_to_dec3(params, skips)))
+    return dec5, {"encoder": enc_state}
+
+
+def apply(params, state, x, train=False):
+    """Forward pass on normalized x (N, H, W, 3); returns (logits, new_state)."""
+    dec5, new_state = apply_features(params, state, x, train)
+    return final_logits(params["final"], dec5), new_state
+
+
+def apply_s2d(params, state, x, train=False):
+    """The forward with the space-to-depth decoder tail (the JAX package's
+    training forward); returns (fine logits, new_state), the math of
+    `apply` up to float summation order. dec4 and dec5 run at half
+    resolution on parity-blocked channels (`decode_s2d`); the final 1x1
+    conv applies per parity, and one depth-to-space gives the fine logits.
+    Gradients flow through the rearranged kernels to the ordinary params."""
+    _check_side(x)
+    skips, enc_state = resnet.apply(params["encoder"], state["encoder"], x, train)
+    feats = decode_s2d(params, skips)  # (N, H/2, W/2, 4 * 32) parity-major
+
+    nb, hb, wb, _ = feats.shape
+    wf = params["final"]["w"].reshape(NUM_FILTERS, -1).to(feats.dtype)  # (32, C)
+    blocked = torch.matmul(feats.reshape(nb, hb, wb, 4, NUM_FILTERS), wf)
+    logits = depth_to_space2(blocked.reshape(nb, hb, wb, -1))
+    return logits + params["final"]["b"].to(logits.dtype), {"encoder": enc_state}
 
 
 def apply_features_folded(folded, x):

@@ -1,8 +1,15 @@
-"""The predict steps of the U-Net: float (fp32/bf16) and hybrid int8.
+"""The train, eval and predict steps of the U-Net.
 
-Counterpart of robosat_tpu/parallel/steps.py:make_predict_step and
-make_int8_predict_step, for the U-Net with the BN fold. PyTorch runs
-eagerly, so a step is a plain function. The float step runs the folded
+Counterpart of robosat_tpu/parallel/steps.py's make_train_step,
+make_eval_step, make_predict_step and make_int8_predict_step for one
+device. PyTorch runs eagerly, so a step is a plain function.
+
+The train step augments on the device, normalizes, runs the forward in the
+compute dtype (the space-to-depth tail by default, `unet.apply_s2d`), takes
+the loss on float32 logits, backpropagates, and updates with the port's
+optax Adam (`optim.py`); the eval step runs the forward with frozen batch
+norm. Both return the loss and the confusion counts on the device. The
+predict steps run the forward with the BN fold. The float step runs the folded
 forward as torch (cuDNN) convolutions and ends in the margin head, kernel
 K1 (`fused_head`), or in the final 1x1 conv, a softmax and the digitize.
 The int8 step's stem stays bf16 (fine, or on 4x4 host-blocked input its
@@ -23,41 +30,19 @@ pinned memory the copy is asynchronous), so a caller can issue the next
 batch while the device runs this one.
 """
 
-import functools
-
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from robosat_tpu_torch.models import int8 as q8
 from robosat_tpu_torch.models import qdec, qtail
 from robosat_tpu_torch.models.layers import depth_to_space2
 from robosat_tpu_torch.ops import head
+from robosat_tpu_torch.ops.augment import IMAGENET_MEAN, IMAGENET_STD, augment_batch, normalize
+from robosat_tpu_torch.ops.metrics import confusion_counts
 from robosat_tpu_torch.ops.quantize import softmax_quantize
 
-# ImageNet statistics (robosat/tools/train.py:246), as in robosat_tpu/ops/augment.py.
-IMAGENET_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_STD = (0.229, 0.224, 0.225)
-
 PALLAS_TAILS = (None, "full", "tail", "sep")
-
-
-@functools.lru_cache(maxsize=None)
-def _statistics(mean, std, device):
-    """(float64 mean, float32 1 / std) on `device`, copied there once (a
-    host -> device copy from pageable memory would wait for the device)."""
-    inv_std = torch.from_numpy(np.float32(1.0) / np.asarray(std, np.float32)).to(device)
-    return torch.from_numpy(np.asarray(mean, np.float32)).to(device, torch.float64), inv_std
-
-
-def normalize(images, mean=IMAGENET_MEAN, std=IMAGENET_STD):
-    """uint8 NHWC -> normalized float32 NHWC, in the arithmetic XLA compiles
-    the JAX package's `(x / 255 - mean) / std` to: both divisions become
-    multiplies by float32 reciprocals, and `x * (1/255) - mean` one fused
-    multiply-add. The float64 form below rounds that once, as the FMA does
-    (u8 * f32 and the difference with the f32 mean are exact in float64)."""
-    mean, inv_std = _statistics(tuple(mean), tuple(std), images.device)
-    centered = (images.double() * float(np.float32(1.0) / np.float32(255.0)) - mean).float()
-    return centered * inv_std
 
 
 def _normalize_s2d4(raw48):
@@ -70,6 +55,90 @@ def _normalize_s2d4(raw48):
 def _to_device(raw, device):
     """The uint8 batch on `device`, copied without waiting for the device."""
     return torch.as_tensor(raw).to(device, non_blocking=True)
+
+
+def _class_weights(weight):
+    """weight_on(device): the class weights as float32 on `device`, copied
+    there once (a copy from pageable host memory waits for the device)."""
+    copies = {}
+
+    def weight_on(device):
+        if weight is None:
+            return None
+        if device not in copies:
+            copies[device] = torch.as_tensor(np.asarray(weight, np.float32)).to(device)
+        return copies[device]
+
+    return weight_on
+
+
+def _forward(model, s2d_tail):
+    return model.apply_s2d if (s2d_tail and hasattr(model, "apply_s2d")) else model.apply
+
+
+def make_train_step(model, loss_fn, optimizer, weight=None, compute_dtype=torch.float32, augment=True, remat=False,
+                    s2d_tail=True):
+    """One training step on the device of the params.
+
+    `optimizer` is the port's Adam over the leaves of the params the step
+    is given (`optim.adam(params, lr)`). Returns step(params, state,
+    images_u8, masks, generator=None) -> (new_state, loss, counts): the
+    params and the optimizer's state update in place; loss (float32) and
+    counts ([tn, fn, fp, tp] int32) stay on the device, so a caller can
+    fetch them after issuing the next step. Host inputs are copied to the
+    device without waiting (asynchronous from pinned memory).
+
+    `augment` draws flips and rotations from `generator`, a torch.Generator
+    on the params' device. `s2d_tail` runs `model.apply_s2d`. `remat`
+    recomputes the forward during the backward
+    (torch.utils.checkpoint, non-reentrant, over the whole forward, as
+    jax.checkpoint(forward)); the new BN statistics are those of the first
+    forward, since the recomputation's outputs are discarded.
+    """
+    forward = _forward(model, s2d_tail)
+    weight_on = _class_weights(weight)
+
+    def run_forward(params, state, x):
+        return forward(params, state, x, True)
+
+    def step(params, state, images, masks, generator=None):
+        device = params["final"]["w"].device
+        images, masks = _to_device(images, device), _to_device(masks, device)
+        if augment:
+            if generator is None:
+                raise ValueError("augment draws from a torch.Generator: pass generator=")
+            images, masks = augment_batch(generator, images, masks)
+        x = normalize(images).to(compute_dtype)
+
+        optimizer.zero_grad(set_to_none=True)
+        if remat:
+            logits, new_state = checkpoint(run_forward, params, state, x, use_reentrant=False)
+        else:
+            logits, new_state = run_forward(params, state, x)
+        loss = loss_fn(logits.float(), masks, weight_on(device))
+        loss.backward()
+        optimizer.step()
+        return new_state, loss.detach(), confusion_counts(logits.detach(), masks)
+
+    return step
+
+
+def make_eval_step(model, loss_fn, weight=None, compute_dtype=torch.float32, s2d_tail=True):
+    """Validation on the device of the params, batch norm frozen at the
+    running statistics: step(params, state, images_u8, masks) -> (loss,
+    counts), both on the device."""
+    forward = _forward(model, s2d_tail)
+    weight_on = _class_weights(weight)
+
+    def step(params, state, images, masks):
+        device = params["final"]["w"].device
+        with torch.no_grad():
+            images, masks = _to_device(images, device), _to_device(masks, device)
+            logits, _ = forward(params, state, normalize(images).to(compute_dtype), False)
+            loss = loss_fn(logits.float(), masks, weight_on(device))
+            return loss, confusion_counts(logits, masks)
+
+    return step
 
 
 def _crop(q, overlap):

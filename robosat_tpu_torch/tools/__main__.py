@@ -1,14 +1,15 @@
 """`python -m robosat_tpu_torch.tools <tool>`: the port's command line.
 
-The ported tools, `predict` and `masks`, keep the flags and the output
-contracts of `rs predict` and `rs masks` (robosat_tpu/tools/).
+The ported tools, `train`, `predict` and `masks`, keep the flags and the
+output contracts of `rs train`, `rs predict` and `rs masks`
+(robosat_tpu/tools/).
 """
 
 import argparse
 
-from robosat_tpu_torch.tools import masks, predict
+from robosat_tpu_torch.tools import masks, predict, train
 
-TOOLS = (predict, masks)
+TOOLS = (train, predict, masks)
 
 
 def main():

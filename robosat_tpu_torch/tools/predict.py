@@ -43,7 +43,6 @@ models other than the U-Net.
 
 import argparse
 import collections
-import contextlib
 import os
 import sys
 import time
@@ -59,7 +58,7 @@ from robosat_tpu_torch.colors import continuous_palette_for_color
 from robosat_tpu_torch.config import load_config
 from robosat_tpu_torch.data.datasets import BufferedSlippyMapDirectory, StripBufferedSlippyMapDirectory
 from robosat_tpu_torch.data.loader import batches
-from robosat_tpu_torch.device import configure_device
+from robosat_tpu_torch.device import Dispatched, configure_device, profiler
 from robosat_tpu_torch.models.layers import depth_to_space2, space_to_depth4
 from robosat_tpu_torch.models.registry import get_model
 from robosat_tpu_torch.native import imagecodec
@@ -104,29 +103,6 @@ def add_parser(subparser):
 
 
 IN_FLIGHT = 2  # batches issued beyond the one being fetched
-
-
-class Dispatched:
-    """A step's output on its way to the host: on the card a copy into
-    pinned memory behind a CUDA event, which `fetch` waits for; `keep`
-    holds the host input the step's copy may still read until then."""
-
-    def __init__(self, out, keep=None):
-        self.keep = keep
-        if out.device.type == "cuda":
-            self.host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            self.host.copy_(out, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host, self.event = out, None
-
-    def fetch(self):
-        """The output as a numpy array, once the device is done with it."""
-        if self.event is not None:
-            self.event.synchronize()
-        self.keep = None
-        return self.host.numpy()
 
 
 def dispatch_ahead(batches, issue, write):
@@ -204,19 +180,6 @@ def batch_items(args):
     """Items per batch: tiles, or with strips the strips of --strip tiles
     that fit the batch size (at least one)."""
     return max(args.batch_size // max(args.strip, 1), 1)
-
-
-def _profiler(trace_dir, device):
-    """torch.profiler over the dispatch loop when `trace_dir` is set: the
-    host's ranges, and on the card its kernels, written to `trace_dir` as a
-    trace TensorBoard's profile plugin reads; otherwise no profiler."""
-    if not trace_dir:
-        return contextlib.nullcontext()
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    return torch.profiler.profile(activities=activities,
-                                  on_trace_ready=torch.profiler.tensorboard_trace_handler(trace_dir))
 
 
 def main(args):
@@ -337,7 +300,7 @@ def main(args):
                     pending.append(writers.submit(write_png, meta, q))
                     progress.update(1)
 
-        with _profiler(args.profile, device):
+        with profiler(args.profile, device):
             # The steady clock starts after the first batch (calibration,
             # quantization and the kernel build stay out of steady_s).
             setup_done_t = dispatch_ahead(batches(directory, batch_size, workers=max(args.workers, 2)), issue, write)

@@ -344,3 +344,61 @@ def test_kernel_wrappers_reject_bad_operands(gen):
     with pytest.raises(ValueError, match="bfloat16"):
         head_rungs.head_rung(torch.zeros(1, 2, 2, 128, device="cuda"), torch.ones(1, 128, device="cuda"),
                              torch.zeros(1, 4, device="cuda"), "reduce")
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["distinct", "tied"])
+def test_lovasz_function_on_the_card_matches_the_cpu(gen, ties):
+    """The Lovasz autograd.Function on the card: its batched stable sort,
+    cumsum and scatter give the CPU's value and gradient (ties broken by
+    position on both)."""
+    from robosat_tpu_torch.ops.losses import lovasz_loss
+
+    cpu = torch.Generator().manual_seed(1)
+    logits = torch.randn(3, 64, 48, 2, generator=cpu) * 3
+    if ties:
+        logits = torch.round(logits * 2) / 2
+    targets = torch.randint(0, 2, (3, 64, 48), generator=cpu)
+    grads = []
+    for device in ("cpu", "cuda"):
+        x = logits.detach().to(device).requires_grad_(True)
+        loss = lovasz_loss(x, targets.to(device))
+        loss.backward()
+        grads.append((float(loss.detach()), x.grad.cpu()))
+    (want, want_grad), (got, got_grad) = grads
+    assert abs(got - want) <= 1e-5 * abs(want)
+    torch.testing.assert_close(got_grad, want_grad, rtol=1e-5, atol=1e-5 * float(want_grad.abs().max()))
+
+
+def test_train_step_on_the_card_matches_the_cpu(gen):
+    """One float32 train step (TF32 off) of the full-width U-Net at 64 px,
+    batch 2, on the card and on the CPU from the same weights: the loss
+    within 1e-4, gradient cosines at the head and the stem, BN statistics."""
+    import numpy as np
+
+    from robosat_tpu_torch import optim
+    from robosat_tpu_torch.checkpoint import from_jax, to_jax
+    from robosat_tpu_torch.device import configure_device
+    from robosat_tpu_torch.models import unet
+    from robosat_tpu_torch.ops.losses import get_loss
+    from robosat_tpu_torch.parallel.steps import make_train_step
+
+    configure_device(True)
+    rng = np.random.default_rng(2)
+    images = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    masks = np.zeros((2, 64, 64), np.int32)
+    masks[:, 16:40, 20:44] = 1
+    params, state = unet.init(0)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        p, s = from_jax(to_jax(params), to_jax(state), device)
+        optimizer = optim.adam(p, 1e-4)
+        step = make_train_step(unet, get_loss("CrossEntropy"), optimizer, weight=[1.6248, 5.762827], augment=False)
+        s, loss, counts = step(p, s, images, masks)
+        runs[device] = float(loss), p, s, counts.cpu()
+    (want, wp, ws, wc), (got, gp, gs, gc) = runs["cpu"], runs["cuda"]
+    assert abs(got - want) <= 1e-4 * abs(want)
+    assert int(gc.sum()) == masks.size
+    for a, b in ((gp["final"]["w"], wp["final"]["w"]), (gp["encoder"]["conv1"]["w"], wp["encoder"]["conv1"]["w"])):
+        a, b = a.grad.cpu().double().flatten(), b.grad.double().flatten()
+        assert float(a @ b / (a.norm() * b.norm())) >= 0.99
+    torch.testing.assert_close(gs["encoder"]["bn1"]["mean"].cpu(), ws["encoder"]["bn1"]["mean"], rtol=5e-3, atol=5e-3)

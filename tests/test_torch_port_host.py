@@ -204,3 +204,83 @@ def test_convert_torch_unet_matches_jax():
     # Numpy values convert as tensors do.
     _assert_trees_equal(checkpoint.convert_torch_unet({k: v.numpy() for k, v in sd.items()}), want)
     assert isinstance(sd["module.final.weight"], torch.Tensor)
+
+
+def test_log_matches_jax(tmp_path):
+    import io
+
+    from robosat_tpu.log import Log as JaxLog
+    from robosat_tpu_torch.log import Log
+
+    echoes = []
+    for cls, name in ((Log, "port"), (JaxLog, "jax")):
+        out = io.StringIO()
+        with cls(str(tmp_path / name), out=out) as log:
+            log.log("Epoch: 1/2")
+            log.log("Train    loss: 0.1234")
+        with cls(str(tmp_path / name), out=None) as log:  # appends
+            log.log("---")
+        echoes.append(out.getvalue())
+    assert (tmp_path / "port").read_bytes() == (tmp_path / "jax").read_bytes()
+    assert echoes[0] == echoes[1] == "Epoch: 1/2\nTrain    loss: 0.1234\n"
+
+
+def _write_training_split(root, size=64):
+    """Aligned images (RGB, one JPEG) and palette labels at z18, with a
+    non-numeric entry the walk skips."""
+    rng = np.random.default_rng(8)
+    for x, y in ((5, 9), (5, 8), (4, 9)):
+        for sub in ("images", "labels"):
+            (root / sub / "18" / str(x)).mkdir(parents=True, exist_ok=True)
+        ext = "jpg" if (x, y) == (4, 9) else "png"
+        Image.fromarray(rng.integers(0, 256, (size, size, 3), dtype=np.uint8)).save(
+            str(root / "images" / "18" / str(x) / "{}.{}".format(y, ext)))
+        label = Image.fromarray(rng.integers(0, 2, (size, size)).astype(np.uint8), mode="P")
+        label.putpalette([0, 0, 0, 255, 128, 0])
+        label.save(str(root / "labels" / "18" / str(x) / "{}.png".format(y)))
+    (root / "images" / "18" / "notes").mkdir()
+
+
+@pytest.mark.parametrize("size", [None, 48], ids=["native", "resized"])
+@pytest.mark.parametrize("mode", ["RGB", "P"])
+def test_slippy_map_tiles(tmp_path, size, mode):
+    _write_training_split(tmp_path)
+    sub = "images" if mode == "RGB" else "labels"
+    port = datasets.SlippyMapTiles(str(tmp_path / sub), mode=mode, size=size)
+    ref = jdatasets.SlippyMapTiles(str(tmp_path / sub), mode=mode, size=size)
+    assert len(port) == len(ref) == 3
+    for i in range(3):
+        (got, tile), (want, want_tile) = port[i], ref[i]
+        assert tuple(tile) == tuple(want_tile) and got.dtype == want.dtype and np.array_equal(got, want)
+        assert got.shape[:2] == ((size or 64),) * 2
+
+
+@pytest.mark.parametrize("size", [None, 48], ids=["native", "resized"])
+def test_slippy_map_tiles_concatenation(tmp_path, size):
+    _write_training_split(tmp_path)
+    port = datasets.SlippyMapTilesConcatenation([str(tmp_path / "images")], str(tmp_path / "labels"), size=size)
+    ref = jdatasets.SlippyMapTilesConcatenation([str(tmp_path / "images")], str(tmp_path / "labels"), size=size)
+    assert len(port) == len(ref) == 3
+    for i in range(3):
+        got, want = port[i], ref[i]
+        assert tuple(got[2]) == tuple(want[2])
+        for g, w in zip(got[:2], want[:2]):
+            assert g.dtype == w.dtype and np.array_equal(g, w)
+        assert got[1].dtype == np.int32
+    # Misaligned directories fail the same assertion in both.
+    (tmp_path / "labels" / "18" / "5" / "8.png").rename(tmp_path / "labels" / "18" / "5" / "7.png")
+    for module in (datasets, jdatasets):
+        broken = module.SlippyMapTilesConcatenation([str(tmp_path / "images")], str(tmp_path / "labels"))
+        with pytest.raises(AssertionError, match="image tile is the same as label tile"):
+            [broken[i] for i in range(3)]
+
+
+def test_plot_matches_jax(tmp_path):
+    from robosat_tpu.utils.plot import plot as jax_plot
+    from robosat_tpu_torch.utils.plot import plot
+
+    history = {"train loss": [0.9, 0.5, 0.4], "val loss": [1.0, 0.7, 0.65], "train miou": [0.3, 0.5, 0.6]}
+    plot(str(tmp_path / "port.png"), history)
+    jax_plot(str(tmp_path / "jax.png"), history)
+    got, want = np.asarray(Image.open(tmp_path / "port.png")), np.asarray(Image.open(tmp_path / "jax.png"))
+    assert got.shape == want.shape and np.array_equal(got, want)

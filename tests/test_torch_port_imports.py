@@ -41,7 +41,7 @@ def test_source_imports_no_jax_package(path):
 def test_entry_points_load_no_jax_package():
     code = (
         "import sys\n"
-        "import robosat_tpu_torch.tools.predict, robosat_tpu_torch.checkpoint\n"
+        "import robosat_tpu_torch.tools.predict, robosat_tpu_torch.tools.train, robosat_tpu_torch.checkpoint\n"
         "import robosat_tpu_torch.ops.int8_mm, robosat_tpu_torch.ops.head_rungs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('robosat_tpu', 'jax', 'jaxlib'))\n"
         "assert not bad, bad\n"
