@@ -85,6 +85,8 @@ trains the U-Net (`train`, then `predict` from what it wrote):
 `python3 chip_smoke.py --k2 [--tree DIR]` runs phases 1-2 and K2's part of
 phase 4 only, on the robosat_tpu_torch of checkout DIR (default: this one),
 so that two versions of K2 can be timed on one card, one after the other.
+`python3 chip_smoke.py --train [--tree DIR]` runs phase 1 and 6b only, the
+same way, for two versions of the train step.
 
 Each kernel's line also carries its bound: the least time the card could
 take for the same work, max(bytes / 3.35 TB/s, operations / peak) with each
@@ -170,6 +172,14 @@ PARKING_WEIGHTS = [1.6248, 5.762827]
 COSINE_FLOORS = ((("final", "w"), 0.9999), (("dec3", "w"), 0.999), (("encoder", "layer3", 0, "conv2", "w"), 0.995),
                  (("encoder", "conv1", "w"), 0.99), (("encoder", "bn1", "scale"), 0.99))
 TRAIN_CHECK_STEPS = 3
+# Phase 6a's cosine floors card vs CPU over all weights after step 1, from the
+# same weights: the update (weights minus the start) and each moment. Port vs
+# JAX package on the CPU (its tests' weights and batches) measured 0.986-0.987,
+# 0.9994 and 0.9992. After the last step the same cosines are printed, not
+# held: the trajectories part as Adam's ~lr * sign(grad) updates follow the
+# float noise of near-zero gradients (mu's cosine card vs CPU after step 3:
+# 0.66, CrossEntropy, one H100).
+TRAIN_UPDATE_FLOORS = {"update": 0.98, "mu": 0.998, "nu": 0.998}
 TRAIN_STEPS = 10
 PROFILE_STEPS = 3
 TIMED_STEPS = 4
@@ -210,10 +220,12 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k2", action="store_true",
                         help="only phases 1, 2 and K2's part of phase 4 (bit-equality, events and device times)")
+    parser.add_argument("--train", action="store_true", help="only phases 1 and 6b (the configured train step)")
     parser.add_argument("--tree", default=ROOT,
-                        help="with --k2: the checkout whose robosat_tpu_torch to build and time (default: this one)")
+                        help="with --k2 or --train: the checkout whose robosat_tpu_torch to build and time "
+                             "(default: this one)")
     opts = parser.parse_args()
-    root = os.path.abspath(opts.tree if opts.k2 else ROOT)
+    root = os.path.abspath(opts.tree if (opts.k2 or opts.train) else ROOT)
     if not os.path.isdir(os.path.join(root, "robosat_tpu_torch", "csrc")):
         sys.exit("chip_smoke.py must run from a checkout of the repository (robosat_tpu_torch/ not found)")
     sys.path.insert(0, root)
@@ -228,6 +240,15 @@ def main():
     ).stdout.strip().splitlines()[0]
     log("phase 1: card {} | torch {} | CUDA {} | {} device(s)".format(
         smi, torch.__version__, torch.version.cuda, torch.cuda.device_count()))
+
+    if opts.train:
+        from robosat_tpu_torch.device import configure_device
+
+        configure_device(True)
+        result = configured_train_step(torch, SEED, smi)
+        log(json.dumps({"6b": {k: v for k, v in result.items() if k != "losses"}, "tree": root}))
+        log(smi)
+        return
 
     from robosat_tpu_torch import kernels
 
@@ -917,32 +938,102 @@ def leaf(tree, path):
     return tree
 
 
+def flat(torch, tensors):
+    return torch.cat([t.detach().float().cpu().flatten() for t in tensors])
+
+
+def assert_ulp_or_rtol(torch, what, got, want, rtol=1e-6, atol=0.0):
+    """Each element of `got` within 1 ulp of `want`, or `rtol` relative, or
+    `atol` absolute (float32 vectors on the host)."""
+    differ = got != want
+    g, w = got[differ], want[differ]
+    ulps = (g.view(torch.int32).long() - w.view(torch.int32).long()).abs()
+    err = (g.double() - w.double()).abs()
+    bad = ~((ulps <= 1) | (err <= rtol * w.double().abs()) | (err <= atol))
+    if bool(bad.any()):
+        raise AssertionError("{}: {} of {} elements beyond 1 ulp, {} relative and {} absolute (max {})".format(
+            what, int(bad.sum()), got.numel(), rtol, atol, float(err.max())))
+
+
+def replay_adam_step(torch, optim, checkpoint, optimizer, before, opt_before, lr, what):
+    """The card's Adam step just taken, replayed on the CPU: the port's Adam
+    from the card's weights `before` and optimizer leaves `opt_before`
+    (count and moments before the step) on the card's gradients gives the
+    card's new moments within 1 ulp or 1e-6 relative, and its weights too
+    or within 1e-6 * lr (the update, at most ~lr, one rounding apart where
+    a weight near zero cancels)."""
+    params = checkpoint._optimizer_params(optimizer)
+    replay = [b.clone().requires_grad_(True) for b in before]
+    cpu = checkpoint.leaves_to_opt_state(optim.Adam(replay, lr=lr), opt_before)
+    for r, p in zip(replay, params):
+        r.grad = None if p.grad is None else p.grad.detach().cpu()
+    cpu.step()
+    assert_ulp_or_rtol(torch, what + " weights", flat(torch, params), flat(torch, replay), atol=1e-6 * lr)
+    got, want = checkpoint.opt_state_to_leaves(optimizer), checkpoint.opt_state_to_leaves(cpu)
+    if int(got[0]) != int(want[0]):
+        raise AssertionError("{}: count {} on the card, {} replayed".format(what, int(got[0]), int(want[0])))
+    n = len(params)
+    for name, lo, hi in (("mu", 1, 1 + n), ("nu", 1 + n, 1 + 2 * n)):
+        assert_ulp_or_rtol(torch, "{} {}".format(what, name), flat(torch, map(torch.from_numpy, got[lo:hi])),
+                           flat(torch, map(torch.from_numpy, want[lo:hi])))
+
+
 def train_card_vs_cpu(torch, seed):
     """Phase 6a: the float32 train step (TF32 off) on the card and on the
-    CPU, from the same weights on the same batches, per loss."""
-    from robosat_tpu_torch import optim
+    CPU, from the same weights on the same batches, per loss.
+
+    Every card step is replayed on the CPU from the card's own weights,
+    moments and gradients (`replay_adam_step`), so an optimizer or wiring
+    fault that shows only on the card fails there. The two trajectories
+    are held where faithful float32 runs stay together: the step-0 loss
+    and gradients, steps 1-2's losses, bn1's statistics, and after step 1
+    the update (weights minus the start), mu and nu by cosine over all 37M
+    weights (TRAIN_UPDATE_FLOORS), the update also by its norm within 1%.
+    Adam's first updates are ~lr * sign(grad), so wherever a gradient is
+    near zero its sign, and that weight's update, follows the summation
+    order of the backward: the weights cannot be held element by element,
+    and after the last step the cosines are only printed."""
+    from robosat_tpu_torch import checkpoint, optim
     from robosat_tpu_torch.checkpoint import from_jax, to_jax
     from robosat_tpu_torch.models import unet
     from robosat_tpu_torch.ops.losses import get_loss
     from robosat_tpu_torch.parallel.steps import make_train_step
 
+    lr = 1e-4
     params, state = unet.init(seed)
     params = reference_style(torch, params, seed)
     batches = learnable_batches(np.random.default_rng(seed + 6), TRAIN_CHECK_STEPS, 2, 64)
+    start = flat(torch, checkpoint.tree_leaves(params))
     for loss_name, weight in (("CrossEntropy", PARKING_WEIGHTS), ("Lovasz", None)):
         runs = {}
         for device in ("cpu", "cuda"):
             p, s = from_jax(to_jax(params), to_jax(state), device)
-            step = make_train_step(unet, get_loss(loss_name), optim.adam(p, 1e-4), weight=weight, augment=False)
-            start = time.perf_counter()
-            losses, grads = [], None
-            for images, masks in batches:
+            optimizer = optim.adam(p, lr)
+            step = make_train_step(unet, get_loss(loss_name), optimizer, weight=weight, augment=False)
+            seconds = 0.0
+            losses, grads, after = [], None, {}
+            for i, (images, masks) in enumerate(batches):
+                if device == "cuda":
+                    before = [t.detach().to("cpu", copy=True) for t in checkpoint.tree_leaves(p)]
+                    opt_before = [np.array(v) for v in checkpoint.opt_state_to_leaves(optimizer)]
+                t0 = time.perf_counter()
                 s, loss, _ = step(p, s, images, masks)
                 losses.append(float(loss))
+                seconds += time.perf_counter() - t0
                 if grads is None:
                     grads = {path: leaf(p, path).grad.detach().cpu().clone() for path, _ in COSINE_FLOORS}
-            runs[device] = losses, grads, s, time.perf_counter() - start
-        (want, want_grads, want_state, cpu_s), (got, got_grads, got_state, card_s) = runs["cpu"], runs["cuda"]
+                if device == "cuda":
+                    replay_adam_step(torch, optim, checkpoint, optimizer, before, opt_before, lr,
+                                     "6a {} step {} replayed on the CPU".format(loss_name, i))
+                if i in (0, len(batches) - 1):
+                    leaves = checkpoint.opt_state_to_leaves(optimizer)
+                    n = (len(leaves) - 1) // 2
+                    after[i + 1] = {"update": flat(torch, checkpoint.tree_leaves(p)) - start,
+                                    "mu": flat(torch, map(torch.from_numpy, leaves[1:1 + n])),
+                                    "nu": flat(torch, map(torch.from_numpy, leaves[1 + n:]))}
+            runs[device] = losses, grads, s, seconds, after
+        (want, want_grads, want_state, cpu_s, want_after), (got, got_grads, got_state, card_s, got_after) = (
+            runs["cpu"], runs["cuda"])
         if abs(got[0] - want[0]) > 1e-4 * abs(want[0]):
             raise AssertionError("6a {}: step-0 loss {} on the card, {} on the CPU".format(loss_name, got[0], want[0]))
         if any(abs(got[i] - want[i]) > 0.05 * abs(want[i]) for i in (1, 2)):
@@ -956,10 +1047,24 @@ def train_card_vs_cpu(torch, seed):
                      for k in ("mean", "var"))
         if bn_err > 5e-3:
             raise AssertionError("6a {}: bn1 running statistics differ by {}".format(loss_name, bn_err))
+        agreement = {}
+        for steps in sorted(got_after):
+            got_v, want_v = got_after[steps], want_after[steps]
+            agreement[steps] = {k: cosine(torch, got_v[k], want_v[k]) for k in TRAIN_UPDATE_FLOORS}
+            agreement[steps]["norm ratio"] = float(got_v["update"].double().norm() / want_v["update"].double().norm())
+        for k, floor in TRAIN_UPDATE_FLOORS.items():
+            if agreement[1][k] < floor:
+                raise AssertionError("6a {}: after step 1 the {} cosine card vs CPU is {} < {}".format(
+                    loss_name, k, agreement[1][k], floor))
+        if abs(agreement[1]["norm ratio"] - 1) > 0.01:
+            raise AssertionError("6a {}: after step 1 the update's norm on the card is {} times the CPU's".format(
+                loss_name, agreement[1]["norm ratio"]))
         log("phase 6: [6a] {} float32, 64 px, batch 2, {} steps: losses card {} CPU {}; step-0 cosines {}; bn1 "
-            "running statistics within {:.2e}; {:.2f} s on the card, {:.2f} s on the CPU".format(
+            "running statistics within {:.2e}; every card step equals its Adam replayed on the CPU; card vs CPU "
+            "after steps {} (held after 1): {}; {:.2f} s on the card, {:.2f} s on the CPU".format(
                 loss_name, len(batches), ["{:.6f}".format(v) for v in got], ["{:.6f}".format(v) for v in want],
-                {k: round(v, 7) for k, v in cosines.items()}, bn_err, card_s, cpu_s))
+                {k: round(v, 7) for k, v in cosines.items()}, bn_err, sorted(agreement),
+                {n: {k: round(v, 7) for k, v in a.items()} for n, a in agreement.items()}, card_s, cpu_s))
 
 
 def configured_train_step(torch, seed, smi):

@@ -40,24 +40,21 @@ def bn_apply(params, state, x, train, momentum=0.1, eps=1e-5):
 
     In training mode the statistics are the batch's, in float32, with the
     biased variance both in the normalization and in the running update
-    (the JAX package's `bn_apply`; torch's own running update would take
-    the unbiased variance, so the update here is computed apart from
-    F.batch_norm and outside autograd). In eval mode the running
-    statistics normalize and the state passes through.
+    (the JAX package's `bn_apply`). F.batch_norm computes them once and
+    updates copies of the running statistics; its running variance takes
+    the unbiased variance, so the batch's share of that update is scaled
+    back by (n - 1) / n. In eval mode the running statistics normalize and
+    the state passes through.
     """
     xc = x.permute(0, 3, 1, 2)
-    if train:
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 1, 2), correction=0)
-        new_state = {
-            "mean": (1 - momentum) * state["mean"] + momentum * mean,
-            "var": (1 - momentum) * state["var"] + momentum * var,
-        }
-        y = F.batch_norm(xc, None, None, params["scale"], params["bias"], training=True, eps=eps)
-    else:
-        new_state = state
+    if not train:
         y = F.batch_norm(xc, state["mean"], state["var"], params["scale"], params["bias"], training=False, eps=eps)
-    return y.permute(0, 2, 3, 1), new_state
+        return y.permute(0, 2, 3, 1), state
+    n = x.numel() // x.shape[-1]
+    mean, var = state["mean"].clone(), state["var"].clone()
+    y = F.batch_norm(xc, mean, var, params["scale"], params["bias"], training=True, momentum=momentum, eps=eps)
+    kept = (1 - momentum) * state["var"]
+    return y.permute(0, 2, 3, 1), {"mean": mean, "var": kept + (var - kept) * ((n - 1) / n)}
 
 
 def fold_conv_bn(conv_params, bn_params, bn_state, eps=1e-5):

@@ -5,7 +5,7 @@ make_eval_step, make_predict_step and make_int8_predict_step for one
 device. PyTorch runs eagerly, so a step is a plain function.
 
 The train step augments on the device, normalizes, runs the forward in the
-compute dtype (the space-to-depth tail by default, `unet.apply_s2d`), takes
+compute dtype (the space-to-depth tail, `unet.apply_s2d`), takes
 the loss on float32 logits, backpropagates, and updates with the port's
 optax Adam (`optim.py`); the eval step runs the forward with frozen batch
 norm. Both return the loss and the confusion counts on the device. The
@@ -72,12 +72,7 @@ def _class_weights(weight):
     return weight_on
 
 
-def _forward(model, s2d_tail):
-    return model.apply_s2d if (s2d_tail and hasattr(model, "apply_s2d")) else model.apply
-
-
-def make_train_step(model, loss_fn, optimizer, weight=None, compute_dtype=torch.float32, augment=True, remat=False,
-                    s2d_tail=True):
+def make_train_step(model, loss_fn, optimizer, weight=None, compute_dtype=torch.float32, augment=True, remat=False):
     """One training step on the device of the params.
 
     `optimizer` is the port's Adam over the leaves of the params the step
@@ -89,17 +84,17 @@ def make_train_step(model, loss_fn, optimizer, weight=None, compute_dtype=torch.
     device without waiting (asynchronous from pinned memory).
 
     `augment` draws flips and rotations from `generator`, a torch.Generator
-    on the params' device. `s2d_tail` runs `model.apply_s2d`. `remat`
-    recomputes the forward during the backward
-    (torch.utils.checkpoint, non-reentrant, over the whole forward, as
-    jax.checkpoint(forward)); the new BN statistics are those of the first
-    forward, since the recomputation's outputs are discarded.
+    on the params' device. The forward is `model.apply_s2d` (the JAX
+    package's default space-to-depth tail). `remat` recomputes the forward
+    during the backward (torch.utils.checkpoint, non-reentrant, over the
+    whole forward, as jax.checkpoint(forward)); the new BN statistics are
+    those of the first forward, since the recomputation's outputs are
+    discarded.
     """
-    forward = _forward(model, s2d_tail)
     weight_on = _class_weights(weight)
 
     def run_forward(params, state, x):
-        return forward(params, state, x, True)
+        return model.apply_s2d(params, state, x, True)
 
     def step(params, state, images, masks, generator=None):
         device = params["final"]["w"].device
@@ -123,18 +118,17 @@ def make_train_step(model, loss_fn, optimizer, weight=None, compute_dtype=torch.
     return step
 
 
-def make_eval_step(model, loss_fn, weight=None, compute_dtype=torch.float32, s2d_tail=True):
+def make_eval_step(model, loss_fn, weight=None, compute_dtype=torch.float32):
     """Validation on the device of the params, batch norm frozen at the
     running statistics: step(params, state, images_u8, masks) -> (loss,
     counts), both on the device."""
-    forward = _forward(model, s2d_tail)
     weight_on = _class_weights(weight)
 
     def step(params, state, images, masks):
         device = params["final"]["w"].device
         with torch.no_grad():
             images, masks = _to_device(images, device), _to_device(masks, device)
-            logits, _ = forward(params, state, normalize(images).to(compute_dtype), False)
+            logits, _ = model.apply_s2d(params, state, normalize(images).to(compute_dtype), False)
             loss = loss_fn(logits.float(), masks, weight_on(device))
             return loss, confusion_counts(logits, masks)
 

@@ -24,7 +24,8 @@ global batch). The augmentation draws from a torch.Generator seeded per
 epoch from the config's `seed`: other flips and rotations than the JAX
 tool's for the same seed, from the same distribution. Without matplotlib
 the history chart is not written, and the log says so once. Not ported
-yet (ROADMAP Queue 1, item 7): `--qat` and `--teacher`.
+yet (ROADMAP Queue 1, item 7): `--qat` and `--teacher` with its
+`--teacher_model`, `--distill_alpha` and `--distill_temp`; each raises.
 """
 
 import argparse
@@ -79,10 +80,20 @@ def add_parser(subparser):
         "--teacher_model",
         type=str,
         default=None,
-        help="model TOML of the teacher checkpoint (defaults to --model, i.e. same family)",
+        help="model TOML of the teacher checkpoint (not ported yet: ROADMAP Queue 1, item 7)",
     )
-    parser.add_argument("--distill_alpha", type=float, default=0.9, help="soft-target weight in the distillation loss")
-    parser.add_argument("--distill_temp", type=float, default=2.0, help="distillation softmax temperature")
+    parser.add_argument(
+        "--distill_alpha",
+        type=float,
+        default=None,
+        help="soft-target weight in the distillation loss (not ported yet: ROADMAP Queue 1, item 7)",
+    )
+    parser.add_argument(
+        "--distill_temp",
+        type=float,
+        default=None,
+        help="distillation softmax temperature (not ported yet: ROADMAP Queue 1, item 7)",
+    )
     parser.add_argument(
         "--qat",
         action="store_true",
@@ -101,9 +112,12 @@ def _epoch_generator(seed, epoch, device):
 
 def main(args):
     # getattr: callers may drive main() with bare Namespaces without these flags.
-    if getattr(args, "qat", False) or getattr(args, "teacher", None):
+    if getattr(args, "qat", False) or any(
+        getattr(args, flag, None) is not None for flag in ("teacher", "teacher_model", "distill_alpha", "distill_temp")
+    ):
         raise NotImplementedError(
-            "train --qat and --teacher are not ported to robosat_tpu_torch yet (ROADMAP Queue 1, item 7)"
+            "train --qat and --teacher (with --teacher_model, --distill_alpha and --distill_temp) are not ported to "
+            "robosat_tpu_torch yet (ROADMAP Queue 1, item 7)"
         )
 
     model_config = load_config(args.model)

@@ -372,11 +372,14 @@ def test_lovasz_function_on_the_card_matches_the_cpu(gen, ties):
 def test_train_step_on_the_card_matches_the_cpu(gen):
     """One float32 train step (TF32 off) of the full-width U-Net at 64 px,
     batch 2, on the card and on the CPU from the same weights: the loss
-    within 1e-4, gradient cosines at the head and the stem, BN statistics."""
+    within 1e-4, gradient cosines at the head and the stem, BN statistics,
+    and the card's new weights those of the port's Adam replayed on the CPU
+    from the same start on the card's gradients (1e-6 relative, or 1e-6 *
+    lr where a weight near zero cancels against its update)."""
     import numpy as np
 
     from robosat_tpu_torch import optim
-    from robosat_tpu_torch.checkpoint import from_jax, to_jax
+    from robosat_tpu_torch.checkpoint import from_jax, to_jax, tree_leaves
     from robosat_tpu_torch.device import configure_device
     from robosat_tpu_torch.models import unet
     from robosat_tpu_torch.ops.losses import get_loss
@@ -402,3 +405,10 @@ def test_train_step_on_the_card_matches_the_cpu(gen):
         a, b = a.grad.cpu().double().flatten(), b.grad.double().flatten()
         assert float(a @ b / (a.norm() * b.norm())) >= 0.99
     torch.testing.assert_close(gs["encoder"]["bn1"]["mean"].cpu(), ws["encoder"]["bn1"]["mean"], rtol=5e-3, atol=5e-3)
+    card = tree_leaves(gp)
+    replay = [t.detach().clone().requires_grad_(True) for t in tree_leaves(params)]
+    for r, q in zip(replay, card):
+        r.grad = q.grad.cpu()
+    optim.Adam(replay, lr=1e-4).step()
+    for r, q in zip(replay, card):
+        torch.testing.assert_close(q.detach().cpu(), r.detach(), rtol=1e-6, atol=1e-10)

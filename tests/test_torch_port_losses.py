@@ -166,5 +166,5 @@ def lovasz_port_runs(weights, batches):  # noqa: F811
 
 
 @pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
-def test_lovasz_train_step_matches_jax(lovasz_jax_run, lovasz_port_runs, remat):
-    check_train_step(lovasz_jax_run, lovasz_port_runs, remat)
+def test_lovasz_train_step_matches_jax(weights, lovasz_jax_run, lovasz_port_runs, remat):  # noqa: F811
+    check_train_step(lovasz_jax_run, lovasz_port_runs, remat, weights[0])

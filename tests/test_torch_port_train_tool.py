@@ -11,8 +11,9 @@
   batch is the global batch).
 - Without matplotlib the history chart is not written and the log says so
   once.
-- `--qat` and `--teacher` raise NotImplementedError (ROADMAP Queue 1,
-  item 7); CrossEntropy without class weights exits with the JAX tool's
+- `--qat`, `--teacher`, `--teacher_model`, `--distill_alpha` and
+  `--distill_temp` raise NotImplementedError (ROADMAP Queue 1, item 7),
+  and the parser's defaults do not; CrossEntropy without class weights exits with the JAX tool's
   message; `cuda = true` without a GPU raises.
 - One bfloat16 train step (the configured dtype) against the JAX
   package's, the loss within 2%.
@@ -82,9 +83,14 @@ def _configs(root, name, epochs, weights=True, **common):
 
 
 def _args(model_toml, dataset_toml, **flags):
-    args = dict(model=model_toml, dataset=dataset_toml, checkpoint=None, resume=False, workers=0, profile=None)
-    args.update(flags)
-    return argparse.Namespace(**args)
+    """The tool parser's arguments for `train --model --dataset` with its
+    defaults, then `flags` set on them."""
+    parser = argparse.ArgumentParser()
+    train.add_parser(parser.add_subparsers())
+    args = parser.parse_args(["train", "--model", model_toml, "--dataset", dataset_toml])
+    for key, value in flags.items():
+        setattr(args, key, value)
+    return args
 
 
 @pytest.fixture(scope="module")
@@ -179,7 +185,9 @@ def test_history_chart_without_matplotlib(dataset, monkeypatch):
     assert "checkpoint-00002-of-00002.npz" in os.listdir(run)
 
 
-@pytest.mark.parametrize("flags", [{"qat": True}, {"teacher": "teacher.npz"}], ids=["qat", "teacher"])
+@pytest.mark.parametrize("flags", [{"qat": True}, {"teacher": "teacher.npz"}, {"teacher_model": "teacher.toml"},
+                                   {"distill_alpha": 0.9}, {"distill_temp": 2.0}],
+                         ids=["qat", "teacher", "teacher_model", "distill_alpha", "distill_temp"])
 def test_qat_and_teacher_raise(dataset, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
         train.main(_args(*_configs(dataset, "unported", 1), **flags))
