@@ -6,7 +6,8 @@
 Drives robosat_tpu_torch's `predict` (the U-Net of config/model-unet.toml)
 on the card along nine paths and its `masks`, runs the two probe kernels,
 checks each hand-written kernel against its plain PyTorch version, and
-trains the U-Net (`train`, then `predict` from what it wrote):
+trains the U-Net (`train`, then `predict` from what it wrote), also
+quantization-aware and by distillation:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the CUDA kernels from robosat_tpu_torch/csrc;
@@ -82,11 +83,34 @@ trains the U-Net (`train`, then `predict` from what it wrote):
    from `checkpoint-00002-of-00002.npz` over the training tiles, one PNG a
    tile and 13 K3, 3 K4, 5 K5 and 1 K6 launches a batch.
 
+7. QAT and distillation (`train --qat`, `train --teacher`; the fake-quant
+   walk runs torch ops, its int8 counterpart the kernels): 7a, the QAT
+   step (Lovasz) and the distillation step (CrossEntropy, alpha 0.9, T 2)
+   in float32 at 64 px, batch 2, 3 steps each on the card and on the CPU
+   from the same weights, every card step equal to its Adam replayed on
+   the CPU; each QAT step on the card quantizes the CPU step's site inputs
+   (free, the forwards part at flipped bins): step 0's site inputs within
+   1e-5, its loss 1e-4, 6a's gradient cosine floors, steps 1-2 within
+   1e-3, the BN state unchanged bit for bit; distillation held as 6a;
+   7b, the configured steps (bf16, Lovasz, batch 64 at 512 px,
+   augmentation on) for 10 steps each, QAT from 6b's trained weights with
+   scales calibrated on the batch, distillation of `unet.init` by 6b's
+   weights: median step by CUDA events over steps 3-10, images/s, peak
+   memory, idle share and kernels by kind; then the QAT contract on 8 of
+   the batch's images: the bf16 fake-quant logits against the int8 logits
+   of K3/K4/K5, K7, the depth-to-space and the final 1x1 conv (13 K3, 3
+   K4, 5 K5, 1 K7 launches) within QAT_CONTRACT; 7c, `train --qat` and
+   `train --teacher` for one epoch each on 6c's dataset from 6c's
+   checkpoint, then int8 `predict` from the QAT checkpoint, which must
+   quantize with its `qat_amaxes` and calibrate nothing: 64 PNGs, 13 K3,
+   3 K4, 5 K5 and 1 K6 launches a batch.
+
 `python3 chip_smoke.py --k2 [--tree DIR]` runs phases 1-2 and K2's part of
 phase 4 only, on the robosat_tpu_torch of checkout DIR (default: this one),
 so that two versions of K2 can be timed on one card, one after the other.
-`python3 chip_smoke.py --train [--tree DIR]` runs phase 1 and 6b only, the
-same way, for two versions of the train step.
+`python3 chip_smoke.py --train [--tree DIR]` runs phase 1, 6b and 7b only,
+the same way, for two versions of the train steps (7b's contract builds
+the kernels at first use).
 
 Each kernel's line also carries its bound: the least time the card could
 take for the same work, max(bytes / 3.35 TB/s, operations / peak) with each
@@ -195,6 +219,18 @@ TRAIN_KERNEL_GROUPS = (
     ("Adam (foreach)", re.compile(r"multi_tensor_apply")),
     ("float copies and casts", re.compile(r"direct_copy|copy_kernel")),
 )
+# Phase 7b: the fake-quant elementwise kernels by name (its clamp and its
+# multiplies share their kernels with relu and other products, and count
+# as other elementwise), then the train step's kinds; the QAT contract's
+# bound on 8 tiles of 512 px (mean and max |fake-quant - int8| over the
+# int8 logits' max, decision agreement), from CPU analogues at 64 px, bf16
+# fake-quant against the plain int8 walk: 0.0169-0.0183, 0.113-0.127,
+# 0.9971-0.9973 (tests/test_torch_port_qat.py, the JAX package's init) and
+# 0.0238, 0.172, 0.984 (He init after 4 QAT steps), with room for the max
+# of 256 times as many logits.
+QAT_KERNEL_GROUPS = (("fake quant (round, abs, gate compare, where)", re.compile(r"round|abs|compare|where",
+                                                                                re.IGNORECASE)),) + TRAIN_KERNEL_GROUPS
+QAT_CONTRACT = (0.05, 0.5, 0.95)
 EDGE_ROWS = 128  # rows next to a tile edge inside a strip, where a strip's context exceeds the tile's
 # Paths that run on phase 3's scales through a QAT checkpoint's qat_amaxes.
 QAT_PATHS = ("int8-fine", "int8-strip")
@@ -220,7 +256,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k2", action="store_true",
                         help="only phases 1, 2 and K2's part of phase 4 (bit-equality, events and device times)")
-    parser.add_argument("--train", action="store_true", help="only phases 1 and 6b (the configured train step)")
+    parser.add_argument("--train", action="store_true",
+                        help="only phases 1, 6b and 7b (the configured train, QAT and distillation steps)")
     parser.add_argument("--tree", default=ROOT,
                         help="with --k2 or --train: the checkout whose robosat_tpu_torch to build and time "
                              "(default: this one)")
@@ -246,7 +283,9 @@ def main():
 
         configure_device(True)
         result = configured_train_step(torch, SEED, smi)
-        log(json.dumps({"6b": {k: v for k, v in result.items() if k != "losses"}, "tree": root}))
+        qat = configured_qat_distill_steps(torch, SEED, smi, result.pop("trained"), wrappers())
+        log(json.dumps({"6b": {k: v for k, v in result.items() if k != "losses"},
+                        "7b": {k: v for k, v in qat.items() if k != "launches"}, "tree": root}))
         log(smi)
         return
 
@@ -727,8 +766,17 @@ def run(torch, work, seed, smi):
 
     # ---- phase 6: train ----------------------------------------------------
     train_card_vs_cpu(torch, seed)
-    configured_train_step(torch, seed, smi)
-    train_tool(torch, work, seed, counted, launches, by_path, smi)
+    trained = configured_train_step(torch, seed, smi)["trained"]
+    tool_checkpoint = train_tool(torch, work, seed, counted, launches, by_path, smi)
+
+    # ---- phase 7: QAT and distillation -------------------------------------
+    qat_distill_card_vs_cpu(torch, seed)
+    by_path["qat-contract"] = configured_qat_distill_steps(torch, seed, smi, trained, counted)["launches"]
+    del trained
+    qat_distill_tools(torch, work, seed, tool_checkpoint, counted, by_path, smi)
+    for path in ("qat-contract", "qat-predict"):
+        for name, c in by_path[path].items():
+            launches[name] += c
 
     return [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
@@ -1135,23 +1183,7 @@ def configured_train_step(torch, seed, smi):
     def one_step():
         holder["state"], _, _ = step(params, holder["state"], images, masks, gen)
 
-    wall_ms, rows, _ = profile_kernels(torch, one_step, PROFILE_STEPS)
-    busy = sum(r[0] for r in rows)
-    idle = 1 - busy / wall_ms if rows else None
-    if rows:
-        log("phase 6: [6b] profile of {} steps: {:.2f} ms wall a step (profiled), {:.2f} ms of kernels, device idle "
-            "{:.1%}".format(PROFILE_STEPS, wall_ms, busy, idle))
-        for ms, count, key in rows[:8]:
-            log("phase 6: [6b]   {:8.3f} ms/step {:4d} launches  {}".format(ms, count, key[:110]))
-        groups = {}
-        for ms, count, key in rows:
-            group = next((g for g, pattern in TRAIN_KERNEL_GROUPS if pattern.search(key)), "other elementwise")
-            total, launched = groups.get(group, (0.0, 0))
-            groups[group] = (total + ms, launched + count)
-        log("phase 6: [6b]   by kind (ms/step, launches/step): {}".format(
-            {g: (round(ms, 3), n) for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])}))
-    else:
-        log("phase 6: [6b] the profiler recorded no kernel time (idle share not measured)")
+    idle = log_train_profile(torch, "phase 6: [6b]", one_step, TRAIN_KERNEL_GROUPS)
 
     torch.backends.cudnn.deterministic = False
     try:
@@ -1169,10 +1201,38 @@ def configured_train_step(torch, seed, smi):
     log("phase 6: [6b] cudnn.deterministic = False (for comparison only): step ms {}; median of the last {} {:.2f} ms "
         "against {:.2f} with the deterministic algorithms".format(
             ["{:.2f}".format(v) for v in nondet_ms], TIMED_STEPS - 1, float(np.median(nondet_ms[1:])), median_ms))
+    trained = {"params": params, "state": holder["state"]}
     del params, state, holder, step
     torch.cuda.empty_cache()
     return {"median_ms": median_ms, "images_per_s": batch / median_ms * 1e3, "peak_gb": peak_gb, "idle": idle,
-            "remat": remat, "losses": losses, "nondeterministic_ms": float(np.median(nondet_ms[1:]))}
+            "remat": remat, "losses": losses, "nondeterministic_ms": float(np.median(nondet_ms[1:])),
+            "trained": trained}
+
+
+def log_train_profile(torch, prefix, one_step, kernel_groups):
+    """torch.profiler over PROFILE_STEPS calls of one_step(): the wall time
+    a step, the kernels' time, the device idle share, the 8 costliest
+    kernels and the kernels by kind (`kernel_groups`, first match wins),
+    each logged after `prefix`; returns the idle share (None when the
+    profiler records no kernel time)."""
+    wall_ms, rows, _ = profile_kernels(torch, one_step, PROFILE_STEPS)
+    if not rows:
+        log("{} the profiler recorded no kernel time (idle share not measured)".format(prefix))
+        return None
+    busy = sum(r[0] for r in rows)
+    idle = 1 - busy / wall_ms
+    log("{} profile of {} steps: {:.2f} ms wall a step (profiled), {:.2f} ms of kernels, device idle {:.1%}".format(
+        prefix, PROFILE_STEPS, wall_ms, busy, idle))
+    for ms, count, key in rows[:8]:
+        log("{}   {:8.3f} ms/step {:4d} launches  {}".format(prefix, ms, count, key[:110]))
+    groups = {}
+    for ms, count, key in rows:
+        group = next((g for g, pattern in kernel_groups if pattern.search(key)), "other elementwise")
+        total, launched = groups.get(group, (0.0, 0))
+        groups[group] = (total + ms, launched + count)
+    log("{}   by kind (ms/step, launches/step): {}".format(
+        prefix, {g: (round(ms, 3), n) for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])}))
+    return idle
 
 
 def write_training_set(root, seed):
@@ -1196,12 +1256,11 @@ def write_training_set(root, seed):
 def train_tool(torch, work, seed, counted, launches, by_path, smi):
     """Phase 6c: `train.main` in-process for epoch 1, `--resume` to epoch
     2, then int8 `predict` (as configured) from the trained checkpoint over
-    the training tiles, its launches counted."""
-    from PIL import Image
-
+    the training tiles, its launches counted; returns the epoch-2
+    checkpoint."""
     from robosat_tpu_torch.checkpoint import load_checkpoint
     from robosat_tpu_torch.config import load_config, save_config
-    from robosat_tpu_torch.tools import predict, train
+    from robosat_tpu_torch.tools import train
 
     root = os.path.join(work, "slippy")
     start = time.perf_counter()
@@ -1245,11 +1304,31 @@ def train_tool(torch, work, seed, counted, launches, by_path, smi):
     for line in open(os.path.join(ckpt_dir, "log")).read().splitlines():
         log("phase 6: [6c] log | {}".format(line))
 
-    tiles_dir = os.path.join(root, "training", "images")
-    probs = os.path.join(work, "probs-trained")
-    pargs = predict_args(work, tiles_dir, probs, os.path.join(ROOT, "config", "model-unet.toml"),
-                         os.path.join(ckpt_dir, "checkpoint-00002-of-00002.npz"))
-    n_batches = -(-TRAIN_TILES_SIDE ** 2 // BATCH)
+    checkpoint = os.path.join(ckpt_dir, "checkpoint-00002-of-00002.npz")
+    counts, pngs, wall, n_batches = predict_training_tiles(root, os.path.join(work, "probs-trained"), checkpoint,
+                                                           counted, "6c predict")
+    by_path["train-predict"] = counts
+    for name, c in counts.items():
+        launches[name] += c
+    log("phase 6: [6c] predict (int8 as configured) from checkpoint-00002-of-00002.npz: {} PNGs in {:.2f} s on {}; "
+        "launches {} ({} batches)".format(pngs, wall, smi, counts, n_batches))
+    return checkpoint
+
+
+def predict_training_tiles(root, probs, checkpoint, counted, label):
+    """int8 `predict` as configured over the training tiles of the dataset
+    at `root` from `checkpoint`, every launch count set to 0 just before and
+    read just after: one palette PNG of TILE px per tile, and per batch 13
+    K3, 3 K4, 5 K5 and 1 K6 launches. Returns (the nonzero launch counts,
+    PNGs, seconds, batches)."""
+    from PIL import Image
+
+    from robosat_tpu_torch.tools import predict
+
+    tiles = TRAIN_TILES_SIDE ** 2
+    pargs = predict_args(None, os.path.join(root, "training", "images"), probs,
+                         os.path.join(ROOT, "config", "model-unet.toml"), checkpoint)
+    n_batches = -(-tiles // BATCH)
     for fn in counted.values():
         fn.launches = 0
     start = time.perf_counter()
@@ -1257,24 +1336,455 @@ def train_tool(torch, work, seed, counted, launches, by_path, smi):
     wall = time.perf_counter() - start
     counts = {name: fn.launches for name, fn in counted.items()}
     expected = {name: PATHS[0][3].get(name, 0) * n_batches for name in counted}
-    if counts != expected or out["tiles"] != TRAIN_TILES_SIDE ** 2:
-        raise AssertionError("6c predict: {} tiles, launch counts {} != expected {}".format(out["tiles"], counts,
-                                                                                           expected))
+    if counts != expected or out["tiles"] != tiles:
+        raise AssertionError("{}: {} tiles, launch counts {} != expected {}".format(label, out["tiles"], counts,
+                                                                                   expected))
     pngs = 0
     for dirpath, _, names in os.walk(probs):
         for name in names:
             img = Image.open(os.path.join(dirpath, name))
             img.load()
             if img.mode != "P" or img.size != (TILE, TILE):
-                raise AssertionError("6c predict: {} is {} {}".format(name, img.mode, img.size))
+                raise AssertionError("{}: {} is {} {}".format(label, name, img.mode, img.size))
             pngs += 1
-    if pngs != TRAIN_TILES_SIDE ** 2:
-        raise AssertionError("6c predict: {} PNGs for {} tiles".format(pngs, TRAIN_TILES_SIDE ** 2))
-    by_path["train-predict"] = {name: c for name, c in counts.items() if c}
-    for name, c in counts.items():
-        launches[name] += c
-    log("phase 6: [6c] predict (int8 as configured) from checkpoint-00002-of-00002.npz: {} PNGs in {:.2f} s on {}; "
-        "launches {} ({} batches)".format(pngs, wall, smi, by_path["train-predict"], n_batches))
+    if pngs != tiles:
+        raise AssertionError("{}: {} PNGs for {} tiles".format(label, pngs, tiles))
+    return {name: c for name, c in counts.items() if c}, pngs, wall, n_batches
+
+
+def exact_var(torch, state):
+    """A copy of a BN state tree with var + eps == 1 exactly in float32:
+    the fold's rsqrt is then exact on every device, so the folded kernels'
+    fake-quant grids cannot part by a last-bit rsqrt."""
+    if isinstance(state, dict):
+        return {k: torch.full_like(v, float(np.float32(1.0) - np.float32(1e-5))) if k == "var" else exact_var(torch, v)
+                for k, v in state.items()}
+    if isinstance(state, list):
+        return [exact_var(torch, v) for v in state]
+    return state.clone()
+
+
+def forcing_fake_quant(torch, real, taps):
+    """A stand-in for `fake_quant_act` (`real`): with `taps` None it records
+    each site's input into `.recorded`; otherwise site i quantizes
+    `taps[i]` in place of its input (the value; the gradient passes
+    straight to the input) and appends |input - taps[i]| max over
+    |taps[i]| max to `.errs`. Free-running, two devices' fake-quant
+    forwards part: a bin flipped by float summation order at one site
+    flips more at every later one."""
+
+    class Forced(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, forced):
+            return forced
+
+        @staticmethod
+        def backward(ctx, grad):
+            return grad, None
+
+    def fake_quant_act(x, scale):
+        if taps is None:
+            fake_quant_act.recorded.append(x.detach().cpu().clone())
+            return real(x, scale)
+        want = taps[len(fake_quant_act.errs)].to(x.device, x.dtype)
+        fake_quant_act.errs.append(float((x.detach() - want).abs().max() / want.abs().max()))
+        return real(Forced.apply(x, want), scale)
+
+    fake_quant_act.recorded, fake_quant_act.errs = [], []
+    return fake_quant_act
+
+
+def card_and_cpu_runs(torch, label, params, state, batches, lr, make_step, extra=None, force=False):
+    """The step `make_step(optimizer)` from the same weights on the same
+    batches, on the CPU and then on the card, each card step replayed on
+    the CPU (`replay_adam_step`); `extra(device)` gives the arguments the
+    step takes before the batch (the teacher). With `force` each step's
+    forward records every site's fake-quant input on the CPU and the card
+    quantizes those (`forcing_fake_quant`). Returns {device: {"losses",
+    "grads" (step 0's, by leaf, on the host), "state", "state_in",
+    "after1" (update, mu, nu after step 1), "errs" (the card's forcing, per
+    step)}}."""
+    from robosat_tpu_torch import checkpoint, optim
+    from robosat_tpu_torch.checkpoint import from_jax, to_jax
+    from robosat_tpu_torch.models import int8 as q8
+
+    start = flat(torch, checkpoint.tree_leaves(params))
+    real = q8.fake_quant_act
+    runs, taps = {}, []
+    for device in ("cpu", "cuda"):
+        p, s = from_jax(to_jax(params), to_jax(state), device)
+        run = {"losses": [], "state_in": s, "errs": []}
+        args = extra(device) if extra else ()
+        optimizer = optim.adam(p, lr)
+        step = make_step(optimizer)
+        for i, (images, masks) in enumerate(batches):
+            if device == "cuda":
+                before = [t.detach().to("cpu", copy=True) for t in checkpoint.tree_leaves(p)]
+                opt_before = [np.array(v) for v in checkpoint.opt_state_to_leaves(optimizer)]
+            forcing = forcing_fake_quant(torch, real, taps[i] if device == "cuda" else None) if force else real
+            q8.fake_quant_act = forcing
+            try:
+                s, loss, _ = step(p, s, *args, images, masks)
+            finally:
+                q8.fake_quant_act = real
+            run["losses"].append(float(loss))
+            if force and device == "cpu":
+                taps.append(forcing.recorded)
+            elif force:
+                run["errs"].append(max(forcing.errs) if len(forcing.errs) == len(taps[i]) else None)
+            if i == 0:
+                run["grads"] = [torch.zeros(t.shape) if t.grad is None else t.grad.detach().cpu().clone()
+                                for t in checkpoint.tree_leaves(p)]
+            if device == "cuda":
+                replay_adam_step(torch, optim, checkpoint, optimizer, before, opt_before, lr,
+                                 "7a {} step {} replayed on the CPU".format(label, i))
+            if i == 0:
+                leaves = checkpoint.opt_state_to_leaves(optimizer)
+                n = (len(leaves) - 1) // 2
+                run["after1"] = {"update": flat(torch, checkpoint.tree_leaves(p)) - start,
+                                 "mu": flat(torch, map(torch.from_numpy, leaves[1:1 + n])),
+                                 "nu": flat(torch, map(torch.from_numpy, leaves[1 + n:]))}
+        run["state"] = s
+        runs[device] = run
+    return runs
+
+
+def qat_distill_card_vs_cpu(torch, seed):
+    """Phase 7a: the QAT step (Lovasz) and the distillation step
+    (CrossEntropy with dataset-parking's weights, alpha 0.9, T 2) in
+    float32 (TF32 off) at 64 px, batch 2, augmentation off, 3 steps each on
+    the card and on the CPU from the same weights (N(0, 0.05^2) kernels as
+    6a, BN var + eps == 1), each card step equal to its Adam replayed on
+    the CPU.
+
+    QAT: the scales of a 99.8-percentile CPU calibration on the first
+    batch. Every card step quantizes the CPU step's site inputs
+    (`forcing_fake_quant`): free, the two forwards part at flipped bins
+    (the port against the JAX package on the CPU: logits ~1% apart on
+    average, gradient cosines 0.86-0.99999; a first chip run forcing step
+    0 only had step 2's loss 12.5% from the CPU's). Held, from the CPU
+    proxy (tests/test_torch_port_qat.py, forced: site inputs 1.7e-6, loss
+    7.8e-7 relative, cosines >= 0.9999996; the update after step 1 at
+    cosine 0.9997, forced steps 1-2 within 7e-7): step 0's site inputs
+    within 1e-5 of their largest, its loss within 1e-4,
+    tests/test_torch_train_parity.py's gradient cosine floors as in 6a (the
+    least over all leaves printed: 0.99994 in a chip run, where port
+    against JAX on the CPU gave 0.9999996), steps 1-2 within 1e-3, the
+    update after step 1 at cosine >= 0.98 with its norm within 1%, and the
+    BN state the step was given, unchanged bit for bit, on both devices.
+
+    Distillation: the teacher the same layout from another seed, folded
+    once on each device. Held as 6a holds the train step: step-0 loss
+    within 1e-4, tests/test_torch_train_parity.py's gradient cosine
+    floors, steps 1-2 within 5%, bn1's statistics within 5e-3, and after
+    step 1 TRAIN_UPDATE_FLOORS with the update's norm within 1% (the port
+    against the JAX package on the CPU: 2.7e-5, 0.1%, update cosine
+    0.9949)."""
+    from robosat_tpu_torch.checkpoint import from_jax, to_jax, tree_leaves
+    from robosat_tpu_torch.models import int8 as q8
+    from robosat_tpu_torch.models import unet
+    from robosat_tpu_torch.ops.augment import normalize
+    from robosat_tpu_torch.ops.losses import get_loss
+    from robosat_tpu_torch.parallel.steps import make_distill_train_step, make_qat_train_step
+
+    lr = 1e-4
+    params, state = unet.init(seed + 1)
+    params, state = reference_style(torch, params, seed + 1), exact_var(torch, state)
+    batches = learnable_batches(np.random.default_rng(seed + 8), TRAIN_CHECK_STEPS, 2, 64)
+    with torch.no_grad():
+        scales = list(q8.scales_from_amaxes(q8.calibration_amaxes(
+            unet.fold(params, state), normalize(torch.from_numpy(batches[0][0])), percentile=99.8)))
+    t_params, t_state = unet.init(seed + 2)
+    t_params, t_state = reference_style(torch, t_params, seed + 2), exact_var(torch, t_state)
+
+    def teacher_on(device):
+        p, s = from_jax(to_jax(t_params), to_jax(t_state), device)
+        with torch.no_grad():
+            return (unet.fold(p, s),)
+
+    cases = (
+        ("QAT", lambda opt: make_qat_train_step(unet, get_loss("Lovasz"), opt, scales, augment=False), None, True),
+        ("distillation", lambda opt: make_distill_train_step(unet, unet, get_loss("CrossEntropy"), opt,
+                                                             weight=PARKING_WEIGHTS, augment=False), teacher_on,
+         False),
+    )
+    for label, make_step, extra, qat in cases:
+        start = time.perf_counter()
+        runs = card_and_cpu_runs(torch, label, params, state, batches, lr, make_step, extra, force=qat)
+        want, got = runs["cpu"], runs["cuda"]
+        losses, want_losses = got["losses"], want["losses"]
+        leaf_cosines = [cosine(torch, a, b) for a, b in zip(got["grads"], want["grads"]) if float(b.norm()) > 0]
+        paths = {"/".join(map(str, path)): cosine(torch, leaf_grad(got, params, path), leaf_grad(want, params, path))
+                 for path, _ in COSINE_FLOORS}
+        agreement = {k: cosine(torch, got["after1"][k], want["after1"][k]) for k in ("update", "mu", "nu")}
+        ratio = float(got["after1"]["update"].double().norm() / want["after1"]["update"].double().norm())
+        bn_err = max(float((got["state"]["encoder"]["bn1"][k].cpu() - want["state"]["encoder"]["bn1"][k]).abs().max())
+                     for k in ("mean", "var"))
+        log("phase 7: [7a] {} float32, 64 px, batch 2, {} steps: losses card {} CPU {}; {}step-0 gradient cosines "
+            "{} (min over {} leaves {:.8f}); every card step equals its Adam replayed on the CPU; after step 1 "
+            "{} (update norm ratio {:.7f}); bn1 statistics within {:.2e}; {:.2f} s".format(
+                label, len(batches), ["{:.6f}".format(v) for v in losses], ["{:.6f}".format(v) for v in want_losses],
+                "site inputs on the card within {} of the CPU's by step (each forced to the CPU's); ".format(
+                    got["errs"]) if qat else "", {k: round(v, 7) for k, v in paths.items()}, len(leaf_cosines),
+                min(leaf_cosines), {k: round(v, 7) for k, v in agreement.items()}, ratio, bn_err,
+                time.perf_counter() - start))
+        failed = []
+        if abs(losses[0] - want_losses[0]) > 1e-4 * abs(want_losses[0]):
+            failed.append("step-0 loss")
+        if any(abs(losses[i] - want_losses[i]) > (1e-3 if qat else 0.05) * abs(want_losses[i]) for i in (1, 2)):
+            failed.append("losses of steps 1-2")
+        failed += ["gradient cosine at " + path for (path, floor), (_, c) in zip(COSINE_FLOORS, paths.items())
+                   if c < floor]
+        failed += ["after step 1 the {} cosine".format(k) for k, floor in
+                   ({"update": 0.98} if qat else TRAIN_UPDATE_FLOORS).items() if agreement[k] < floor]
+        if abs(ratio - 1) > 0.01:
+            failed.append("the update's norm after step 1")
+        if qat:
+            if None in got["errs"] or got["errs"][0] > 1e-5:
+                failed.append("step-0 site inputs")
+            for run in (got, want):
+                if run["state"] is not run["state_in"] or any(
+                        not torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+                        for a, b in zip(tree_leaves(run["state"]), tree_leaves(state))):
+                    failed.append("the BN state changed")
+        elif bn_err > 5e-3:
+            failed.append("bn1 running statistics")
+        if failed:
+            raise AssertionError("7a {}: {} (see the line above)".format(label, ", ".join(failed)))
+        if qat:
+            log("phase 7: [7a] QAT: the BN state unchanged bit for bit on both devices")
+
+
+def leaf_grad(run, params, path):
+    """Step 0's gradient of the leaf at `path` in a card_and_cpu_runs run."""
+    from robosat_tpu_torch.checkpoint import tree_leaves
+
+    target = leaf(params, path)
+    return next(g for t, g in zip(tree_leaves(params), run["grads"]) if t is target)
+
+
+def configured_qat_distill_steps(torch, seed, smi, trained, counted):
+    """Phase 7b: config/model-unet.toml's QAT and distillation steps as it
+    stands (bf16, its loss, batch and image size, augmentation on), 10
+    steps each on 6b's batch: QAT from 6b's trained weights with the
+    scales of the config's calibration on that batch; distillation of a
+    student from `unet.init` by 6b's weights, folded once. For each: the
+    losses (finite, the last below the first), the median step by CUDA
+    events over steps 3-10, images/s, peak memory, and a profile of
+    PROFILE_STEPS more (idle share, kernels by kind). Then the QAT contract
+    at full width: on 8 of the batch's images and the same scales, the
+    bf16 fake-quant logits of the finetuned weights against the int8
+    logits of K3/K4/K5 (`apply_features_int8_to_dec3`, fine stem), K7, the
+    depth-to-space and the final 1x1 conv, every launch count set to 0
+    just before and read just after (13 K3, 3 K4, 5 K5, 1 K7). Returns the
+    numbers and the contract's launches."""
+    from robosat_tpu_torch import optim
+    from robosat_tpu_torch.checkpoint import from_jax, to_jax
+    from robosat_tpu_torch.config import load_config
+    from robosat_tpu_torch.models import int8 as q8
+    from robosat_tpu_torch.models import qtail, unet
+    from robosat_tpu_torch.models.layers import depth_to_space2
+    from robosat_tpu_torch.ops.augment import normalize
+    from robosat_tpu_torch.ops.losses import get_loss
+    from robosat_tpu_torch.parallel.steps import make_distill_train_step, make_qat_train_step
+
+    config = load_config(os.path.join(ROOT, "config", "model-unet.toml"))
+    common, opt = config["common"], config["opt"]
+    batch, size = common["batch_size"], common["image_size"]
+    dtype = torch.bfloat16 if common.get("bf16", False) else torch.float32
+    weight = PARKING_WEIGHTS if opt["loss"] != "Lovasz" else None
+    images, masks = learnable_batches(np.random.default_rng(seed + 7), 1, batch, size)[0]
+    images, masks = torch.from_numpy(images).pin_memory(), torch.from_numpy(masks).pin_memory()
+    calibration = common.get("int8_calibration", 99.8)
+    with torch.no_grad():
+        amaxes = q8.calibration_amaxes(unet.fold(trained["params"], trained["state"]),
+                                       normalize(images.cuda()), percentile=q8.calibration_spec(calibration))
+    scales = list(q8.scales_from_amaxes(amaxes))
+    with torch.no_grad():
+        teacher_folded = unet.fold(trained["params"], trained["state"])
+    results = {}
+
+    def timed(label, params, state, step, extra):
+        torch.cuda.synchronize()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        losses, events = [], []
+        for _ in range(TRAIN_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, loss, _ = step(params, state, *extra, images, masks, gen)
+            end.record()
+            losses.append(loss)
+            events.append((start, end))
+        torch.cuda.synchronize()
+        losses = [float(v) for v in losses]
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+            raise AssertionError("7b {}: {} losses {}".format(label, opt["loss"], losses))
+        median_ms = float(np.median(step_ms[2:]))
+        log("phase 7: [7b {}] {} {} batch {} at {} px, augmentation on: {} losses {}".format(
+            label, smi, str(dtype)[6:], batch, size, opt["loss"], ["{:.5f}".format(v) for v in losses]))
+        log("phase 7: [7b {}] step ms by CUDA events {}; median over steps 3-{} {:.2f} ms = {:.1f} images/s; "
+            "max_memory_allocated {:.2f} GB".format(label, ["{:.2f}".format(v) for v in step_ms], TRAIN_STEPS,
+                                                    median_ms, batch / median_ms * 1e3, peak_gb))
+        holder = {"state": state}
+
+        def one_step():
+            holder["state"], _, _ = step(params, holder["state"], *extra, images, masks, gen)
+
+        idle = log_train_profile(torch, "phase 7: [7b {}]".format(label), one_step, QAT_KERNEL_GROUPS)
+        results[label] = {"median_ms": median_ms, "images_per_s": batch / median_ms * 1e3, "peak_gb": peak_gb,
+                          "idle": idle, "first_loss": losses[0], "last_loss": losses[-1]}
+        return holder["state"]
+
+    # QAT from the trained weights; batch norm stays frozen.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, state = from_jax(to_jax(trained["params"]), to_jax(trained["state"]), "cuda")
+    step = make_qat_train_step(unet, get_loss(opt["loss"]), optim.adam(params, opt["lr"]), scales, weight=weight,
+                               compute_dtype=dtype)
+    if timed("QAT", params, state, step, ()) is not state:
+        raise AssertionError("7b QAT: the step did not return the state it was given")
+    del step
+
+    # The QAT contract at full width, on the finetuned weights.
+    x = normalize(images[:BATCH].cuda()).to(torch.bfloat16)
+    with torch.no_grad():
+        fq = unet.apply_logits_fake_quant(params, state, scales, x).float()
+        qtree = q8.quantize_unet_folded(unet.fold(params, state))
+        for fn in counted.values():
+            fn.launches = 0
+        dec3, s4, s5 = q8.apply_features_int8_to_dec3(qtree, scales, x)
+        feats = qtail.fused_tail_features(dec3, qtree["dec4"], s4, qtree["dec5"], s5)
+        int8 = unet.final_logits(qtree["final"], depth_to_space2(feats)).float()
+        torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in counted.items()}
+    expected = {name: {"K3": 13, "K4": 3, "K5": 5, "K7": 1}.get(name, 0) for name in counted}
+    if counts != expected:
+        raise AssertionError("7b QAT contract: launch counts {} != expected {}".format(counts, expected))
+    scale = float(int8.abs().max())
+    mean, worst = float((fq - int8).abs().mean()) / scale, float((fq - int8).abs().max()) / scale
+    agree = float(((fq[..., 1] > fq[..., 0]) == (int8[..., 1] > int8[..., 0])).float().mean())
+    log("phase 7: [7b QAT] contract on {} images of {} px: bf16 fake-quant logits vs int8 (K3/K4/K5/K7 launches "
+        "{}): mean |diff| {:.5f}, max {:.5f} of the int8 logits' max {:.3f}; decisions agree on {:.5%} of pixels "
+        "(bound: mean < {}, max < {}, agreement > {})".format(
+            BATCH, size, {k: c for k, c in counts.items() if c}, mean, worst, scale, agree, *QAT_CONTRACT))
+    if not (mean < QAT_CONTRACT[0] and worst < QAT_CONTRACT[1] and agree > QAT_CONTRACT[2]):
+        raise AssertionError("7b QAT contract: mean {}, max {}, agreement {} outside {}".format(
+            mean, worst, agree, QAT_CONTRACT))
+    results["QAT"]["contract"] = {"mean": mean, "max": worst, "agreement": agree}
+    del params, state, qtree, x, fq, int8, dec3, feats
+
+    # Distillation of a fresh student by the trained weights.
+    params0, state0 = unet.init(seed)
+    remat = common.get("remat", False)
+
+    def attempt(remat):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, state = from_jax(to_jax(params0), to_jax(state0), "cuda")
+        step = make_distill_train_step(unet, unet, get_loss(opt["loss"]), optim.adam(params, opt["lr"]),
+                                       weight=weight, compute_dtype=dtype, remat=remat)
+        timed("distillation", params, state, step, (teacher_folded,))
+
+    try:
+        attempt(remat)
+        oom = None
+    except torch.cuda.OutOfMemoryError as exc:
+        if remat:
+            raise
+        oom = str(exc).splitlines()[0][:160]
+    if oom is not None:  # retried outside the handler, whose traceback holds the first attempt's tensors
+        log("phase 7: [7b distillation] batch {} at {} px does not fit without remat ({}); running remat = "
+            "true".format(batch, size, oom))
+        remat = True
+        attempt(remat)
+    results["distillation"]["remat"] = remat
+    del teacher_folded
+    torch.cuda.empty_cache()
+    results["launches"] = {k: c for k, c in counts.items() if c}
+    return results
+
+
+def qat_distill_tools(torch, work, seed, tool_checkpoint, counted, by_path, smi):
+    """Phase 7c: on 6c's dataset, `train --qat` for one epoch from 6c's
+    checkpoint, `train --teacher` (that checkpoint) for one epoch from
+    `unet.init`, each through a TOML copy with batch TOOL_BATCH; then int8
+    `predict` as configured from the QAT checkpoint over the training tiles,
+    which must quantize with the checkpoint's qat_amaxes and calibrate
+    nothing, with 13 K3, 3 K4, 5 K5 and 1 K6 launches a batch."""
+    from robosat_tpu_torch.checkpoint import load_checkpoint, tree_leaves
+    from robosat_tpu_torch.config import load_config, save_config
+    from robosat_tpu_torch.models import int8 as q8
+    from robosat_tpu_torch.tools import predict, train
+
+    root = os.path.join(work, "slippy")
+    base = load_config(os.path.join(ROOT, "config", "model-unet.toml"))
+    dataset_toml = os.path.join(work, "dataset-train.toml")
+    steps = TRAIN_TILES_SIDE ** 2 // TOOL_BATCH
+    checkpoints = {}
+    for label, flags in (("qat", {"qat": True, "checkpoint": tool_checkpoint}), ("teacher", {"teacher": tool_checkpoint})):
+        ckpt_dir = os.path.join(work, "train-{}".format(label))
+        config = {**base, "common": {**base["common"], "batch_size": TOOL_BATCH, "checkpoint": ckpt_dir},
+                  "opt": {**base["opt"], "epochs": 1}}
+        model_toml = os.path.join(work, "model-train-{}.toml".format(label))
+        save_config(config, model_toml)
+        args = argparse.Namespace(model=model_toml, dataset=dataset_toml, checkpoint=None, resume=False, workers=4,
+                                  profile=None, teacher=None, teacher_model=None, distill_alpha=0.9, distill_temp=2.0,
+                                  qat=False)
+        for key, value in flags.items():
+            setattr(args, key, value)
+        start = time.perf_counter()
+        out = train.main(args)
+        wall = time.perf_counter() - start
+        checkpoints[label] = os.path.join(ckpt_dir, "checkpoint-00001-of-00001.npz")
+        trees, meta = load_checkpoint(checkpoints[label])
+        lines = open(os.path.join(ckpt_dir, "log")).read().splitlines()
+        want_line = ("QAT finetune: 59 int8 sites, int8_calibration = {} (frozen)".format(
+            base["common"].get("int8_calibration", 99.8)) if label == "qat" else
+            "Distilling from: {} (alpha 0.9, T 2.0)".format(tool_checkpoint))
+        if (out["steps"], out["count"], int(trees["opt_state"][0])) != (steps, steps, steps) or want_line not in lines \
+                or (label == "qat") != ("qat_amaxes" in meta):
+            raise AssertionError("7c {}: steps {}, count {}, meta {}, log {}".format(
+                label, out["steps"], out["count"], sorted(meta), lines))
+        if label == "qat":
+            if len(meta["qat_amaxes"]) != 59 or not all(a > 0 and math.isfinite(a) for a in meta["qat_amaxes"]):
+                raise AssertionError("7c qat: qat_amaxes {}".format(meta["qat_amaxes"]))
+            trained_state = load_checkpoint(tool_checkpoint)[0]["state"]
+            for a, b in zip(tree_leaves(trees["state"]), tree_leaves(trained_state)):
+                if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+                    raise AssertionError("7c qat: the checkpoint's BN state differs from 6c's")
+        log("phase 7: [7c] train {}: {} steps in {:.2f} s on {}; meta {}; log | {}".format(
+            "--qat" if label == "qat" else "--teacher", out["steps"], wall, smi,
+            {k: (v if k != "qat_amaxes" else "{} values".format(len(v))) for k, v in meta.items()}, want_line))
+
+    qat_amaxes = load_checkpoint(checkpoints["qat"])[1]["qat_amaxes"]
+    seen = {"calibrations": 0, "calib_amaxes": None}
+    real_calibration, real_step = q8.calibration_amaxes, predict.make_int8_predict_step
+
+    def calibration(*args, **kwargs):
+        seen["calibrations"] += 1
+        return real_calibration(*args, **kwargs)
+
+    def int8_step(*args, **kwargs):
+        seen["calib_amaxes"] = kwargs.get("calib_amaxes")
+        return real_step(*args, **kwargs)
+
+    q8.calibration_amaxes, predict.make_int8_predict_step = calibration, int8_step
+    try:
+        counts, pngs, wall, n_batches = predict_training_tiles(root, os.path.join(work, "probs-qat"),
+                                                               checkpoints["qat"], counted, "7c predict")
+    finally:
+        q8.calibration_amaxes, predict.make_int8_predict_step = real_calibration, real_step
+    if seen["calibrations"] or seen["calib_amaxes"] is None or \
+            not np.array_equal(np.asarray(seen["calib_amaxes"], np.float64), np.asarray(qat_amaxes, np.float64)):
+        raise AssertionError("7c predict: {} calibrations, scales from {}".format(
+            seen["calibrations"], "a calibration" if seen["calib_amaxes"] is None else "other amaxes"))
+    by_path["qat-predict"] = counts
+    log("phase 7: [7c] predict (int8 as configured) from the QAT checkpoint: quantized with its 59 qat_amaxes, "
+        "no calibration; {} PNGs in {:.2f} s on {}; launches {} ({} batches)".format(pngs, wall, smi, counts,
+                                                                                      n_batches))
+
 
 
 def k2_operands(torch, device, gen, int8_mm):

@@ -24,6 +24,14 @@ epilogue acc * (ws * s) + b as separate roundings and the cast to bf16.
 
 `calibration_amaxes` and the int8 walk visit conv sites in the same order,
 so the amax vector indexes sites positionally.
+
+The walk's fake-quant mode (`fake_quant=True`, QAT training through
+`unet.apply_logits_fake_quant`) is the float walk with consumed scales:
+every site quantize-dequantizes its input with the static site scale
+(`fake_quant_act`, a clipped straight-through estimator) and its folded or
+rewritten kernel with live per-output-channel scales (`fake_quant_weight`),
+so the forward sees the int8 datapath's grids and stays differentiable. It
+runs in torch ops (the JAX package leaves it to XLA; no kernel).
 """
 
 import numpy as np
@@ -32,16 +40,15 @@ import torch
 from robosat_tpu_torch.models.layers import (
     conv_bias_apply,
     conv_nhwc,
-    fused_upsample_conv3x3,
     max_pool,
     s2d_conv3x3_kernel,
     s2d_up_conv3x3_kernel,
+    upsample_conv_k4,
 )
 from robosat_tpu_torch.models.layers import fused_k4 as _fused_k4  # the 4x4 parity-combined kernel
 from robosat_tpu_torch.models.resnet import RESNET50_STAGES, stem_folded, stem_folded_s2d4, walk_stages
 
 _PER_CHANNEL = "per-channel int8 calibration ('pc' modes) is not ported yet (ROADMAP Queue 1, item 3)"
-_QAT = "fake quantization (QAT training) is not ported yet (ROADMAP Queue 1, item 7)"
 
 # Candidate clip fractions of the site amax for the "mse"/"mae" grids.
 _MSE_GRID = np.geomspace(0.02, 1.0, 28).astype(np.float32)
@@ -138,12 +145,64 @@ def _int8_conv(node, x, scale, stride=1, padding="SAME", compute_dtype=torch.bfl
     return y.to(compute_dtype)
 
 
+def is_per_channel(spec):
+    """True for the per-channel calibration specs ("pc", "pc99.8", ...)."""
+    return isinstance(spec, str) and spec.startswith("pc")
+
+
+def calibration_spec(calib):
+    """A config's `int8_calibration` as the walk's percentile spec: None
+    for "amax", "mse"/"mae" as they are, a float percentile, or a "pc..."
+    spec, whose percentile is checked here (the walk then raises: the
+    per-channel modes are not ported yet)."""
+    if calib in ("amax", None):
+        return None
+    if calib in ("mse", "mae"):
+        return calib
+    if is_per_channel(calib):
+        if calib[2:] not in ("", "amax"):
+            float(calib[2:])  # fail at config read, not in the step build
+        return calib
+    return float(calib)
+
+
+class _FakeQuantAct(torch.autograd.Function):
+    """clip(round(x * inv), -127, 127) * scale in x's dtype; the gradient
+    passes where |x * inv| <= 127 and is zero outside (the clipped STE)."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        inv = float(np.float32(1.0) / np.float32(scale))
+        r = x * torch.tensor(inv, dtype=x.dtype)  # in bf16 the reciprocal is rounded to bf16 too
+        ctx.save_for_backward(r.abs() <= 127.0)
+        # + 0 as the JAX package's q + (x - x) * gate: -0.0 bins come out +0.0.
+        return torch.round(r).clamp_(-127, 127).mul_(torch.tensor(float(np.float32(scale)), dtype=x.dtype)).add_(0.0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (gate,) = ctx.saved_tensors
+        return torch.where(gate, grad, 0.0), None
+
+
 def fake_quant_act(x, scale):
-    raise NotImplementedError(_QAT)
+    """Clipped straight-through quantize-dequantize of an activation with
+    the static per-tensor `scale` (QAT): the forward puts every value in the
+    int8 bin the datapath gives it, with the host-f32 reciprocal and the
+    scale cast to x's dtype (round half to even); the backward passes the
+    gradient only inside the representable range, so the finetuned float
+    forward stays consistent with its own int8 path."""
+    return _FakeQuantAct.apply(x, scale)
 
 
 def fake_quant_weight(w):
-    raise NotImplementedError(_QAT)
+    """Straight-through quantize-dequantize of a kernel with live
+    per-output-channel scales (`_quantize_weight`'s grid, recomputed from
+    the current weights): w + (q - w) with the difference detached, so the
+    gradient reaches w unchanged."""
+    with torch.no_grad():
+        scale = torch.clamp_min(w.abs().amax(dim=tuple(range(w.dim() - 1))), 1e-12) * _RECIP_127
+        q = torch.clamp(torch.round(w / scale), -127, 127) * scale
+    return w + (q - w).detach()
 
 
 class _Sites:
@@ -205,32 +264,45 @@ def _percentile(flat, percentile):
     return lo * float(lw) + hi * float(hw)
 
 
-def _walk(q, x, sites, float_mode=False, blocked=False, stop_at=None, plain=False):
+def _walk(q, x, sites, float_mode=False, blocked=False, stop_at=None, plain=False, fake_quant=False):
     """The stem (on fine input, or with `blocked` on 4x4 space-to-depth
     input), then `_walk_from_stem`."""
     stem = stem_folded_s2d4 if blocked else stem_folded
-    return _walk_from_stem(q, stem(q["encoder"]["conv1"], x), sites, float_mode, stop_at, plain)
+    return _walk_from_stem(q, stem(q["encoder"]["conv1"], x), sites, float_mode, stop_at, plain, fake_quant)
 
 
-def _walk_from_stem(q, out, sites, float_mode=False, stop_at=None, plain=False):
+def _walk_from_stem(q, out, sites, float_mode=False, stop_at=None, plain=False, fake_quant=False):
     """Bottleneck stacks and decoder from the stem output, visiting conv
     sites in a fixed order; mirrors the JAX package's `_walk`.
 
     In float_mode (calibration) `q` is the folded float tree and every site
     runs in float through the rewrites the int8 kernels were built from,
-    to the dec5 features. Otherwise every int8 site runs through its kernel
-    (`plain=True`: the kernels' plain versions) and the walk stops at dec3
-    (stop_at="dec3"), leaving dec4, dec5 and the head to the fused tail
-    (qtail), or before dec3 (stop_at="dec3_in"), returning cat(enc1, dec2)
-    for the parity-separated dec3 (qdec.parity_up_conv_separated).
+    to the dec5 features. With `fake_quant` (float mode with consumed
+    scales: QAT) every site also quantize-dequantizes its input with the
+    site scale (`fake_quant_act`) and its kernel with live per-output-channel
+    scales (`fake_quant_weight`, in float32, then cast to the activations'
+    dtype): the folded encoder kernels, the up-blocks' rewritten 4x4
+    kernels, dec4's and dec5's s2d kernels. Otherwise every int8 site runs
+    through its kernel (`plain=True`: the kernels' plain versions) and the
+    walk stops at dec3 (stop_at="dec3"), leaving dec4, dec5 and the head to
+    the fused tail (qtail), or before dec3 (stop_at="dec3_in"), returning
+    cat(enc1, dec2) for the parity-separated dec3
+    (qdec.parity_up_conv_separated).
     """
     from robosat_tpu_torch.models import qdec, qenc
+
+    def weight(k):
+        return fake_quant_weight(k.float()) if fake_quant else k
+
+    def act(xx, scale):
+        return fake_quant_act(xx, scale) if fake_quant else xx
 
     if float_mode:
 
         def conv(node, xx, stride=1, padding="SAME"):
-            sites.next_scale(xx)
-            return conv_bias_apply(node, xx, stride=stride, padding=padding)
+            scale = sites.next_scale(xx)
+            node = {"w": weight(node["w"]).to(xx.dtype), "b": node["b"]} if fake_quant else node
+            return conv_bias_apply(node, act(xx, scale), stride=stride, padding=padding)
 
         enc1, enc2, enc3, enc4 = walk_stages(q["encoder"], out, conv)
     else:
@@ -248,7 +320,8 @@ def _walk_from_stem(q, out, sites, float_mode=False, stop_at=None, plain=False):
     def up_block(name, xx):
         scale = sites.next_scale(xx)
         if float_mode:
-            return torch.relu(fused_upsample_conv3x3(q[name], xx))
+            # Fake-quant the rewritten 4x4 kernel, which predict quantizes.
+            return torch.relu(upsample_conv_k4(weight(_fused_k4(q[name]["w"].float())), act(xx, scale)))
         return up(xx, q[name], scale)
 
     center = up_block("center", max_pool(enc4, window=2, stride=2, padding=0))
@@ -265,8 +338,8 @@ def _walk_from_stem(q, out, sites, float_mode=False, stop_at=None, plain=False):
         return dec3
 
     def s2d_block(name, kernel_fn, xx):
-        sites.next_scale(xx)
-        return torch.relu(conv_nhwc(xx, kernel_fn(q[name]["w"].float()), padding="SAME"))
+        scale = sites.next_scale(xx)
+        return torch.relu(conv_nhwc(act(xx, scale), weight(kernel_fn(q[name]["w"].float())), padding="SAME"))
 
     dec4 = s2d_block("dec4", s2d_up_conv3x3_kernel, dec3)
     return s2d_block("dec5", s2d_conv3x3_kernel, dec4)

@@ -90,10 +90,15 @@ def fused_k4(w3):
 
 def fused_upsample_conv3x3(params, x):
     """Nearest-2x upsample + 3x3 SAME conv as one transposed conv with the
-    4x4 parity-combined kernel (the lhs-dilated conv of the JAX package,
-    whose flipped kernel this is)."""
-    k4 = fused_k4(params["w"]).to(x.dtype)
-    wt = k4.flip(0, 1).permute(2, 3, 0, 1)  # (Cin, Cout, 4, 4)
+    4x4 parity-combined kernel."""
+    return upsample_conv_k4(fused_k4(params["w"]), x)
+
+
+def upsample_conv_k4(k4, x):
+    """The JAX package's lhs-dilated conv (dilation 2, padding 2) of x with
+    the 4x4 kernel `k4` (HWIO, cast to x's dtype), as the transposed conv
+    of its flipped kernel."""
+    wt = k4.to(x.dtype).flip(0, 1).permute(2, 3, 0, 1)  # (Cin, Cout, 4, 4)
     y = F.conv_transpose2d(x.permute(0, 3, 1, 2), wt, stride=2, padding=1)
     return y.permute(0, 2, 3, 1).contiguous()
 

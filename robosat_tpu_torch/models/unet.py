@@ -15,11 +15,13 @@ other places). The decoder has no batch norm. The folded float forward
 dtype of its input (float32 or bfloat16). Both run as torch convolutions,
 as the JAX package leaves them to XLA; each decoder block is one
 transposed conv with the 4x4 parity-combined kernel (`FUSED_DECODER`). The
-int8 forward is the hybrid walk in robosat_tpu_torch/models/int8.py.
+int8 forward is the hybrid walk in robosat_tpu_torch/models/int8.py, and
+QAT trains through its fake-quant mode (`apply_logits_fake_quant`).
 """
 
 import torch
 
+from robosat_tpu_torch.models import int8 as q8
 from robosat_tpu_torch.models import resnet
 from robosat_tpu_torch.models.layers import (
     conv_nhwc,
@@ -114,6 +116,16 @@ def apply(params, state, x, train=False):
     return final_logits(params["final"], dec5), new_state
 
 
+def _head_s2d(final, feats):
+    """The final 1x1 conv per parity on blocked features (N, H/2, W/2,
+    4 * 32), then one depth-to-space: fine logits in the features' dtype."""
+    nb, hb, wb, _ = feats.shape
+    wf = final["w"].reshape(NUM_FILTERS, -1).to(feats.dtype)  # (32, C)
+    blocked = torch.matmul(feats.reshape(nb, hb, wb, 4, NUM_FILTERS), wf)
+    logits = depth_to_space2(blocked.reshape(nb, hb, wb, -1))
+    return logits + final["b"].to(logits.dtype)
+
+
 def apply_s2d(params, state, x, train=False):
     """The forward with the space-to-depth decoder tail (the JAX package's
     training forward); returns (fine logits, new_state), the math of
@@ -124,12 +136,22 @@ def apply_s2d(params, state, x, train=False):
     _check_side(x)
     skips, enc_state = resnet.apply(params["encoder"], state["encoder"], x, train)
     feats = decode_s2d(params, skips)  # (N, H/2, W/2, 4 * 32) parity-major
+    return _head_s2d(params["final"], feats), {"encoder": enc_state}
 
-    nb, hb, wb, _ = feats.shape
-    wf = params["final"]["w"].reshape(NUM_FILTERS, -1).to(feats.dtype)  # (32, C)
-    blocked = torch.matmul(feats.reshape(nb, hb, wb, 4, NUM_FILTERS), wf)
-    logits = depth_to_space2(blocked.reshape(nb, hb, wb, -1))
-    return logits + params["final"]["b"].to(logits.dtype), {"encoder": enc_state}
+
+def apply_logits_fake_quant(params, state, scales, x):
+    """The QAT training forward on normalized x (N, H, W, 3): batch norm
+    folded in the graph at the running statistics (gradients reach the
+    ordinary params through `fold`), the int8 walk in its fake-quant mode
+    with the static per-site `scales` (the float stem, then every site's
+    input and kernel on the grids the int8 predict uses), and the float 1x1
+    head per parity on the blocked dec5 features; returns fine logits in
+    x's dtype."""
+    _check_side(x)
+    folded = fold(params, state)
+    sites = q8._Sites(scales=list(scales))
+    feats = q8._walk(folded, x, sites, float_mode=True, fake_quant=True)
+    return _head_s2d(folded["final"], feats)
 
 
 def apply_features_folded(folded, x):

@@ -1,14 +1,18 @@
-"""The train, eval and predict steps of the U-Net.
+"""The train, QAT, distillation, eval and predict steps of the U-Net.
 
 Counterpart of robosat_tpu/parallel/steps.py's make_train_step,
-make_eval_step, make_predict_step and make_int8_predict_step for one
-device. PyTorch runs eagerly, so a step is a plain function.
+make_qat_train_step, make_distill_train_step, make_eval_step,
+make_predict_step and make_int8_predict_step for one device. PyTorch runs
+eagerly, so a step is a plain function.
 
 The train step augments on the device, normalizes, runs the forward in the
 compute dtype (the space-to-depth tail, `unet.apply_s2d`), takes
 the loss on float32 logits, backpropagates, and updates with the port's
-optax Adam (`optim.py`); the eval step runs the forward with frozen batch
-norm. Both return the loss and the confusion counts on the device. The
+optax Adam (`optim.py`). The QAT step runs the fake-quant forward
+(`unet.apply_logits_fake_quant`) with batch norm frozen; the distillation
+step adds the soft targets of a folded teacher to the loss. The eval step
+runs the forward with frozen batch norm. All return the loss and the
+confusion counts on the device. The
 predict steps run the forward with the BN fold. The float step runs the folded
 forward as torch (cuDNN) convolutions and ends in the margin head, kernel
 K1 (`fused_head`), or in the final 1x1 conv, a softmax and the digitize.
@@ -92,25 +96,110 @@ def make_train_step(model, loss_fn, optimizer, weight=None, compute_dtype=torch.
     discarded.
     """
     weight_on = _class_weights(weight)
+    forward = _train_forward(model, remat)
+
+    def step(params, state, images, masks, generator=None):
+        x, masks, device = _train_input(params, images, masks, augment, generator, compute_dtype)
+        optimizer.zero_grad(set_to_none=True)
+        logits, new_state = forward(params, state, x)
+        loss = loss_fn(logits.float(), masks, weight_on(device))
+        loss.backward()
+        optimizer.step()
+        return new_state, loss.detach(), confusion_counts(logits.detach(), masks)
+
+    return step
+
+
+def _train_forward(model, remat):
+    """forward(params, state, x) -> (logits, new_state): `model.apply_s2d`
+    in training mode, recomputed in the backward with `remat`."""
 
     def run_forward(params, state, x):
         return model.apply_s2d(params, state, x, True)
 
-    def step(params, state, images, masks, generator=None):
-        device = params["final"]["w"].device
-        images, masks = _to_device(images, device), _to_device(masks, device)
-        if augment:
-            if generator is None:
-                raise ValueError("augment draws from a torch.Generator: pass generator=")
-            images, masks = augment_batch(generator, images, masks)
-        x = normalize(images).to(compute_dtype)
+    if not remat:
+        return run_forward
+    return lambda params, state, x: checkpoint(run_forward, params, state, x, use_reentrant=False)
 
+
+def _train_input(params, images, masks, augment, generator, compute_dtype):
+    """A uint8 batch and its masks on the params' device, augmented from
+    `generator`, normalized and cast: (x, masks, device)."""
+    device = params["final"]["w"].device
+    images, masks = _to_device(images, device), _to_device(masks, device)
+    if augment:
+        if generator is None:
+            raise ValueError("augment draws from a torch.Generator: pass generator=")
+        images, masks = augment_batch(generator, images, masks)
+    return normalize(images).to(compute_dtype), masks, device
+
+
+def make_qat_train_step(model, loss_fn, optimizer, scales, weight=None, compute_dtype=torch.float32, augment=True):
+    """One quantization-aware finetune step (`train --qat`) on the device
+    of the params, with make_train_step's call shape: step(params, state,
+    images_u8, masks, generator=None) -> (state, loss, counts).
+
+    The forward is `model.apply_logits_fake_quant` in the compute dtype:
+    batch norm folded in the graph at the running statistics, which stay
+    frozen (the step returns the state it was given), and every int8 site
+    quantize-dequantized with the static per-site `scales` (a host
+    sequence fixed when the step is built: the calibration that `predict`
+    must use) and live per-output-channel weight grids, through the
+    straight-through estimator. The loss is taken on float32 logits, then
+    the port's Adam updates the ordinary params in place.
+    """
+    weight_on = _class_weights(weight)
+    scales = [float(s) for s in scales]
+
+    def step(params, state, images, masks, generator=None):
+        x, masks, device = _train_input(params, images, masks, augment, generator, compute_dtype)
         optimizer.zero_grad(set_to_none=True)
-        if remat:
-            logits, new_state = checkpoint(run_forward, params, state, x, use_reentrant=False)
-        else:
-            logits, new_state = run_forward(params, state, x)
+        logits = model.apply_logits_fake_quant(params, state, scales, x)
         loss = loss_fn(logits.float(), masks, weight_on(device))
+        loss.backward()
+        optimizer.step()
+        return state, loss.detach(), confusion_counts(logits.detach(), masks)
+
+    return step
+
+
+def distillation_loss(logits32, t_logits, masks, loss_fn, weight, alpha, temp):
+    """The distillation loss of float32 student and teacher logits, summed
+    in the JAX package's order: alpha * kd + (1 - alpha) * hard with
+
+      kd = -mean(sum(softmax(teacher / T) * log_softmax(student / T))) * T^2
+
+    (the KL divergence up to the teacher's entropy, which has no gradient;
+    T^2 keeps the soft targets' gradients comparable across temperatures)
+    and hard = loss_fn(student, masks, weight)."""
+    soft_t = torch.softmax(t_logits / temp, dim=-1)
+    log_s = torch.log_softmax(logits32 / temp, dim=-1)
+    kd = -torch.mean(torch.sum(soft_t * log_s, dim=-1)) * (temp * temp)
+    return alpha * kd + (1.0 - alpha) * loss_fn(logits32, masks, weight)
+
+
+def make_distill_train_step(model, teacher_model, loss_fn, optimizer, weight=None, compute_dtype=torch.float32,
+                            augment=True, remat=False, alpha=0.9, temp=2.0):
+    """One knowledge-distillation step (`train --teacher`) on the device of
+    the params: step(params, state, teacher_folded, images_u8, masks,
+    generator=None) -> (new_state, loss, counts).
+
+    The teacher (`teacher_model.apply_folded` over its BN-folded params
+    `teacher_folded`) sees the same augmented, normalized batch as the
+    student, without gradients, and its logits are cast to float32. The
+    student trains as in make_train_step (`model.apply_s2d`, `remat`) on
+    `distillation_loss`.
+    """
+    weight_on = _class_weights(weight)
+    forward = _train_forward(model, remat)
+
+    def step(params, state, teacher_folded, images, masks, generator=None):
+        x, masks, device = _train_input(params, images, masks, augment, generator, compute_dtype)
+        with torch.no_grad():
+            t_logits = teacher_model.apply_folded(teacher_folded, x).float()
+        optimizer.zero_grad(set_to_none=True)
+        logits, new_state = forward(params, state, x)
+        loss = distillation_loss(logits.float(), t_logits, masks, loss_fn, weight_on(device), alpha, temp)
         loss.backward()
         optimizer.step()
         return new_state, loss.detach(), confusion_counts(logits.detach(), masks)

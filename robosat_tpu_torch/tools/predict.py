@@ -59,6 +59,7 @@ from robosat_tpu_torch.config import load_config
 from robosat_tpu_torch.data.datasets import BufferedSlippyMapDirectory, StripBufferedSlippyMapDirectory
 from robosat_tpu_torch.data.loader import batches
 from robosat_tpu_torch.device import Dispatched, configure_device, profiler
+from robosat_tpu_torch.models import int8 as q8
 from robosat_tpu_torch.models.layers import depth_to_space2, space_to_depth4
 from robosat_tpu_torch.models.registry import get_model
 from robosat_tpu_torch.native import imagecodec
@@ -129,23 +130,6 @@ def dispatch_ahead(batches, issue, write):
     return setup_done_t
 
 
-def _calibration(common):
-    """The config's `int8_calibration` as the walk's percentile spec: None
-    for "amax", "mse"/"mae" as they are, a float percentile, or a "pc..."
-    spec, whose percentile is checked here (the walk then raises: the
-    per-channel modes are not ported yet)."""
-    calib = common.get("int8_calibration", 99.8)
-    if calib in ("amax", None):
-        return None
-    if calib in ("mse", "mae"):
-        return calib
-    if isinstance(calib, str) and calib.startswith("pc"):
-        if calib[2:] not in ("", "amax"):
-            float(calib[2:])  # fail at config read, not in the step build
-        return calib
-    return float(calib)
-
-
 def host_s2d_input(common, args):
     """Whether the loader 4x4-blocks the input (the JAX tool's rule): the
     config's `host_s2d` with `s2d` and the fused head, per tile only, and a
@@ -191,7 +175,7 @@ def main(args):
     int8_mode = common.get("int8", False)
     use_fused = common.get("fused_head", common.get("pallas_head", True))
     use_s2d = common.get("s2d", True)
-    calib_percentile = _calibration(common)
+    calib_percentile = q8.calibration_spec(common.get("int8_calibration", 99.8))
     # pallas_tail = "tail" | "sep" | "full" picks the int8 decoder's end
     # (parallel/steps.py); pallas_enc is accepted and changes nothing.
     pallas_tail = common.get("pallas_tail", None) or None

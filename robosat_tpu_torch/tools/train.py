@@ -19,13 +19,22 @@ host behind an event and are read once step k + 1 is issued. `--profile
 DIR` records the epochs with torch.profiler, one `train_step` range per
 step, and writes a trace for TensorBoard's profile plugin to DIR.
 
+`--qat` finetunes `--checkpoint` through the int8 datapath's rounding
+(parallel/steps.make_qat_train_step): the site scales are calibrated once,
+on the first shuffled training batch, at the config's per-tensor
+`int8_calibration`, frozen into the step, and written into every
+checkpoint's meta (`qat_amaxes`, `qat_calibration`), which `predict`
+quantizes with; `--resume` calibrates again from the loaded weights, as
+the JAX tool does. `--teacher` distills from a trained checkpoint of
+`--teacher_model`'s family (default `--model`'s), folded once
+(make_distill_train_step). Validation runs the float eval step in either
+mode.
+
 One device: `sync_bn` is accepted and changes nothing (the batch is the
 global batch). The augmentation draws from a torch.Generator seeded per
 epoch from the config's `seed`: other flips and rotations than the JAX
 tool's for the same seed, from the same distribution. Without matplotlib
-the history chart is not written, and the log says so once. Not ported
-yet (ROADMAP Queue 1, item 7): `--qat` and `--teacher` with its
-`--teacher_model`, `--distill_alpha` and `--distill_temp`; each raises.
+the history chart is not written, and the log says so once.
 """
 
 import argparse
@@ -51,11 +60,18 @@ from robosat_tpu_torch.data.datasets import SlippyMapTilesConcatenation
 from robosat_tpu_torch.data.loader import batches
 from robosat_tpu_torch.device import Dispatched, configure_device, profiler
 from robosat_tpu_torch.log import Log
+from robosat_tpu_torch.models import int8 as q8
 from robosat_tpu_torch.models.registry import get_model
+from robosat_tpu_torch.ops.augment import normalize
 from robosat_tpu_torch.ops.losses import get_loss
 from robosat_tpu_torch.ops.metrics import Metrics
 from robosat_tpu_torch.optim import adam
-from robosat_tpu_torch.parallel.steps import make_eval_step, make_train_step
+from robosat_tpu_torch.parallel.steps import (
+    make_distill_train_step,
+    make_eval_step,
+    make_qat_train_step,
+    make_train_step,
+)
 from robosat_tpu_torch.utils.plot import plot
 
 
@@ -74,30 +90,22 @@ def add_parser(subparser):
         "--teacher",
         type=str,
         default=None,
-        help="distill from this trained checkpoint (not ported yet: ROADMAP Queue 1, item 7)",
+        help="distill from this trained checkpoint (e.g. a flagship U-Net) instead of training from labels alone",
     )
     parser.add_argument(
         "--teacher_model",
         type=str,
         default=None,
-        help="model TOML of the teacher checkpoint (not ported yet: ROADMAP Queue 1, item 7)",
+        help="model TOML of the teacher checkpoint (defaults to --model, i.e. same family)",
     )
-    parser.add_argument(
-        "--distill_alpha",
-        type=float,
-        default=None,
-        help="soft-target weight in the distillation loss (not ported yet: ROADMAP Queue 1, item 7)",
-    )
-    parser.add_argument(
-        "--distill_temp",
-        type=float,
-        default=None,
-        help="distillation softmax temperature (not ported yet: ROADMAP Queue 1, item 7)",
-    )
+    parser.add_argument("--distill_alpha", type=float, default=0.9, help="soft-target weight in the distillation loss")
+    parser.add_argument("--distill_temp", type=float, default=2.0, help="distillation softmax temperature")
     parser.add_argument(
         "--qat",
         action="store_true",
-        help="quantization-aware finetune of --checkpoint (not ported yet: ROADMAP Queue 1, item 7)",
+        help="quantization-aware finetune of --checkpoint: the forward fake-quantizes every int8 "
+        "site (frozen calibrated scales, straight-through gradients) so the optimizer descends "
+        "the int8 datapath's own loss; the scales ship in checkpoint meta for `rs predict`",
     )
 
     parser.set_defaults(func=main)
@@ -111,15 +119,6 @@ def _epoch_generator(seed, epoch, device):
 
 
 def main(args):
-    # getattr: callers may drive main() with bare Namespaces without these flags.
-    if getattr(args, "qat", False) or any(
-        getattr(args, flag, None) is not None for flag in ("teacher", "teacher_model", "distill_alpha", "distill_temp")
-    ):
-        raise NotImplementedError(
-            "train --qat and --teacher (with --teacher_model, --distill_alpha and --distill_temp) are not ported to "
-            "robosat_tpu_torch yet (ROADMAP Queue 1, item 7)"
-        )
-
     model_config = load_config(args.model)
     dataset_config = load_config(args.dataset)
     common = model_config["common"]
@@ -167,9 +166,32 @@ def main(args):
     batch_size = common["batch_size"]
     image_size = common["image_size"]
     compute_dtype = torch.bfloat16 if common.get("bf16", False) else torch.float32
-
-    train_step = make_train_step(model, loss_fn, optimizer, weight=weight, compute_dtype=compute_dtype,
-                                 remat=common.get("remat", False))
+    teacher_folded = None
+    # getattr: callers may drive main() with bare Namespaces without these flags.
+    teacher_path = getattr(args, "teacher", None)
+    distill_alpha = getattr(args, "distill_alpha", 0.9)
+    distill_temp = getattr(args, "distill_temp", 2.0)
+    qat_mode = getattr(args, "qat", False)
+    if qat_mode:
+        if not args.checkpoint:
+            sys.exit("Error: --qat finetunes a trained model; provide --checkpoint")
+        if teacher_path:
+            sys.exit("Error: --qat and --teacher are mutually exclusive")
+        train_step = None  # built below: calibration needs one real training batch
+    elif teacher_path:
+        teacher_model_path = getattr(args, "teacher_model", None)
+        teacher_config = load_config(teacher_model_path) if teacher_model_path else model_config
+        teacher_model = get_model(teacher_config["common"].get("model", "unet"))
+        t_params, t_state, _ = load_model_checkpoint(teacher_path, num_classes, device=device)
+        with torch.no_grad():
+            teacher_folded = teacher_model.fold(t_params, t_state)
+        del t_params, t_state
+        train_step = make_distill_train_step(model, teacher_model, loss_fn, optimizer, weight=weight,
+                                             compute_dtype=compute_dtype, remat=common.get("remat", False),
+                                             alpha=distill_alpha, temp=distill_temp)
+    else:
+        train_step = make_train_step(model, loss_fn, optimizer, weight=weight, compute_dtype=compute_dtype,
+                                     remat=common.get("remat", False))
     eval_step = make_eval_step(model, loss_fn, weight=weight, compute_dtype=compute_dtype)
 
     path = dataset_config["common"]["dataset"]
@@ -190,9 +212,32 @@ def main(args):
     log.log("Image Size:\t {}".format(image_size))
     log.log("Learning Rate:\t {}".format(model_config["opt"]["lr"]))
     log.log("Loss function:\t {}".format(loss_name))
+    if teacher_path:
+        log.log("Distilling from: {} (alpha {}, T {})".format(teacher_path, distill_alpha, distill_temp))
     if weight is not None:
         log.log("Weights :\t {}".format(dataset_config["weights"]["values"]))
     log.log("---")
+
+    qat_meta = {}
+    if qat_mode:
+        # Calibrate once on one real training batch, freeze the scales into
+        # the step and record them in checkpoint meta: predict quantizes
+        # with exactly these, not a fresh calibration of the moved weights.
+        calib_spec = common.get("int8_calibration", 99.8)
+        if q8.is_per_channel(calib_spec):
+            sys.exit("Error: --qat uses per-tensor site scales; set int8_calibration to a percentile/mse/mae/amax")
+        pct = q8.calibration_spec(calib_spec)
+        calib_images = next(iter(batches(train_dataset, batch_size, shuffle=True, drop_last=True, workers=2,
+                                         seed=0))).arrays[0]
+        with torch.no_grad():
+            folded = model.fold(params, state)
+            amaxes = q8.calibration_amaxes(folded, normalize(torch.as_tensor(calib_images).to(device)),
+                                           percentile=pct).numpy()
+            del folded
+        qat_meta = {"qat_amaxes": [float(a) for a in amaxes], "qat_calibration": str(calib_spec)}
+        train_step = make_qat_train_step(model, loss_fn, optimizer, list(q8.scales_from_amaxes(amaxes)),
+                                         weight=weight, compute_dtype=compute_dtype)
+        log.log("QAT finetune: {} int8 sites, int8_calibration = {} (frozen)".format(len(amaxes), calib_spec))
 
     def host(array):
         """A batch array as a tensor, pinned on the card's machine so that
@@ -235,7 +280,11 @@ def main(args):
             ):
                 images, masks = batch.arrays
                 with torch.profiler.record_function("train_step"):
-                    state, loss, counts = train_step(params, state, host(images), host(masks), generator)
+                    if teacher_folded is not None:
+                        state, loss, counts = train_step(params, state, teacher_folded, host(images), host(masks),
+                                                         generator)
+                    else:
+                        state, loss, counts = train_step(params, state, host(images), host(masks), generator)
                 if pending is not None:
                     drain(pending)
                 pending = dispatch(loss, counts, batch.valid)
@@ -307,7 +356,7 @@ def main(args):
             save_checkpoint(
                 os.path.join(common["checkpoint"], checkpoint_name),
                 {"params": to_jax(params), "state": to_jax(state), "opt_state": opt_state_to_leaves(optimizer)},
-                meta={"epoch": epoch + 1},
+                meta=dict({"epoch": epoch + 1}, **qat_meta),
             )
     log.close()
 

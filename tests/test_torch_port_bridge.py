@@ -283,8 +283,7 @@ def test_unported_calibration_modes_raise(spec):
 def test_unported_quantization_modes_raise():
     w = torch.zeros(1, 1, 4, 4)
     for call in (lambda: q8._quantize_weight(w, act_scale=torch.ones(4)),
-                 lambda: q8.quantize_unet_folded({}, act_amaxes=[torch.ones(4)]),
-                 lambda: q8.fake_quant_act(w, 0.1), lambda: q8.fake_quant_weight(w)):
+                 lambda: q8.quantize_unet_folded({}, act_amaxes=[torch.ones(4)])):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 

@@ -412,3 +412,30 @@ def test_train_step_on_the_card_matches_the_cpu(gen):
     optim.Adam(replay, lr=1e-4).step()
     for r, q in zip(replay, card):
         torch.testing.assert_close(q.detach().cpu(), r.detach(), rtol=1e-6, atol=1e-10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_fake_quant_on_the_card_matches_the_cpu(gen, dtype):
+    """`fake_quant_act` and `fake_quant_weight` (QAT) on the card: forward
+    and gradient bit-equal to the CPU's, on activations spanning bin edges
+    and values past +-127 bins, and on kernels with an all-zero output
+    channel."""
+    scale = 0.0371
+    cpu = torch.Generator().manual_seed(3)
+    edges = (torch.arange(-130, 131, dtype=torch.float32) + 0.5) * scale
+    x = torch.cat([torch.randn(4000, generator=cpu) * 3, edges, -edges, torch.tensor([0.0, -0.0, 200.0, -200.0])])
+    w = torch.randn(3, 3, 64, 48, generator=cpu) * 0.05
+    w[..., 0] = 0.0
+    gx, gw = torch.randn(x.shape, generator=cpu), torch.randn(w.shape, generator=cpu)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        xd = x.to(device, dtype, copy=True).requires_grad_(True)
+        wd = w.to(device, dtype, copy=True).requires_grad_(True)
+        ya, yw = q8.fake_quant_act(xd, scale), q8.fake_quant_weight(wd)
+        ya.backward(gx.to(device, dtype))
+        yw.backward(gw.to(device, dtype))
+        runs[device] = [t.detach().cpu() for t in (ya, yw, xd.grad, wd.grad)]
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        assert got.dtype == want.dtype == dtype
+        assert torch.equal((got + 0).view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                           (want + 0).view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
