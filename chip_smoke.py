@@ -7,7 +7,8 @@ Drives robosat_tpu_torch's `predict` (the U-Net of config/model-unet.toml)
 on the card along nine paths and its `masks`, runs the two probe kernels,
 checks each hand-written kernel against its plain PyTorch version, and
 trains the U-Net (`train`, then `predict` from what it wrote), also
-quantization-aware and by distillation:
+quantization-aware and by distillation; then the fast family
+(config/model-fast.toml) the same way:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the CUDA kernels from robosat_tpu_torch/csrc;
@@ -105,12 +106,32 @@ quantization-aware and by distillation:
    quantize with its `qat_amaxes` and calibrate nothing: 64 PNGs, 13 K3,
    3 K4, 5 K5 and 1 K6 launches a batch.
 
+8. The fast family on config/model-fast.toml as it stands, weights from
+   `fastnet.init(0)`, in a process of its own (`--fast --fast-from WORK`;
+   late in one long process torch.profiler drops kernel events): 8a, the first predict batch (8 host-blocked 576-px
+   tiles) through the float32 calibration walk, which keeps each site's
+   input; rs_int8_conv (csrc/qconv.cu) at the 12 dense sites and K5 at u3,
+   u2 and u1 on those inputs, bit-equal to their plain versions, timed as
+   phase 3 (events, device time, bound); 8b, `predict.main` as configured
+   (int8, host-blocked input, 16-channel blocked output: 12 rs_int8_conv
+   and 3 K5 launches a batch) and with `int8 = false` (bf16, fine input,
+   no kernel) on phase 5's 64 tiles, with the first batch against the
+   plain step, the step by CUDA events and its profile; 8c, the configured
+   train, distillation (a folded `unet.init` teacher) and QAT steps, bf16,
+   batch 64 at 512 px, 10 steps each (median, peak memory, idle, kernels by
+   kind); 8d, `train --teacher` with a U-Net checkpoint (6c's) and
+   `--teacher_model config/model-unet.toml` for one epoch, `--resume` to
+   two, `--qat` from that checkpoint, then int8 `predict` from the QAT
+   checkpoint (its 15 qat_amaxes, no calibration).
+
 `python3 chip_smoke.py --k2 [--tree DIR]` runs phases 1-2 and K2's part of
 phase 4 only, on the robosat_tpu_torch of checkout DIR (default: this one),
 so that two versions of K2 can be timed on one card, one after the other.
 `python3 chip_smoke.py --train [--tree DIR]` runs phase 1, 6b and 7b only,
 the same way, for two versions of the train steps (7b's contract builds
-the kernels at first use).
+the kernels at first use). `python3 chip_smoke.py --fast` runs phases 1, 2
+and 8 only, with a U-Net checkpoint of `unet.init(0)` and a new dataset in
+place of 6c's.
 
 Each kernel's line also carries its bound: the least time the card could
 take for the same work, max(bytes / 3.35 TB/s, operations / peak) with each
@@ -159,6 +180,8 @@ SOURCES = {
     "K8": ("robosat_tpu_torch/csrc/qdec.cu", "robosat_tpu/models/qdec.py:222"),
     "K9": ("robosat_tpu_torch/csrc/qtail.cu", "robosat_tpu/models/qtail.py:358"),
     "K10": ("robosat_tpu_torch/csrc/head_rungs.cu", "benchmarks/bisect_mosaic_head.py:108"),
+    # No Pallas kernel: it stands in for XLA's int8 conv, which the fast family's walk calls.
+    "int8_conv": ("robosat_tpu_torch/csrc/qconv.cu", "robosat_tpu/models/int8.py:228"),
 }
 ENCODER = {"K3": 13, "K4": 3}
 # Substrings of the port's kernel names in torch.profiler's rows.
@@ -231,6 +254,17 @@ TRAIN_KERNEL_GROUPS = (
 QAT_KERNEL_GROUPS = (("fake quant (round, abs, gate compare, where)", re.compile(r"round|abs|compare|where",
                                                                                 re.IGNORECASE)),) + TRAIN_KERNEL_GROUPS
 QAT_CONTRACT = (0.05, 0.5, 0.95)
+# Phase 8 (the fast family, config/model-fast.toml): its dense sites with
+# (stride, dilation, epilogue), in walk order with the up-sites between;
+# launches per batch on its int8 path; the predict paths (label, model TOML
+# keys over config/model-fast.toml, launches per batch).
+FAST_TOML = os.path.join(ROOT, "config", "model-fast.toml")
+FAST_DENSE = {"stem": (1, 1, "relu"), "b1": (1, 1, "residual_relu"), "down2": (2, 1, "relu"),
+              "b2": (1, 1, "residual_relu"), "down3": (2, 1, "relu"), "b3": (1, 1, "residual_relu"),
+              "down4": (2, 1, "relu"), "b4a": (1, 1, "residual_relu"), "b4b": (1, 2, "residual_relu"),
+              "d3": (1, 1, "relu"), "d2": (1, 1, "relu"), "d1": (1, 1, "relu")}
+FAST_INT8 = {"int8_conv": 12, "K5": 3}
+FAST_PATHS = (("fast-int8", {}, FAST_INT8), ("fast-bf16", {"int8": False}, {}))
 EDGE_ROWS = 128  # rows next to a tile edge inside a strip, where a strip's context exceeds the tile's
 # Paths that run on phase 3's scales through a QAT checkpoint's qat_amaxes.
 QAT_PATHS = ("int8-fine", "int8-strip")
@@ -258,6 +292,11 @@ def main():
                         help="only phases 1, 2 and K2's part of phase 4 (bit-equality, events and device times)")
     parser.add_argument("--train", action="store_true",
                         help="only phases 1, 6b and 7b (the configured train, QAT and distillation steps)")
+    parser.add_argument("--fast", action="store_true",
+                        help="only phases 1, 2 and 8 (the fast family: its kernels, predict, train steps and tools)")
+    parser.add_argument("--fast-from", default=None, metavar="WORK",
+                        help="with --fast: the full run's work directory, whose phase-6c U-Net checkpoint and "
+                             "dataset phase 8d uses; the results go to WORK/fast.json (the full run's phase 8)")
     parser.add_argument("--tree", default=ROOT,
                         help="with --k2 or --train: the checkout whose robosat_tpu_torch to build and time "
                              "(default: this one)")
@@ -312,6 +351,22 @@ def main():
             raise AssertionError("K2: {} launches, expected {}".format(int8_mm.int8_matmul_requant.launches, len(k2)))
         check_and_time_k2(torch, int8_mm, k2, k2_out, per_kernel, smi)
         log(json.dumps({"K2": per_kernel["K2"], "tree": root}))
+        log(smi)
+        return
+
+    if opts.fast:
+        per_kernel, launches, by_path = {}, {"int8_conv": 0, "K5": 0}, {}
+        if opts.fast_from:
+            run_fast(torch, opts.fast_from, SEED, smi, wrappers(), launches, by_path, per_kernel,
+                     unet_checkpoint=tool_checkpoint_path(opts.fast_from),
+                     train_root=os.path.join(opts.fast_from, "slippy"))
+            with open(os.path.join(opts.fast_from, "fast.json"), "w") as f:
+                json.dump({"per_kernel": per_kernel, "launches": launches, "by_path": by_path}, f)
+            return
+        with tempfile.TemporaryDirectory(prefix="rs_chip_smoke_") as work:
+            run_fast(torch, work, SEED, smi, wrappers(), launches, by_path, per_kernel)
+        log(json.dumps({"kernels": [{"name": name, "launches": launches[name], **per_kernel[name]}
+                                    for name in launches]}))
         log(smi)
         return
 
@@ -385,8 +440,9 @@ def bound(bytes_moved, ops, op_type):
 
 
 def site_work(name, kargs, out):
-    """(bytes, operations, operation type) of a phase-3 kernel call: the
-    activations and int8 weights read once, the output written once, two
+    """(bytes, operations, operation type) of a phase-3 or phase-8 kernel
+    call: the activations and int8 weights read once (a residual is the
+    conv's own input), the output written once, two
     operations per multiply-accumulate (K5/K8: four 2x2-tap parity convs,
     16 taps per coarse pixel; K6/K7/K9: dec4 the same way, then dec5 at the
     fine grid; K1: a multiply and an add per feature)."""
@@ -402,6 +458,9 @@ def site_work(name, kargs, out):
     if name in ("K5", "K8"):
         node = kargs[1]
         return io + nbytes(node["wq"]), 2 * x.numel() * 16 * node["wq"].shape[-1], "int8"
+    if name == "int8_conv":  # a dense k x k conv: Cin * k^2 MACs per output element
+        wq = kargs[1]["wq"]
+        return io + nbytes(wq), 2 * out.numel() * wq.shape[0] * wq.shape[1] * wq.shape[2], "int8"
     if name in ("K6", "K7", "K9"):
         # The work the function needs, not that of the s2d weights' dense
         # 3x3 128 -> 128 form: dec4, nearest-up x2 then 3x3 cin -> c, as four
@@ -416,18 +475,23 @@ def site_work(name, kargs, out):
 def record(per_kernel, name, site, shape, err, ms, plain_ms, work, library_ms=None, **extra):
     """Add one site's numbers to kernel `name`'s entry; returns its bound."""
     bound_ms, bound_by = bound(*work)
+    add_site(per_kernel, name, {"site": site, "shape": list(shape), "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                                "max_abs_err": err, **extra})
+    return bound_ms, bound_by
+
+
+def add_site(per_kernel, name, site):
+    """Add a site's record (as `record` makes it) to kernel `name`'s sums."""
     entry = per_kernel.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                                          "bound_by": None, "library_ms": None, "sites": []})
-    entry["max_abs_err"] = max(entry["max_abs_err"], err)
-    entry["ms"] += ms
-    entry["plain_ms"] += plain_ms
-    entry["bound_ms"] += bound_ms
-    if library_ms is not None:
-        entry["library_ms"] = (entry["library_ms"] or 0.0) + library_ms
-    entry["sites"].append({"site": site, "shape": list(shape), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                           "bound_by": bound_by, "library_ms": library_ms, "max_abs_err": err, **extra})
+    entry["max_abs_err"] = max(entry["max_abs_err"], site["max_abs_err"])
+    for key in ("ms", "plain_ms", "bound_ms"):
+        entry[key] += site[key]
+    if site["library_ms"] is not None:
+        entry["library_ms"] = (entry["library_ms"] or 0.0) + site["library_ms"]
+    entry["sites"].append(site)
     entry["bound_by"] = max(entry["sites"], key=lambda e: e["bound_ms"])["bound_by"]
-    return bound_ms, bound_by
 
 
 def profile_kernels(torch, step, steps):
@@ -451,7 +515,7 @@ def profile_kernels(torch, step, steps):
     return wall_ms, rows, prof
 
 
-def log_step_profile(torch, step, label, per_batch, steps=5, top=8):
+def log_step_profile(torch, step, label, per_batch, steps=5, top=8, phase="phase 5"):
     """Where one step's device time goes: torch.profiler's CUDA kernel rows
     over `steps` steps, against their wall time (host clock, synchronized),
     and the int8 convs' time summed; raises if an int8 conv ran outside
@@ -459,23 +523,23 @@ def log_step_profile(torch, step, label, per_batch, steps=5, top=8):
     (`per_batch`)."""
     wall_ms, rows, prof = profile_kernels(torch, step, steps)
     if not rows:
-        log("phase 5: [{}] profile of the step: the profiler recorded no kernel time (device split not measured)"
+        log(phase + ": [{}] profile of the step: the profiler recorded no kernel time (device split not measured)"
             .format(label))
         return
     busy = sum(r[0] for r in rows)
-    log("phase 5: [{}] profile of the step: {:.2f} ms wall (profiled), {:.2f} ms of kernels, device idle {:.1%}"
+    log(phase + ": [{}] profile of the step: {:.2f} ms wall (profiled), {:.2f} ms of kernels, device idle {:.1%}"
         .format(label, wall_ms, busy, 1 - busy / wall_ms))
     for ms, count, key in rows[:top]:
-        log("phase 5: [{}]   {:8.3f} ms/step {:4d} launches  {}".format(label, ms, count, key[:100]))
+        log(phase + ": [{}]   {:8.3f} ms/step {:4d} launches  {}".format(label, ms, count, key[:100]))
     convs = [r for r in rows if INT8_CONV.search(r[2])]
     outside = [r[2] for r in convs if SM90 not in r[2]]
     if outside:
         raise AssertionError("[{}] int8 convs outside {}: {}".format(label, SM90, outside))
-    log("phase 5: [{}]   int8 convs, all on int8_conv_sm90.cuh ({}): {:.3f} ms/step, {} launches, {} kernels".format(
+    log(phase + ": [{}]   int8 convs, all on int8_conv_sm90.cuh ({}): {:.3f} ms/step, {} launches, {} kernels".format(
         label, SM90, sum(r[0] for r in convs), sum(r[1] for r in convs), len(convs)))
     mine = [r for r in rows if SM90 + "tail_kernel" in r[2]]
     if mine:
-        log("phase 5: [{}]   K6/K7/K9 by kernel name (tail_kernel): {:.3f} ms/step, {} launches".format(
+        log(phase + ": [{}]   K6/K7/K9 by kernel name (tail_kernel): {:.3f} ms/step, {} launches".format(
             label, sum(r[0] for r in mine), sum(r[1] for r in mine)))
     for name, pattern in UP_KERNELS:
         mine = [r for r in rows if pattern.search(r[2])]
@@ -483,7 +547,7 @@ def log_step_profile(torch, step, label, per_batch, steps=5, top=8):
             raise AssertionError("[{}] {} up_kernel launches per step, expected {}".format(
                 label, sum(r[1] for r in mine), per_batch.get(name, 0)))
         if mine:
-            log("phase 5: [{}]   {} by kernel name (up_kernel, {}): {:.3f} ms/step, {} launches".format(
+            log(phase + ": [{}]   {} by kernel name (up_kernel, {}): {:.3f} ms/step, {} launches".format(
                 label, name, "parity planes" if name == "K8" else "NHWC", sum(r[0] for r in mine),
                 sum(r[1] for r in mine)))
     # K4 by kernel name and launch order: the convs in the order they ran.
@@ -491,7 +555,7 @@ def log_step_profile(torch, step, label, per_batch, steps=5, top=8):
                     and "rs::sm90::conv_kernel" in e.name), key=lambda e: e.time_range.start)
     blocks = [convs[i - 1:i + 3] for i, e in enumerate(convs) if i >= 1 and K4_CONV2.search(e.name)]
     if blocks:
-        log("phase 5: [{}]   K4 by kernel name (conv1, stride-2 conv2, stride-2 projection, conv3): {:.3f} ms/step, "
+        log(phase + ": [{}]   K4 by kernel name (conv1, stride-2 conv2, stride-2 projection, conv3): {:.3f} ms/step, "
             "{} blocks, {} launches".format(label, sum(e.time_range.elapsed_us() for b in blocks for e in b) / 1e3 / steps,
                                             len(blocks) // steps, sum(map(len, blocks)) // steps))
 
@@ -518,13 +582,13 @@ def write_tiles(root, seed):
 
 def wrappers():
     """Each kernel's wrapper, whose `.launches` counts its launches."""
-    from robosat_tpu_torch.models import qdec, qenc, qtail
+    from robosat_tpu_torch.models import qconv, qdec, qenc, qtail
     from robosat_tpu_torch.ops import head, head_rungs, int8_mm
 
     return {"K1": head.margin_head, "K2": int8_mm.int8_matmul_requant, "K3": qenc.bottleneck_block,
             "K4": qenc.bottleneck_block_s2, "K5": qdec.parity_up_conv, "K6": qtail.fused_tail,
             "K7": qtail.fused_tail_features, "K8": qdec.parity_up_conv_separated,
-            "K9": qtail.fused_tail_features_sep, "K10": head_rungs.head_rung}
+            "K9": qtail.fused_tail_features_sep, "K10": head_rungs.head_rung, "int8_conv": qconv.int8_conv}
 
 
 def predict_args(work, tiles_dir, probs, model_toml, checkpoint, **flags):
@@ -777,6 +841,16 @@ def run(torch, work, seed, smi):
     for path in ("qat-contract", "qat-predict"):
         for name, c in by_path[path].items():
             launches[name] += c
+
+    # ---- phase 8: the fast family, in a process of its own -----------------
+    torch.cuda.empty_cache()
+    fast = run_fast_process(work)
+    for name, entry in fast["per_kernel"].items():
+        for site in entry["sites"]:
+            add_site(per_kernel, name, site)
+    for name, c in fast["launches"].items():
+        launches[name] += c
+    by_path.update(fast["by_path"])
 
     return [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
@@ -1304,7 +1378,7 @@ def train_tool(torch, work, seed, counted, launches, by_path, smi):
     for line in open(os.path.join(ckpt_dir, "log")).read().splitlines():
         log("phase 6: [6c] log | {}".format(line))
 
-    checkpoint = os.path.join(ckpt_dir, "checkpoint-00002-of-00002.npz")
+    checkpoint = tool_checkpoint_path(work)
     counts, pngs, wall, n_batches = predict_training_tiles(root, os.path.join(work, "probs-trained"), checkpoint,
                                                            counted, "6c predict")
     by_path["train-predict"] = counts
@@ -1315,19 +1389,20 @@ def train_tool(torch, work, seed, counted, launches, by_path, smi):
     return checkpoint
 
 
-def predict_training_tiles(root, probs, checkpoint, counted, label):
-    """int8 `predict` as configured over the training tiles of the dataset
-    at `root` from `checkpoint`, every launch count set to 0 just before and
-    read just after: one palette PNG of TILE px per tile, and per batch 13
-    K3, 3 K4, 5 K5 and 1 K6 launches. Returns (the nonzero launch counts,
-    PNGs, seconds, batches)."""
+def predict_training_tiles(root, probs, checkpoint, counted, label, model_toml=None, per_batch=None):
+    """int8 `predict` as configured (config/model-unet.toml, or `model_toml`)
+    over the training tiles of the dataset at `root` from `checkpoint`,
+    every launch count set to 0 just before and read just after: one
+    palette PNG of TILE px per tile, and per batch the launches of
+    `per_batch` (default the U-Net's: 13 K3, 3 K4, 5 K5 and 1 K6). Returns
+    (the nonzero launch counts, PNGs, seconds, batches)."""
     from PIL import Image
 
     from robosat_tpu_torch.tools import predict
 
     tiles = TRAIN_TILES_SIDE ** 2
     pargs = predict_args(None, os.path.join(root, "training", "images"), probs,
-                         os.path.join(ROOT, "config", "model-unet.toml"), checkpoint)
+                         model_toml or os.path.join(ROOT, "config", "model-unet.toml"), checkpoint)
     n_batches = -(-tiles // BATCH)
     for fn in counted.values():
         fn.launches = 0
@@ -1335,7 +1410,7 @@ def predict_training_tiles(root, probs, checkpoint, counted, label):
     out = predict.main(pargs)
     wall = time.perf_counter() - start
     counts = {name: fn.launches for name, fn in counted.items()}
-    expected = {name: PATHS[0][3].get(name, 0) * n_batches for name in counted}
+    expected = {name: (per_batch or PATHS[0][3]).get(name, 0) * n_batches for name in counted}
     if counts != expected or out["tiles"] != tiles:
         raise AssertionError("{}: {} tiles, launch counts {} != expected {}".format(label, out["tiles"], counts,
                                                                                    expected))
@@ -1605,37 +1680,9 @@ def configured_qat_distill_steps(torch, seed, smi, trained, counted):
     results = {}
 
     def timed(label, params, state, step, extra):
-        torch.cuda.synchronize()
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        losses, events = [], []
-        for _ in range(TRAIN_STEPS):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            state, loss, _ = step(params, state, *extra, images, masks, gen)
-            end.record()
-            losses.append(loss)
-            events.append((start, end))
-        torch.cuda.synchronize()
-        losses = [float(v) for v in losses]
-        step_ms = [a.elapsed_time(b) for a, b in events]
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
-            raise AssertionError("7b {}: {} losses {}".format(label, opt["loss"], losses))
-        median_ms = float(np.median(step_ms[2:]))
-        log("phase 7: [7b {}] {} {} batch {} at {} px, augmentation on: {} losses {}".format(
-            label, smi, str(dtype)[6:], batch, size, opt["loss"], ["{:.5f}".format(v) for v in losses]))
-        log("phase 7: [7b {}] step ms by CUDA events {}; median over steps 3-{} {:.2f} ms = {:.1f} images/s; "
-            "max_memory_allocated {:.2f} GB".format(label, ["{:.2f}".format(v) for v in step_ms], TRAIN_STEPS,
-                                                    median_ms, batch / median_ms * 1e3, peak_gb))
-        holder = {"state": state}
-
-        def one_step():
-            holder["state"], _, _ = step(params, holder["state"], *extra, images, masks, gen)
-
-        idle = log_train_profile(torch, "phase 7: [7b {}]".format(label), one_step, QAT_KERNEL_GROUPS)
-        results[label] = {"median_ms": median_ms, "images_per_s": batch / median_ms * 1e3, "peak_gb": peak_gb,
-                          "idle": idle, "first_loss": losses[0], "last_loss": losses[-1]}
-        return holder["state"]
+        results[label], state = time_train_steps(torch, "phase 7: [7b {}]".format(label), step, params, state, extra,
+                                                 images, masks, seed, opt["loss"], dtype, QAT_KERNEL_GROUPS, smi)
+        return state
 
     # QAT from the trained weights; batch norm stays frozen.
     torch.cuda.empty_cache()
@@ -1912,6 +1959,434 @@ def run_probes(torch, device, seed, counted, per_kernel, smi):
                 "({})".format(label, rung, tuple(x.shape), tuple(got.shape), detail, ms,
                               nbytes(*args, got) / ms / 1e6, plain_ms, bound_ms, bound_by))
     return {name: c for name, c in counts.items() if c}
+
+
+def tool_checkpoint_path(work):
+    """The U-Net checkpoint phase 6c's second epoch writes under `work`."""
+    return os.path.join(work, "train-checkpoints", "checkpoint-00002-of-00002.npz")
+
+
+def run_fast_process(work):
+    """The full run's phase 8 in a process of its own (`--fast --fast-from
+    work`), its output going to this one's: late in one long process
+    torch.profiler drops kernel events (phase 8's device times read "not
+    measured", its step profile counts missing launches), and a fresh
+    process profiles as `--fast` does. Returns the results it wrote
+    (per-kernel sites, launches, launches by path); raises if it failed."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--fast", "--fast-from", work]
+    proc = subprocess.run(cmd, timeout=900, check=False)
+    if proc.returncode != 0:
+        raise AssertionError("phase 8 ({}) exited with {}".format(" ".join(cmd[1:]), proc.returncode))
+    with open(os.path.join(work, "fast.json")) as f:
+        return json.load(f)
+
+
+def run_fast(torch, work, seed, smi, counted, launches, by_path, per_kernel, unet_checkpoint=None, train_root=None):
+    """Phase 8: the fast family on config/model-fast.toml as it stands,
+    weights from `fastnet.init(seed)`: 8a its kernels against their plain
+    versions at full width, 8b the predict paths, 8c the configured train
+    steps, 8d the tools. `unet_checkpoint` (phase 6c's) teaches 8d's
+    student, and `train_root` (6c's dataset) is its dataset; without them
+    (`--fast`) a checkpoint of `unet.init(seed)` and a new dataset stand in.
+    Adds the launches of 8b's int8 path and 8d's predict to `launches` and
+    `by_path`, and the kernels' sites to `per_kernel`."""
+    from robosat_tpu_torch.checkpoint import save_checkpoint, to_jax
+    from robosat_tpu_torch.device import configure_device
+    from robosat_tpu_torch.models import fastnet, unet
+
+    configure_device(True)
+    tiles_dir = os.path.join(work, "tiles-fast")
+    tiles = write_tiles(tiles_dir, seed)  # phase 5's tiles
+    params, state = fastnet.init(seed, num_classes=2)
+    checkpoint = os.path.join(work, "fast.npz")
+    save_checkpoint(checkpoint, {"params": to_jax(params), "state": to_jax(state)}, meta={"epoch": 0})
+    fast_kernels(torch, work, tiles_dir, checkpoint, per_kernel, smi)
+    torch.cuda.empty_cache()
+    fast_predict_paths(torch, work, tiles_dir, tiles, checkpoint, counted, launches, by_path, smi)
+    torch.cuda.empty_cache()
+    fast_train_steps(torch, seed, smi)
+    torch.cuda.empty_cache()
+    if train_root is None:
+        train_root = os.path.join(work, "slippy")
+        write_training_set(train_root, seed)
+        u_params, u_state = unet.init(seed)
+        unet_checkpoint = os.path.join(work, "unet-teacher.npz")
+        save_checkpoint(unet_checkpoint, {"params": to_jax(u_params), "state": to_jax(u_state)}, meta={"epoch": 1})
+    fast_tools(torch, work, train_root, unet_checkpoint, counted, launches, by_path, smi)
+
+
+class SiteInputs:
+    """A conv-site cursor of the float calibration walk (int8._Sites) that
+    also keeps each site's input, in `dtype` (bf16: as the int8 walk gets it)."""
+
+    def __init__(self, sites, dtype):
+        self.sites, self.dtype, self.inputs = sites, dtype, []
+
+    def next_scale(self, x):
+        self.inputs.append(x.to(self.dtype))
+        return self.sites.next_scale(x)
+
+
+def fast_kernels(torch, work, tiles_dir, checkpoint, per_kernel, smi):
+    """Phase 8a: config/model-fast.toml's first predict batch (8 host-blocked
+    576-px tiles) through the float32 calibration walk, which keeps every
+    site's input; then rs_int8_conv at the 12 dense sites and K5 at u3, u2
+    and u1 on those inputs with the calibrated scales, each against its
+    plain version (bf16 bit-equal) and timed as phase 3 times its kernels."""
+    from robosat_tpu_torch.checkpoint import load_model_checkpoint
+    from robosat_tpu_torch.config import load_config
+    from robosat_tpu_torch.data.loader import batches
+    from robosat_tpu_torch.models import fastnet, qconv, qdec
+    from robosat_tpu_torch.models import int8 as q8
+    from robosat_tpu_torch.parallel.steps import _normalize_s2d4
+    from robosat_tpu_torch.tools import predict
+
+    common = load_config(FAST_TOML)["common"]
+    pargs = predict_args(work, tiles_dir, None, FAST_TOML, checkpoint)
+    directory, _ = predict.input_directory(pargs, predict.host_s2d_input(common, pargs))
+    raw48 = next(iter(batches(directory, BATCH, workers=2))).arrays[0]
+    side = (TILE + 2 * OVERLAP) // 4
+    if raw48.shape != (BATCH, side, side, 48):
+        raise AssertionError("phase 8: first batch has shape {}".format(raw48.shape))
+    params, state, _ = load_model_checkpoint(checkpoint, device=torch.device("cuda"))
+    percentile = q8.calibration_spec(common.get("int8_calibration", 99.8))
+    with torch.no_grad():
+        folded = fastnet.fold(params, state)
+        x48 = _normalize_s2d4(torch.as_tensor(raw48).cuda())
+        walk = SiteInputs(q8._Sites(scales=None, percentile=percentile), torch.bfloat16)
+        fastnet._walk48_sites(folded, x48.float(), walk, float_mode=True)
+        amaxes = torch.stack(walk.sites.taps).float().cpu()
+        if not torch.equal(amaxes, fastnet.calibration_amaxes_int8(folded, x48, blocked=True, percentile=percentile)):
+            raise AssertionError("phase 8: the calibration walk is not reproducible on the card")
+        scales = [float(v) for v in q8.scales_from_amaxes(amaxes)]
+        qtree = fastnet.quantize_folded_int8(folded)
+        fastnet.prepare_int8(qtree, scales)
+    del params, state, folded, x48
+    log("phase 8: [8a] float32 calibration of {} sites on {} x {} (int8_calibration = {})".format(
+        len(scales), BATCH, raw48.shape[1:], common.get("int8_calibration")))
+    with torch.no_grad():
+        for i, name in enumerate(fastnet._ENC + fastnet._DEC):
+            x = walk.inputs[i]
+            if name in FAST_DENSE:
+                stride, dilation, epilogue = FAST_DENSE[name]
+                kname, kernel, plain = "int8_conv", qconv.int8_conv, qconv.int8_conv_plain
+                kargs = (x, qtree[name], scales[i], stride, dilation, ((dilation, dilation),) * 2 if dilation > 1
+                         else "SAME", epilogue)
+            else:
+                kname, kernel, plain = "K5", qdec.parity_up_conv, qdec.parity_up_conv_plain
+                kargs = (x, qtree[name], scales[i])
+            got, ref = kernel(*kargs), plain(*kargs)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            if got.shape != ref.shape or not torch.equal(got, ref):
+                raise AssertionError("phase 8: {} {}: {} vs plain {}, max |diff| {}".format(
+                    kname, name, tuple(got.shape), tuple(ref.shape), err))
+            arg_sets = rotated(torch, kargs)
+            ms = cuda_ms(torch, kernel, arg_sets, 20)
+            dev_ms = device_ms(torch, kernel, arg_sets, 20)
+            plain_ms = cuda_ms(torch, plain, arg_sets, 2)
+            del arg_sets
+            cost = site_work(kname, kargs, got)
+            tops = cost[1] / (dev_ms or ms) / 1e9
+            bound_ms, bound_by = record(per_kernel, kname, name + " (fast)", x.shape, err, ms, plain_ms, cost,
+                                        device_ms=dev_ms, tops=tops)
+            log("phase 8: [8a] {} {} {} -> {}: bit-equal; kernel {:.4f} ms (events), {} (device), {:.1f} TOP/s "
+                "({:.1%} of 1979), plain {:.3f} ms, bound {:.4f} ms ({}); {}".format(
+                    kname, name, tuple(x.shape), tuple(got.shape), ms,
+                    "not measured" if dev_ms is None else "{:.4f} ms".format(dev_ms), tops, tops / 1979, plain_ms,
+                    bound_ms, bound_by, smi))
+    del walk, qtree, got, ref
+
+
+def fast_predict_paths(torch, work, tiles_dir, tiles, checkpoint, counted, launches, by_path, smi):
+    """Phase 8b: `predict.main` with config/model-fast.toml as it stands
+    (int8, host-blocked input, 16-channel blocked output) and with
+    `int8 = false` (bf16, fine input), each through a TOML copy in the
+    work directory, every launch count set to 0 just before and read just
+    after: 64 palette PNGs, 12 rs_int8_conv and 3 K5 launches a batch on
+    the int8 path and none on the bf16 one, steady tiles/s; then the first
+    batch through the kernels against the plain step (+-1 bin on <= 0.1% of
+    pixels) and equal to the PNGs written, the step by CUDA events, and a
+    profile of the step."""
+    from PIL import Image
+
+    from robosat_tpu_torch.checkpoint import load_model_checkpoint
+    from robosat_tpu_torch.config import load_config, save_config
+    from robosat_tpu_torch.data.loader import batches
+    from robosat_tpu_torch.models import fastnet
+    from robosat_tpu_torch.models import int8 as q8
+    from robosat_tpu_torch.parallel.steps import make_int8_predict_step, make_predict_step
+    from robosat_tpu_torch.tools import predict
+
+    base = load_config(FAST_TOML)
+    params, state, _ = load_model_checkpoint(checkpoint, device=torch.device("cuda"))
+    pngs_by_path = {}
+    for label, keys, per_batch in FAST_PATHS:
+        config = {**base, "common": {**base["common"], **keys}}
+        model_toml = os.path.join(work, "model-{}.toml".format(label))
+        save_config(config, model_toml)
+        probs = os.path.join(work, "probs-{}".format(label))
+        pargs = predict_args(work, tiles_dir, probs, model_toml, checkpoint)
+        host_s2d = predict.host_s2d_input(config["common"], pargs)
+        directory, _ = predict.input_directory(pargs, host_s2d)
+        first = next(iter(batches(directory, BATCH, workers=2)))
+        n_batches = -(-len(directory) // BATCH)
+        for fn in counted.values():
+            fn.launches = 0
+        start = time.perf_counter()
+        out = predict.main(pargs)
+        wall = time.perf_counter() - start
+        counts = {name: fn.launches for name, fn in counted.items()}
+        expected = {name: per_batch.get(name, 0) * n_batches for name in counted}
+        if counts != expected or out["tiles"] != len(tiles):
+            raise AssertionError("[{}] {} tiles, launch counts {} != expected {}".format(label, out["tiles"], counts,
+                                                                                       expected))
+        by_path[label] = {name: c for name, c in counts.items() if c}
+        for name, c in by_path[label].items():
+            launches[name] += c
+        steady = len(tiles) - len(first.meta)
+        log("phase 8: [8b {}] predict wrote {} tiles in {:.2f} s; steady {:.2f} tiles/s over {} tiles ({:.3f} s) on "
+            "{}; {} batches of {} x {}; host-blocked input {}; launches {}".format(
+                label, out["tiles"], wall, steady / out["steady_s"], steady, out["steady_s"], smi, n_batches, BATCH,
+                first.arrays[0].shape[1:], host_s2d, by_path[label]))
+        for x, y, z in tiles:
+            img = Image.open(os.path.join(probs, str(z), str(x), "{}.png".format(y)))
+            img.load()
+            if img.mode != "P" or img.size != (TILE, TILE):
+                raise AssertionError("[{}] tile {}: {} {}".format(label, (x, y, z), img.mode, img.size))
+        pngs_by_path[label] = read_pngs(probs, tiles)
+
+        raw = first.arrays[0]
+        if config["common"].get("int8", False):
+            step, qt = make_int8_predict_step(fastnet, params, state, raw, overlap=OVERLAP, host_s2d=host_s2d,
+                                              calib_percentile=q8.calibration_spec(config["common"]["int8_calibration"]))
+
+            def run_step(plain=False, step=step, qt=qt, raw=raw):
+                return step(qt, raw, plain=plain)
+        else:
+            float_step = make_predict_step(fastnet, overlap=OVERLAP, compute_dtype=torch.bfloat16, fused_head=True,
+                                           host_s2d=host_s2d)
+
+            def run_step(plain=False, float_step=float_step, raw=raw):
+                return float_step(params, state, raw, plain=plain)
+        got = run_step()
+        start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start_ev.record()
+        ref = run_step(plain=True)
+        end_ev.record()
+        torch.cuda.synchronize()
+        step_ms = cuda_ms(torch, run_step, [()], 5)
+        flips, err = u8_flips(torch, got, ref)
+        fine = fine_u8(got)
+        if fine.shape != (BATCH, TILE, TILE) or err > 1 or flips > MAX_FLIP_SHARE * got.numel():
+            raise AssertionError("[{}] step {}: {} flipped bins vs the plain path (max distance {})".format(
+                label, tuple(got.shape), flips, err))
+        written = read_pngs(probs, [tuple(t) for t in first.meta])
+        if not np.array_equal(written, fine):
+            raise AssertionError("[{}] predict's PNGs differ from the step's output on {} pixels".format(
+                label, int((written != fine).sum())))
+        log("phase 8: [8b {}] batch {} -> {} through the kernels vs the plain path: {} of {} bins flipped by 1; "
+            "step {:.2f} ms with kernels (CUDA events), {:.2f} ms plain; PNGs match the kernel step".format(
+                label, raw.shape, tuple(got.shape), flips, got.numel(), step_ms, start_ev.elapsed_time(end_ev)))
+        log_step_profile(torch, run_step, label, per_batch, phase="phase 8")
+        del run_step, got, ref
+        torch.cuda.empty_cache()
+    flips, err = u8_flips(torch, torch.from_numpy(pngs_by_path["fast-int8"]), torch.from_numpy(pngs_by_path["fast-bf16"]))
+    log("phase 8: [8b] int8 PNGs vs the bf16 run's (counted only: random weights, another datapath): {} of {} pixels "
+        "differ, max distance {}".format(flips, pngs_by_path["fast-int8"].size, err))
+
+
+def time_train_steps(torch, prefix, step, params, state, extra, images, masks, seed, loss_name, dtype, groups, smi):
+    """TRAIN_STEPS steps of `step` on one batch (losses finite, the last
+    below the first), each timed by CUDA events, then a profile of
+    PROFILE_STEPS more (kernels by `groups`); logs after `prefix` and
+    returns (numbers, the final state)."""
+    batch, size = images.shape[0], images.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    losses, events = [], []
+    for _ in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss, _ = step(params, state, *extra, images, masks, gen)
+        end.record()
+        losses.append(loss)
+        events.append((start, end))
+    torch.cuda.synchronize()
+    losses = [float(v) for v in losses]
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError("{}: {} losses {}".format(prefix, loss_name, losses))
+    median_ms = float(np.median(step_ms[2:]))
+    log("{} {} {} batch {} at {} px, augmentation on: {} losses {}".format(
+        prefix, smi, str(dtype)[6:], batch, size, loss_name, ["{:.5f}".format(v) for v in losses]))
+    log("{} step ms by CUDA events {}; median over steps 3-{} {:.2f} ms = {:.1f} images/s; "
+        "max_memory_allocated {:.2f} GB".format(prefix, ["{:.2f}".format(v) for v in step_ms], TRAIN_STEPS, median_ms,
+                                                batch / median_ms * 1e3, peak_gb))
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], _, _ = step(params, holder["state"], *extra, images, masks, gen)
+
+    idle = log_train_profile(torch, prefix, one_step, groups)
+    return {"median_ms": median_ms, "images_per_s": batch / median_ms * 1e3, "peak_gb": peak_gb, "idle": idle,
+            "first_loss": losses[0], "last_loss": losses[-1]}, holder["state"]
+
+
+def fast_train_steps(torch, seed, smi):
+    """Phase 8c: config/model-fast.toml's train steps as it stands (bf16,
+    its loss, batch 64 at 512 px, augmentation on) on one learnable batch:
+    the plain step from `fastnet.init`, distillation of `fastnet.init` by a
+    folded `unet.init` teacher (alpha 0.9, T 2), and QAT from the plain
+    step's weights with the config's calibration on that batch (the state
+    returned unchanged). Returns the numbers."""
+    from robosat_tpu_torch import optim
+    from robosat_tpu_torch.checkpoint import from_jax, to_jax
+    from robosat_tpu_torch.config import load_config
+    from robosat_tpu_torch.models import fastnet, unet
+    from robosat_tpu_torch.models import int8 as q8
+    from robosat_tpu_torch.ops.augment import normalize
+    from robosat_tpu_torch.ops.losses import get_loss
+    from robosat_tpu_torch.parallel.steps import make_distill_train_step, make_qat_train_step, make_train_step
+
+    config = load_config(FAST_TOML)
+    common, opt = config["common"], config["opt"]
+    batch, size = common["batch_size"], common["image_size"]
+    dtype = torch.bfloat16 if common.get("bf16", False) else torch.float32
+    weight = PARKING_WEIGHTS if opt["loss"] != "Lovasz" else None
+    loss_fn = get_loss(opt["loss"])
+    images, masks = learnable_batches(np.random.default_rng(seed + 8), 1, batch, size)[0]
+    images, masks = torch.from_numpy(images).pin_memory(), torch.from_numpy(masks).pin_memory()
+    params0, state0 = fastnet.init(seed)
+    results = {}
+
+    def fresh():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return from_jax(to_jax(params0), to_jax(state0), "cuda")
+
+    params, state = fresh()
+    step = make_train_step(fastnet, loss_fn, optim.adam(params, opt["lr"]), weight=weight, compute_dtype=dtype)
+    results["plain"], state = time_train_steps(torch, "phase 8: [8c plain]", step, params, state, (), images, masks,
+                                               seed, opt["loss"], dtype, TRAIN_KERNEL_GROUPS, smi)
+    trained = {"params": params, "state": state}
+    del step
+
+    t_params, t_state = unet.init(seed)
+    with torch.no_grad():
+        teacher = unet.fold(*from_jax(to_jax(t_params), to_jax(t_state), "cuda"))
+    params, state = fresh()
+    step = make_distill_train_step(fastnet, unet, loss_fn, optim.adam(params, opt["lr"]), weight=weight,
+                                   compute_dtype=dtype)
+    results["distillation"], _ = time_train_steps(torch, "phase 8: [8c distillation]", step, params, state,
+                                                  (teacher,), images, masks, seed, opt["loss"], dtype,
+                                                  TRAIN_KERNEL_GROUPS, smi)
+    del step, teacher, params, state
+
+    with torch.no_grad():
+        amaxes = fastnet.calibration_amaxes_int8(fastnet.fold(trained["params"], trained["state"]),
+                                                 normalize(images.cuda()),
+                                                 percentile=q8.calibration_spec(common.get("int8_calibration", 99.8)))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, state = trained["params"], trained["state"]
+    step = make_qat_train_step(fastnet, loss_fn, optim.adam(params, opt["lr"]), list(q8.scales_from_amaxes(amaxes)),
+                               weight=weight, compute_dtype=dtype)
+    results["QAT"], returned = time_train_steps(torch, "phase 8: [8c QAT]", step, params, state, (), images, masks,
+                                                seed, opt["loss"], dtype, QAT_KERNEL_GROUPS, smi)
+    if returned is not state:
+        raise AssertionError("8c QAT: the step did not return the state it was given")
+    log("phase 8: [8c] {}".format(json.dumps(results)))
+    return results
+
+
+def fast_tools(torch, work, root, unet_checkpoint, counted, launches, by_path, smi):
+    """Phase 8d, on the dataset at `root` (TOML copies with batch
+    TOOL_BATCH): `train --model config/model-fast.toml --teacher
+    <unet_checkpoint> --teacher_model config/model-unet.toml` for one epoch,
+    `--resume` to epoch 2, `train --qat` for one epoch from that checkpoint,
+    then int8 `predict` from the QAT checkpoint over the training tiles,
+    which must quantize with its 15 qat_amaxes and calibrate nothing (12
+    rs_int8_conv and 3 K5 launches a batch)."""
+    from robosat_tpu_torch.checkpoint import load_checkpoint
+    from robosat_tpu_torch.config import load_config, save_config
+    from robosat_tpu_torch.models import fastnet
+    from robosat_tpu_torch.tools import predict, train
+
+    base = load_config(FAST_TOML)
+    dataset = load_config(os.path.join(ROOT, "config", "dataset-parking.toml"))
+    dataset["common"]["dataset"] = root
+    dataset_toml = os.path.join(work, "dataset-fast.toml")
+    save_config(dataset, dataset_toml)
+    steps = TRAIN_TILES_SIDE ** 2 // TOOL_BATCH
+    distill_dir, qat_dir = os.path.join(work, "train-fast"), os.path.join(work, "train-fast-qat")
+    teacher = {"teacher": unet_checkpoint, "teacher_model": os.path.join(ROOT, "config", "model-unet.toml")}
+    runs = (("--teacher", distill_dir, 1, dict(teacher)),
+            ("--teacher --resume", distill_dir, 2,
+             dict(teacher, checkpoint=os.path.join(distill_dir, "checkpoint-00001-of-00001.npz"), resume=True)),
+            ("--qat", qat_dir, 1, {"qat": True, "checkpoint": os.path.join(distill_dir, "checkpoint-00002-of-00002.npz")}))
+    params_keys = set(fastnet._ENC + fastnet._DEC + ("final",)) | {name + "_bn" for name in fastnet._ENC}
+    for i, (label, ckpt_dir, epochs, flags) in enumerate(runs):
+        config = {**base, "common": {**base["common"], "batch_size": TOOL_BATCH, "checkpoint": ckpt_dir},
+                  "opt": {**base["opt"], "epochs": epochs}}
+        model_toml = os.path.join(work, "model-fast-train-{}.toml".format(i))
+        save_config(config, model_toml)
+        args = argparse.Namespace(model=model_toml, dataset=dataset_toml, checkpoint=None, resume=False, workers=4,
+                                  profile=None, teacher=None, teacher_model=None, distill_alpha=0.9, distill_temp=2.0,
+                                  qat=False)
+        for key, value in flags.items():
+            setattr(args, key, value)
+        start = time.perf_counter()
+        out = train.main(args)
+        wall = time.perf_counter() - start
+        name = "checkpoint-{:05d}-of-{:05d}.npz".format(epochs, epochs)
+        trees, meta = load_checkpoint(os.path.join(ckpt_dir, name))
+        lines = open(os.path.join(ckpt_dir, "log")).read().splitlines()
+        want_line = ("QAT finetune: 15 int8 sites, int8_calibration = {} (frozen)".format(
+            base["common"].get("int8_calibration")) if label == "--qat"
+            else "Distilling from: {} (alpha 0.9, T 2.0)".format(unet_checkpoint))
+        count = int(trees["opt_state"][0])
+        want_count = 2 * steps if label == "--teacher --resume" else steps
+        if out["steps"] != steps or count != want_count or want_line not in lines \
+                or ("qat_amaxes" in meta) != (label == "--qat") or set(trees["params"]) != params_keys:
+            raise AssertionError("8d {}: steps {}, count {}, meta {}, log {}".format(label, out["steps"], count,
+                                                                                   sorted(meta), lines))
+        log("phase 8: [8d] train {}: {} steps in {:.2f} s on {}; {} (opt_state count {}); {}".format(
+            label, out["steps"], wall, smi, name, count, want_line))
+    qat_checkpoint = os.path.join(qat_dir, "checkpoint-00001-of-00001.npz")
+    qat_amaxes = load_checkpoint(qat_checkpoint)[1]["qat_amaxes"]
+    if len(qat_amaxes) != 15 or not all(a > 0 and math.isfinite(a) for a in qat_amaxes):
+        raise AssertionError("8d: qat_amaxes {}".format(qat_amaxes))
+
+    seen = {"calibrations": 0, "calib_amaxes": None}
+    real_calibration, real_step = fastnet.calibration_amaxes_int8, predict.make_int8_predict_step
+
+    def calibration(*args, **kwargs):
+        seen["calibrations"] += 1
+        return real_calibration(*args, **kwargs)
+
+    def int8_step(*args, **kwargs):
+        seen["calib_amaxes"] = kwargs.get("calib_amaxes")
+        return real_step(*args, **kwargs)
+
+    fastnet.calibration_amaxes_int8, predict.make_int8_predict_step = calibration, int8_step
+    try:
+        counts, pngs, wall, n_batches = predict_training_tiles(root, os.path.join(work, "probs-fast-qat"),
+                                                               qat_checkpoint, counted, "8d predict",
+                                                               model_toml=FAST_TOML, per_batch=FAST_INT8)
+    finally:
+        fastnet.calibration_amaxes_int8, predict.make_int8_predict_step = real_calibration, real_step
+    if seen["calibrations"] or seen["calib_amaxes"] is None or \
+            not np.array_equal(np.asarray(seen["calib_amaxes"], np.float64), np.asarray(qat_amaxes, np.float64)):
+        raise AssertionError("8d predict: {} calibrations, scales from {}".format(
+            seen["calibrations"], "a calibration" if seen["calib_amaxes"] is None else "other amaxes"))
+    by_path["fast-qat-predict"] = counts
+    for name, c in counts.items():
+        launches[name] += c
+    log("phase 8: [8d] predict (config/model-fast.toml) from the QAT checkpoint: quantized with its 15 qat_amaxes, "
+        "no calibration; {} PNGs in {:.2f} s on {}; launches {} ({} batches)".format(pngs, wall, smi, counts,
+                                                                                      n_batches))
 
 
 if __name__ == "__main__":

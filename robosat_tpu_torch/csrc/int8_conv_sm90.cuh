@@ -1,5 +1,6 @@
-// The Hopper int8 convolutions of kernels K3, K4, K5, K6, K7, K8 and K9:
-// every int8 conv of the port.
+// The Hopper int8 convolutions of kernels K3, K4, K5, K6, K7, K8 and K9,
+// and of rs_int8_conv (qconv.cu, the fast family's dense convs): every
+// int8 conv of the port.
 //
 // The TPU kernels it stands in for are robosat_tpu/models/qenc.py:203
 // (bottleneck_block, stride 1) and :340 (bottleneck_block_s2), both on
@@ -120,8 +121,9 @@ struct Params {
   float inv_in;            // reciprocal scale of a bf16 input
   float inv_out;           // EPI_RELU_Q8: reciprocal scale of the next conv's input
   int n, h, w, cin, cout, cout_pad;
-  int ho, wo;              // output grid of conv_kernel: ((h - 1) / stride + 1, (w - 1) / stride + 1)
-  int k, pad;              // k x k taps, `pad` before the first row and column (conv_kernel's stride is a template parameter)
+  int ho, wo;              // output grid of conv_kernel (conv_params: ((h - 1) / stride + 1, (w - 1) / stride + 1))
+  int k, pad;              // k x k taps, `pad` zero rows before the first row (conv_kernel's stride is a template parameter)
+  int pad_w, dil;          // conv_kernel: zero columns before the first column, the taps' dilation
   int crop;                // EPI_HEAD: overlap crop o on each side of the grid
 };
 
@@ -447,10 +449,15 @@ struct Smem {
 };
 
 // A dense conv of stride STRIDE (1: K3 and K4's 1x1 convs; 2: K4's conv2
-// and projection, which gather input pixel (STRIDE oh + tap row - pad,
-// STRIDE ow + tap column - pad) for output pixel (oh, ow): torch's (1, 1)
-// padding, a zero row above and a zero column to the left of an even
-// grid). Persistent: CTA b computes output tiles b,
+// and projection) and dilation p.dil, which gathers input pixel
+// (STRIDE oh + dil tap row - pad, STRIDE ow + dil tap column - pad_w) for
+// output pixel (oh, ow) and reads zeros outside the input: `pad` rows and
+// `pad_w` columns of zero padding before the grid, and after it as far as
+// the output grid (ho, wo) reaches. K4's stride-2 convs take torch's
+// (1, 1) padding (a zero row above and a zero column to the left of an
+// even grid); rs_int8_conv (qconv.cu) takes any, e.g. XLA's "SAME" at
+// stride 2, (0, 1) on an even grid, or (2, 2) at dilation 2.
+// Persistent: CTA b computes output tiles b,
 // b + gridDim.x, ... (tile t is rows [kBM (t / tiles_n), +kBM) and channels
 // [BN (t % tiles_n), +BN), so the CTAs running side by side share their A
 // tiles through L2). Threads [0, 128): the consumer warpgroup, which
@@ -521,8 +528,8 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(const __grid_constant__ Pa
     auto copy_a = [&](uint32_t dst) {
       const int tap = a_ks / chunks;
       const int c = (a_ks - tap * chunks) * kBK + piece * (16 / (IN_BF16 ? 2 : 1));
-      const int dr = tap / p.k - p.pad;
-      const int dc = tap % p.k - p.pad;
+      const int dr = tap / p.k * p.dil - p.pad;
+      const int dc = tap % p.k * p.dil - p.pad_w;
 #pragma unroll
       for (int i = 0; i < kItems; ++i) {
         const int row = pt / kPieces + kRowsPerPass * i;
@@ -642,7 +649,11 @@ template <int BN, bool IN_BF16, int EPI, int STRIDE>
 int launch(const Params& p, cudaStream_t stream) {
   using S = Smem<BN, IN_BF16>;
   const long long m_total = static_cast<long long>(p.n) * p.ho * p.wo;
-  if (p.ho != (p.h - 1) / STRIDE + 1 || p.wo != (p.w - 1) / STRIDE + 1) return static_cast<int>(cudaErrorInvalidValue);
+  // The last output row's and column's windows start inside the padded input.
+  if (p.ho < 1 || p.wo < 1 || p.dil < 1 || p.pad < 0 || p.pad_w < 0 || (p.ho - 1) * STRIDE - p.pad >= p.h ||
+      (p.wo - 1) * STRIDE - p.pad_w >= p.w) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (m_total + kBM >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   const long long n_tiles = (m_total + kBM - 1) / kBM * ((p.cout + BN - 1) / BN);
   if (n_tiles == 0) return 0;
@@ -666,8 +677,9 @@ int launch_dense(const Params& p, cudaStream_t stream) {
 }
 
 // A k x k conv (k odd) of stride `stride` with k / 2 rows and columns of
-// zero padding before the grid over NHWC x (stride 1: SAME); `wp` packed
-// by qenc.packed_weights as (k * k * ceil(cin / 64), cout_pad * 64).
+// zero padding before the grid over NHWC x (stride 1: SAME), dilation 1;
+// `wp` packed by qenc.packed_weights as (k * k * ceil(cin / 64),
+// cout_pad * 64). rs_int8_conv sets pad, pad_w, dil, ho and wo after it.
 inline Params conv_params(const void* x, const void* wp, const float* scale, const float* bias, void* y, float inv_in,
                           float inv_out, int n, int h, int w, int cin, int cout, int k, int stride = 1) {
   Params p;
@@ -691,6 +703,8 @@ inline Params conv_params(const void* x, const void* wp, const float* scale, con
   p.cout_pad = (cout + 127) / 128 * 128;
   p.k = k;
   p.pad = k / 2;
+  p.pad_w = k / 2;
+  p.dil = 1;
   p.crop = 0;
   return p;
 }

@@ -32,6 +32,8 @@ _SIGNATURES = {
     # x, w, e, b, inv, out, n, h, w, cin, cout, stream
     "rs_parity_up_conv": [_P, _P, _P, _P, _F, _P] + [_I] * 5 + [_P],
     "rs_parity_up_conv_separated": [_P, _P, _P, _P, _F, _P] + [_I] * 5 + [_P],
+    # x, w, e, b, inv, out, n, h, w, cin, cout, k, stride, dil, pad_top, pad_left, ho, wo, epilogue, stream
+    "rs_int8_conv": [_P, _P, _P, _P, _F, _P] + [_I] * 13 + [_P],
     # x, (blocks, table, n_blocks, e) x 2 [dec4, dec5], wmb, inv4, inv5, y4, out, n, h, w, o, stream
     "rs_fused_tail": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _F, _F, _P, _P] + [_I] * 4 + [_P],
     # x, (blocks, table, n_blocks, e) x 2 [dec4, dec5], inv4, inv5, y4, y5, n, h, w (planes: hc, wc), stream

@@ -19,8 +19,11 @@ Counterpart of robosat_tpu/models/int8.py in its per-tensor modes:
 
 `_int8_conv` is the plain version every kernel is held against: quantize
 with the host-f32 reciprocal of the scale, an exact int32 accumulation
-(a float64 conv over the int8 values: |acc| < 2**53), then the f32
+(a float64 conv over the int8 values: |acc| < 2**53) with the JAX
+package's stride, padding, dilation and lhs dilation, then the f32
 epilogue acc * (ws * s) + b as separate roundings and the cast to bf16.
+The fast family (models/fastnet.py) walks its own sites on the same
+quantizers (`_qconv`, `_qkernel`, `_Sites`, `fake_quant_*`).
 
 `calibration_amaxes` and the int8 walk visit conv sites in the same order,
 so the amax vector indexes sites positionally.
@@ -130,15 +133,25 @@ def scaled_ws(node, scale):
     return node["ws"] * float(np.float32(scale))
 
 
-def _int8_acc(xq, wq, stride=1, padding="SAME"):
+def _int8_acc(xq, wq, stride=1, padding="SAME", dilation=1, lhs_dilation=None):
     """Exact int32 conv accumulator of int8 NHWC `xq` with HWIO int8 `wq`
-    (float64 conv: every partial sum is an integer below 2**53)."""
-    return conv_nhwc(xq.double(), wq.double(), stride=stride, padding=padding).to(torch.int32)
+    (float64 conv: every partial sum is an integer below 2**53), in
+    lax.conv_general_dilated's terms: `lhs_dilation` (rows, cols) puts
+    that many minus one zeros between the input's pixels before the
+    padding, `dilation` spaces the kernel's taps."""
+    xd = xq.double()
+    if lhs_dilation is not None and tuple(lhs_dilation) != (1, 1):
+        (dh, dw), (n, h, w, c) = lhs_dilation, xq.shape
+        xd = xd.new_zeros((n, (h - 1) * dh + 1, (w - 1) * dw + 1, c))
+        xd[:, ::dh, ::dw] = xq.double()
+    return conv_nhwc(xd, wq.double(), stride=stride, padding=padding, dilation=dilation).to(torch.int32)
 
 
-def _int8_conv(node, x, scale, stride=1, padding="SAME", compute_dtype=torch.bfloat16):
+def _int8_conv(node, x, scale, stride=1, padding="SAME", lhs_dilation=None, dilation=1,
+               compute_dtype=torch.bfloat16):
     """Quantize x with the static `scale`, int8 conv, dequant (+ bias), cast."""
-    acc = _int8_acc(_quantize_act(x, scale), node["wq"], stride=stride, padding=padding)
+    acc = _int8_acc(_quantize_act(x, scale), node["wq"], stride=stride, padding=padding, dilation=dilation,
+                    lhs_dilation=lhs_dilation)
     y = acc.float() * scaled_ws(node, scale)
     if "b" in node:
         y = y + node["b"]

@@ -11,7 +11,11 @@ to a margin dot with w[:, 1] - w[:, 0]. The heads differ only in layout:
 - `fused_prediction_head_s2d`: the same margin, then the depth-to-space and
   the fine crop -> (N, 2H - 2o, 2W - 2o);
 - `fused_prediction_head_s2d_blocked_sep`: doubly-blocked (N, H, W, 16 * 32)
-  -> (N, H - o/2, W - o/2, 16), channel p288 * 4 + p576, cropped by o/4.
+  -> (N, H - o/2, W - o/2, 16), channel p288 * 4 + p576, cropped by o/4;
+- `fused_prediction_head_subpixel` (the fast family's head, no kernel):
+  coarse features (N, h, w, 128) and 16 margin vectors -> (N, h - o/2,
+  w - o/2, 16) in the "sep" channel layout; `interleave_subpixel_u8` gives
+  its fine grid.
 
 These are plain PyTorch (any device); their margins sum in the order XLA
 compiles the JAX package's heads to (`_margin`), so their bins equal the
@@ -130,6 +134,37 @@ def fused_prediction_head_s2d_blocked_sep(features, w, b, overlap=0):
     p288 * 4 + p576, cropped by overlap/4 before the margin."""
     assert overlap % 4 == 0, "doubly-blocked head crops on the coarse-coarse grid"
     return _blocked_head(features, w, b, 16, overlap // 4)
+
+
+def fused_prediction_head_subpixel(features, w, b, overlap=0, block=4):
+    """The fast family's learned sub-pixel head on coarse features
+    (N, h, w, C) -> (N, h - 2o, w - 2o, block^2) uint8 with o = overlap /
+    block, channel = sub-pixel position: per position the margin of the
+    head's two classes (w's channel position * 2 + class) as one float32
+    (C, block^2) matrix product (TF32 off: device.configure_device), the
+    sigmoid and the exact digitize. The JAX package computes it in XLA too;
+    K1 does not serve it (one margin weight vector per group there, 16 over
+    the same channels here)."""
+    n, h, w_, cin = features.shape
+    p2 = block * block
+    assert overlap % block == 0, "sub-pixel head crops on the coarse grid"
+    w2 = w.reshape(cin, p2, 2)
+    b2 = b.reshape(p2, 2)
+    wm = (w2[:, :, 1] - w2[:, :, 0]).float()
+    bm = (b2[:, 1] - b2[:, 0]).float()
+    margin = torch.matmul(_crop(features, overlap // block).float(), wm) + bm
+    return _to_u8(_digitize_exact(torch.sigmoid(margin)))
+
+
+def interleave_subpixel_u8(blocked, block=4):
+    """(N, h, w, block^2) uint8 -> fine (N, block h, block w): two nested
+    2x2 parity levels (channel (2a + b) * 4 + 2u + v is fine pixel
+    (4i + 2a + u, 4j + 2b + v)), what the PNG writer's two depth-to-space
+    passes do on the host."""
+    n, h, w, p2 = blocked.shape
+    assert p2 == block * block == 16
+    x = blocked.reshape(n, h, w, 2, 2, 2, 2).permute(0, 1, 3, 5, 2, 4, 6)
+    return x.reshape(n, block * h, block * w)
 
 
 _PLAIN = {1: fused_prediction_head, 4: fused_prediction_head_s2d_blocked, 16: fused_prediction_head_s2d_blocked_sep}

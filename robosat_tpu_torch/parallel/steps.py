@@ -1,4 +1,4 @@
-"""The train, QAT, distillation, eval and predict steps of the U-Net.
+"""The train, QAT, distillation, eval and predict steps of the U-Net and the fast family.
 
 Counterpart of robosat_tpu/parallel/steps.py's make_train_step,
 make_qat_train_step, make_distill_train_step, make_eval_step,
@@ -28,6 +28,14 @@ GPU: K3/K4 for the 16 bottleneck blocks, K5 for the up-blocks, and per
 - "tail": K7, then K1 on the blocked grid;
 - "sep": dec3 through K8 into parity planes, K9 (dec4 + dec5 on the
   planes), then K1 on the doubly-blocked grid.
+
+The fast family (models/fastnet.py) trains through `apply` (it has no
+`apply_s2d`), QAT through its own `apply_logits_fake_quant`, and as a
+distillation student of a U-Net teacher. Its float predict takes fine
+input into its own sub-pixel head (`predict_quantized_folded`); its int8
+predict is the model-owned protocol (`_model_int8_predict_step`): the
+dense convs through rs_int8_conv (models/qconv.py), the up-convs through
+K5, the head in torch ops.
 
 A step copies its uint8 input to the device without waiting for it (from
 pinned memory the copy is asynchronous), so a caller can issue the next
@@ -89,7 +97,8 @@ def make_train_step(model, loss_fn, optimizer, weight=None, compute_dtype=torch.
 
     `augment` draws flips and rotations from `generator`, a torch.Generator
     on the params' device. The forward is `model.apply_s2d` (the JAX
-    package's default space-to-depth tail). `remat` recomputes the forward
+    package's default space-to-depth tail) where the model has it, else
+    `model.apply`. `remat` recomputes the forward
     during the backward (torch.utils.checkpoint, non-reentrant, over the
     whole forward, as jax.checkpoint(forward)); the new BN statistics are
     those of the first forward, since the recomputation's outputs are
@@ -110,12 +119,20 @@ def make_train_step(model, loss_fn, optimizer, weight=None, compute_dtype=torch.
     return step
 
 
+def _model_forward(model):
+    """The model's train/eval forward, as the JAX steps pick it: the
+    space-to-depth tail `apply_s2d` where the model has one (the U-Net),
+    else `apply` (the fast family)."""
+    return getattr(model, "apply_s2d", model.apply)
+
+
 def _train_forward(model, remat):
-    """forward(params, state, x) -> (logits, new_state): `model.apply_s2d`
+    """forward(params, state, x) -> (logits, new_state): `_model_forward`
     in training mode, recomputed in the backward with `remat`."""
+    forward = _model_forward(model)
 
     def run_forward(params, state, x):
-        return model.apply_s2d(params, state, x, True)
+        return forward(params, state, x, True)
 
     if not remat:
         return run_forward
@@ -187,8 +204,8 @@ def make_distill_train_step(model, teacher_model, loss_fn, optimizer, weight=Non
     The teacher (`teacher_model.apply_folded` over its BN-folded params
     `teacher_folded`) sees the same augmented, normalized batch as the
     student, without gradients, and its logits are cast to float32. The
-    student trains as in make_train_step (`model.apply_s2d`, `remat`) on
-    `distillation_loss`.
+    student, of this family or another, trains as in make_train_step
+    (`apply_s2d` or `apply`, `remat`) on `distillation_loss`.
     """
     weight_on = _class_weights(weight)
     forward = _train_forward(model, remat)
@@ -212,12 +229,13 @@ def make_eval_step(model, loss_fn, weight=None, compute_dtype=torch.float32):
     running statistics: step(params, state, images_u8, masks) -> (loss,
     counts), both on the device."""
     weight_on = _class_weights(weight)
+    forward = _model_forward(model)
 
     def step(params, state, images, masks):
         device = params["final"]["w"].device
         with torch.no_grad():
             images, masks = _to_device(images, device), _to_device(masks, device)
-            logits, _ = model.apply_s2d(params, state, normalize(images).to(compute_dtype), False)
+            logits, _ = forward(params, state, normalize(images).to(compute_dtype), False)
             loss = loss_fn(logits.float(), masks, weight_on(device))
             return loss, confusion_counts(logits, masks)
 
@@ -236,10 +254,12 @@ def make_predict_step(model, overlap=0, compute_dtype=torch.float32, fused_head=
     BN-folded params, folded inside every call against the params passed.
     Without `fused_head` (the JAX package's default) it takes fine input
     and runs `model.apply_folded` to the logits, then the float32 softmax,
-    the digitize and the crop (N, H - 2o, W - 2o). With `fused_head`, `s2d`
-    runs dec4 and dec5 on the parity-blocked half-resolution grid, and
-    `host_s2d` (with `s2d`) takes 4x4 host-blocked input (N, H/4, W/4, 48)
-    and runs the blocked stem. Outputs:
+    the digitize and the crop (N, H - 2o, W - 2o). With `fused_head`, a
+    model with its own fused head (`predict_quantized_folded`: the fast
+    family's sub-pixel head) takes fine input and returns its fine uint8;
+    for the U-Net `s2d` runs dec4 and dec5 on the parity-blocked
+    half-resolution grid, and `host_s2d` (with `s2d`) takes 4x4
+    host-blocked input (N, H/4, W/4, 48) and runs the blocked stem. Outputs:
 
     - host_s2d with an even overlap: blocked (N, H/2 - o, W/2 - o, 4);
     - otherwise fine (N, H - 2o, W - 2o), through the blocked head and a
@@ -251,7 +271,8 @@ def make_predict_step(model, overlap=0, compute_dtype=torch.float32, fused_head=
     if not fold_bn:
         raise NotImplementedError("the float predict runs with fold_bn only (the unfolded forward: ROADMAP Queue 1, "
                                   "item 6)")
-    use_s2d = s2d and fused_head
+    own_head = fused_head and hasattr(model, "predict_quantized_folded")
+    use_s2d = s2d and fused_head and hasattr(model, "apply_features_folded_s2d")
     use_host_s2d = host_s2d and use_s2d
     blocked_out = use_host_s2d and overlap % 2 == 0
 
@@ -263,6 +284,8 @@ def make_predict_step(model, overlap=0, compute_dtype=torch.float32, fused_head=
             w, b = folded["final"]["w"], folded["final"]["b"]
             if not fused_head:
                 return _crop(softmax_quantize(model.apply_folded(folded, normalize(raw).to(compute_dtype))), overlap)
+            if own_head:
+                return model.predict_quantized_folded(folded, normalize(raw).to(compute_dtype), overlap=overlap)
             if use_host_s2d:
                 features = model.apply_features_folded_s2d_from48(folded, _normalize_s2d4(raw).to(compute_dtype))
             else:
@@ -290,7 +313,9 @@ def make_int8_predict_step(
     pallas_tail=None,
     pallas_enc=False,
 ):
-    """Hybrid-int8 prediction of the U-Net on the device of `params`.
+    """Hybrid-int8 prediction on the device of `params`: the U-Net's walk,
+    or the walk of a model that owns one (`predict_quantized_int8`, the fast
+    family: see `_model_int8_predict_step`).
 
     Folds BN, calibrates per-site activation scales on `calib_raw` (one
     uint8 batch as the steps take it) and quantizes the weights. The steps
@@ -320,6 +345,9 @@ def make_int8_predict_step(
     step(qtree, raw, plain=True) runs the kernels' plain versions instead,
     with the same qtree and scales.
     """
+    if hasattr(model, "predict_quantized_int8"):
+        return _model_int8_predict_step(model, params, state, calib_raw, overlap, host_s2d, calib_percentile,
+                                        calib_amaxes)
     if pallas_tail not in PALLAS_TAILS:
         raise ValueError("pallas_tail must be one of {} (got {!r})".format(PALLAS_TAILS, pallas_tail))
     blocked_out = host_s2d and fused_head and overlap % 2 == 0
@@ -363,5 +391,37 @@ def make_int8_predict_step(
             # The head works per pixel: the blocked head at overlap 0, then
             # the fine crop, is the JAX package's fused_prediction_head_s2d.
             return head.fine_from_blocked(tail(dec3, qtree["dec4"], s4, qtree["dec5"], s5, w, b, 0), overlap)
+
+    return step, qtree
+
+
+def _model_int8_predict_step(model, params, state, calib_raw, overlap, host_s2d, calib_percentile, calib_amaxes):
+    """The JAX package's protocol of a model that owns its int8 walk: the
+    model folds, calibrates (`calibration_amaxes_int8`, in float32; skipped
+    for `calib_amaxes`), quantizes (`quantize_folded_int8`) and runs its own
+    head (`predict_quantized_int8`). `pallas_tail` and `pallas_enc` are the
+    U-Net's and change nothing here. On the GPU the sites' packed weights
+    and scale products are made once, here (`model.prepare_int8`). The
+    output is the model's: for the fast family 4x4-blocked uint8 (N,
+    (H - 2o) / 4, (W - 2o) / 4, 16) with `host_s2d` and an overlap that is a
+    multiple of its BLOCK, else fine (N, H - 2o, W - 2o). Returns (step,
+    qtree) as `make_int8_predict_step`; step(qtree, raw, plain=True) runs
+    the kernels' plain versions."""
+    device = params["final"]["w"].device
+    norm = _normalize_s2d4 if host_s2d else normalize
+    with torch.no_grad():
+        folded = model.fold(params, state)
+        if calib_amaxes is None:
+            calib_amaxes = model.calibration_amaxes_int8(
+                folded, norm(_to_device(calib_raw, device)), blocked=host_s2d, percentile=calib_percentile)
+        scales = tuple(q8.scales_from_amaxes(calib_amaxes))
+        qtree = model.quantize_folded_int8(folded)
+        if device.type == "cuda":
+            model.prepare_int8(qtree, scales)
+
+    def step(qtree, raw, plain=False):
+        with torch.no_grad():
+            x = norm(_to_device(raw, device)).to(torch.bfloat16)
+            return model.predict_quantized_int8(qtree, scales, x, overlap=overlap, blocked=host_s2d, plain=plain)
 
     return step, qtree

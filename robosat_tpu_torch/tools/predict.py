@@ -1,10 +1,10 @@
-"""`predict` — per-tile class-probability PNGs from a trained U-Net.
+"""`predict` — per-tile class-probability PNGs from a trained U-Net or fast model.
 
 The port of `rs predict` (robosat_tpu/tools/predict.py), with the same
 flags and output contract: quantized foreground probabilities as palette
 PNGs ("pink" continuous palette) in a slippy-map directory, from buffered
-overlap tiles. It runs the U-Net on the config's device, as the model
-TOML selects:
+overlap tiles. It runs the model (`model = "unet"` or `"fast"`) on the
+config's device, as the model TOML selects:
 
 - `int8 = true`: the hybrid-int8 step (parallel/steps.py), with
   `pallas_tail` choosing the decoder's end (unset/"full", "tail", "sep")
@@ -13,7 +13,12 @@ TOML selects:
   float32, with `host_s2d` and `s2d` as in the JAX package;
 - `fused_head = false` (either): the final 1x1 conv, a softmax and the
   digitize on the fine grid in place of the margin head, on fine input as
-  in the JAX package.
+  in the JAX package;
+- `model = "fast"`: with `int8` its own int8 walk (host-blocked input
+  and, with an overlap that is a multiple of 4, 16-channel blocked output
+  that the writer peels like "sep"'s), otherwise its float sub-pixel head
+  on fine input; `pallas_tail` and `pallas_enc` are ignored, and the
+  buffered side needs a multiple of 32 (the U-Net: 64).
 
 With `host_s2d` (the default; it takes `s2d`, the fused head, `--strip 1`
 and a buffered side that is a multiple of 4, as the JAX tool does) the
@@ -38,7 +43,7 @@ and a batch's PNGs go to the writer pool once two newer batches are in
 flight. The steady clock starts when the first batch is done.
 
 Not ported yet (ROADMAP Queue 1): the per-channel 'pc' calibrations and
-models other than the U-Net.
+the DeepLab and SegFormer families.
 """
 
 import argparse
@@ -130,13 +135,24 @@ def dispatch_ahead(batches, issue, write):
     return setup_done_t
 
 
+def int8_walk(common, model):
+    """Whether the config's `int8` runs: the U-Net's walk, or the walk of a
+    model that owns one (`predict_quantized_int8`); other families run
+    float, as in the JAX tool."""
+    return bool(common.get("int8", False) and (common.get("model", "unet") == "unet"
+                                               or hasattr(model, "predict_quantized_int8")))
+
+
 def host_s2d_input(common, args):
     """Whether the loader 4x4-blocks the input (the JAX tool's rule): the
-    config's `host_s2d` with `s2d` and the fused head, per tile only, and a
-    buffered side that is a multiple of 4."""
+    config's `host_s2d` with `s2d` and the fused head, for the U-Net or a
+    model-owned int8 walk, per tile only, and a buffered side that is a
+    multiple of 4."""
     use_fused = common.get("fused_head", common.get("pallas_head", True))
-    return bool(common.get("host_s2d", True) and common.get("s2d", True) and use_fused and args.strip <= 1
-                and (args.tile_size + 2 * args.overlap) % 4 == 0)
+    model = get_model(common.get("model", "unet"))
+    family = common.get("model", "unet") == "unet" or int8_walk(common, model)
+    return bool(common.get("host_s2d", True) and family and common.get("s2d", True) and use_fused
+                and args.strip <= 1 and (args.tile_size + 2 * args.overlap) % 4 == 0)
 
 
 def input_directory(args, use_host_s2d, shard=None):
@@ -172,12 +188,13 @@ def main(args):
     common = model_config["common"]
 
     model = get_model(common.get("model", "unet"))
-    int8_mode = common.get("int8", False)
+    int8_mode = int8_walk(common, model)
     use_fused = common.get("fused_head", common.get("pallas_head", True))
     use_s2d = common.get("s2d", True)
     calib_percentile = q8.calibration_spec(common.get("int8_calibration", 99.8))
-    # pallas_tail = "tail" | "sep" | "full" picks the int8 decoder's end
-    # (parallel/steps.py); pallas_enc is accepted and changes nothing.
+    # pallas_tail = "tail" | "sep" | "full" picks the U-Net's int8 decoder
+    # end (parallel/steps.py); pallas_enc is accepted and changes nothing,
+    # and a model-owned int8 walk ignores both.
     pallas_tail = common.get("pallas_tail", None) or None
     pallas_enc = common.get("pallas_enc", False)
     compute_dtype = torch.bfloat16 if common.get("bf16", False) else torch.float32
@@ -186,10 +203,13 @@ def main(args):
     assert num_classes == 2, "single channel requires binary model"
 
     # The U-Net center block pools enc4 2x and upsamples back for the concat:
-    # the buffered side must keep side/32 even.
+    # the buffered side must keep side/32 even. Other families declare
+    # their multiple (the fast family's /4 stem and three /2 stages: 32).
     buffered_side = args.tile_size + 2 * args.overlap
-    if buffered_side % 64:
-        sys.exit("Error: tile_size + 2*overlap must be a multiple of 64 (got {})".format(buffered_side))
+    side_multiple = 64 if common.get("model", "unet") == "unet" else getattr(model, "SIDE_MULTIPLE", 1)
+    if buffered_side % side_multiple:
+        sys.exit("Error: tile_size + 2*overlap must be a multiple of {} (got {})".format(side_multiple,
+                                                                                       buffered_side))
     use_host_s2d = host_s2d_input(common, args)
 
     shard = None

@@ -1,4 +1,4 @@
-"""`train` — fit the U-Net to a slippy-map dataset.
+"""`train` — fit the U-Net or the fast family to a slippy-map dataset.
 
 The port of `rs train` (robosat_tpu/tools/train.py), with its flags,
 messages, log lines and files: the two-TOML configuration, the four
@@ -20,14 +20,18 @@ DIR` records the epochs with torch.profiler, one `train_step` range per
 step, and writes a trace for TensorBoard's profile plugin to DIR.
 
 `--qat` finetunes `--checkpoint` through the int8 datapath's rounding
-(parallel/steps.make_qat_train_step): the site scales are calibrated once,
+(parallel/steps.make_qat_train_step): the site scales (the U-Net's 59,
+the fast family's 15, from `calibration_amaxes_int8` where the model has
+it) are calibrated once,
 on the first shuffled training batch, at the config's per-tensor
 `int8_calibration`, frozen into the step, and written into every
 checkpoint's meta (`qat_amaxes`, `qat_calibration`), which `predict`
 quantizes with; `--resume` calibrates again from the loaded weights, as
 the JAX tool does. `--teacher` distills from a trained checkpoint of
 `--teacher_model`'s family (default `--model`'s), folded once
-(make_distill_train_step). Validation runs the float eval step in either
+(make_distill_train_step): a U-Net teacher distils a fast student, as
+config/model-fast.toml's header trains it. A reference `.pth` converts as
+a U-Net whatever `model` says, as the JAX loader does. Validation runs the float eval step in either
 mode.
 
 One device: `sync_bn` is accepted and changes nothing (the batch is the
@@ -177,6 +181,8 @@ def main(args):
             sys.exit("Error: --qat finetunes a trained model; provide --checkpoint")
         if teacher_path:
             sys.exit("Error: --qat and --teacher are mutually exclusive")
+        if not hasattr(model, "apply_logits_fake_quant"):
+            sys.exit("Error: --qat needs a family with a fake-quant forward (apply_logits_fake_quant): unet or fast")
         train_step = None  # built below: calibration needs one real training batch
     elif teacher_path:
         teacher_model_path = getattr(args, "teacher_model", None)
@@ -229,10 +235,10 @@ def main(args):
         pct = q8.calibration_spec(calib_spec)
         calib_images = next(iter(batches(train_dataset, batch_size, shuffle=True, drop_last=True, workers=2,
                                          seed=0))).arrays[0]
+        calibrate = getattr(model, "calibration_amaxes_int8", q8.calibration_amaxes)
         with torch.no_grad():
             folded = model.fold(params, state)
-            amaxes = q8.calibration_amaxes(folded, normalize(torch.as_tensor(calib_images).to(device)),
-                                           percentile=pct).numpy()
+            amaxes = calibrate(folded, normalize(torch.as_tensor(calib_images).to(device)), percentile=pct).numpy()
             del folded
         qat_meta = {"qat_amaxes": [float(a) for a in amaxes], "qat_calibration": str(calib_spec)}
         train_step = make_qat_train_step(model, loss_fn, optimizer, list(q8.scales_from_amaxes(amaxes)),

@@ -9,7 +9,9 @@ without the JAX package's test configuration:
 Shapes are small and ragged on purpose (pixel counts off the 64- and
 128-row tiles, channel counts off the 64-wide tiles) to reach every masked
 edge of the int8 conv kernels; chip_smoke.py checks the main-path
-shapes.
+shapes. rs_int8_conv (models/qconv.py) is held at each of the fast
+family's dense sites: the stride-2 "SAME" convs, the dilated b4b, the
+residual blocks and the concatenations' convs.
 """
 
 import pytest
@@ -127,6 +129,60 @@ def test_parity_up_conv_kernel_bit_equal(gen, cin, cout, h, w, bias):
     assert qdec.parity_up_conv.launches == before + 1
     assert tuple(got.shape) == (3, 2 * h, 2 * w, cout)
     assert torch.equal(got, qdec.parity_up_conv_plain(x, node, 0.017))
+
+
+# (stride, dilation, padding, epilogue) of each of the fast family's twelve dense sites.
+_FAST_SITES = {"stem": (1, 1, "SAME", "relu"), "b": (1, 1, "SAME", "residual_relu"),
+               "down": (2, 1, "SAME", "relu"), "b4b": (1, 2, ((2, 2), (2, 2)), "residual_relu"),
+               "d": (1, 1, "SAME", "relu")}
+
+
+@pytest.mark.parametrize("site,cin,cout,h,w,bias", [
+    # each site's widths on small grids (fastnet's walk at 64 to 192 px), then ragged ones
+    ("stem", 48, 128, 16, 16, True),
+    ("b", 128, 128, 16, 16, True),
+    ("down", 128, 128, 16, 16, True),   # stride-2 SAME on an even grid: padding (0, 1)
+    ("down", 128, 256, 8, 8, True),
+    ("down", 256, 256, 4, 4, True),
+    ("b", 256, 256, 8, 8, True),
+    ("b4b", 256, 256, 2, 2, True),      # dilation 2 on a 2 x 2 grid: only the center tap inside
+    ("b4b", 256, 256, 6, 6, True),
+    ("d", 384, 128, 4, 4, False),
+    ("d", 256, 128, 8, 8, False),
+    ("d", 256, 128, 48, 48, False),
+    ("down", 128, 128, 9, 7, True),     # stride-2 SAME on an odd grid: padding (1, 1)
+    ("down", 64, 80, 11, 6, False),     # Cout off the 64- and 128-wide tiles
+    ("b4b", 48, 48, 13, 9, True),
+    ("stem", 48, 128, 37, 29, True),
+    ("d", 96, 16, 5, 3, False),
+    ("b", 128, 128, 144, 144, True),    # the 144-px grid of a 576-px tile
+])
+def test_int8_conv_kernel_bit_equal(gen, site, cin, cout, h, w, bias):
+    from robosat_tpu_torch.models import qconv
+
+    stride, dilation, padding, epilogue = _FAST_SITES[site]
+    node = _node(gen, 3, 3, cin, cout, bias=bias, std=(9 * cin) ** -0.5)
+    x = _act(gen, (2, h, w, cin))
+    before = qconv.int8_conv.launches
+    got = qconv.int8_conv(x, node, 0.019, stride=stride, dilation=dilation, padding=padding, epilogue=epilogue)
+    torch.cuda.synchronize()
+    assert qconv.int8_conv.launches == before + 1
+    ref = qconv.int8_conv_plain(x, node, 0.019, stride=stride, dilation=dilation, padding=padding, epilogue=epilogue)
+    assert got.shape == ref.shape == (2, -(-h // stride), -(-w // stride), cout)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("epilogue", ["linear", "relu"])
+def test_int8_conv_kernel_epilogues_and_scale_cache(gen, epilogue):
+    """The linear epilogue, and a node reused at a second scale: the cached
+    scale product follows the scale."""
+    from robosat_tpu_torch.models import qconv
+
+    node = _node(gen, 3, 3, 64, 64)
+    x = _act(gen, (2, 10, 12, 64))
+    for scale in (0.019, 0.031, 0.019):
+        got = qconv.int8_conv(x, node, scale, epilogue=epilogue)
+        assert torch.equal(got, qconv.int8_conv_plain(x, node, scale, epilogue=epilogue))
 
 
 def _s2d_tail_nodes(gen):

@@ -25,8 +25,8 @@
 - The parser's flags and defaults are the JAX tool's; `--qat` without
   `--checkpoint`, `--qat` with `--teacher` and a per-channel
   `int8_calibration` exit with the JAX tool's messages, and a
-  `--teacher_model` of a family the port lacks raises get_model's
-  NotImplementedError (ROADMAP Queue 1, item 8); CrossEntropy without
+  `--teacher_model` of a family the port lacks (SegFormer) raises
+  get_model's NotImplementedError (ROADMAP Queue 1, item 8); CrossEntropy without
   class weights exits with the JAX tool's message; `cuda = true` without
   a GPU raises.
 - One bfloat16 train step (the configured dtype) against the JAX
@@ -242,11 +242,11 @@ def test_qat_and_teacher_error_paths(dataset64, case):
     flags = {"no_checkpoint": {"qat": True}, "with_teacher": {"qat": True, "checkpoint": trained, "teacher": trained},
              "per_channel": {"qat": True, "checkpoint": trained}}.get(case)
     if case == "teacher_family":
-        teacher_toml = os.path.join(dataset64, "teacher-fast.toml")
+        teacher_toml = os.path.join(dataset64, "teacher-segformer.toml")
         config = load_config(model_toml)
-        config["common"]["model"] = "fast"
+        config["common"]["model"] = "segformer"
         save_config(config, teacher_toml)
-        with pytest.raises(NotImplementedError, match="model 'fast' is not ported .*ROADMAP Queue 1, item 8"):
+        with pytest.raises(NotImplementedError, match="model 'segformer' is not ported .*ROADMAP Queue 1, item 8"):
             train.main(_args(model_toml, dataset_toml, teacher=trained, teacher_model=teacher_toml))
         return
     message = {"no_checkpoint": "Error: --qat finetunes a trained model; provide --checkpoint",
