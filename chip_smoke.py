@@ -167,6 +167,17 @@ SEED = 0  # of the weights and the imagery
 # cores, float32 outside the tensor cores.
 PEAK = {"bytes": 3.35e12, "int8": 1979e12, "f32": 67e12}
 ROTATE_BYTES = 150e6  # inputs rotated through copies of at least this many bytes (3x the L2)
+# Phase 9 (the vector tools): 9a's batch of masks; each handler's denoise and
+# grow sizes (features/parking.py, building.py); 9b's generated block of label
+# tiles at z18 (VECTOR_SIDE x VECTOR_SIDE tiles of TILE px) with its parking
+# lots and buildings; merge's threshold in meters and dedupe's IoU threshold.
+VECTOR_BATCH = 16
+MORPH_SIZES = {"parking": (20, 20), "building": (9, 9)}
+VECTOR_SIDE = 16
+VECTOR_LOTS = 320
+VECTOR_BUILDINGS = 900
+MERGE_THRESHOLD = 2
+DEDUPE_THRESHOLD = 0.5
 
 # Each kernel: its source, and the pallas_call of the TPU kernel it replaces.
 SOURCES = {
@@ -294,6 +305,8 @@ def main():
                         help="only phases 1, 6b and 7b (the configured train, QAT and distillation steps)")
     parser.add_argument("--fast", action="store_true",
                         help="only phases 1, 2 and 8 (the fast family: its kernels, predict, train steps and tools)")
+    parser.add_argument("--vector", action="store_true",
+                        help="only phases 1 and 9 (denoise + grow on the card, features, merge and dedupe)")
     parser.add_argument("--fast-from", default=None, metavar="WORK",
                         help="with --fast: the full run's work directory, whose phase-6c U-Net checkpoint and "
                              "dataset phase 8d uses; the results go to WORK/fast.json (the full run's phase 8)")
@@ -325,6 +338,13 @@ def main():
         qat = configured_qat_distill_steps(torch, SEED, smi, result.pop("trained"), wrappers())
         log(json.dumps({"6b": {k: v for k, v in result.items() if k != "losses"},
                         "7b": {k: v for k, v in qat.items() if k != "launches"}, "tree": root}))
+        log(smi)
+        return
+
+    if opts.vector:
+        with tempfile.TemporaryDirectory(prefix="rs_chip_smoke_") as work:
+            summary = run_vector(torch, work, smi)
+        log(json.dumps({"vector": summary}))
         log(smi)
         return
 
@@ -401,11 +421,12 @@ def cuda_ms(torch, fn, arg_sets, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, arg_sets, reps):
+def device_ms(torch, fn, arg_sets, reps, rows=KERNEL_ROWS):
     """Mean device milliseconds per fn(*args) of the port's kernels only
-    (torch.profiler's kernel rows; the wrapper's host work and PyTorch's own
-    small kernels excluded), over `reps` runs cycling through `arg_sets`;
-    None when the profiler records no kernel time."""
+    (torch.profiler's kernel rows whose names hold one of `rows`; the
+    wrapper's host work and PyTorch's own small kernels excluded; every
+    kernel when `rows` is None), over `reps` runs cycling through
+    `arg_sets`; None when the profiler records no kernel time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(*arg_sets[0])
@@ -415,7 +436,7 @@ def device_ms(torch, fn, arg_sets, reps):
             fn(*arg_sets[i % len(arg_sets)])
         torch.cuda.synchronize()
     us = sum(k.self_device_time_total for k in prof.key_averages()
-             if k.device_type == torch.autograd.DeviceType.CUDA and any(r in k.key for r in KERNEL_ROWS))
+             if k.device_type == torch.autograd.DeviceType.CUDA and (rows is None or any(r in k.key for r in rows)))
     return us / 1e3 / reps if us > 0 else None
 
 
@@ -826,6 +847,12 @@ def run(torch, work, seed, smi):
     run_paths(torch, work, tiles, checkpoint, params, state, params_d, state_d, amaxes, counted, launches, by_path,
               smi)
     del params_d, state_d
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: the vector tools, on phase 5's masks and a 16 x 16 block -
+    # (run here, early in the process, where torch.profiler still records
+    # every kernel)
+    run_vector(torch, work, smi, masks_dir=os.path.join(work, "masks"))
     torch.cuda.empty_cache()
 
     # ---- phase 6: train ----------------------------------------------------
@@ -2387,6 +2414,205 @@ def fast_tools(torch, work, root, unet_checkpoint, counted, launches, by_path, s
     log("phase 8: [8d] predict (config/model-fast.toml) from the QAT checkpoint: quantized with its 15 qat_amaxes, "
         "no calibration; {} PNGs in {:.2f} s on {}; launches {} ({} batches)".format(pngs, wall, smi, counts,
                                                                                       n_batches))
+
+
+def blob_masks(rng, n, size):
+    """n binary masks of blobs (some holed) and 1% pepper noise."""
+    masks = np.zeros((n, size, size), np.uint8)
+    for i in range(n):
+        for _ in range(12):
+            x, y = rng.integers(0, size - 40, 2)
+            w, h = rng.integers(12, 160, 2)
+            masks[i, y : y + h, x : x + w] = 1
+            if min(w, h) > 80:
+                masks[i, y + 30 : y + h - 30, x + 30 : x + w - 30] = 0
+        masks[i] ^= (rng.random((size, size)) < 0.01).astype(np.uint8)
+    return masks
+
+
+def write_label_block(root, seed):
+    """A VECTOR_SIDE x VECTOR_SIDE block of TILE-px label tiles at z18
+    ("P" PNGs, 0 background, 1 parking, 2 building), drawn on the whole
+    block so that lots straddle tile edges; some lots hold a hole, and
+    sparse pepper noise of all three labels lies over everything."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    n = VECTOR_SIDE * TILE
+    canvas = np.zeros((n, n), np.uint8)
+    for _ in range(VECTOR_LOTS):
+        x, y = rng.integers(0, n - 60, 2)
+        w, h = rng.integers(60, 420, 2)
+        canvas[y : y + h, x : x + w] = 1
+        if min(w, h) > 200:
+            canvas[y + 70 : y + h - 70, x + 70 : x + w - 70] = 0
+    for _ in range(VECTOR_BUILDINGS):
+        x, y = rng.integers(0, n - 60, 2)
+        w, h = rng.integers(14, 60, 2)
+        canvas[y : y + h, x : x + w] = 2
+    k = n * n // 200
+    canvas[rng.integers(0, n, k), rng.integers(0, n, k)] = rng.integers(0, 3, k)
+    for i in range(VECTOR_SIDE):
+        path = os.path.join(root, "18", str(41920 + i))
+        os.makedirs(path, exist_ok=True)
+        for j in range(VECTOR_SIDE):
+            img = Image.fromarray(canvas[j * TILE : (j + 1) * TILE, i * TILE : (i + 1) * TILE], mode="P")
+            img.putpalette([0, 0, 0, 255, 165, 0, 255, 0, 0])
+            img.save(os.path.join(path, "{}.png".format(101310 + j)), compress_level=1)
+    return VECTOR_SIDE * VECTOR_SIDE
+
+
+def write_osm(merged_path, out_path):
+    """Stand-in "OSM" for dedupe: every other merged feature as it is (a
+    duplicate), the rest moved east by 20% or 70% of their width (IoU on
+    either side of DEDUPE_THRESHOLD)."""
+    with open(merged_path) as f:
+        merged = json.load(f)["features"]
+    osm = []
+    for k, feature in enumerate(merged):
+        geom = feature["geometry"]
+        if k % 2:
+            polys = [geom["coordinates"]] if geom["type"] == "Polygon" else geom["coordinates"]
+            xs = [p[0] for p in polys[0][0]]
+            shift = (max(xs) - min(xs)) * (0.2 if k % 4 == 1 else 0.7)
+            for rings in polys:
+                for ring in rings:
+                    for p in ring:
+                        p[0] += shift
+        osm.append({"type": "Feature", "properties": {}, "geometry": geom})
+    with open(out_path, "w") as f:
+        json.dump({"type": "FeatureCollection", "features": osm}, f)
+
+
+def run_vector(torch, work, smi, masks_dir=None):
+    """Phase 9: the vector tools. 9a, `denoise_grow` on the card against
+    the CPU on VECTOR_BATCH blob masks of TILE px with each handler's sizes,
+    bit-equal, timed by CUDA events and device time; 9b, `features` (its
+    morphology on the card, then on the CPU), `merge` and `dedupe` on
+    `masks_dir` (phase 5's masks; parking) and on a generated 16 x 16 block
+    of label tiles (parking and building): every GeoJSON the card's run
+    writes equal, byte for byte, to the CPU run's. Requires the native
+    geometry engine and names the contour tracer. Returns a summary."""
+    import cv2
+
+    from robosat_tpu_torch import native
+    from robosat_tpu_torch.config import save_config
+    from robosat_tpu_torch.device import configure_device
+    from robosat_tpu_torch.ops import morphology
+    from robosat_tpu_torch.tools import dedupe, features, merge
+
+    start_phase = time.perf_counter()
+    device = configure_device(True)
+    cpu = torch.device("cpu")
+    if native.load() is None or merge._native() is None:
+        raise AssertionError("phase 9: the native geometry engine did not load")
+    tracer = "cv2 {} (findContours RETR_TREE + CHAIN_APPROX_SIMPLE, arcLength, approxPolyDP)".format(cv2.__version__)
+    log("phase 9: contour tracer {}; native geometry engine {}".format(tracer, os.path.relpath(native._LIB, ROOT)))
+    summary = {"contour_tracer": tracer, "card": smi, "morphology": {}, "tools": {}}
+
+    # ---- 9a: denoise + grow on the card vs the CPU ------------------------
+    masks = blob_masks(np.random.default_rng(SEED + 9), VECTOR_BATCH, TILE)
+    x_cpu = torch.from_numpy(masks)
+    x = x_cpu.to(device)
+    for kind, (d, g) in MORPH_SIZES.items():
+        want = morphology.denoise_grow(x_cpu, d, g)
+        got = morphology.denoise_grow(x, d, g)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError("9a [{}]: denoise_grow on the card differs from the CPU on {} pixels".format(
+                kind, int((got.cpu() != want).sum())))
+        args = rotated(torch, (x, d, g))
+        ms = cuda_ms(torch, morphology.denoise_grow, args, 20)
+        dev = device_ms(torch, morphology.denoise_grow, args, 10, rows=None)
+        # The dense float32 correlations this design runs: 4 convs, each
+        # k*k multiply-adds a pixel; uint8 masks in and out.
+        ops = 2 * masks.size * 2 * (d * d + g * g)
+        b_ms, b_by = bound(2 * masks.size, ops, "f32")
+        summary["morphology"][kind] = {"shape": list(masks.shape), "sizes": [d, g], "ms": ms, "device_ms": dev,
+                                       "bound_ms": b_ms, "bound_by": b_by, "foreground": float(want.float().mean())}
+        log("phase 9: [9a] denoise_grow {} ({}/{}) on {} x {}: bit-equal to the CPU; {:.4f} ms (events), {} "
+            "(device), bound of its float32 correlations {:.4f} ms ({}) on {}".format(
+                kind, d, g, VECTOR_BATCH, masks.shape[1:], ms,
+                "not measured" if dev is None else "{:.4f} ms".format(dev), b_ms, b_by, smi))
+    del x, args
+    torch.cuda.empty_cache()
+
+    # ---- 9b: features -> merge -> dedupe, card vs CPU ---------------------
+    dataset = os.path.join(work, "dataset-vector.toml")
+    save_config({"common": {"dataset": work, "classes": ["background", "parking", "building"],
+                            "colors": ["denim", "orange", "red"]}}, dataset)
+    block = os.path.join(work, "labels-vector")
+    start = time.perf_counter()
+    n_block = write_label_block(block, SEED)
+    log("phase 9: [9b] wrote {} label tiles of {} px in {:.2f} s".format(n_block, TILE, time.perf_counter() - start))
+    sources = ([("phase-5-masks", masks_dir, ("parking",))] if masks_dir else []) + [
+        ("block-{0}x{0}".format(VECTOR_SIDE), block, ("parking", "building"))]
+    real_denoise_grow = features.denoise_grow
+    for source, mdir, kinds in sources:
+        for kind in kinds:
+            run = {}
+            osm = os.path.join(work, "vector", "{}-{}-osm.geojson".format(source, kind))
+            for name, dev in (("cuda", device), ("cpu", cpu)):
+                out = os.path.join(work, "vector", source, kind, name)
+                os.makedirs(out, exist_ok=True)
+                paths = {stage: os.path.join(out, stage + ".geojson") for stage in ("features", "merged", "deduped")}
+                morph = [0.0]
+
+                def timed(masks, d, g, _dev=dev, _morph=morph):
+                    if _dev.type == "cuda":
+                        torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    result = real_denoise_grow(masks, d, g)
+                    if _dev.type == "cuda":
+                        torch.cuda.synchronize()
+                    _morph[0] += time.perf_counter() - t
+                    return result
+
+                features.denoise_grow = timed
+                try:
+                    t0 = time.perf_counter()
+                    features.main(argparse.Namespace(type=kind, masks=mdir, out=paths["features"], dataset=dataset,
+                                                     chunk=16), device=dev)
+                finally:
+                    features.denoise_grow = real_denoise_grow
+                t1 = time.perf_counter()
+                merge.main(argparse.Namespace(features=paths["features"], threshold=MERGE_THRESHOLD,
+                                              out=paths["merged"]))
+                t2 = time.perf_counter()
+                if name == "cuda":
+                    write_osm(paths["merged"], osm)
+                dedupe.main(argparse.Namespace(osm=osm, predicted=paths["merged"], threshold=DEDUPE_THRESHOLD,
+                                               out=paths["deduped"]))
+                t3 = time.perf_counter()
+                run[name] = {"seconds": {"features": t1 - t0, "merge": t2 - t1, "dedupe": t3 - t2},
+                             "morphology_s": morph[0], "bytes": {}}
+                for stage, path in paths.items():
+                    with open(path, "rb") as f:
+                        run[name]["bytes"][stage] = f.read()
+            counts = {}
+            for stage in ("features", "merged", "deduped"):
+                if run["cuda"]["bytes"][stage] != run["cpu"]["bytes"][stage]:
+                    raise AssertionError("9b [{} {}]: the card's {} GeoJSON differs from the CPU run's".format(
+                        source, kind, stage))
+                counts[stage] = len(json.loads(run["cuda"]["bytes"][stage])["features"])
+            if counts["features"] == 0 and mdir == block:
+                raise AssertionError("9b [{} {}]: no features".format(source, kind))
+            card = run["cuda"]
+            total = sum(card["seconds"].values())
+            entry = {"features": counts, "seconds_card": card["seconds"], "morphology_s_card": card["morphology_s"],
+                     "morphology_share_of_features": card["morphology_s"] / card["seconds"]["features"],
+                     "morphology_share_of_three": card["morphology_s"] / total,
+                     "seconds_cpu": run["cpu"]["seconds"], "morphology_s_cpu": run["cpu"]["morphology_s"]}
+            summary["tools"]["{} {}".format(source, kind)] = entry
+            log("phase 9: [9b] {} {}: features {} -> merged {} -> deduped {}, each GeoJSON byte-equal to the CPU "
+                "run's; card s features {:.3f} (morphology {:.3f}, {:.1%}) merge {:.3f} dedupe {:.3f}, "
+                "morphology {:.1%} of the three; CPU run s features {:.3f} (morphology {:.3f}) on {}".format(
+                    source, kind, counts["features"], counts["merged"], counts["deduped"],
+                    card["seconds"]["features"], card["morphology_s"], entry["morphology_share_of_features"],
+                    card["seconds"]["merge"], card["seconds"]["dedupe"], entry["morphology_share_of_three"],
+                    run["cpu"]["seconds"]["features"], run["cpu"]["morphology_s"], smi))
+    summary["seconds"] = time.perf_counter() - start_phase
+    log("phase 9: done in {:.1f} s".format(summary["seconds"]))
+    return summary
 
 
 if __name__ == "__main__":

@@ -1,18 +1,36 @@
-"""Slippy Map tile substrate: directory walking and overlap buffering.
+"""Slippy Map tile substrate: directory walking, pixel geo-referencing and
+overlap buffering.
 
-Counterpart of robosat_tpu/tiles.py, limited to what `predict` uses, with
-the `Tile` namedtuple of robosat_tpu/geo/tilemath.py. Images flow as HWC
-uint8 numpy arrays; PIL is used only at the disk boundary.
+Counterpart of robosat_tpu/tiles.py, limited to what `predict` and
+`features` use. Images flow as HWC uint8 numpy arrays; PIL is used only at
+the disk boundary.
 """
 
 import os
-from collections import namedtuple
 
 import numpy as np
 from PIL import Image
 
-# Field order matches mercantile.Tile (reference contract: robosat/tiles.py:120).
-Tile = namedtuple("Tile", ["x", "y", "z"])
+from robosat_tpu_torch.geo.tilemath import Tile, bounds
+
+
+def pixel_to_location(tile, dx, dy):
+    """Convert a relative pixel offset in a tile to a (lng, lat) coordinate.
+
+    Args:
+      tile: the tile the pixel lives in.
+      dx: relative x offset in [0, 1] (0 = west edge, 1 = east edge).
+      dy: relative y offset in [0, 1] (0 = south edge, 1 = north edge).
+
+    Parity: robosat/tiles.py:19-42 (lerp over tile bounds).
+    """
+    assert 0 <= dx <= 1, "x offset is in [0, 1]"
+    assert 0 <= dy <= 1, "y offset is in [0, 1]"
+
+    west, south, east, north = bounds(tile)
+    lon = west + dx * (east - west)
+    lat = south + dy * (north - south)
+    return lon, lat
 
 
 def _as_int(v):

@@ -1,15 +1,15 @@
 """`python -m robosat_tpu_torch.tools <tool>`: the port's command line.
 
-The ported tools, `train`, `predict` and `masks`, keep the flags and the
-output contracts of `rs train`, `rs predict` and `rs masks`
-(robosat_tpu/tools/).
+The ported tools, `train`, `predict`, `masks`, `features`, `merge` and
+`dedupe`, keep the flags and the output contracts of their `rs`
+counterparts (robosat_tpu/tools/).
 """
 
 import argparse
 
-from robosat_tpu_torch.tools import masks, predict, train
+from robosat_tpu_torch.tools import dedupe, features, masks, merge, predict, train
 
-TOOLS = (train, predict, masks)
+TOOLS = (train, predict, masks, features, merge, dedupe)
 
 
 def main():

@@ -495,3 +495,27 @@ def test_fake_quant_on_the_card_matches_the_cpu(gen, dtype):
         assert got.dtype == want.dtype == dtype
         assert torch.equal((got + 0).view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
                            (want + 0).view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+
+
+@pytest.mark.parametrize("op,args", [("denoise_grow", (20, 20)), ("denoise_grow", (9, 9)), ("erode", (21,)),
+                                     ("dilate", (4,)), ("opening", (8,)), ("closing", (5,))])
+def test_morphology_on_the_card_matches_the_cpu(gen, op, args):
+    """ops/morphology on the card (cuDNN's conv under deterministic
+    algorithms, TF32 off): the same uint8 masks as the CPU, bit for bit, on
+    blob-and-pepper masks off the 8-pixel grid."""
+    from robosat_tpu_torch.device import configure_device
+    from robosat_tpu_torch.ops import morphology
+
+    configure_device(True)
+    cpu = torch.Generator().manual_seed(5)
+    masks = (torch.rand(3, 133, 141, generator=cpu) < 0.02).to(torch.uint8)
+    for _ in range(6):
+        x, y, w, h = (int(v) for v in torch.randint(0, 90, (4,), generator=cpu))
+        masks[:, y : y + h // 2 + 10, x : x + w // 2 + 10] ^= 1
+    fn = getattr(morphology, op)
+    if op != "denoise_grow":
+        args = (morphology.ellipse_kernel(args[0]),)
+    want = fn(masks, *args)
+    got = fn(masks.cuda(), *args)
+    assert got.dtype == torch.uint8 and got.is_cuda
+    assert torch.equal(got.cpu(), want)
