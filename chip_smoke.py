@@ -110,11 +110,13 @@ quantization-aware and by distillation; then the fast family
    `fastnet.init(0)`, in a process of its own (`--fast --fast-from WORK`;
    late in one long process torch.profiler drops kernel events): 8a, the first predict batch (8 host-blocked 576-px
    tiles) through the float32 calibration walk, which keeps each site's
-   input; rs_int8_conv (csrc/qconv.cu) at the 12 dense sites and K5 at u3,
-   u2 and u1 on those inputs, bit-equal to their plain versions, timed as
-   phase 3 (events, device time, bound); 8b, `predict.main` as configured
-   (int8, host-blocked input, 16-channel blocked output: 12 rs_int8_conv
-   and 3 K5 launches a batch) and with `int8 = false` (bf16, fine input,
+   input; rs_int8_conv (csrc/qconv.cu) at the 12 dense sites, each on the
+   route qconv.route names (the nine stride-1 sites on halo_conv_kernel,
+   down2/3/4 on conv_kernel), and K5 at u3, u2 and u1 on those inputs,
+   bit-equal to their plain versions, timed as phase 3 (events, device
+   time, bound); 8b, `predict.main` as configured (int8, host-blocked
+   input, 16-channel blocked output: 12 rs_int8_conv launches a batch, 9
+   by the halo route and 3 by conv_kernel, and 3 K5) and with `int8 = false` (bf16, fine input,
    no kernel) on phase 5's 64 tiles, with the first batch against the
    plain step, the step by CUDA events and its profile; 8c, the configured
    train, distillation (a folded `unet.init` teacher) and QAT steps, bf16,
@@ -275,6 +277,10 @@ FAST_DENSE = {"stem": (1, 1, "relu"), "b1": (1, 1, "residual_relu"), "down2": (2
               "down4": (2, 1, "relu"), "b4a": (1, 1, "residual_relu"), "b4b": (1, 2, "residual_relu"),
               "d3": (1, 1, "relu"), "d2": (1, 1, "relu"), "d1": (1, 1, "relu")}
 FAST_INT8 = {"int8_conv": 12, "K5": 3}
+# rs_int8_conv's route at each dense site (qconv.route), and its launches
+# per batch by route on the int8 path.
+FAST_ROUTES = {name: "conv_kernel" if name.startswith("down") else "halo" for name in FAST_DENSE}
+FAST_INT8_ROUTES = {"halo": 9, "conv_kernel": 3}
 FAST_PATHS = (("fast-int8", {}, FAST_INT8), ("fast-bf16", {"int8": False}, {}))
 EDGE_ROWS = 128  # rows next to a tile edge inside a strip, where a strip's context exceeds the tile's
 # Paths that run on phase 3's scales through a QAT checkpoint's qat_amaxes.
@@ -2102,12 +2108,25 @@ def fast_kernels(torch, work, tiles_dir, checkpoint, per_kernel, smi):
             else:
                 kname, kernel, plain = "K5", qdec.parity_up_conv, qdec.parity_up_conv_plain
                 kargs = (x, qtree[name], scales[i])
+            routes = dict(qconv.int8_conv.by_route)
             got, ref = kernel(*kargs), plain(*kargs)
             torch.cuda.synchronize()
             err = float((got.float() - ref.float()).abs().max())
             if got.shape != ref.shape or not torch.equal(got, ref):
                 raise AssertionError("phase 8: {} {}: {} vs plain {}, max |diff| {}".format(
                     kname, name, tuple(got.shape), tuple(ref.shape), err))
+            route = None
+            if kname == "int8_conv":
+                route = qconv.route(3, stride, dilation)
+                if qconv.int8_conv.by_route != {**routes, route: routes[route] + 1} or route != FAST_ROUTES[name]:
+                    raise AssertionError("phase 8: int8_conv {} took {} (by route {} -> {}), expected {}".format(
+                        name, route, routes, qconv.int8_conv.by_route, FAST_ROUTES[name]))
+                if route == "halo":
+                    plan = qconv.halo_plan(x.shape, got.shape[-1], dilation, got.shape[1:3])
+                    route_note = "halo_conv_kernel (halo side {}, {} tiles of 8 x 8, {} items, BN {})".format(
+                        plan.side, plan.n_tiles, plan.items, plan.bn)
+                else:
+                    route_note = "conv_kernel"
             arg_sets = rotated(torch, kargs)
             ms = cuda_ms(torch, kernel, arg_sets, 20)
             dev_ms = device_ms(torch, kernel, arg_sets, 20)
@@ -2115,11 +2134,12 @@ def fast_kernels(torch, work, tiles_dir, checkpoint, per_kernel, smi):
             del arg_sets
             cost = site_work(kname, kargs, got)
             tops = cost[1] / (dev_ms or ms) / 1e9
+            extra = {"kernel": route} if route else {}
             bound_ms, bound_by = record(per_kernel, kname, name + " (fast)", x.shape, err, ms, plain_ms, cost,
-                                        device_ms=dev_ms, tops=tops)
-            log("phase 8: [8a] {} {} {} -> {}: bit-equal; kernel {:.4f} ms (events), {} (device), {:.1f} TOP/s "
+                                        device_ms=dev_ms, tops=tops, **extra)
+            log("phase 8: [8a] {} {} {} -> {}{}: bit-equal; kernel {:.4f} ms (events), {} (device), {:.1f} TOP/s "
                 "({:.1%} of 1979), plain {:.3f} ms, bound {:.4f} ms ({}); {}".format(
-                    kname, name, tuple(x.shape), tuple(got.shape), ms,
+                    kname, name, tuple(x.shape), tuple(got.shape), " on " + route_note if route else "", ms,
                     "not measured" if dev_ms is None else "{:.4f} ms".format(dev_ms), tops, tops / 1979, plain_ms,
                     bound_ms, bound_by, smi))
     del walk, qtree, got, ref
@@ -2140,7 +2160,7 @@ def fast_predict_paths(torch, work, tiles_dir, tiles, checkpoint, counted, launc
     from robosat_tpu_torch.checkpoint import load_model_checkpoint
     from robosat_tpu_torch.config import load_config, save_config
     from robosat_tpu_torch.data.loader import batches
-    from robosat_tpu_torch.models import fastnet
+    from robosat_tpu_torch.models import fastnet, qconv
     from robosat_tpu_torch.models import int8 as q8
     from robosat_tpu_torch.parallel.steps import make_int8_predict_step, make_predict_step
     from robosat_tpu_torch.tools import predict
@@ -2160,6 +2180,7 @@ def fast_predict_paths(torch, work, tiles_dir, tiles, checkpoint, counted, launc
         n_batches = -(-len(directory) // BATCH)
         for fn in counted.values():
             fn.launches = 0
+        qconv.int8_conv.by_route = dict.fromkeys(qconv.int8_conv.by_route, 0)
         start = time.perf_counter()
         out = predict.main(pargs)
         wall = time.perf_counter() - start
@@ -2168,14 +2189,18 @@ def fast_predict_paths(torch, work, tiles_dir, tiles, checkpoint, counted, launc
         if counts != expected or out["tiles"] != len(tiles):
             raise AssertionError("[{}] {} tiles, launch counts {} != expected {}".format(label, out["tiles"], counts,
                                                                                        expected))
+        routes = {r: c * n_batches if per_batch.get("int8_conv") else 0 for r, c in FAST_INT8_ROUTES.items()}
+        if qconv.int8_conv.by_route != routes:
+            raise AssertionError("[{}] rs_int8_conv launches by route {} != expected {}".format(
+                label, qconv.int8_conv.by_route, routes))
         by_path[label] = {name: c for name, c in counts.items() if c}
         for name, c in by_path[label].items():
             launches[name] += c
         steady = len(tiles) - len(first.meta)
         log("phase 8: [8b {}] predict wrote {} tiles in {:.2f} s; steady {:.2f} tiles/s over {} tiles ({:.3f} s) on "
-            "{}; {} batches of {} x {}; host-blocked input {}; launches {}".format(
+            "{}; {} batches of {} x {}; host-blocked input {}; launches {}, rs_int8_conv's by route {}".format(
                 label, out["tiles"], wall, steady / out["steady_s"], steady, out["steady_s"], smi, n_batches, BATCH,
-                first.arrays[0].shape[1:], host_s2d, by_path[label]))
+                first.arrays[0].shape[1:], host_s2d, by_path[label], qconv.int8_conv.by_route))
         for x, y, z in tiles:
             img = Image.open(os.path.join(probs, str(z), str(x), "{}.png".format(y)))
             img.load()

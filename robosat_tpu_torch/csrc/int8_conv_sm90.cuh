@@ -73,6 +73,10 @@
 //   only the store address reads.
 // - K4: conv_kernel with STRIDE = 2 for conv2 and the projection; only the
 //   producer's gather differs.
+// - rs_int8_conv's stride-1 3x3 convs (halo_conv_kernel, at the end):
+//   up_kernel's loop with one accumulator, nine taps as windows of a halo
+//   of side 8 + 2 dil; its stride-2 convs run conv_kernel with a bf16
+//   input.
 //
 // Where conv_kernel stands (PERF.md): the MMAs are not the limit; a K step
 // is bound by the pipeline's handshakes and by the bytes each stage pulls
@@ -1259,6 +1263,281 @@ int launch_up(const Params& p, cudaStream_t stream) {
   const long long n_items = (n_tiles + 1) / 2 * ((p.cout + BN - 1) / BN);
   if (n_items == 0) return 0;
   auto kernel = up_kernel<BN, OUT_LAYOUT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(n_items < sm_count() ? n_items : sm_count()), 384, S::kBytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- rs_int8_conv's stride-1 3x3 convs: nine taps as windows of one halo per tile and chunk ----
+//
+// The fast family's stem, residual blocks (b1, b2, b3, b4a, the dilated
+// b4b) and decoder convs (d3, d2, d1) are dense 3x3 convs of stride 1 with
+// a bf16 input. On conv_kernel each (tap, 64-channel chunk) K step of a
+// 64-pixel tile copies and quantizes its own 8 KB A tile and pulls its own
+// weight tile for two MMAs: every input value is read through L2 and
+// quantized nine times, and every weight byte feeds 64 output rows. Here,
+// as in up_kernel, a consumer warpgroup takes an 8 x 8-pixel output tile,
+// loads the tile's raw bf16 halo of side 8 + 2 dil (10 at dilation 1, 12 at
+// b4b's 2; origin (ty - pad, tx - pad_w), zeros outside the input and past
+// cin) into registers one chunk ahead, quantizes it once (quantize8) into
+// the plane layout (one 16-channel plane after another, a pixel's 16
+// channels 16 bytes from the next pixel's: 8 consecutive halo pixels of a
+// plane are one 128-byte core matrix), fences the stores for wgmma and
+// syncs; tap (a, b) is then the halo window at pixel (a dil, b dil), a
+// descriptor offset: core matrices 16 * side bytes apart along M, one
+// plane apart along K. The nine taps x two 32-channel halves add into one
+// accumulator of BN / 2 int32 a thread. The weights (qconv.packed_tap_slabs)
+// stream per half chunk as nine slabs of BN output x 32 input channels,
+// which the two consumer warpgroups multiply against two different tiles
+// (taking turns at the tensor cores, named barriers 3 and 4, as up_kernel's
+// do), so every weight byte brought in feeds 128 output rows; a third
+// warpgroup's one thread streams them (setmaxnreg: 40 registers there, 232
+// for the consumers). The epilogue is store_tile's at the NHWC output pixel
+// (EPI_RESIDUAL_RELU: the conv's own input at that pixel).
+//
+// Shared-memory plan (HaloSmem): kRing weight stages of nine slabs, two
+// int8 halo slots of two tiles, a staged output tile per consumer
+// warpgroup, the weights' full and empty barriers. At BN = 128: stages of
+// 36,864 bytes, a ring of 4 (147,456), halos 4 x 6,400 (side 10) or
+// 4 x 9,216 (side 12), two staged tiles of 17,408, 64 bytes of barriers:
+// 207,936 or 219,200 of the 232,448 bytes a block may use, one CTA to an
+// SM. BN = 256 would leave room for one stage only, so Cout 256 runs as
+// two output tiles of 128, each loading its own halo (the items of one
+// spatial pair are neighbours, so the second finds the halo in L2).
+template <int DIL>
+struct HaloGeom {
+  static constexpr int kSide = 8 + 2 * DIL;                 // halo side of an 8 x 8 output tile
+  static constexpr int kPlane = kSide * kSide * 16;         // one 16-channel plane: the core matrices' K stride
+  static constexpr int kBytes = (kBK / 16) * kPlane;        // int8 halo of one tile and chunk
+  static constexpr int kPieces = kSide * kSide * 8;         // 16-byte pieces of a raw bf16 halo (64 channels a pixel)
+  static constexpr int kPasses = (kPieces + 127) / 128;     // pieces a consumer thread loads per chunk
+};
+
+template <int BN, int DIL>
+struct HaloSmem {
+  static constexpr int kRing = 4;
+  static constexpr int kSlab = BN * 32;           // one tap's weight slab of half a chunk: BN x 32 input channels
+  static constexpr int kWeights = 9 * kSlab;      // a stage: the nine taps' slabs of half a chunk
+  static constexpr int kHalos = kRing * kWeights;  // int8 halo slot h of tile g at kHalos + (2 h + g) * kBytes
+  static constexpr int kOut = kHalos + 2 * 2 * HaloGeom<DIL>::kBytes;
+  static constexpr int kBars = kOut + 2 * out_bytes<BN>();
+  static constexpr int kBytes = kBars + 8 * 2 * kRing;
+  static_assert(kBytes <= kSmemMax, "halo_conv_kernel's shared memory does not fit a block");
+};
+
+// p: x (n, h, w, cin) bf16, wp from qconv.packed_tap_slabs, y the bf16
+// (n, ho, wo, cout) output; 3x3 taps of dilation DIL, p.pad rows and
+// p.pad_w columns of zeros before the grid. Item i of the grid is (pair of
+// 8 x 8 output tiles i / tiles_n, output-channel tile i % tiles_n), CTA b
+// taking items b, b + gridDim.x, ...: the CTAs running side by side share
+// their halos through L2. Threads [0, 256): the two consumer warpgroups,
+// warpgroup g on tile 2 pair + g (past the last tile: zeros in, nothing
+// stored). Threads [256, 384): the weights' warpgroup, one thread of it
+// running ahead through the (item, chunk, half) stages.
+template <int BN, int EPI, int DIL>
+__global__ void __launch_bounds__(384, 1) halo_conv_kernel(const __grid_constant__ Params p) {
+  using S = HaloSmem<BN, DIL>;
+  using G = HaloGeom<DIL>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int tid = threadIdx.x;
+  const uint32_t base = smem_u32(smem);
+  const uint32_t w_full0 = base + S::kBars;  // barrier [s] at ...0 + 8 s
+  const uint32_t w_empty0 = w_full0 + 8 * S::kRing;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < S::kRing; ++s) {
+      mbar_init(w_full0 + 8 * s, 1);   // the arrival that announces the weight copy's bytes
+      mbar_init(w_empty0 + 8 * s, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int tiles_x = (p.wo + 7) / 8;
+  const int tiles_img = (p.ho + 7) / 8 * tiles_x;
+  const int n_tiles = p.n * tiles_img;
+  const int tiles_n = (p.cout + BN - 1) / BN;
+  const int n_items = (n_tiles + 1) / 2 * tiles_n;
+  const int chunks = (p.cin + kBK - 1) / kBK;
+
+  if (tid >= 256) {
+    // ---- the weights: stage wi = (this CTA's item, chunk, half) in order -> ring slot wi % kRing ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid != 256) return;
+    const int n_mine = (static_cast<int>(blockIdx.x) < n_items
+                            ? (n_items - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x) + 1
+                            : 0) * chunks;
+    int item = blockIdx.x, kc = 0;
+    for (int wi = 0; wi < 2 * n_mine; ++wi) {
+      const int s = wi % S::kRing;
+      if (wi >= S::kRing) mbar_wait(w_empty0 + 8 * s, ((wi / S::kRing) - 1) & 1);
+      mbar_arrive_expect_tx(w_full0 + 8 * s, S::kWeights);
+      const int8_t* src = p.wp + ((static_cast<size_t>(item % tiles_n) * chunks + kc) * 2 + (wi & 1)) * S::kWeights;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        bulk_copy(base + s * S::kWeights + tap * S::kSlab, src + tap * S::kSlab, S::kSlab, w_full0 + 8 * s);
+      }
+      if ((wi & 1) && ++kc == chunks) {
+        kc = 0;
+        item += gridDim.x;
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup g: tile 2 pair + g of every item; per chunk quantize, 2 x 9 MMAs; then the store ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int g = tid >> 7;
+  const int wt = tid & 127;
+  const int lane = tid & 31;
+  // The two warpgroups take turns at the tensor cores (named barrier 3 + g:
+  // this warpgroup's turn), so one quantizes while the other's MMAs run.
+  if (g == 1) asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+  // This thread's pieces of its tile's raw halo are q = wt + 128 i: halo
+  // pixel q / 8 (row dy, column dx), 8-channel group q % 8 = wt % 8. Per
+  // piece it keeps the byte offset from the halo's first pixel and (dy, dx);
+  // per item the halo's first pixel and the pieces that lie in the input.
+  const int piece = wt & 7;
+  int rel[G::kPasses], dyx[G::kPasses];
+#pragma unroll
+  for (int i = 0; i < G::kPasses; ++i) {
+    const int hp = (wt + 128 * i) >> 3;
+    const int dy = hp / G::kSide;
+    const int dx = hp - dy * G::kSide;
+    rel[i] = (dy * p.w + dx) * p.cin * 2;
+    dyx[i] = dy | dx << 8;
+  }
+  long long origin = 0;  // byte offset of the halo's pixel (0, 0), channel group `piece` (may lie before x)
+  uint32_t inside = 0;   // bit i: piece i of this thread lies in the input
+  auto locate = [&](int item) {
+    const int t = 2 * (item / tiles_n) + g;
+    const int img = t / tiles_img;
+    const int rem = t - img * tiles_img;
+    const int y0 = rem / tiles_x * 8 - p.pad;
+    const int x0 = rem % tiles_x * 8 - p.pad_w;
+    origin = ((static_cast<long long>(img) * p.h + y0) * p.w + x0) * p.cin * 2 + piece * 16;
+    inside = 0;
+#pragma unroll
+    for (int i = 0; i < G::kPasses; ++i) {
+      const int y = y0 + (dyx[i] & 0xff);
+      const int x = x0 + (dyx[i] >> 8);
+      const bool in = t < n_tiles && wt + 128 * i < G::kPieces && y >= 0 && y < p.h && x >= 0 && x < p.w;
+      inside |= static_cast<uint32_t>(in) << i;
+    }
+  };
+  uint4 raw[G::kPasses];  // the located tile's pieces of one chunk
+  auto load = [&](int kc) {
+    const bool c_in = kc * kBK + piece * 8 < p.cin;
+    const uint8_t* src = static_cast<const uint8_t*>(p.x) + origin + kc * (2 * kBK);
+#pragma unroll
+    for (int i = 0; i < G::kPasses; ++i) {
+      raw[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (c_in && (inside >> i & 1)) raw[i] = __ldg(reinterpret_cast<const uint4*>(src + rel[i]));
+    }
+  };
+  __nv_bfloat16* out_s = reinterpret_cast<__nv_bfloat16*>(smem + S::kOut + g * out_bytes<BN>());
+  int it = 0;  // chunks done; the weight stages done are wi
+  int wi = 0;
+  if (static_cast<int>(blockIdx.x) < n_items) {
+    locate(blockIdx.x);
+    load(0);
+  }
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int t = 2 * (item / tiles_n) + g;
+    const int n0 = (item % tiles_n) * BN;
+    int acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    for (int kc = 0; kc < chunks; ++kc) {
+      const int hs = it & 1;
+      // Quantize this chunk's pieces into halo slot hs, which the MMAs of
+      // chunk it - 2 read last (complete: the last wait of chunk it - 1 left
+      // at most the two groups of that chunk pending). Piece q = 8 halo
+      // pixel + 8-channel group goes to channel plane q % 8 / 2.
+      uint8_t* halo_s = smem + S::kHalos + (2 * hs + g) * G::kBytes;
+#pragma unroll
+      for (int i = 0; i < G::kPasses; ++i) {
+        const int q = wt + 128 * i;
+        if (q < G::kPieces) {
+          *reinterpret_cast<uint2*>(halo_s + (piece >> 1) * G::kPlane + (q >> 3) * 16 + (q & 1) * 8) =
+              quantize8(raw[i], p.inv_in);
+        }
+      }
+      fence_proxy_async();  // this thread's generic-proxy stores, for wgmma
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + g) : "memory");  // the whole halo is quantized
+      // Ask for the next chunk's pieces (the next item's first, past the last chunk).
+      if (kc + 1 < chunks) {
+        load(kc + 1);
+      } else if (item + static_cast<int>(gridDim.x) < n_items) {
+        locate(item + gridDim.x);
+        load(0);
+      }
+      const uint32_t halo = base + S::kHalos + (2 * hs + g) * G::kBytes;
+      asm volatile("bar.sync %0, 256;\n" ::"r"(3 + g) : "memory");
+      // Tap (a, b) reads the halo window at pixel (a DIL, b DIL): output row
+      // r of the tile is halo row r / 8 + a DIL, kSide pixels (16 kSide
+      // bytes) on per row.
+#pragma unroll
+      for (int kk = 0; kk < kBK / 32; ++kk) {
+        const int s = wi % S::kRing;
+        mbar_wait(w_full0 + 8 * s, (wi / S::kRing) & 1);
+        const uint32_t slabs = base + s * S::kWeights;
+        wgmma_fence();
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const int a = tap / 3;
+          const int b = tap % 3;
+          Wgmma<BN>::mma(acc, desc(halo + (a * DIL * G::kSide + b * DIL) * 16 + kk * 2 * G::kPlane, G::kPlane,
+                                   G::kSide * 16),
+                         desc(slabs + tap * S::kSlab, kCoreBytes, 2 * kCoreBytes));
+        }
+        wgmma_commit();
+        // Two groups stay in flight, so the next chunk's quantize runs
+        // beside this chunk's MMAs; the stage two back is read.
+        wgmma_wait<2>();
+        if (kc > 0 && lane == 0) mbar_arrive(w_empty0 + 8 * ((wi - 2) % S::kRing));
+        ++wi;
+      }
+      asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - g) : "memory");
+      ++it;
+    }
+    wgmma_wait<0>();
+    if (lane == 0) {
+      mbar_arrive(w_empty0 + 8 * ((wi - 2) % S::kRing));
+      mbar_arrive(w_empty0 + 8 * ((wi - 1) % S::kRing));
+    }
+    const int img = t / tiles_img;
+    const int rem = t - img * tiles_img;
+    const int ty = rem / tiles_x * 8;
+    const int tx = rem % tiles_x * 8;
+    store_tile<BN, EPI>(p, acc, out_s, n0, wt, 1 + g, [&](int row) {
+      const int y = ty + (row >> 3);
+      const int x = tx + (row & 7);
+      return t < n_tiles && y < p.ho && x < p.wo ? (img * p.ho + y) * p.wo + x : -1;
+    });
+  }
+}
+
+// Launch a stride-1 3x3 conv of dilation DIL (p.k = 3, p.dil = DIL), one
+// CTA per SM (at most one per item); returns the CUDA error code.
+template <int BN, int EPI, int DIL>
+int launch_halo(const Params& p, cudaStream_t stream) {
+  using S = HaloSmem<BN, DIL>;
+  // The last output row's and column's windows start inside the padded input.
+  if (p.k != 3 || p.dil != DIL || p.ho < 1 || p.wo < 1 || p.pad < 0 || p.pad_w < 0 || p.ho - 1 - p.pad >= p.h ||
+      p.wo - 1 - p.pad_w >= p.w) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // Output pixel indices and a halo's byte offsets are 32-bit in the kernel.
+  if (static_cast<long long>(p.n) * p.ho * p.wo >= (1LL << 31) ||
+      HaloGeom<DIL>::kSide * (p.w + 1LL) * p.cin * 2 >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long n_tiles = static_cast<long long>(p.n) * ((p.ho + 7) / 8) * ((p.wo + 7) / 8);
+  const long long n_items = (n_tiles + 1) / 2 * ((p.cout + BN - 1) / BN);
+  if (n_items == 0) return 0;
+  auto kernel = halo_conv_kernel<BN, EPI, DIL>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<static_cast<unsigned>(n_items < sm_count() ? n_items : sm_count()), 384, S::kBytes, stream>>>(p);

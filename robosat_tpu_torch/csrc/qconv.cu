@@ -21,11 +21,20 @@
 // for the others, around and above the ~590 ridge. Their bounds sum to
 // ~0.15 ms a batch, d1 (0.049 ms) and b1 (0.025 ms) the largest.
 //
-// The design is int8_conv_sm90.cuh's conv_kernel with a bf16 input (each
-// 64-channel K step of a tap copied as raw bf16 and quantized once by the
-// thread that copied it), the tap offsets dilated and the padding before
-// the grid given per axis; the residual of EPI_RESIDUAL_RELU is the conv's
-// own input x (Cin = Cout, stride 1, an output grid the size of the input).
+// Two kernels, by a fixed route (rs_int8_conv, below): a stride-1 3x3
+// conv of dilation 1 or 2 (the stem, b1, b2, b3, b4a, b4b, d3, d2 and d1:
+// 9 of the 12 sites, 91% of their MACs) runs int8_conv_sm90.cuh's
+// halo_conv_kernel, which stages one halo per 8 x 8-pixel output tile and
+// 64-channel chunk, quantizes each input value once per chunk and reads the
+// nine taps as windows of it, against weight slabs (qconv.packed_tap_slabs)
+// that two tiles share; BN = 64 output channels up to Cout 64, else 128.
+// Every other conv (down2, down3 and down4, stride 2; any other k or
+// dilation) runs conv_kernel with a bf16 input (each 64-channel K step of a
+// tap copied as raw bf16 and quantized once by the thread that copied it;
+// weights from qenc.packed_weights), the tap offsets dilated and the
+// padding before the grid given per axis. The residual of
+// EPI_RESIDUAL_RELU is the conv's own input x (Cin = Cout, stride 1, an
+// output grid the size of the input).
 
 #include "int8_conv_sm90.cuh"
 
@@ -34,6 +43,25 @@ namespace {
 template <int STRIDE, int EPI>
 int conv(const rs::sm90::Params& p, cudaStream_t stream) {
   return rs::sm90::launch_dense<true, EPI, STRIDE>(p, stream);
+}
+
+template <int BN, int DIL>
+int halo_epi(const rs::sm90::Params& p, int epi, cudaStream_t stream) {
+  namespace s9 = rs::sm90;
+  switch (epi) {
+    case rs::EPI_LINEAR:
+      return s9::launch_halo<BN, rs::EPI_LINEAR, DIL>(p, stream);
+    case rs::EPI_RELU:
+      return s9::launch_halo<BN, rs::EPI_RELU, DIL>(p, stream);
+    case rs::EPI_RESIDUAL_RELU:
+      return s9::launch_halo<BN, rs::EPI_RESIDUAL_RELU, DIL>(p, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int DIL>
+int halo(const rs::sm90::Params& p, int epi, cudaStream_t stream) {
+  return p.cout <= 64 ? halo_epi<64, DIL>(p, epi, stream) : halo_epi<128, DIL>(p, epi, stream);
 }
 
 template <int STRIDE>
@@ -51,8 +79,9 @@ int conv_epi(const rs::sm90::Params& p, int epi, cudaStream_t stream) {
 
 }  // namespace
 
-// x bf16 (n, h, w, cin); wp: qenc.packed_weights of the (k, k, cin, cout)
-// kernel; e = ws * s and b (or null) f32 (cout,); inv = 1 / s; out bf16
+// x bf16 (n, h, w, cin); wp: the (k, k, cin, cout) kernel packed for the
+// route's kernel (qconv.packed_tap_slabs for the halo route, else
+// qenc.packed_weights); e = ws * s and b (or null) f32 (cout,); inv = 1 / s; out bf16
 // (n, ho, wo, cout); pad_top, pad_left: zero rows and columns before the grid.
 extern "C" int rs_int8_conv(const void* x, const void* wp, const float* e, const float* b, float inv, void* out, int n,
                             int h, int w, int cin, int cout, int k, int stride, int dil, int pad_top, int pad_left,
@@ -69,6 +98,10 @@ extern "C" int rs_int8_conv(const void* x, const void* wp, const float* e, const
     if (cin != cout || stride != 1 || ho != h || wo != w) return static_cast<int>(cudaErrorInvalidValue);
     p.residual = static_cast<const __nv_bfloat16*>(x);
   }
+  // The route (qconv.route): stride 1, k = 3 and dilation 1 or 2 take the
+  // halo kernel; every other conv takes conv_kernel.
+  if (stride == 1 && k == 3 && dil == 1) return halo<1>(p, epi, stream);
+  if (stride == 1 && k == 3 && dil == 2) return halo<2>(p, epi, stream);
   if (stride == 1) return conv_epi<1>(p, epi, stream);
   if (stride == 2) return conv_epi<2>(p, epi, stream);
   return static_cast<int>(cudaErrorInvalidValue);

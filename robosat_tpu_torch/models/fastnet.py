@@ -54,6 +54,10 @@ from robosat_tpu_torch.ops import head as heads
 _ENC = ("stem", "b1", "down2", "b2", "down3", "b3", "down4", "b4a", "b4b")
 # Decoder conv sites (no BN), in walk order.
 _DEC = ("u3", "d3", "u2", "d2", "u1", "d1")
+# (stride, dilation) of each dense conv site as `_walk48` calls it: the
+# route of its int8 conv (qconv.route) and so the packing it needs.
+DENSE_SITES = {"stem": (1, 1), "b1": (1, 1), "down2": (2, 1), "b2": (1, 1), "down3": (2, 1), "b3": (1, 1),
+               "down4": (2, 1), "b4a": (1, 1), "b4b": (1, 2), "d3": (1, 1), "d2": (1, 1), "d1": (1, 1)}
 
 # The int8 predict emits 4x4-blocked uint8 (16 channels) for the host writer.
 INT8_BLOCKED_OUT = True
@@ -276,7 +280,7 @@ def prepare_int8(qtree, scales):
         if name.startswith("u"):
             qdec.packed_parity_weights(qtree[name])
         else:
-            qconv.site_operands(qtree[name], scale)
+            qconv.site_operands(qtree[name], scale, *DENSE_SITES[name])
 
 
 def apply_logits_fake_quant(params, state, scales, x):

@@ -13,12 +13,18 @@ bit for bit,
 
 for any k x k kernel, stride 1 or 2, dilation and padding ("SAME" as XLA
 pads it, so (0, 1) at stride 2 on an even grid, or explicit pairs). On a
-CUDA tensor it launches csrc/qconv.cu, csrc/int8_conv_sm90.cuh's
-conv_kernel with a bf16 input, the weights packed by
-`qenc.packed_weights` and the scale product ws * s cached per site
-(`site_operands`); on a CPU tensor it runs `int8_conv_plain`.
-Activations are bf16 NHWC, channel counts multiples of 16.
+CUDA tensor it launches csrc/qconv.cu, which takes one of two kernels of
+csrc/int8_conv_sm90.cuh by a fixed rule (`route`): a stride-1 3x3 conv of
+dilation 1 or 2 runs halo_conv_kernel (one halo per 8 x 8-pixel output
+tile and 64-channel chunk, weights packed by `packed_tap_slabs`; its tiles
+are `halo_plan`'s), every other conv conv_kernel with a bf16 input
+(weights packed by `qenc.packed_weights`). The packing and the scale
+product ws * s are cached per site (`site_operands`). On a CPU tensor it
+runs `int8_conv_plain`. Activations are bf16 NHWC, channel counts
+multiples of 16.
 """
+
+from collections import namedtuple
 
 import numpy as np
 import torch
@@ -54,14 +60,74 @@ def conv_geometry(x_shape, node, stride, dilation, padding):
     return (pt, pl), ((h + pt + pb - span) // stride + 1, (w + pl + pr - span) // stride + 1)
 
 
-def site_operands(node, scale):
-    """(packed weights, ws * s, 1 / s) of a site, cached on the node for
-    its scale: the tree is quantized once and every batch reuses them."""
+def route(k, stride, dilation):
+    """The kernel csrc/qconv.cu runs a k x k conv on: "halo" for stride 1,
+    k = 3 and dilation 1 or 2, else "conv_kernel" (the same rule in C)."""
+    return "halo" if stride == 1 and k == 3 and dilation in (1, 2) else "conv_kernel"
+
+
+def halo_bn(cout):
+    """Output channels per tile of halo_conv_kernel: 64 up to Cout 64, else 128."""
+    return 64 if cout <= 64 else 128
+
+
+def packed_tap_slabs(node):
+    """A node's 3x3 int8 kernel packed for csrc/int8_conv_sm90.cuh's
+    halo_conv_kernel, cached on the node: (tiles_n * chunks * 2 * 9,
+    bn * 32) int8 with bn = halo_bn(Cout), row ((tile_n * chunks + chunk)
+    * 2 + half) * 9 + tap the slab of output channels [bn tile_n, +bn),
+    input channels [64 chunk + 32 half, +32) of wq[tap // 3, tap % 3], in
+    the wgmma core-matrix order: byte (row, k) at
+    ((row // 8) * 2 + k // 16) * 128 + (row % 8) * 16 + k % 16. Cin pads to
+    a multiple of 64 and Cout to one of bn with zeros; the nine slabs of one
+    (tile_n, chunk, half), a weight stage of the kernel, are contiguous."""
+    wpt = node.get("wpt")
+    if wpt is None:
+        wq = node["wq"]
+        kh, kw, cin, cout = wq.shape
+        taps, bn = kh * kw, halo_bn(cout)
+        chunks, tiles_n = -(-cin // 64), -(-cout // bn)
+        padded = torch.zeros((taps, chunks * 64, tiles_n * bn), dtype=torch.int8, device=wq.device)
+        padded[:, :cin, :cout] = wq.reshape(taps, cin, cout)
+        # (tap, chunk, half, k // 16, k % 16, tile_n, row // 8, row % 8)
+        # -> (tile_n, chunk, half, tap, row // 8, k // 16, row % 8, k % 16)
+        slabs = padded.reshape(taps, chunks, 2, 2, 16, tiles_n, bn // 8, 8).permute(5, 1, 2, 0, 6, 3, 7, 4)
+        wpt = node["wpt"] = slabs.reshape(tiles_n * chunks * 2 * taps, bn * 32).contiguous()
+    return wpt
+
+
+HaloPlan = namedtuple("HaloPlan", "side tiles_y tiles_x n_tiles items bn")
+
+
+def halo_plan(x_shape, cout, dilation, out_hw):
+    """halo_conv_kernel's tiling of a conv of an (N, H, W, Cin) input to an
+    (Ho, Wo) grid: the halo side 8 + 2 dilation, 8 x 8-pixel output tiles
+    (tiles_y x tiles_x an image, n_tiles in all), items of two spatial tiles
+    by one bn-wide output-channel tile."""
+    n, ho, wo = x_shape[0], out_hw[0], out_hw[1]
+    tiles_y, tiles_x, bn = -(-ho // 8), -(-wo // 8), halo_bn(cout)
+    n_tiles = n * tiles_y * tiles_x
+    return HaloPlan(8 + 2 * dilation, tiles_y, tiles_x, n_tiles, -(-n_tiles // 2) * -(-cout // bn), bn)
+
+
+def halo_origin(plan, tile, pads):
+    """(image, first input row, first input column) of the halo of output
+    tile `tile`: its (8 x 8) corner less the padding before the grid."""
+    img, rem = divmod(tile, plan.tiles_y * plan.tiles_x)
+    ty, tx = divmod(rem, plan.tiles_x)
+    return img, 8 * ty - pads[0], 8 * tx - pads[1]
+
+
+def site_operands(node, scale, stride=1, dilation=1):
+    """(packed weights for the conv's route, ws * s, 1 / s) of a site,
+    cached on the node (ws * s and 1 / s for the last scale given): the
+    tree is quantized once and every batch reuses them."""
     key = float(np.float32(scale))
     cached = node.get("site")
     if cached is None or cached[0] != key:
-        cached = node["site"] = (key, packed_weights(node), scaled_ws(node, scale).contiguous(), _act_inv(scale))
-    return cached[1:]
+        cached = node["site"] = (key, scaled_ws(node, scale).contiguous(), _act_inv(scale))
+    packer = packed_tap_slabs if route(node["wq"].shape[0], stride, dilation) == "halo" else packed_weights
+    return (packer(node),) + cached[1:]
 
 
 def _check(x, node, stride, dilation, epilogue):
@@ -85,8 +151,12 @@ def _launch(x, node, scale, stride, dilation, padding, epilogue):
     (pt, pl), (ho, wo) = conv_geometry(x.shape, node, stride, dilation, padding)
     if epilogue == "residual_relu" and (cin != cout or (ho, wo) != (h, w)):
         raise ValueError("the residual is the conv's input: Cin == Cout and an output grid of the input's size")
-    wp, e, inv = site_operands(node, scale)
-    kernels.check_cuda(wp, "wp", torch.int8, (k * k * -(-cin // 64), -(-cout // 128) * 128 * 64))
+    wp, e, inv = site_operands(node, scale, stride, dilation)
+    if route(k, stride, dilation) == "halo":
+        bn = halo_bn(cout)
+        kernels.check_cuda(wp, "wp", torch.int8, (-(-cout // bn) * -(-cin // 64) * 18, bn * 32))
+    else:
+        kernels.check_cuda(wp, "wp", torch.int8, (k * k * -(-cin // 64), -(-cout // 128) * 128 * 64))
     kernels.check_cuda(e, "e", torch.float32, (cout,))
     b = node.get("b")
     if b is not None:
@@ -107,7 +177,9 @@ def int8_conv(x, node, scale, stride=1, dilation=1, padding="SAME", epilogue="re
         return int8_conv_plain(x, node, scale, stride, dilation, padding, epilogue)
     out = _launch(x, node, scale, stride, dilation, padding, epilogue)
     int8_conv.launches += 1
+    int8_conv.by_route[route(node["wq"].shape[0], stride, dilation)] += 1
     return out
 
 
 int8_conv.launches = 0
+int8_conv.by_route = {"halo": 0, "conv_kernel": 0}  # launches by route, counted with `launches`

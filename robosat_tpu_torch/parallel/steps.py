@@ -265,12 +265,17 @@ def make_predict_step(model, overlap=0, compute_dtype=torch.float32, fused_head=
     - otherwise fine (N, H - 2o, W - 2o), through the blocked head and a
       depth-to-space when `s2d` is on, the fine-grid head when it is off.
 
+    Without `fold_bn` the forward runs over the params as they are, batch
+    norm in eval mode, on fine input (`s2d` and `host_s2d` do not apply):
+    with `fused_head`, a model's `apply_features` (the U-Net's) goes through
+    the fine-grid head (N, H - 2o, W - 2o); otherwise `model.apply`, the
+    softmax, the digitize and the crop.
+
     Returns step(params, state, raw, plain=False); `plain=True` runs the
     head's plain version instead of kernel K1.
     """
     if not fold_bn:
-        raise NotImplementedError("the float predict runs with fold_bn only (the unfolded forward: ROADMAP Queue 1, "
-                                  "item 6)")
+        return _unfolded_predict_step(model, overlap, compute_dtype, fused_head)
     own_head = fused_head and hasattr(model, "predict_quantized_folded")
     use_s2d = s2d and fused_head and hasattr(model, "apply_features_folded_s2d")
     use_host_s2d = host_s2d and use_s2d
@@ -296,6 +301,23 @@ def make_predict_step(model, overlap=0, compute_dtype=torch.float32, fused_head=
             if blocked_out:
                 return margin(features, w, b, overlap, 4)
             return head.fine_from_blocked(margin(features, w, b, 0, 4), overlap)
+
+    return step
+
+
+def _unfolded_predict_step(model, overlap, compute_dtype, fused_head):
+    """make_predict_step's forward without folding batch norm."""
+    features_head = fused_head and hasattr(model, "apply_features")
+
+    def step(params, state, raw, plain=False):
+        with torch.no_grad():
+            x = normalize(_to_device(raw, params["final"]["w"].device)).to(compute_dtype)
+            if features_head:
+                features, _ = model.apply_features(params, state, x, train=False)
+                margin = head.margin_head_plain if plain else head.margin_head
+                return margin(features, params["final"]["w"], params["final"]["b"], overlap, 1)
+            logits, _ = model.apply(params, state, x, train=False)
+            return _crop(softmax_quantize(logits), overlap)
 
     return step
 

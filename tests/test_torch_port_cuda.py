@@ -10,8 +10,11 @@ Shapes are small and ragged on purpose (pixel counts off the 64- and
 128-row tiles, channel counts off the 64-wide tiles) to reach every masked
 edge of the int8 conv kernels; chip_smoke.py checks the main-path
 shapes. rs_int8_conv (models/qconv.py) is held at each of the fast
-family's dense sites: the stride-2 "SAME" convs, the dilated b4b, the
-residual blocks and the concatenations' convs.
+family's dense sites, each case asserting the route it took
+(`qconv.route`: halo_conv_kernel for the stride-1 3x3 sites,
+conv_kernel for the stride-2 "SAME" convs): the dilated b4b, the
+residual blocks and the concatenations' convs, also at batch 8 on the
+walk's own 18-, 36- and 72-px grids and on 1 x W and H x 1 grids.
 """
 
 import pytest
@@ -137,7 +140,7 @@ _FAST_SITES = {"stem": (1, 1, "SAME", "relu"), "b": (1, 1, "SAME", "residual_rel
                "d": (1, 1, "SAME", "relu")}
 
 
-@pytest.mark.parametrize("site,cin,cout,h,w,bias", [
+_INT8_CONV_CASES = [
     # each site's widths on small grids (fastnet's walk at 64 to 192 px), then ragged ones
     ("stem", 48, 128, 16, 16, True),
     ("b", 128, 128, 16, 16, True),
@@ -156,19 +159,39 @@ _FAST_SITES = {"stem": (1, 1, "SAME", "relu"), "b": (1, 1, "SAME", "residual_rel
     ("stem", 48, 128, 37, 29, True),
     ("d", 96, 16, 5, 3, False),
     ("b", 128, 128, 144, 144, True),    # the 144-px grid of a 576-px tile
-])
-def test_int8_conv_kernel_bit_equal(gen, site, cin, cout, h, w, bias):
+]
+# Batch 8 on the walk's own grids at 576 px (18, 36, 72), and 1 x W and H x 1 grids.
+_INT8_CONV_BATCH8 = [
+    ("b", 256, 256, 18, 18, True),      # b4a
+    ("b4b", 256, 256, 18, 18, True),
+    ("d", 384, 128, 36, 36, False),     # d3
+    ("d", 256, 128, 72, 72, False),     # d2
+    ("b", 128, 128, 1, 29, True),
+    ("d", 256, 128, 21, 1, False),
+]
+
+
+@pytest.mark.parametrize("site,cin,cout,h,w,bias,n", [case + (2,) for case in _INT8_CONV_CASES] +
+                         [case + (8,) for case in _INT8_CONV_BATCH8],
+                         ids=["-".join(map(str, case)) for case in _INT8_CONV_CASES] +
+                         ["-".join(map(str, case)) + "-n8" for case in _INT8_CONV_BATCH8])
+def test_int8_conv_kernel_bit_equal(gen, site, cin, cout, h, w, bias, n):
+    """Bit-equal to the plain version, on the route qconv.route names: the
+    halo kernel for the stride-1 sites, conv_kernel for the stride-2 ones."""
     from robosat_tpu_torch.models import qconv
 
     stride, dilation, padding, epilogue = _FAST_SITES[site]
     node = _node(gen, 3, 3, cin, cout, bias=bias, std=(9 * cin) ** -0.5)
-    x = _act(gen, (2, h, w, cin))
-    before = qconv.int8_conv.launches
+    x = _act(gen, (n, h, w, cin))
+    before, routes = qconv.int8_conv.launches, dict(qconv.int8_conv.by_route)
     got = qconv.int8_conv(x, node, 0.019, stride=stride, dilation=dilation, padding=padding, epilogue=epilogue)
     torch.cuda.synchronize()
     assert qconv.int8_conv.launches == before + 1
+    route = "conv_kernel" if site == "down" else "halo"
+    assert qconv.route(3, stride, dilation) == route
+    assert qconv.int8_conv.by_route == {**routes, route: routes[route] + 1}
     ref = qconv.int8_conv_plain(x, node, 0.019, stride=stride, dilation=dilation, padding=padding, epilogue=epilogue)
-    assert got.shape == ref.shape == (2, -(-h // stride), -(-w // stride), cout)
+    assert got.shape == ref.shape == (n, -(-h // stride), -(-w // stride), cout)
     assert torch.equal(got, ref)
 
 
