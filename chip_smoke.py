@@ -8,7 +8,8 @@ on the card along nine paths and its `masks`, runs the two probe kernels,
 checks each hand-written kernel against its plain PyTorch version, and
 trains the U-Net (`train`, then `predict` from what it wrote), also
 quantization-aware and by distillation; then the fast family
-(config/model-fast.toml) the same way:
+(config/model-fast.toml) the same way, and last the README's workflow
+from an OSM extract to GeoJSON:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the CUDA kernels from robosat_tpu_torch/csrc;
@@ -126,6 +127,26 @@ quantization-aware and by distillation; then the fast family
    two, `--qat` from that checkpoint, then int8 `predict` from the QAT
    checkpoint (its 15 qat_amaxes, no calibration).
 
+10. The README's workflow on robosat_tpu_torch alone, after phase 8, each
+   stage a call of the tool's `main` in a temporary directory: a generated
+   map over a 6 x 6 block of z18 tiles (40 parking lots, ways the parking
+   filter drops, buildings, highways) written as .osm XML and as .osm.pbf;
+   `extract` from both (equal parking features; buildings and roads
+   non-empty); `cover` (every tile holding a lot's corner listed), plus a
+   column of 6 lot-free tiles; generated imagery served by a local
+   http.server and fetched by `download`, which needs `requests` (every
+   file the served pixels); `rasterize` (foreground where the lots are,
+   blank on the lot-free tiles, a second pass byte for byte the first);
+   `subset` into training/ and validation/; `weights` (equal to 1/ln(1.02
+   + p) recomputed from the labels, then written into the dataset TOML);
+   `train` one epoch on the card (config/model-unet.toml, batch cut to 8;
+   a checkpoint, finite losses); int8 `predict` on the card over the
+   validation tiles (13 K3, 3 K4, 5 K5, 1 K6 a batch, counted as
+   `workflow` on the kernels line);
+   `masks`, `features`, `merge`, `dedupe` against the extracted lots and
+   `compare`, each output valid GeoJSON or PNG. One log line a stage with
+   its seconds and counts.
+
 `python3 chip_smoke.py --k2 [--tree DIR]` runs phases 1-2 and K2's part of
 phase 4 only, on the robosat_tpu_torch of checkout DIR (default: this one),
 so that two versions of K2 can be timed on one card, one after the other.
@@ -133,7 +154,8 @@ so that two versions of K2 can be timed on one card, one after the other.
 the same way, for two versions of the train steps (7b's contract builds
 the kernels at first use). `python3 chip_smoke.py --fast` runs phases 1, 2
 and 8 only, with a U-Net checkpoint of `unet.init(0)` and a new dataset in
-place of 6c's.
+place of 6c's. `python3 chip_smoke.py --workflow` runs phases 1, 2 and 10
+only.
 
 Each kernel's line also carries its bound: the least time the card could
 take for the same work, max(bytes / 3.35 TB/s, operations / peak) with each
@@ -180,6 +202,15 @@ VECTOR_LOTS = 320
 VECTOR_BUILDINGS = 900
 MERGE_THRESHOLD = 2
 DEDUPE_THRESHOLD = 0.5
+# Phase 10 (the README's workflow on the port alone): a WORKFLOW_SIDE x
+# WORKFLOW_SIDE block of z18 tiles around 13.4 E, 52.5 N, its generated map's
+# closed parking ways, `download`'s rate, and the train batch (the config's
+# 64 cut to fit the block's few training tiles).
+WORKFLOW_SIDE = 6
+WORKFLOW_X0, WORKFLOW_Y0 = 140846, 86034
+WORKFLOW_LOTS = 40
+WORKFLOW_RATE = 16
+WORKFLOW_BATCH = 8
 
 # Each kernel: its source, and the pallas_call of the TPU kernel it replaces.
 SOURCES = {
@@ -313,6 +344,8 @@ def main():
                         help="only phases 1, 2 and 8 (the fast family: its kernels, predict, train steps and tools)")
     parser.add_argument("--vector", action="store_true",
                         help="only phases 1 and 9 (denoise + grow on the card, features, merge and dedupe)")
+    parser.add_argument("--workflow", action="store_true",
+                        help="only phases 1, 2 and 10 (the README's workflow, OSM to GeoJSON, on the port alone)")
     parser.add_argument("--fast-from", default=None, metavar="WORK",
                         help="with --fast: the full run's work directory, whose phase-6c U-Net checkpoint and "
                              "dataset phase 8d uses; the results go to WORK/fast.json (the full run's phase 8)")
@@ -362,6 +395,13 @@ def main():
         time.perf_counter() - start,
         "skipped, cached" if kernels.build_seconds is None else "{:.1f} s".format(kernels.build_seconds),
         os.path.relpath(kernels.library_path(), root)))
+
+    if opts.workflow:
+        with tempfile.TemporaryDirectory(prefix="rs_chip_smoke_") as work:
+            summary = run_workflow(torch, work, SEED, smi, wrappers())
+        log(json.dumps({"workflow": summary}))
+        log(smi)
+        return
 
     if opts.k2:
         from robosat_tpu_torch.ops import int8_mm
@@ -884,6 +924,12 @@ def run(torch, work, seed, smi):
     for name, c in fast["launches"].items():
         launches[name] += c
     by_path.update(fast["by_path"])
+
+    # ---- phase 10: the README's workflow on the port alone -----------------
+    torch.cuda.empty_cache()
+    by_path["workflow"] = run_workflow(torch, work, seed, smi, counted)["launches"]
+    for name, c in by_path["workflow"].items():
+        launches[name] += c
 
     return [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
@@ -1412,8 +1458,8 @@ def train_tool(torch, work, seed, counted, launches, by_path, smi):
         log("phase 6: [6c] log | {}".format(line))
 
     checkpoint = tool_checkpoint_path(work)
-    counts, pngs, wall, n_batches = predict_training_tiles(root, os.path.join(work, "probs-trained"), checkpoint,
-                                                           counted, "6c predict")
+    counts, pngs, wall, n_batches = predict_split_tiles(root, os.path.join(work, "probs-trained"), checkpoint,
+                                                        counted, "6c predict")
     by_path["train-predict"] = counts
     for name, c in counts.items():
         launches[name] += c
@@ -1422,19 +1468,19 @@ def train_tool(torch, work, seed, counted, launches, by_path, smi):
     return checkpoint
 
 
-def predict_training_tiles(root, probs, checkpoint, counted, label, model_toml=None, per_batch=None):
+def predict_split_tiles(root, probs, checkpoint, counted, label, model_toml=None, per_batch=None,
+                        split="training", tiles=TRAIN_TILES_SIDE ** 2):
     """int8 `predict` as configured (config/model-unet.toml, or `model_toml`)
-    over the training tiles of the dataset at `root` from `checkpoint`,
-    every launch count set to 0 just before and read just after: one
-    palette PNG of TILE px per tile, and per batch the launches of
-    `per_batch` (default the U-Net's: 13 K3, 3 K4, 5 K5 and 1 K6). Returns
-    (the nonzero launch counts, PNGs, seconds, batches)."""
+    over the `tiles` tiles of `split` of the dataset at `root` from
+    `checkpoint`, every launch count set to 0 just before and read just
+    after: one palette PNG of TILE px per tile, and per batch the launches
+    of `per_batch` (default the U-Net's: 13 K3, 3 K4, 5 K5 and 1 K6).
+    Returns (the nonzero launch counts, PNGs, seconds, batches)."""
     from PIL import Image
 
     from robosat_tpu_torch.tools import predict
 
-    tiles = TRAIN_TILES_SIDE ** 2
-    pargs = predict_args(None, os.path.join(root, "training", "images"), probs,
+    pargs = predict_args(None, os.path.join(root, split, "images"), probs,
                          model_toml or os.path.join(ROOT, "config", "model-unet.toml"), checkpoint)
     n_batches = -(-tiles // BATCH)
     for fn in counted.values():
@@ -1852,8 +1898,8 @@ def qat_distill_tools(torch, work, seed, tool_checkpoint, counted, by_path, smi)
 
     q8.calibration_amaxes, predict.make_int8_predict_step = calibration, int8_step
     try:
-        counts, pngs, wall, n_batches = predict_training_tiles(root, os.path.join(work, "probs-qat"),
-                                                               checkpoints["qat"], counted, "7c predict")
+        counts, pngs, wall, n_batches = predict_split_tiles(root, os.path.join(work, "probs-qat"),
+                                                            checkpoints["qat"], counted, "7c predict")
     finally:
         q8.calibration_amaxes, predict.make_int8_predict_step = real_calibration, real_step
     if seen["calibrations"] or seen["calib_amaxes"] is None or \
@@ -2424,9 +2470,9 @@ def fast_tools(torch, work, root, unet_checkpoint, counted, launches, by_path, s
 
     fastnet.calibration_amaxes_int8, predict.make_int8_predict_step = calibration, int8_step
     try:
-        counts, pngs, wall, n_batches = predict_training_tiles(root, os.path.join(work, "probs-fast-qat"),
-                                                               qat_checkpoint, counted, "8d predict",
-                                                               model_toml=FAST_TOML, per_batch=FAST_INT8)
+        counts, pngs, wall, n_batches = predict_split_tiles(root, os.path.join(work, "probs-fast-qat"),
+                                                            qat_checkpoint, counted, "8d predict",
+                                                            model_toml=FAST_TOML, per_batch=FAST_INT8)
     finally:
         fastnet.calibration_amaxes_int8, predict.make_int8_predict_step = real_calibration, real_step
     if seen["calibrations"] or seen["calib_amaxes"] is None or \
@@ -2637,6 +2683,456 @@ def run_vector(torch, work, smi, masks_dir=None):
                     run["cpu"]["seconds"]["features"], run["cpu"]["morphology_s"], smi))
     summary["seconds"] = time.perf_counter() - start_phase
     log("phase 9: done in {:.1f} s".format(summary["seconds"]))
+    return summary
+
+
+def _varint(n):
+    out = bytearray()
+    while True:
+        b, n = n & 0x7F, n >> 7
+        out.append(b | 0x80 if n else b)
+        if not n:
+            return bytes(out)
+
+
+def _zigzag(n):
+    return (n << 1) if n >= 0 else ((-n) << 1) - 1
+
+
+def _field(num, wire, payload):
+    """A protobuf field: a varint (wire 0) or length-delimited bytes (wire 2)."""
+    key = _varint((num << 3) | wire)
+    return key + _varint(payload) if wire == 0 else key + _varint(len(payload)) + payload
+
+
+def _packed(values, signed):
+    return b"".join(_varint(_zigzag(v) if signed else v) for v in values)
+
+
+def _deltas(values):
+    return [b - a for a, b in zip([0] + values[:-1], values)]
+
+
+def _blob(kind, block, compress):
+    import struct
+    import zlib
+
+    blob = _field(2, 0, len(block)) + _field(3, 2, zlib.compress(block)) if compress else _field(1, 2, block)
+    header = _field(1, 2, kind) + _field(3, 0, len(blob))
+    return struct.pack(">i", len(header)) + header + blob
+
+
+def encode_pbf(nodes, ways, gran=100, lat_off=0, lon_off=0):
+    """.osm.pbf bytes: a header blob, then the first half of the nodes as
+    plain Node messages (raw blob) and the rest as DenseNodes with the ways
+    (zlib blob). `nodes` maps id -> (lon, lat) degrees; `ways` lists (id,
+    tags, refs)."""
+    strings = [""]
+    for _, tags, _ in ways:
+        for kv in tags.items():
+            strings += [s for s in kv if s not in strings]
+    index = {s: i for i, s in enumerate(strings)}
+    table = _field(1, 2, b"".join(_field(1, 2, s.encode()) for s in strings))
+    params = _field(17, 0, gran) + _field(19, 0, lat_off) + _field(20, 0, lon_off)
+
+    def units(deg, off):
+        return int(round((deg * 1e9 - off) / gran))
+
+    ids = sorted(nodes)
+    plain, dense = ids[: len(ids) // 2], ids[len(ids) // 2 :]
+    plain_group = b"".join(
+        _field(1, 2, _field(1, 0, _zigzag(i)) + _field(8, 0, _zigzag(units(nodes[i][1], lat_off)))
+               + _field(9, 0, _zigzag(units(nodes[i][0], lon_off))))
+        for i in plain)
+    dense_msg = (_field(1, 2, _packed(_deltas(dense), True))
+                 + _field(8, 2, _packed(_deltas([units(nodes[i][1], lat_off) for i in dense]), True))
+                 + _field(9, 2, _packed(_deltas([units(nodes[i][0], lon_off) for i in dense]), True)))
+    way_msgs = b"".join(
+        _field(3, 2, _field(1, 0, wid) + _field(2, 2, _packed([index[k] for k in tags], False))
+               + _field(3, 2, _packed([index[v] for v in tags.values()], False))
+               + _field(8, 2, _packed(_deltas(refs), True)))
+        for wid, tags, refs in ways)
+    header = _blob(b"OSMHeader", _field(4, 2, b"OsmSchema-V0.6"), compress=False)
+    first = _blob(b"OSMData", table + _field(2, 2, plain_group) + params, compress=False)
+    second = _blob(b"OSMData", table + _field(2, 2, _field(2, 2, dense_msg)) + _field(2, 2, way_msgs) + params,
+                   compress=True)
+    return header + first + second
+
+
+def encode_xml(nodes, ways):
+    """The same map as .osm XML, each coordinate written as repr() of its float."""
+    from xml.sax.saxutils import quoteattr
+
+    out = ['<?xml version="1.0"?>', '<osm version="0.6">']
+    out += ['<node id="{}" lat="{!r}" lon="{!r}"/>'.format(i, lat, lon) for i, (lon, lat) in sorted(nodes.items())]
+    for wid, tags, refs in ways:
+        out.append('<way id="{}">'.format(wid))
+        out += ['<nd ref="{}"/>'.format(r) for r in refs]
+        out += ["<tag k={} v={}/>".format(quoteattr(k), quoteattr(v)) for k, v in tags.items()]
+        out.append("</way>")
+    return "\n".join(out + ["</osm>"]) + "\n"
+
+
+def workflow_map(seed):
+    """Phase 10's map over the WORKFLOW_SIDE^2 block of z18 tiles: WORKFLOW_LOTS
+    closed parking ways (parallelograms inside the block), ways the parking
+    filter drops (3 underground, 3 unclosed, one bow-tie), 6 buildings and
+    4 highways. Returns (nodes in degrees, ways, the lots' corners). Each
+    coordinate is the float the PBF reader decodes from it (1e-9 * (100 *
+    units) at granularity 100), so the XML and the PBF hold one map."""
+    from robosat_tpu_torch.geo import tilemath
+
+    rng = np.random.default_rng(seed)
+    west, _, _, north = tilemath.bounds(tilemath.Tile(WORKFLOW_X0, WORKFLOW_Y0, 18))
+    _, south, east, _ = tilemath.bounds(tilemath.Tile(WORKFLOW_X0 + WORKFLOW_SIDE - 1,
+                                                      WORKFLOW_Y0 + WORKFLOW_SIDE - 1, 18))
+    nodes, ways, corners = {}, [], []
+
+    def node(fx, fy):
+        """A node at fractions (fx, fy) of the block from its south-west corner."""
+        nid = len(nodes) + 1
+        nodes[nid] = tuple(1e-9 * (100 * int(round(deg * 1e7)))
+                           for deg in (west + fx * (east - west), south + fy * (north - south)))
+        return nid
+
+    def parallelogram(w_range, closed=True):
+        x, y = rng.uniform(0.03, 0.85, 2)
+        w, h = rng.uniform(*w_range, 2)
+        s = rng.uniform(-w / 3, w / 3)
+        x = max(x, 0.01 - min(s, 0.0))
+        refs = [node(x, y), node(x + w, y), node(x + w + s, y + h), node(x + s, y + h)]
+        return refs + [refs[0]] if closed else refs
+
+    wid = 1000
+    for _ in range(WORKFLOW_LOTS):
+        refs = parallelogram((0.02, 0.09))
+        corners += [nodes[r] for r in refs]
+        ways.append((wid, {"amenity": "parking"}, refs))
+        wid += 1
+    for k in range(3):
+        ways.append((wid, {"amenity": "parking", "parking": "underground"}, parallelogram((0.02, 0.05))))
+        ways.append((wid + 1, {"amenity": "parking"}, parallelogram((0.02, 0.05), closed=False)))
+        wid += 2
+    a, b, c, d = node(0.5, 0.5), node(0.55, 0.55), node(0.55, 0.5), node(0.5, 0.55)
+    ways.append((wid, {"amenity": "parking"}, [a, b, c, d, a]))  # a bow-tie: invalid, dropped
+    wid += 1
+    for _ in range(6):
+        ways.append((wid, {"building": "yes"}, parallelogram((0.005, 0.015))))
+        wid += 1
+    for tags in ({"highway": "residential"}, {"highway": "service"}, {"highway": "primary", "oneway": "yes"},
+                 {"highway": "tertiary", "lanes": "3"}):
+        y = rng.uniform(0.1, 0.9)
+        ways.append((wid, tags, [node(0.05, y), node(0.5, y + rng.uniform(-0.05, 0.05)), node(0.95, y)]))
+        wid += 1
+    return nodes, ways, corners
+
+
+def workflow_imagery(root, tiles, features, seed):
+    """Generated TILE-px RGB tiles for `tiles` (z18 Tile ids): a smooth
+    texture with noise, the lots of `features` painted in asphalt gray.
+    Returns {(x, y): pixels}."""
+    from PIL import Image
+
+    from robosat_tpu_torch.tools import rasterize
+
+    rng = np.random.default_rng(seed)
+    index = rasterize.features_by_tile(features, 18)
+    yy, xx = np.mgrid[0:TILE, 0:TILE].astype(np.float32)
+    served = {}
+    for tile in tiles:
+        phase = rng.uniform(0, 2 * np.pi, 3)
+        base = 0.55 + 0.3 * np.stack([np.sin(xx / (29 + 5 * c) + yy / (37 + 3 * c) + phase[c]) for c in range(3)], -1)
+        img = base * 255 + rng.normal(0, 10, base.shape)
+        covering = index.get(tile)
+        if covering:
+            lot = rasterize.burn(tile, covering, TILE).astype(bool)
+            img[lot] = np.array([72.0, 72.0, 78.0]) + rng.normal(0, 6, (int(lot.sum()), 3))
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        path = os.path.join(root, "18", str(tile.x))
+        os.makedirs(path, exist_ok=True)
+        Image.fromarray(img).save(os.path.join(path, "{}.png".format(tile.y)), compress_level=1)
+        served[(tile.x, tile.y)] = img
+    return served
+
+
+def tree_bytes(root):
+    """{relative path: bytes} of every file under `root`."""
+    out = {}
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            with open(os.path.join(dirpath, name), "rb") as f:
+                out[os.path.relpath(os.path.join(dirpath, name), root)] = f.read()
+    return out
+
+
+def read_feature_collection(path):
+    """A GeoJSON FeatureCollection's features; raises unless it is one."""
+    with open(path) as f:
+        collection = json.load(f)
+    if collection.get("type") != "FeatureCollection" or not isinstance(collection.get("features"), list):
+        raise AssertionError("phase 10: {} is not a GeoJSON FeatureCollection".format(path))
+    for feature in collection["features"]:
+        if feature.get("type") != "Feature" or feature["geometry"]["type"] not in ("Polygon", "MultiPolygon"):
+            raise AssertionError("phase 10: {} holds {}".format(path, feature.get("type")))
+    return collection["features"]
+
+
+def run_workflow(torch, work, seed, smi, counted):
+    """Phase 10: the README's workflow on robosat_tpu_torch alone, each
+    stage a call of the tool's `main`: a generated map as .osm XML and
+    .osm.pbf -> extract (both files; parking, building, road) -> cover ->
+    download (a local http.server; it needs `requests`) -> rasterize
+    (twice) -> subset (training, validation) -> weights -> train (the card,
+    one epoch) -> int8 predict (the card, launches counted) -> masks ->
+    features (the card) -> merge -> dedupe -> compare. Every check raises.
+    Returns a summary with the stage seconds and the predict launches."""
+    import contextlib
+    import functools
+    import http.server
+    import io
+    import threading
+
+    from PIL import Image
+
+    from robosat_tpu_torch.config import load_config, save_config
+    from robosat_tpu_torch.geo import tilemath
+    from robosat_tpu_torch.tiles import tiles_from_csv, tiles_from_slippy_map
+    from robosat_tpu_torch.tools import (compare, cover, dedupe, download, extract, features, masks, merge,
+                                         rasterize, subset, train, weights)
+
+    root = os.path.join(work, "workflow")
+    os.makedirs(root)
+    summary = {"card": smi, "stages": {}}
+    start_phase = time.perf_counter()
+
+    def stage(name, seconds, **counts):
+        summary["stages"][name] = {"seconds": seconds, **counts}
+        log("phase 10: [{}] {:.2f} s; {} on {}".format(
+            name, seconds, ", ".join("{} {}".format(k.replace("_", " "), v) for k, v in counts.items()), smi))
+
+    # 1. the map, twice
+    t = time.perf_counter()
+    nodes, ways, corners = workflow_map(seed)
+    with open(os.path.join(root, "map.osm.pbf"), "wb") as f:
+        f.write(encode_pbf(nodes, ways))
+    with open(os.path.join(root, "map.osm"), "w") as f:
+        f.write(encode_xml(nodes, ways))
+    stage("map", time.perf_counter() - t, nodes=len(nodes), ways=len(ways), lots=WORKFLOW_LOTS,
+          pbf_bytes=os.path.getsize(os.path.join(root, "map.osm.pbf")))
+
+    # 2. extract
+    t = time.perf_counter()
+    extracted = {}
+    for kind, maps in (("parking", ("map.osm.pbf", "map.osm")), ("building", ("map.osm.pbf",)),
+                       ("road", ("map.osm.pbf",))):
+        for name in maps:
+            out = os.path.join(root, "extract", name.replace(".", "-"), kind + ".geojson")
+            os.makedirs(os.path.dirname(out), exist_ok=True)
+            extract.main(argparse.Namespace(type=kind, batch=100000, map=os.path.join(root, name), out=out))
+            chunks = [os.path.join(os.path.dirname(out), c) for c in sorted(os.listdir(os.path.dirname(out)))
+                      if c.startswith(kind + "-")]
+            extracted[(kind, name)] = [read_feature_collection(c) for c in chunks]
+    parking_pbf, parking_xml = extracted[("parking", "map.osm.pbf")], extracted[("parking", "map.osm")]
+    if parking_pbf != parking_xml or len(parking_pbf) != 1 or len(parking_pbf[0]) != WORKFLOW_LOTS:
+        raise AssertionError("phase 10: extract --type parking: {} from the PBF, {} from the XML, expected one chunk "
+                             "of {} lots, equal".format([len(c) for c in parking_pbf], [len(c) for c in parking_xml],
+                                                        WORKFLOW_LOTS))
+    counts = {kind: sum(map(len, extracted[(kind, "map.osm.pbf")])) for kind in ("parking", "building", "road")}
+    if not counts["building"] or not counts["road"]:
+        raise AssertionError("phase 10: extract gave {}".format(counts))
+    lots_path = os.path.join(root, "parking.geojson")
+    with open(lots_path, "w") as f:
+        json.dump({"type": "FeatureCollection", "features": parking_pbf[0]}, f)
+    stage("extract", time.perf_counter() - t, parking_pbf_equal_to_xml=True, **counts)
+
+    # 3. cover, plus a lot-free column of tiles east of the block
+    t = time.perf_counter()
+    covered_csv = os.path.join(root, "cover.csv")
+    cover.main(argparse.Namespace(zoom=18, features=lots_path, out=covered_csv))
+    covered = set(tiles_from_csv(covered_csv))
+    corner_tiles = {tilemath.tile(lon, lat, 18) for lon, lat in corners}
+    blank = {tilemath.Tile(WORKFLOW_X0 + WORKFLOW_SIDE, WORKFLOW_Y0 + j, 18) for j in range(WORKFLOW_SIDE)}
+    if not corner_tiles <= covered or covered & blank:
+        raise AssertionError("phase 10: cover missed {} corner tiles (or covered the blank column: {})".format(
+            len(corner_tiles - covered), len(covered & blank)))
+    all_tiles = sorted(covered | blank)
+    tiles_csv = os.path.join(root, "tiles.csv")
+    with open(tiles_csv, "w") as f:
+        f.writelines("{},{},{}\n".format(*tile) for tile in all_tiles)
+    stage("cover", time.perf_counter() - t, tiles=len(covered), corner_tiles=len(corner_tiles),
+          lot_free_tiles=len(blank))
+
+    # 4. imagery, served and downloaded
+    t = time.perf_counter()
+    upstream = os.path.join(root, "upstream")
+    served = workflow_imagery(upstream, all_tiles, parking_pbf[0], seed)
+    images = os.path.join(root, "images")
+
+    class Quiet(http.server.SimpleHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    t_fetch = time.perf_counter()
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), functools.partial(Quiet, directory=upstream))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    # requests reads proxies from the environment: keep the loopback server off any proxy.
+    saved = {k: os.environ.get(k) for k in ("no_proxy", "NO_PROXY")}
+    os.environ["no_proxy"] = os.environ["NO_PROXY"] = "127.0.0.1,localhost"
+    try:
+        url = "http://127.0.0.1:{}/{{z}}/{{x}}/{{y}}.png".format(server.server_address[1])
+        download.main(argparse.Namespace(url=url, ext="png", rate=WORKFLOW_RATE, tiles=tiles_csv, out=images))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    t_done = time.perf_counter()
+    got = dict(tiles_from_slippy_map(images))
+    if sorted(got) != all_tiles:
+        raise AssertionError("phase 10: {} image tiles for {} listed".format(len(got), len(all_tiles)))
+    for tile, path in got.items():
+        if not np.array_equal(np.asarray(Image.open(path)), served[(tile.x, tile.y)]):
+            raise AssertionError("phase 10: {} does not decode to the served pixels".format(path))
+    stage("download", t_done - t_fetch, rate=WORKFLOW_RATE, tiles=len(got), imagery_written_s=round(t_fetch - t, 2))
+
+    # 5. rasterize, twice
+    dataset = load_config(os.path.join(ROOT, "config", "dataset-parking.toml"))
+    dataset["common"]["dataset"] = os.path.join(root, "dataset")
+    dataset_toml = os.path.join(root, "dataset.toml")
+    save_config(dataset, dataset_toml)
+    labels = os.path.join(root, "labels")
+    t = time.perf_counter()
+    rargs = argparse.Namespace(features=lots_path, tiles=tiles_csv, out=labels, dataset=dataset_toml, zoom=18,
+                               size=TILE)
+    rasterize.main(rargs)
+    first_pass = time.perf_counter() - t
+    first = tree_bytes(labels)
+    rasterize.main(rargs)
+    if tree_bytes(labels) != first:
+        raise AssertionError("phase 10: rasterize's second pass changed the labels")
+    fg = {}
+    for tile, path in tiles_from_slippy_map(labels):
+        mask = np.asarray(Image.open(path))
+        if mask.shape != (TILE, TILE) or Image.open(path).mode != "P":
+            raise AssertionError("phase 10: label {} is {} {}".format(path, Image.open(path).mode, mask.shape))
+        fg[tile] = int(np.count_nonzero(mask))
+    if len(fg) != len(all_tiles) or not any(fg.values()) or any(fg[tile] for tile in blank):
+        raise AssertionError("phase 10: labels {} for {} tiles; foreground in the lot-free column: {}".format(
+            len(fg), len(all_tiles), [fg.get(tile) for tile in sorted(blank)]))
+    stage("rasterize", first_pass, labels=len(fg), with_foreground=sum(v > 0 for v in fg.values()),
+          foreground_share=round(sum(fg.values()) / (len(fg) * TILE * TILE), 4), second_pass="byte-equal")
+
+    # 6. subset into training/ and validation/
+    t = time.perf_counter()
+    splits = {"training": [tile for k, tile in enumerate(all_tiles) if k % 4 != 3],
+              "validation": [tile for k, tile in enumerate(all_tiles) if k % 4 == 3]}
+    for split, tiles in splits.items():
+        csv_path = os.path.join(root, split + ".csv")
+        with open(csv_path, "w") as f:
+            f.writelines("{},{},{}\n".format(*tile) for tile in tiles)
+        for kind, src in (("images", images), ("labels", labels)):
+            subset.main(argparse.Namespace(images=src, tiles=csv_path,
+                                           out=os.path.join(dataset["common"]["dataset"], split, kind)))
+            copied = [tile for tile, _ in tiles_from_slippy_map(os.path.join(dataset["common"]["dataset"], split,
+                                                                             kind))]
+            if sorted(copied) != sorted(tiles):
+                raise AssertionError("phase 10: subset {} {}".format(split, kind))
+    stage("subset", time.perf_counter() - t, training=len(splits["training"]), validation=len(splits["validation"]))
+
+    # 7. weights, recomputed from the labels, into the dataset TOML
+    t = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        weights.main(argparse.Namespace(dataset=dataset_toml))
+    seconds = time.perf_counter() - t
+    hist = np.zeros(2, np.int64)
+    for _, path in tiles_from_slippy_map(os.path.join(dataset["common"]["dataset"], "training", "labels")):
+        hist += np.bincount(np.asarray(Image.open(path)).ravel(), minlength=2)[:2]
+    want = (1.0 / np.log(1.02 + hist / hist.sum())).round(6).tolist()
+    if out.getvalue().strip() != str(want):
+        raise AssertionError("phase 10: weights printed {!r}, 1/ln(1.02 + p) is {}".format(out.getvalue(), want))
+    dataset["weights"] = {"values": want}
+    save_config(dataset, dataset_toml)
+    stage("weights", seconds, values=want, foreground_pixels=int(hist[1]))
+
+    # 8. train on the card, one epoch
+    base = load_config(os.path.join(ROOT, "config", "model-unet.toml"))
+    ckpt_dir = os.path.join(root, "checkpoints")
+    model_toml = os.path.join(root, "model-unet.toml")
+    save_config({**base, "common": {**base["common"], "batch_size": WORKFLOW_BATCH, "checkpoint": ckpt_dir},
+                 "opt": {**base["opt"], "epochs": 1}}, model_toml)
+    t = time.perf_counter()
+    result = train.main(argparse.Namespace(model=model_toml, dataset=dataset_toml, checkpoint=None, resume=False,
+                                           workers=4, profile=None))
+    seconds = time.perf_counter() - t
+    checkpoint = os.path.join(ckpt_dir, "checkpoint-00001-of-00001.npz")
+    losses = {k: result["history"][k][-1] for k in ("train loss", "val loss")}
+    steps = len(splits["training"]) // WORKFLOW_BATCH
+    if not os.path.isfile(checkpoint) or not all(map(math.isfinite, losses.values())) or result["steps"] != steps:
+        raise AssertionError("phase 10: train wrote {}, losses {}, {} steps (expected {})".format(
+            sorted(os.listdir(ckpt_dir)), losses, result["steps"], steps))
+    stage("train", seconds, cut="batch_size {} -> {} (the config's {} exceed the {} training tiles)".format(
+        base["common"]["batch_size"], WORKFLOW_BATCH, base["common"]["batch_size"], len(splits["training"])),
+          steps=result["steps"], train_loss=round(losses["train loss"], 5), val_loss=round(losses["val loss"], 5),
+          checkpoint_mb=round(os.path.getsize(checkpoint) / 1e6, 1))
+
+    # 9. int8 predict on the card, through the counted wrappers
+    probs = os.path.join(root, "probs")
+    counts, pngs, seconds, n_batches = predict_split_tiles(
+        dataset["common"]["dataset"], probs, checkpoint, counted, "phase 10: predict", model_toml=model_toml,
+        split="validation", tiles=len(splits["validation"]))
+    summary["launches"] = counts
+    stage("predict", seconds, pngs=pngs, batches=n_batches, launches=counts)
+
+    # 10. masks -> features -> merge -> dedupe, then compare
+    masks_dir = os.path.join(root, "masks")
+    t = time.perf_counter()
+    masks.main(argparse.Namespace(masks=masks_dir, probs=[probs], weights=None))
+    n_masks = 0
+    for _, path in tiles_from_slippy_map(masks_dir):
+        img = Image.open(path)
+        img.load()
+        if img.mode != "P" or img.size != (TILE, TILE):
+            raise AssertionError("phase 10: mask {} is {} {}".format(path, img.mode, img.size))
+        n_masks += 1
+    if n_masks != len(splits["validation"]):
+        raise AssertionError("phase 10: {} masks for {} tiles".format(n_masks, len(splits["validation"])))
+    stage("masks", time.perf_counter() - t, masks=n_masks)
+    vector = {name: os.path.join(root, name + ".geojson") for name in ("features", "merged", "deduped")}
+    t = time.perf_counter()
+    features.main(argparse.Namespace(type="parking", masks=masks_dir, out=vector["features"], dataset=dataset_toml,
+                                     chunk=16))
+    stage("features", time.perf_counter() - t, features=len(read_feature_collection(vector["features"])))
+    t = time.perf_counter()
+    merge.main(argparse.Namespace(features=vector["features"], threshold=MERGE_THRESHOLD, out=vector["merged"]))
+    stage("merge", time.perf_counter() - t, features=len(read_feature_collection(vector["merged"])))
+    t = time.perf_counter()
+    dedupe.main(argparse.Namespace(osm=lots_path, predicted=vector["merged"], threshold=DEDUPE_THRESHOLD,
+                                   out=vector["deduped"]))
+    stage("dedupe", time.perf_counter() - t, features=len(read_feature_collection(vector["deduped"])))
+    strips = os.path.join(root, "compare")
+    val = dataset["common"]["dataset"]
+    t = time.perf_counter()
+    compare.main(argparse.Namespace(out=strips, images=os.path.join(val, "validation", "images"),
+                                    labels=os.path.join(val, "validation", "labels"), masks=[masks_dir],
+                                    minimum=0.0, maximum=1.0))
+    n_strips = 0
+    for _, path in tiles_from_slippy_map(strips):
+        img = Image.open(path)
+        img.load()
+        if img.mode != "RGB" or img.size != (3 * TILE, TILE):
+            raise AssertionError("phase 10: strip {} is {} {}".format(path, img.mode, img.size))
+        n_strips += 1
+    if n_strips != len(splits["validation"]):
+        raise AssertionError("phase 10: {} strips for {} tiles".format(n_strips, len(splits["validation"])))
+    stage("compare", time.perf_counter() - t, strips=n_strips)
+    summary["seconds"] = time.perf_counter() - start_phase
+    log("phase 10: done in {:.1f} s".format(summary["seconds"]))
     return summary
 
 

@@ -1,11 +1,14 @@
-"""Slippy Map tile substrate: directory walking, pixel geo-referencing and
-overlap buffering.
+"""Slippy Map tile substrate: directory walking, CSV tile lists, pixel
+geo-referencing, overlap buffering and HTTP fetches.
 
-Counterpart of robosat_tpu/tiles.py, limited to what `predict` and
-`features` use. Images flow as HWC uint8 numpy arrays; PIL is used only at
-the disk boundary.
+Counterpart of robosat_tpu/tiles.py, held to it by
+tests/test_torch_port_data_tools.py. Images flow as HWC uint8 numpy arrays;
+PIL is used only at the disk boundary. `fetch_image` takes the caller's
+HTTP session, so this module imports no HTTP client.
 """
 
+import csv
+import io
 import os
 
 import numpy as np
@@ -31,6 +34,19 @@ def pixel_to_location(tile, dx, dy):
     lon = west + dx * (east - west)
     lat = south + dy * (north - south)
     return lon, lat
+
+
+def fetch_image(session, url, timeout=10):
+    """Fetch a tile image over HTTP; returns BytesIO or None on any error.
+
+    Parity: robosat/tiles.py:45-62.
+    """
+    try:
+        resp = session.get(url, timeout=timeout)
+        resp.raise_for_status()
+        return io.BytesIO(resp.content)
+    except Exception:
+        return None
 
 
 def _as_int(v):
@@ -67,6 +83,18 @@ def tiles_from_slippy_map(root):
                 if y is None:
                     continue
                 yield Tile(x=x, y=y, z=z), os.path.join(x_dir, name)
+
+
+def tiles_from_csv(path):
+    """Yield tiles from a line-delimited `x,y,z` CSV file.
+
+    Parity: robosat/tiles.py:103-120.
+    """
+    with open(path) as fp:
+        for row in csv.reader(fp):
+            if not row:
+                continue
+            yield Tile(*map(int, row))
 
 
 def load_image(path, mode="RGB"):
@@ -130,3 +158,25 @@ def buffer_tile_image(tile, tiles, overlap, tile_size, nodata=0, load=load_image
             composite[dst_y0:dst_y1, dst_x0:dst_x1] = neighbor[src_y0:src_y1, src_x0:src_x1]
 
     return composite
+
+
+def unbuffer(probs, overlap):
+    """Crop the overlap border back off a CHW probability array.
+
+    Parity: robosat/datasets.py:123-136.
+    """
+    o = overlap
+    if o == 0:
+        return probs
+    _, h, w = probs.shape
+    return probs[:, o : h - o, o : w - o]
+
+
+def stitch_image(into, into_box, image, image_box):
+    """Paste a crop of `image` into `into` (both HWC numpy, in-place).
+
+    Boxes are (left, upper, right, lower). Parity: robosat/tiles.py:123-136.
+    """
+    il, iu, ir, ilo = into_box
+    sl, su, sr, slo = image_box
+    into[iu:ilo, il:ir] = image[su:slo, sl:sr]

@@ -1,15 +1,33 @@
 """`python -m robosat_tpu_torch.tools <tool>`: the port's command line.
 
-The ported tools, `train`, `predict`, `masks`, `features`, `merge` and
-`dedupe`, keep the flags and the output contracts of their `rs`
-counterparts (robosat_tpu/tools/).
+The ported tools keep the flags and the output contracts of their `rs`
+counterparts (robosat_tpu/tools/), in the reference's order: the data
+tools `extract`, `cover`, `download` and `rasterize`; `train`, `predict`,
+`masks`, `features`, `merge` and `dedupe`; then `weights`, `compare` and
+`subset`. `download` needs the `requests` package, which it imports when it
+runs; the others load without it.
 """
 
 import argparse
 
-from robosat_tpu_torch.tools import dedupe, features, masks, merge, predict, train
+from robosat_tpu_torch.tools import (
+    compare,
+    cover,
+    dedupe,
+    download,
+    extract,
+    features,
+    masks,
+    merge,
+    predict,
+    rasterize,
+    subset,
+    train,
+    weights,
+)
 
-TOOLS = (train, predict, masks, features, merge, dedupe)
+# Data prep -> ML -> post-processing -> utilities.
+TOOLS = (extract, cover, download, rasterize, train, predict, masks, features, merge, dedupe, weights, compare, subset)
 
 
 def main():
