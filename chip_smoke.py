@@ -8,8 +8,8 @@ on the card along nine paths and its `masks`, runs the two probe kernels,
 checks each hand-written kernel against its plain PyTorch version, and
 trains the U-Net (`train`, then `predict` from what it wrote), also
 quantization-aware and by distillation; then the fast family
-(config/model-fast.toml) the same way, and last the README's workflow
-from an OSM extract to GeoJSON:
+(config/model-fast.toml) the same way, the README's workflow from an OSM
+extract to GeoJSON, and last DeepLabv3+ (`model = "deeplabv3plus"`):
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the CUDA kernels from robosat_tpu_torch/csrc;
@@ -147,6 +147,26 @@ from an OSM extract to GeoJSON:
    `compare`, each output valid GeoJSON or PNG. One log line a stage with
    its seconds and counts.
 
+11. DeepLabv3+ on a TOML copy of config/model-unet.toml with model =
+   "deeplabv3plus" (as tests/test_deeplab.py configures it), weights from
+   `deeplab.init(0)`, in a process of its own after phase 10 (`--deeplab
+   --deeplab-from WORK`): 11a, the first predict batch (8 host-blocked
+   576-px tiles of phase 5) through the float32 calibration walk, which
+   keeps each site's input; K3 at layer4.0 (dilation 2, projection) and
+   layer4.1 (dilation 2), rs_int8_conv at aspp1, aspp_d0/1/2 (dilations 6,
+   12, 18), aspp_proj (`conv_kernel`), dec1 and dec2 (`halo_conv_kernel`),
+   each on the route qconv.route names, bit-equal to their plain versions,
+   timed as phase 3, each bound counting only the taps inside the grid;
+   11b, `predict.main` as configured (int8, host-blocked input: 14 K3, 2
+   K4 and 7 rs_int8_conv launches a batch, 5 by conv_kernel and 2 by the
+   halo route, counted as `deeplab-int8`) and with `int8 = false` (bf16,
+   fine input, no kernel) on phase 5's 64 tiles, the first batch against
+   the plain step and the PNGs, the step by CUDA events and its profile;
+   11c, the configured train step (bf16, Lovasz, batch 64 at 512 px,
+   augmentation on) for 10 steps (median, images/s, peak memory, idle),
+   then `train.main` one epoch on 6c's dataset (batch 16) and int8
+   `predict` from its checkpoint with the launch counts above.
+
 `python3 chip_smoke.py --k2 [--tree DIR]` runs phases 1-2 and K2's part of
 phase 4 only, on the robosat_tpu_torch of checkout DIR (default: this one),
 so that two versions of K2 can be timed on one card, one after the other.
@@ -155,7 +175,8 @@ the same way, for two versions of the train steps (7b's contract builds
 the kernels at first use). `python3 chip_smoke.py --fast` runs phases 1, 2
 and 8 only, with a U-Net checkpoint of `unet.init(0)` and a new dataset in
 place of 6c's. `python3 chip_smoke.py --workflow` runs phases 1, 2 and 10
-only.
+only. `python3 chip_smoke.py --deeplab` runs phases 1, 2 and 11 only,
+with a new dataset in place of 6c's.
 
 Each kernel's line also carries its bound: the least time the card could
 take for the same work, max(bytes / 3.35 TB/s, operations / peak) with each
@@ -313,6 +334,14 @@ FAST_INT8 = {"int8_conv": 12, "K5": 3}
 FAST_ROUTES = {name: "conv_kernel" if name.startswith("down") else "halo" for name in FAST_DENSE}
 FAST_INT8_ROUTES = {"halo": 9, "conv_kernel": 3}
 FAST_PATHS = (("fast-int8", {}, FAST_INT8), ("fast-bf16", {"int8": False}, {}))
+# Phase 11 (DeepLabv3+, config/model-unet.toml with model = "deeplabv3plus"):
+# launches per batch on its int8 path (layers 1-3's 11 stride-1 blocks and
+# layer4's 3 dilated ones on K3, layer2.0 and layer3.0 on K4, ASPP's and the
+# decoder's 7 dense sites on rs_int8_conv), those by route, and the predict
+# paths (label, model TOML keys, launches per batch).
+DEEPLAB_INT8 = {"K3": 14, "K4": 2, "int8_conv": 7}
+DEEPLAB_INT8_ROUTES = {"halo": 2, "conv_kernel": 5}
+DEEPLAB_PATHS = (("deeplab-int8", {}, DEEPLAB_INT8), ("deeplab-bf16", {"int8": False, "bf16": True}, {}))
 EDGE_ROWS = 128  # rows next to a tile edge inside a strip, where a strip's context exceeds the tile's
 # Paths that run on phase 3's scales through a QAT checkpoint's qat_amaxes.
 QAT_PATHS = ("int8-fine", "int8-strip")
@@ -346,6 +375,11 @@ def main():
                         help="only phases 1 and 9 (denoise + grow on the card, features, merge and dedupe)")
     parser.add_argument("--workflow", action="store_true",
                         help="only phases 1, 2 and 10 (the README's workflow, OSM to GeoJSON, on the port alone)")
+    parser.add_argument("--deeplab", action="store_true",
+                        help="only phases 1, 2 and 11 (DeepLabv3+: its kernels, predict, train step and tools)")
+    parser.add_argument("--deeplab-from", default=None, metavar="WORK",
+                        help="with --deeplab: the full run's work directory, whose phase-6c dataset phase 11c "
+                             "uses; the results go to WORK/deeplab.json (the full run's phase 11)")
     parser.add_argument("--fast-from", default=None, metavar="WORK",
                         help="with --fast: the full run's work directory, whose phase-6c U-Net checkpoint and "
                              "dataset phase 8d uses; the results go to WORK/fast.json (the full run's phase 8)")
@@ -433,6 +467,21 @@ def main():
             run_fast(torch, work, SEED, smi, wrappers(), launches, by_path, per_kernel)
         log(json.dumps({"kernels": [{"name": name, "launches": launches[name], **per_kernel[name]}
                                     for name in launches]}))
+        log(smi)
+        return
+
+    if opts.deeplab:
+        per_kernel, launches, by_path = {}, {"K3": 0, "K4": 0, "int8_conv": 0}, {}
+        if opts.deeplab_from:
+            run_deeplab(torch, opts.deeplab_from, SEED, smi, wrappers(), launches, by_path, per_kernel,
+                        train_root=os.path.join(opts.deeplab_from, "slippy"))
+            with open(os.path.join(opts.deeplab_from, "deeplab.json"), "w") as f:
+                json.dump({"per_kernel": per_kernel, "launches": launches, "by_path": by_path}, f)
+            return
+        with tempfile.TemporaryDirectory(prefix="rs_chip_smoke_") as work:
+            run_deeplab(torch, work, SEED, smi, wrappers(), launches, by_path, per_kernel)
+        log(json.dumps({"kernels": [{"name": name, "launches": launches[name], "launches_by_path": {
+            p: c[name] for p, c in by_path.items() if name in c}, **per_kernel.get(name, {})} for name in launches]}))
         log(smi)
         return
 
@@ -917,7 +966,7 @@ def run(torch, work, seed, smi):
 
     # ---- phase 8: the fast family, in a process of its own -----------------
     torch.cuda.empty_cache()
-    fast = run_fast_process(work)
+    fast = run_phase_process(work, "--fast", "fast")
     for name, entry in fast["per_kernel"].items():
         for site in entry["sites"]:
             add_site(per_kernel, name, site)
@@ -930,6 +979,16 @@ def run(torch, work, seed, smi):
     by_path["workflow"] = run_workflow(torch, work, seed, smi, counted)["launches"]
     for name, c in by_path["workflow"].items():
         launches[name] += c
+
+    # ---- phase 11: DeepLabv3+, in a process of its own ---------------------
+    torch.cuda.empty_cache()
+    deeplab = run_phase_process(work, "--deeplab", "deeplab")
+    for name, entry in deeplab["per_kernel"].items():
+        for site in entry["sites"]:
+            add_site(per_kernel, name, site)
+    for name, c in deeplab["launches"].items():
+        launches[name] += c
+    by_path.update(deeplab["by_path"])
 
     return [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
@@ -2045,18 +2104,19 @@ def tool_checkpoint_path(work):
     return os.path.join(work, "train-checkpoints", "checkpoint-00002-of-00002.npz")
 
 
-def run_fast_process(work):
-    """The full run's phase 8 in a process of its own (`--fast --fast-from
-    work`), its output going to this one's: late in one long process
-    torch.profiler drops kernel events (phase 8's device times read "not
-    measured", its step profile counts missing launches), and a fresh
-    process profiles as `--fast` does. Returns the results it wrote
+def run_phase_process(work, flag, name):
+    """The full run's phase 8 (`--fast --fast-from work`, name "fast") or
+    11 (`--deeplab --deeplab-from work`, "deeplab") in a process of its
+    own, its output going to this one's: late in one long process
+    torch.profiler drops kernel events (device times read "not measured",
+    a step profile counts missing launches), and a fresh process profiles
+    as `--fast` does. Returns the results it wrote to work/<name>.json
     (per-kernel sites, launches, launches by path); raises if it failed."""
-    cmd = [sys.executable, os.path.abspath(__file__), "--fast", "--fast-from", work]
+    cmd = [sys.executable, os.path.abspath(__file__), flag, flag + "-from", work]
     proc = subprocess.run(cmd, timeout=900, check=False)
     if proc.returncode != 0:
-        raise AssertionError("phase 8 ({}) exited with {}".format(" ".join(cmd[1:]), proc.returncode))
-    with open(os.path.join(work, "fast.json")) as f:
+        raise AssertionError("{} ({}) exited with {}".format(name, " ".join(cmd[1:]), proc.returncode))
+    with open(os.path.join(work, name + ".json")) as f:
         return json.load(f)
 
 
@@ -2070,6 +2130,7 @@ def run_fast(torch, work, seed, smi, counted, launches, by_path, per_kernel, une
     Adds the launches of 8b's int8 path and 8d's predict to `launches` and
     `by_path`, and the kernels' sites to `per_kernel`."""
     from robosat_tpu_torch.checkpoint import save_checkpoint, to_jax
+    from robosat_tpu_torch.config import load_config
     from robosat_tpu_torch.device import configure_device
     from robosat_tpu_torch.models import fastnet, unet
 
@@ -2081,7 +2142,8 @@ def run_fast(torch, work, seed, smi, counted, launches, by_path, per_kernel, une
     save_checkpoint(checkpoint, {"params": to_jax(params), "state": to_jax(state)}, meta={"epoch": 0})
     fast_kernels(torch, work, tiles_dir, checkpoint, per_kernel, smi)
     torch.cuda.empty_cache()
-    fast_predict_paths(torch, work, tiles_dir, tiles, checkpoint, counted, launches, by_path, smi)
+    model_predict_paths(torch, work, tiles_dir, tiles, checkpoint, fastnet, load_config(FAST_TOML), FAST_PATHS,
+                        FAST_INT8_ROUTES, 8, counted, launches, by_path, smi)
     torch.cuda.empty_cache()
     fast_train_steps(torch, seed, smi)
     torch.cuda.empty_cache()
@@ -2191,30 +2253,32 @@ def fast_kernels(torch, work, tiles_dir, checkpoint, per_kernel, smi):
     del walk, qtree, got, ref
 
 
-def fast_predict_paths(torch, work, tiles_dir, tiles, checkpoint, counted, launches, by_path, smi):
-    """Phase 8b: `predict.main` with config/model-fast.toml as it stands
-    (int8, host-blocked input, 16-channel blocked output) and with
-    `int8 = false` (bf16, fine input), each through a TOML copy in the
-    work directory, every launch count set to 0 just before and read just
-    after: 64 palette PNGs, 12 rs_int8_conv and 3 K5 launches a batch on
-    the int8 path and none on the bf16 one, steady tiles/s; then the first
-    batch through the kernels against the plain step (+-1 bin on <= 0.1% of
-    pixels) and equal to the PNGs written, the step by CUDA events, and a
-    profile of the step."""
+def model_predict_paths(torch, work, tiles_dir, tiles, checkpoint, model, base, paths, int8_routes, phase, counted,
+                        launches, by_path, smi):
+    """Phase 8b or 11b (`phase`): `predict.main` with the family's model
+    TOML `base` along `paths` (label, keys over `base`, launches per batch
+    of each kernel: the int8 path as configured, then `int8 = false`),
+    each through a TOML copy in the work directory, every launch count set
+    to 0 just before and read just after: 64 palette PNGs, the path's
+    launches and, on the int8 path, rs_int8_conv's by route
+    (`int8_routes` a batch), steady tiles/s; then the first batch through
+    the kernels against the plain step (+-1 bin on <= 0.1% of pixels) and
+    equal to the PNGs written, the step by CUDA events, and a profile of
+    the step."""
     from PIL import Image
 
     from robosat_tpu_torch.checkpoint import load_model_checkpoint
-    from robosat_tpu_torch.config import load_config, save_config
+    from robosat_tpu_torch.config import save_config
     from robosat_tpu_torch.data.loader import batches
-    from robosat_tpu_torch.models import fastnet, qconv
     from robosat_tpu_torch.models import int8 as q8
+    from robosat_tpu_torch.models import qconv
     from robosat_tpu_torch.parallel.steps import make_int8_predict_step, make_predict_step
     from robosat_tpu_torch.tools import predict
 
-    base = load_config(FAST_TOML)
+    prefix = "phase {}: [{}b".format(phase, phase)
     params, state, _ = load_model_checkpoint(checkpoint, device=torch.device("cuda"))
     pngs_by_path = {}
-    for label, keys, per_batch in FAST_PATHS:
+    for label, keys, per_batch in paths:
         config = {**base, "common": {**base["common"], **keys}}
         model_toml = os.path.join(work, "model-{}.toml".format(label))
         save_config(config, model_toml)
@@ -2235,7 +2299,7 @@ def fast_predict_paths(torch, work, tiles_dir, tiles, checkpoint, counted, launc
         if counts != expected or out["tiles"] != len(tiles):
             raise AssertionError("[{}] {} tiles, launch counts {} != expected {}".format(label, out["tiles"], counts,
                                                                                        expected))
-        routes = {r: c * n_batches if per_batch.get("int8_conv") else 0 for r, c in FAST_INT8_ROUTES.items()}
+        routes = {r: c * n_batches if per_batch.get("int8_conv") else 0 for r, c in int8_routes.items()}
         if qconv.int8_conv.by_route != routes:
             raise AssertionError("[{}] rs_int8_conv launches by route {} != expected {}".format(
                 label, qconv.int8_conv.by_route, routes))
@@ -2243,10 +2307,10 @@ def fast_predict_paths(torch, work, tiles_dir, tiles, checkpoint, counted, launc
         for name, c in by_path[label].items():
             launches[name] += c
         steady = len(tiles) - len(first.meta)
-        log("phase 8: [8b {}] predict wrote {} tiles in {:.2f} s; steady {:.2f} tiles/s over {} tiles ({:.3f} s) on "
+        log("{} {}] predict wrote {} tiles in {:.2f} s; steady {:.2f} tiles/s over {} tiles ({:.3f} s) on "
             "{}; {} batches of {} x {}; host-blocked input {}; launches {}, rs_int8_conv's by route {}".format(
-                label, out["tiles"], wall, steady / out["steady_s"], steady, out["steady_s"], smi, n_batches, BATCH,
-                first.arrays[0].shape[1:], host_s2d, by_path[label], qconv.int8_conv.by_route))
+                prefix, label, out["tiles"], wall, steady / out["steady_s"], steady, out["steady_s"], smi, n_batches,
+                BATCH, first.arrays[0].shape[1:], host_s2d, by_path[label], qconv.int8_conv.by_route))
         for x, y, z in tiles:
             img = Image.open(os.path.join(probs, str(z), str(x), "{}.png".format(y)))
             img.load()
@@ -2256,13 +2320,14 @@ def fast_predict_paths(torch, work, tiles_dir, tiles, checkpoint, counted, launc
 
         raw = first.arrays[0]
         if config["common"].get("int8", False):
-            step, qt = make_int8_predict_step(fastnet, params, state, raw, overlap=OVERLAP, host_s2d=host_s2d,
-                                              calib_percentile=q8.calibration_spec(config["common"]["int8_calibration"]))
+            step, qt = make_int8_predict_step(model, params, state, raw, overlap=OVERLAP, host_s2d=host_s2d,
+                                              calib_percentile=q8.calibration_spec(
+                                                  config["common"].get("int8_calibration", 99.8)))
 
             def run_step(plain=False, step=step, qt=qt, raw=raw):
                 return step(qt, raw, plain=plain)
         else:
-            float_step = make_predict_step(fastnet, overlap=OVERLAP, compute_dtype=torch.bfloat16, fused_head=True,
+            float_step = make_predict_step(model, overlap=OVERLAP, compute_dtype=torch.bfloat16, fused_head=True,
                                            host_s2d=host_s2d)
 
             def run_step(plain=False, float_step=float_step, raw=raw):
@@ -2283,15 +2348,16 @@ def fast_predict_paths(torch, work, tiles_dir, tiles, checkpoint, counted, launc
         if not np.array_equal(written, fine):
             raise AssertionError("[{}] predict's PNGs differ from the step's output on {} pixels".format(
                 label, int((written != fine).sum())))
-        log("phase 8: [8b {}] batch {} -> {} through the kernels vs the plain path: {} of {} bins flipped by 1; "
+        log("{} {}] batch {} -> {} through the kernels vs the plain path: {} of {} bins flipped by 1; "
             "step {:.2f} ms with kernels (CUDA events), {:.2f} ms plain; PNGs match the kernel step".format(
-                label, raw.shape, tuple(got.shape), flips, got.numel(), step_ms, start_ev.elapsed_time(end_ev)))
-        log_step_profile(torch, run_step, label, per_batch, phase="phase 8")
+                prefix, label, raw.shape, tuple(got.shape), flips, got.numel(), step_ms, start_ev.elapsed_time(end_ev)))
+        log_step_profile(torch, run_step, label, per_batch, phase="phase {}".format(phase))
         del run_step, got, ref
         torch.cuda.empty_cache()
-    flips, err = u8_flips(torch, torch.from_numpy(pngs_by_path["fast-int8"]), torch.from_numpy(pngs_by_path["fast-bf16"]))
-    log("phase 8: [8b] int8 PNGs vs the bf16 run's (counted only: random weights, another datapath): {} of {} pixels "
-        "differ, max distance {}".format(flips, pngs_by_path["fast-int8"].size, err))
+    (int8_label, _, _), (float_label, _, _) = paths
+    flips, err = u8_flips(torch, torch.from_numpy(pngs_by_path[int8_label]), torch.from_numpy(pngs_by_path[float_label]))
+    log("{}] int8 PNGs vs the bf16 run's (counted only: random weights, another datapath): {} of {} pixels "
+        "differ, max distance {}".format(prefix, flips, pngs_by_path[int8_label].size, err))
 
 
 def time_train_steps(torch, prefix, step, params, state, extra, images, masks, seed, loss_name, dtype, groups, smi):
@@ -2485,6 +2551,275 @@ def fast_tools(torch, work, root, unet_checkpoint, counted, launches, by_path, s
     log("phase 8: [8d] predict (config/model-fast.toml) from the QAT checkpoint: quantized with its 15 qat_amaxes, "
         "no calibration; {} PNGs in {:.2f} s on {}; launches {} ({} batches)".format(pngs, wall, smi, counts,
                                                                                       n_batches))
+
+
+def deeplab_toml(work):
+    """A TOML copy of config/model-unet.toml with model = "deeplabv3plus"
+    (as tests/test_deeplab.py configures the family) in `work`."""
+    from robosat_tpu_torch.config import load_config, save_config
+
+    base = load_config(os.path.join(ROOT, "config", "model-unet.toml"))
+    config = {**base, "common": {**base["common"], "model": "deeplabv3plus"}}
+    path = os.path.join(work, "model-deeplab.toml")
+    save_config(config, path)
+    return path, config
+
+
+def run_deeplab(torch, work, seed, smi, counted, launches, by_path, per_kernel, train_root=None):
+    """Phase 11: DeepLabv3+ on a copy of config/model-unet.toml with model
+    = "deeplabv3plus", weights from `deeplab.init(seed)`: 11a its kernels
+    against their plain versions at full width, 11b the predict paths, 11c
+    the configured train step and the tools. `train_root` (6c's dataset)
+    is 11c's dataset; without it (`--deeplab`) a new one stands in. Adds
+    the launches of 11b's int8 path and 11c's predict to `launches` and
+    `by_path`, and the kernels' sites to `per_kernel`."""
+    from robosat_tpu_torch.checkpoint import save_checkpoint, to_jax
+    from robosat_tpu_torch.device import configure_device
+    from robosat_tpu_torch.models import deeplab
+
+    configure_device(True)
+    model_toml, config = deeplab_toml(work)
+    tiles_dir = os.path.join(work, "tiles-deeplab")
+    tiles = write_tiles(tiles_dir, seed)  # phase 5's tiles
+    params, state = deeplab.init(seed, num_classes=2)
+    checkpoint = os.path.join(work, "deeplab.npz")
+    save_checkpoint(checkpoint, {"params": to_jax(params), "state": to_jax(state)}, meta={"epoch": 0})
+    del params, state
+    deeplab_kernels(torch, work, tiles_dir, checkpoint, model_toml, config, per_kernel, smi)
+    torch.cuda.empty_cache()
+    model_predict_paths(torch, work, tiles_dir, tiles, checkpoint, deeplab, config, DEEPLAB_PATHS, DEEPLAB_INT8_ROUTES,
+                        11, counted, launches, by_path, smi)
+    torch.cuda.empty_cache()
+    deeplab_train_step(torch, seed, config, smi)
+    torch.cuda.empty_cache()
+    if train_root is None:
+        train_root = os.path.join(work, "slippy")
+        write_training_set(train_root, seed)
+    deeplab_tools(torch, work, train_root, config, counted, launches, by_path, smi)
+
+
+def taps_inside(h, w, k, dilation, pads, out_hw):
+    """(output pixel, tap) pairs of a stride-1 k x k conv of `dilation` over
+    an h x w grid, `pads` (top, left) zero rows and columns before it, whose
+    input pixel lies inside the grid (the taps in the padding read zeros)."""
+
+    def axis(size, pad, out):
+        return sum(1 for t in range(k) for o in range(out) if 0 <= o + t * dilation - pad < size)
+
+    return axis(h, pads[0], out_hw[0]) * axis(w, pads[1], out_hw[1])
+
+
+def deeplab_site_work(name, kargs, out):
+    """(bytes, operations, operation type, share of the taps inside the
+    grid) of a phase-11 kernel call: as `site_work`, but a 3x3 conv counts
+    only the taps that land inside the grid (K3's conv2 at dilation 2, the
+    ASPP convs at 6/12/18, the decoder's)."""
+    x = kargs[0]
+    n, h, w, cin = x.shape
+    io = nbytes(x, out)
+    if name == "K3":
+        qb, d = kargs[1], kargs[6]
+        cmid, cout = qb["conv1"]["wq"].shape[-1], qb["conv3"]["wq"].shape[-1]
+        pairs = taps_inside(h, w, 3, d, (d, d), (h, w))
+        macs = n * (h * w * (cin * cmid + cmid * cout + (cin * cout if "down_conv" in qb else 0)) + pairs * cmid * cmid)
+        return io + nbytes(*(node["wq"] for node in qb.values())), 2 * macs, "int8", pairs / (9 * h * w)
+    node, dilation = kargs[1], kargs[4]
+    k, cout = node["wq"].shape[0], node["wq"].shape[-1]
+    if k == 1:
+        return io + nbytes(node["wq"]), 2 * n * h * w * cin * cout, "int8", 1.0
+    pairs = taps_inside(h, w, k, dilation, (dilation, dilation), (h, w))
+    return io + nbytes(node["wq"]), 2 * n * pairs * cin * cout, "int8", pairs / (k * k * h * w)
+
+
+def deeplab_kernels(torch, work, tiles_dir, checkpoint, model_toml, config, per_kernel, smi):
+    """Phase 11a: the first predict batch (8 host-blocked 576-px tiles)
+    through DeepLab's float32 calibration walk, which keeps every site's
+    input; then K3 at layer4.0 (dilation 2, projection) and layer4.1
+    (dilation 2), and rs_int8_conv at its seven sites, each on the route
+    qconv.route names, on those inputs with the calibrated scales: each
+    against its plain version (bf16 bit-equal), timed as phase 3 times its
+    kernels, with a bound that counts only the taps inside the grid."""
+    from robosat_tpu_torch.checkpoint import load_model_checkpoint
+    from robosat_tpu_torch.data.loader import batches
+    from robosat_tpu_torch.models import deeplab, qconv, qenc
+    from robosat_tpu_torch.models import int8 as q8
+    from robosat_tpu_torch.models.resnet import RESNET50_STAGES
+    from robosat_tpu_torch.parallel.steps import _normalize_s2d4
+    from robosat_tpu_torch.tools import predict
+
+    common = config["common"]
+    pargs = predict_args(work, tiles_dir, None, model_toml, checkpoint)
+    directory, _ = predict.input_directory(pargs, predict.host_s2d_input(common, pargs))
+    raw48 = next(iter(batches(directory, BATCH, workers=2))).arrays[0]
+    side = (TILE + 2 * OVERLAP) // 4
+    if raw48.shape != (BATCH, side, side, 48):
+        raise AssertionError("phase 11: first batch has shape {}".format(raw48.shape))
+    params, state, _ = load_model_checkpoint(checkpoint, device=torch.device("cuda"))
+    percentile = q8.calibration_spec(common.get("int8_calibration", 99.8))
+    with torch.no_grad():
+        folded = deeplab.fold(params, state)
+        x48 = _normalize_s2d4(torch.as_tensor(raw48).cuda())
+        walk = SiteInputs(q8._Sites(scales=None, percentile=percentile), torch.bfloat16)
+        deeplab._walk_int8(folded, x48.float(), walk, float_mode=True, blocked=True)
+        amaxes = torch.stack(walk.sites.taps).float().cpu()
+        if not torch.equal(amaxes, deeplab.calibration_amaxes_int8(folded, x48, blocked=True, percentile=percentile)):
+            raise AssertionError("phase 11: the calibration walk is not reproducible on the card")
+        scales = [float(v) for v in q8.scales_from_amaxes(amaxes)]
+        qtree = deeplab.quantize_folded_int8(folded)
+        deeplab.prepare_int8(qtree, scales)
+    del params, state, folded, x48
+    log("phase 11: [11a] float32 calibration of {} sites on {} x {} (int8_calibration = {})".format(
+        len(scales), BATCH, raw48.shape[1:], common.get("int8_calibration", 99.8)))
+    # Site index of each block's conv1 in walk order (conv1, conv2, conv3, down_conv).
+    first_site, i = {}, 0
+    for si, (blocks, _) in enumerate(RESNET50_STAGES):
+        for bi, qb in enumerate(qtree["encoder"]["layer{}".format(si + 1)]):
+            first_site[(si + 1, bi)] = i
+            i += 3 + ("down_conv" in qb)
+    cases = []
+    for bi in (0, 1):
+        j, qb = first_site[(4, bi)], qtree["encoder"]["layer4"][bi]
+        sd = scales[j + 3] if "down_conv" in qb else None
+        cases.append(("K3", "layer4.{} ({}, dilation 2)".format(bi, "projection" if sd else "identity"),
+                      qenc.bottleneck_block, lambda *a: qenc.bottleneck_block_plain(*a[:6], dilation=a[6]),
+                      (walk.inputs[j], qb, scales[j], scales[j + 1], scales[j + 2], sd, 2)))
+    for j, (name, dilation) in enumerate(deeplab.DENSE_SITES, start=i):
+        cases.append(("int8_conv", name, qconv.int8_conv, qconv.int8_conv_plain,
+                      (walk.inputs[j], qtree[name], scales[j], 1, dilation, "SAME", "relu")))
+    if i + len(deeplab.DENSE_SITES) != len(scales):
+        raise AssertionError("phase 11: {} sites walked, {} scales".format(i + len(deeplab.DENSE_SITES), len(scales)))
+    with torch.no_grad():
+        for kname, site, kernel, plain, kargs in cases:
+            x = kargs[0]
+            routes = dict(qconv.int8_conv.by_route)
+            got, ref = kernel(*kargs), plain(*kargs)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            if got.shape != ref.shape or not torch.equal(got, ref):
+                raise AssertionError("phase 11: {} {}: {} vs plain {}, max |diff| {}".format(
+                    kname, site, tuple(got.shape), tuple(ref.shape), err))
+            route, note = None, ""
+            if kname == "int8_conv":
+                k, dilation = kargs[1]["wq"].shape[0], kargs[4]
+                route = qconv.route(k, 1, dilation)
+                want = "halo" if site.startswith("dec") else "conv_kernel"
+                if qconv.int8_conv.by_route != {**routes, route: routes[route] + 1} or route != want:
+                    raise AssertionError("phase 11: int8_conv {} took {} (by route {} -> {}), expected {}".format(
+                        site, route, routes, qconv.int8_conv.by_route, want))
+                note = " {}x{} dilation {} on {}".format(k, k, dilation, route)
+                if route == "halo":
+                    plan = qconv.halo_plan(x.shape, got.shape[-1], dilation, got.shape[1:3])
+                    note += " (halo side {}, {} tiles of 8 x 8, {} items, BN {})".format(
+                        plan.side, plan.n_tiles, plan.items, plan.bn)
+            arg_sets = rotated(torch, kargs)
+            ms = cuda_ms(torch, kernel, arg_sets, 20)
+            dev_ms = device_ms(torch, kernel, arg_sets, 20)
+            plain_ms = cuda_ms(torch, plain, arg_sets, 2)
+            del arg_sets
+            nbytes_, ops, op_type, inside = deeplab_site_work(kname, kargs, got)
+            tops = ops / (dev_ms or ms) / 1e9
+            extra = {"kernel": route} if route else {}
+            bound_ms, bound_by = record(per_kernel, kname, site + " (deeplab)", x.shape, err, ms, plain_ms,
+                                        (nbytes_, ops, op_type), device_ms=dev_ms, tops=tops, taps_inside=inside,
+                                        **extra)
+            log("phase 11: [11a] {} {}{} {} -> {}: bit-equal; kernel {:.4f} ms (events), {} (device), {:.1f} TOP/s "
+                "({:.1%} of 1979) of the work inside the grid, plain {:.3f} ms, bound {:.4f} ms ({}; the taps inside "
+                "the grid: {:.1%} of the 3x3 taps); {}".format(
+                    kname, site, note, tuple(x.shape), tuple(got.shape), ms,
+                    "not measured" if dev_ms is None else "{:.4f} ms".format(dev_ms), tops, tops / 1979, plain_ms,
+                    bound_ms, bound_by, inside, smi))
+    del walk, qtree, got, ref
+
+
+def deeplab_train_step(torch, seed, config, smi):
+    """Phase 11c: the DeepLab TOML's train step as it stands (bf16, its
+    loss, batch 64 at 512 px, augmentation on) from `deeplab.init`, on one
+    learnable batch, timed by `time_train_steps` (with remat = true
+    instead, said so, if the batch does not fit). Returns the numbers."""
+    from robosat_tpu_torch import optim
+    from robosat_tpu_torch.checkpoint import from_jax, to_jax
+    from robosat_tpu_torch.models import deeplab
+    from robosat_tpu_torch.ops.losses import get_loss
+    from robosat_tpu_torch.parallel.steps import make_train_step
+
+    common, opt = config["common"], config["opt"]
+    batch, size = common["batch_size"], common["image_size"]
+    dtype = torch.bfloat16 if common.get("bf16", False) else torch.float32
+    weight = PARKING_WEIGHTS if opt["loss"] != "Lovasz" else None
+    images, masks = learnable_batches(np.random.default_rng(seed + 11), 1, batch, size)[0]
+    images, masks = torch.from_numpy(images).pin_memory(), torch.from_numpy(masks).pin_memory()
+    params0, state0 = deeplab.init(seed)
+    remat = common.get("remat", False)
+
+    def attempt(remat):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, state = from_jax(to_jax(params0), to_jax(state0), "cuda")
+        step = make_train_step(deeplab, get_loss(opt["loss"]), optim.adam(params, opt["lr"]), weight=weight,
+                               compute_dtype=dtype, remat=remat)
+        return time_train_steps(torch, "phase 11: [11c step]", step, params, state, (), images, masks, seed,
+                                opt["loss"], dtype, TRAIN_KERNEL_GROUPS, smi)[0]
+
+    try:
+        result, oom = attempt(remat), None
+    except torch.cuda.OutOfMemoryError as exc:
+        if remat:
+            raise
+        oom = str(exc).splitlines()[0][:160]
+    if oom is not None:  # retried outside the handler, whose traceback holds the first attempt's tensors
+        log("phase 11: [11c step] batch {} at {} px does not fit without remat ({}); running remat = true".format(
+            batch, size, oom))
+        remat = True
+        result = attempt(remat)
+    result["remat"] = remat
+    log("phase 11: [11c step] {}".format(json.dumps(result)))
+    return result
+
+
+def deeplab_tools(torch, work, root, base, counted, launches, by_path, smi):
+    """Phase 11c's tools, on the dataset at `root`: `train.main` with the
+    DeepLab TOML (batch TOOL_BATCH) for one epoch, then int8 `predict` as
+    configured from its checkpoint over the training tiles (14 K3, 2 K4 and
+    7 rs_int8_conv launches a batch)."""
+    from robosat_tpu_torch.checkpoint import load_checkpoint
+    from robosat_tpu_torch.config import load_config, save_config
+    from robosat_tpu_torch.models import deeplab
+    from robosat_tpu_torch.tools import train
+
+    dataset = load_config(os.path.join(ROOT, "config", "dataset-parking.toml"))
+    dataset["common"]["dataset"] = root
+    dataset_toml = os.path.join(work, "dataset-deeplab.toml")
+    save_config(dataset, dataset_toml)
+    ckpt_dir = os.path.join(work, "train-deeplab")
+    config = {**base, "common": {**base["common"], "batch_size": TOOL_BATCH, "checkpoint": ckpt_dir},
+              "opt": {**base["opt"], "epochs": 1}}
+    model_toml = os.path.join(work, "model-deeplab-train.toml")
+    save_config(config, model_toml)
+    args = argparse.Namespace(model=model_toml, dataset=dataset_toml, checkpoint=None, resume=False, workers=4,
+                              profile=None)
+    start = time.perf_counter()
+    out = train.main(args)
+    wall = time.perf_counter() - start
+    steps = TRAIN_TILES_SIDE ** 2 // TOOL_BATCH
+    checkpoint = os.path.join(ckpt_dir, "checkpoint-00001-of-00001.npz")
+    trees, meta = load_checkpoint(checkpoint)
+    count = int(trees["opt_state"][0])
+    losses = out["history"].get("train loss", [])
+    if out["steps"] != steps or count != steps or set(trees["params"]) != set(deeplab.init(0)[0]) \
+            or not all(math.isfinite(v) for v in losses):
+        raise AssertionError("11c train: steps {}, count {}, params {}, history {}".format(
+            out["steps"], count, sorted(trees["params"]), out["history"]))
+    log("phase 11: [11c train] one epoch, batch {}: {} steps in {:.2f} s on {}; {} (opt_state count {}); "
+        "history {}".format(TOOL_BATCH, out["steps"], wall, smi, os.path.basename(checkpoint), count, out["history"]))
+    counts, pngs, wall, n_batches = predict_split_tiles(root, os.path.join(work, "probs-deeplab-trained"), checkpoint,
+                                                        counted, "11c predict",
+                                                        model_toml=os.path.join(work, "model-deeplab.toml"),
+                                                        per_batch=DEEPLAB_INT8)
+    by_path["deeplab-train-predict"] = counts
+    for name, c in counts.items():
+        launches[name] += c
+    log("phase 11: [11c predict] int8 as configured from the trained checkpoint: {} PNGs in {:.2f} s on {}; "
+        "launches {} ({} batches)".format(pngs, wall, smi, counts, n_batches))
 
 
 def blob_masks(rng, n, size):

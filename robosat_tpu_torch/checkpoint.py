@@ -154,6 +154,24 @@ def convert_torch_unet(state_dict, num_classes=2):
     return params, {"encoder": enc_state}
 
 
+def convert_torch_deeplab(state_dict, num_classes=2):
+    """A torch DeepLabv3+ state_dict (the raw-torch layout of
+    robosat_tpu/checkpoint.py's convert_torch_deeplab: a `resnet.*`
+    torchvision backbone, `<name>.0`/`<name>.1` conv/BN pairs for ASPP and
+    the decoder, `final` with a bias) -> DeepLab's (params, state)."""
+    sd = _strip_module(state_dict)
+    enc_params, enc_state = convert_torch_resnet50({k[len("resnet.") :]: v for k, v in sd.items()
+                                                    if k.startswith("resnet.")})
+    params, state = {"encoder": enc_params}, {"encoder": enc_state}
+    for name in ("aspp1", "aspp_d0", "aspp_d1", "aspp_d2", "aspp_pool", "aspp_proj", "lowlevel", "dec1", "dec2"):
+        params[name] = {"conv": {"w": _hwio(sd[name + ".0.weight"])},
+                        "bn": {"scale": _array(sd[name + ".1.weight"]), "bias": _array(sd[name + ".1.bias"])}}
+        state[name] = {"bn": {"mean": _array(sd[name + ".1.running_mean"]),
+                              "var": _array(sd[name + ".1.running_var"])}}
+    params["final"] = {"w": _hwio(sd["final.weight"]), "b": _array(sd["final.bias"])}
+    return params, state
+
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}

@@ -3,7 +3,11 @@
 // Replaces the Pallas kernels robosat_tpu/models/qenc.py:203
 // (bottleneck_block, _block_kernel) and robosat_tpu/models/qenc.py:340
 // (bottleneck_block_s2, _block_s2_kernel: stride 2 with torch-style (1, 1)
-// padding on conv2 and a stride-2 projection).
+// padding on conv2 and a stride-2 projection). A stride-1 block takes a
+// run-time dilation of its 3x3 conv (padding = dilation): DeepLab's layer4
+// at output stride 16 runs its three blocks at dilation 2, the first with a
+// stride-1 projection. The JAX package computes those blocks as XLA convs
+// (robosat_tpu/models/int8.py walk_encoder, dilate_last_stage).
 //
 // What bounds it on the H100 (SXM, 700 W: 1979 TOP/s int8, 3.35 TB/s): at
 // the main-path shapes (batch 8, 576 px) a stride-1 block is 11.5-12.2 G
@@ -27,7 +31,7 @@
 // two CTAs to an SM within 128.
 //
 //   h1  = q2(relu(bf16(conv1_1x1(q1(x)))))              -> h1 int8 (N, H, W, Cmid)
-//   h2  = q3(relu(bf16(conv2_3x3/stride(h1))))           -> h2 int8 (N, Ho, Wo, Cmid)
+//   h2  = q3(relu(bf16(conv2_3x3/stride,dil(h1))))       -> h2 int8 (N, Ho, Wo, Cmid)
 //   sc  = bf16(down_1x1/stride(qd(x)))  or  x            -> sc bf16 (N, Ho, Wo, Cout)
 //   out = bf16(relu(bf16(conv3_1x1(h2)) + sc))           -> out
 //
@@ -41,13 +45,14 @@ template <int STRIDE>
 int block(const void* x, const void* w1, const float* e1, const float* b1, const void* w2, const float* e2,
           const float* b2, const void* w3, const float* e3, const float* b3, const void* wd, const float* ed,
           const float* bd, float inv1, float inv2, float inv3, float invd, void* h1, void* h2, void* sc, void* out,
-          int n, int h, int w, int cin, int cmid, int cout, cudaStream_t stream) {
+          int n, int h, int w, int cin, int cmid, int cout, int dilation, cudaStream_t stream) {
   namespace s9 = rs::sm90;
   int rc;
   s9::Params p = s9::conv_params(x, w1, e1, b1, h1, inv1, inv2, n, h, w, cin, cmid, 1);
   if ((rc = s9::launch_dense<true, s9::EPI_RELU_Q8>(p, stream)) != 0) return rc;
 
   p = s9::conv_params(h1, w2, e2, b2, h2, 0.0f, inv3, n, h, w, cmid, cmid, 3, STRIDE);
+  p.dil = p.pad = p.pad_w = dilation;  // torch-style (d, d) padding: the output grid stays (h - 1) / STRIDE + 1
   if ((rc = s9::launch_dense<false, s9::EPI_RELU_Q8, STRIDE>(p, stream)) != 0) return rc;
   const int ho = p.ho, wo = p.wo;
 
@@ -65,20 +70,22 @@ int block(const void* x, const void* w1, const float* e1, const float* b1, const
 
 }  // namespace
 
-// stride 1 (K3; wd may be null: the identity residual) or 2 (K4; even h and w).
+// stride 1 (K3; wd may be null: the identity residual; conv2 at any dilation >= 1) or 2
+// (K4; even h and w, dilation 1).
 extern "C" int rs_bottleneck_block(const void* x, const void* w1, const float* e1, const float* b1, const void* w2,
                                    const float* e2, const float* b2, const void* w3, const float* e3, const float* b3,
                                    const void* wd, const float* ed, const float* bd, float inv1, float inv2,
                                    float inv3, float invd, void* h1, void* h2, void* sc, void* out, int n, int h,
-                                   int w, int cin, int cmid, int cout, int stride, void* stream_ptr) {
+                                   int w, int cin, int cmid, int cout, int stride, int dilation,
+                                   void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (stride == 1) {
+  if (stride == 1 && dilation >= 1) {
     return block<1>(x, w1, e1, b1, w2, e2, b2, w3, e3, b3, wd, ed, bd, inv1, inv2, inv3, invd, h1, h2, sc, out, n, h, w,
-                    cin, cmid, cout, stream);
+                    cin, cmid, cout, dilation, stream);
   }
-  if (stride == 2 && wd != nullptr) {
+  if (stride == 2 && dilation == 1 && wd != nullptr) {
     return block<2>(x, w1, e1, b1, w2, e2, b2, w3, e3, b3, wd, ed, bd, inv1, inv2, inv3, invd, h1, h2, sc, out, n, h, w,
-                    cin, cmid, cout, stream);
+                    cin, cmid, cout, 1, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -27,8 +27,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, (w, e, b) x 4 [conv1, conv2, conv3, down], inv x 4, h1, h2, sc, out, n, h, w, cin, cmid, cout, stride, stream
-    "rs_bottleneck_block": [_P] * 13 + [_F] * 4 + [_P] * 4 + [_I] * 7 + [_P],
+    # x, (w, e, b) x 4 [conv1, conv2, conv3, down], inv x 4, h1, h2, sc, out, n, h, w, cin, cmid, cout, stride,
+    # dilation, stream
+    "rs_bottleneck_block": [_P] * 13 + [_F] * 4 + [_P] * 4 + [_I] * 8 + [_P],
     # x, w, e, b, inv, out, n, h, w, cin, cout, stream
     "rs_parity_up_conv": [_P, _P, _P, _P, _F, _P] + [_I] * 5 + [_P],
     "rs_parity_up_conv_separated": [_P, _P, _P, _P, _F, _P] + [_I] * 5 + [_P],

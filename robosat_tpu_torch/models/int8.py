@@ -302,7 +302,7 @@ def _walk_from_stem(q, out, sites, float_mode=False, stop_at=None, plain=False, 
     cat(enc1, dec2) for the parity-separated dec3
     (qdec.parity_up_conv_separated).
     """
-    from robosat_tpu_torch.models import qdec, qenc
+    from robosat_tpu_torch.models import qdec
 
     def weight(k):
         return fake_quant_weight(k.float()) if fake_quant else k
@@ -312,21 +312,14 @@ def _walk_from_stem(q, out, sites, float_mode=False, stop_at=None, plain=False, 
 
     if float_mode:
 
-        def conv(node, xx, stride=1, padding="SAME"):
+        def conv(node, xx, stride=1, padding="SAME", dilation=1):
             scale = sites.next_scale(xx)
             node = {"w": weight(node["w"]).to(xx.dtype), "b": node["b"]} if fake_quant else node
-            return conv_bias_apply(node, act(xx, scale), stride=stride, padding=padding)
+            return conv_bias_apply(node, act(xx, scale), stride=stride, padding=padding, dilation=dilation)
 
         enc1, enc2, enc3, enc4 = walk_stages(q["encoder"], out, conv)
     else:
-        skips = []
-        for si, (blocks, _) in enumerate(RESNET50_STAGES):
-            stage = q["encoder"]["layer{}".format(si + 1)]
-            n_sites = sum(3 + ("down_conv" in qb) for qb in stage)
-            stage_scales = [sites.next_scale(out) for _ in range(n_sites)]
-            out = qenc.apply_stage_blocks(out, stage, stage_scales, first_stride=2 if si else 1, plain=plain)
-            skips.append(out)
-        enc1, enc2, enc3, enc4 = skips
+        enc1, enc2, enc3, enc4 = walk_stages_int8(q["encoder"], out, sites, plain=plain)
 
     up = qdec.parity_up_conv_plain if plain else qdec.parity_up_conv
 
@@ -356,6 +349,26 @@ def _walk_from_stem(q, out, sites, float_mode=False, stop_at=None, plain=False, 
 
     dec4 = s2d_block("dec4", s2d_up_conv3x3_kernel, dec3)
     return s2d_block("dec5", s2d_conv3x3_kernel, dec4)
+
+
+def walk_stages_int8(enc, out, sites, plain=False, dilate_last_stage=False):
+    """The four int8 bottleneck stages, stage by stage through
+    `qenc.apply_stage_blocks` (K3/K4 on the GPU, `plain`: their plain
+    versions), each stage consuming its sites' scales from `sites` in walk
+    order; with `dilate_last_stage` layer4 runs at stride 1 and dilation 2
+    (DeepLab). Returns (enc1..enc4)."""
+    from robosat_tpu_torch.models import qenc
+
+    skips = []
+    for si in range(len(RESNET50_STAGES)):
+        stage = enc["layer{}".format(si + 1)]
+        n_sites = sum(3 + ("down_conv" in qb) for qb in stage)
+        stage_scales = [sites.next_scale(out) for _ in range(n_sites)]
+        dilated = dilate_last_stage and si == len(RESNET50_STAGES) - 1
+        out = qenc.apply_stage_blocks(out, stage, stage_scales, first_stride=2 if si and not dilated else 1,
+                                      plain=plain, dilation=2 if dilated else 1)
+        skips.append(out)
+    return tuple(skips)
 
 
 def calibration_amaxes(folded, x, blocked=False, percentile=None):

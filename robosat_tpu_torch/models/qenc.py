@@ -5,11 +5,12 @@ and `bottleneck_block_s2` (stride 2, torch-style (1, 1) padding on conv2,
 stride-2 projection) compute, bit for bit,
 
     inner = relu(_int8_conv(conv1, x, s1))
-    inner = relu(_int8_conv(conv2, inner, s2, stride, padding=((1, 1), (1, 1))))
+    inner = relu(_int8_conv(conv2, inner, s2, stride, padding=((d, d), (d, d)), dilation=d))
     inner = _int8_conv(conv3, inner, s3)
     shortcut = _int8_conv(down_conv, x, sd, stride) if down_conv else x
     relu(inner + shortcut)      # f32 add of the bf16 operands, one rounding
 
+with d = 1, or for a stride-1 block a dilation d (DeepLab's layer4: d = 2).
 On a CUDA tensor they launch one C entry (csrc/qenc.cu) that runs the block
 as 3-4 launches of the pipelined wgmma conv of csrc/int8_conv_sm90.cuh,
 with weights packed by `packed_weights` and h1 and h2 in int8; the stride-2
@@ -44,10 +45,12 @@ def packed_weights(node):
     return wp
 
 
-def bottleneck_block_plain(x, qb, s1, s2, s3, sd=None, stride=1):
+def bottleneck_block_plain(x, qb, s1, s2, s3, sd=None, stride=1, dilation=1):
     """The block as separate plain int8 convs (any device)."""
+    _check_geometry(stride, dilation)
+    d = dilation
     inner = torch.relu(_int8_conv(qb["conv1"], x, s1))
-    inner = torch.relu(_int8_conv(qb["conv2"], inner, s2, stride=stride, padding=((1, 1), (1, 1))))
+    inner = torch.relu(_int8_conv(qb["conv2"], inner, s2, stride=stride, padding=((d, d), (d, d)), dilation=d))
     inner = _int8_conv(qb["conv3"], inner, s3)
     shortcut = _int8_conv(qb["down_conv"], x, sd, stride=stride) if "down_conv" in qb else x
     return torch.relu(inner.float() + shortcut.float()).to(x.dtype)
@@ -55,6 +58,13 @@ def bottleneck_block_plain(x, qb, s1, s2, s3, sd=None, stride=1):
 
 def bottleneck_block_s2_plain(x, qb, s1, s2, s3, sd):
     return bottleneck_block_plain(x, qb, s1, s2, s3, sd, stride=2)
+
+
+def _check_geometry(stride, dilation):
+    """Stride 1 at any dilation of at least 1, or stride 2 at dilation 1."""
+    if stride not in (1, 2) or dilation < 1 or (stride == 2 and dilation != 1):
+        raise ValueError("a block of stride 1 at a dilation >= 1, or of stride 2 at dilation 1 (got stride {}, "
+                         "dilation {})".format(stride, dilation))
 
 
 def _site_args(node, scale, name, cin, cout, taps):
@@ -82,8 +92,9 @@ def _block_dims(x, qb, sd, stride):
     return n, h, w, cin, cmid, cout
 
 
-def _launch_block(x, qb, s1, s2, s3, sd, stride):
+def _launch_block(x, qb, s1, s2, s3, sd, stride, dilation=1):
     kernels.check_cuda(x, "x", torch.bfloat16)
+    _check_geometry(stride, dilation)
     n, h, w, cin, cmid, cout = _block_dims(x, qb, sd, stride)
     has_down = sd is not None
     if cin % 16 or cmid % 16 or cout % 16:
@@ -105,16 +116,17 @@ def _launch_block(x, qb, s1, s2, s3, sd, stride):
     p = kernels.ptr
     kernels.launch("rs_bottleneck_block", p(x), p(w1), p(e1), p(b1), p(w2), p(e2), p(b2), p(w3), p(e3), p(b3),
                    p(wd), p(ed), p(bd), _act_inv(s1), _act_inv(s2), _act_inv(s3), invd, p(h1), p(h2), p(sc), p(out),
-                   n, h, w, cin, cmid, cout, stride)
+                   n, h, w, cin, cmid, cout, stride, dilation)
     return out
 
 
-def bottleneck_block(x, qb, s1, s2, s3, sd=None):
-    """One stride-1 int8 bottleneck block: (N, H, W, Cin) -> (N, H, W, Cout)."""
+def bottleneck_block(x, qb, s1, s2, s3, sd=None, dilation=1):
+    """One stride-1 int8 bottleneck block, its 3x3 conv dilated by
+    `dilation`: (N, H, W, Cin) -> (N, H, W, Cout)."""
     if x.device.type == "cpu":
         _block_dims(x, qb, sd, 1)
-        return bottleneck_block_plain(x, qb, s1, s2, s3, sd)
-    out = _launch_block(x, qb, s1, s2, s3, sd, stride=1)
+        return bottleneck_block_plain(x, qb, s1, s2, s3, sd, dilation=dilation)
+    out = _launch_block(x, qb, s1, s2, s3, sd, stride=1, dilation=dilation)
     bottleneck_block.launches += 1
     return out
 
@@ -136,11 +148,14 @@ def bottleneck_block_s2(x, qb, s1, s2, s3, sd):
 bottleneck_block_s2.launches = 0
 
 
-def apply_stage_blocks(x, stage, scales, first_stride=1, plain=False):
+def apply_stage_blocks(x, stage, scales, first_stride=1, plain=False, dilation=1):
     """A whole stage, block by block; `scales` is the flat per-site list in
     walk order (conv1, conv2, conv3, down_conv when present). With
-    `first_stride=2` block 0 is the stride-2 block (layers 2-4). `plain`
-    runs the plain versions on any device."""
+    `first_stride=2` block 0 is the stride-2 block (layers 2-4); otherwise
+    every block is a stride-1 block whose 3x3 conv dilates by `dilation`
+    (DeepLab's layer4: 2). `plain` runs the plain versions on any device."""
+    if first_stride == 2 and dilation != 1:
+        raise ValueError("a stage opened by a stride-2 block runs at dilation 1")
     it = iter(scales)
     out = x
     for bi, qb in enumerate(stage):
@@ -151,5 +166,5 @@ def apply_stage_blocks(x, stage, scales, first_stride=1, plain=False):
             out = fn(out, qb, s1, s2, s3, sd)
         else:
             fn = bottleneck_block_plain if plain else bottleneck_block
-            out = fn(out, qb, s1, s2, s3, sd)
+            out = fn(out, qb, s1, s2, s3, sd, dilation=dilation)
     return out

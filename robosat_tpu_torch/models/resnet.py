@@ -5,7 +5,10 @@ Counterpart of robosat_tpu/models/resnet.py: the parameter tree (same
 structure and HWIO layout as the JAX package), the unfolded forward with
 batch norm in training or eval mode (`apply`, what training runs), the
 inference fold, and the folded forward (fine stem or 4x4 space-to-depth
-stem, then the four bottleneck stages). Each runs in the compute dtype of
+stem, then the four bottleneck stages). With `dilate_last_stage` (DeepLab's
+output stride 16) layer4 keeps stride 1 and dilates its 3x3 convs by 2;
+its first block's projection then runs at stride 1, so the same weights
+load. Each runs in the compute dtype of
 its input as torch (cuDNN) convolutions, as the JAX package leaves them to
 XLA; parameters stay float32 and are cast at each conv.
 """
@@ -73,7 +76,15 @@ def init(gen, in_channels=3):
     return params, state
 
 
-def _bottleneck_apply(params, state, x, stride, train):
+def _stage_geometry(si, bi, dilate_last_stage):
+    """(stride, dilation) of block `bi` of stage `si`: stride 2 opens layers
+    2-4, except layer4 under `dilate_last_stage`, whose blocks dilate by 2."""
+    if dilate_last_stage and si == len(RESNET50_STAGES) - 1:
+        return 1, 2
+    return (2 if (bi == 0 and si > 0) else 1), 1
+
+
+def _bottleneck_apply(params, state, x, stride, train, dilation=1):
     """One bottleneck block with batch norm in training or eval mode;
     returns (output, the block's new BN state)."""
     new_state = {}
@@ -81,7 +92,7 @@ def _bottleneck_apply(params, state, x, stride, train):
     out, new_state["bn1"] = bn_apply(params["bn1"], state["bn1"], out, train)
     out = torch.relu(out)
     # Torch-style symmetric padding (SAME would pad (0, 1) at stride 2).
-    out = conv_nhwc(out, params["conv2"]["w"], stride=stride, padding=((1, 1), (1, 1)))
+    out = conv_nhwc(out, params["conv2"]["w"], stride=stride, padding=((dilation, dilation),) * 2, dilation=dilation)
     out, new_state["bn2"] = bn_apply(params["bn2"], state["bn2"], out, train)
     out = torch.relu(out)
     out = conv_nhwc(out, params["conv3"]["w"])
@@ -95,11 +106,12 @@ def _bottleneck_apply(params, state, x, stride, train):
     return torch.relu(out + shortcut), new_state
 
 
-def apply(params, state, x, train=False):
+def apply(params, state, x, train=False, dilate_last_stage=False):
     """The encoder on normalized x (N, H, W, 3); returns ((enc1, enc2, enc3,
     enc4), new_state): the four stage outputs (256/512/1024/2048 channels at
-    1/4..1/32 resolution), the U-Net's skips, and the BN state (the batch
-    statistics' running update in training mode, `state` in eval mode)."""
+    1/4..1/32 resolution, enc4 at 1/16 with `dilate_last_stage`), the
+    U-Net's skips, and the BN state (the batch statistics' running update
+    in training mode, `state` in eval mode)."""
     new_state = {}
     out = conv_nhwc(x, params["conv1"]["w"], stride=2, padding=((3, 3), (3, 3)))
     out, new_state["bn1"] = bn_apply(params["bn1"], state["bn1"], out, train)
@@ -110,8 +122,8 @@ def apply(params, state, x, train=False):
         name = "layer{}".format(si + 1)
         stage_state = []
         for bi in range(blocks):
-            stride = 2 if (bi == 0 and si > 0) else 1
-            out, bs = _bottleneck_apply(params[name][bi], state[name][bi], out, stride, train)
+            stride, dilation = _stage_geometry(si, bi, dilate_last_stage)
+            out, bs = _bottleneck_apply(params[name][bi], state[name][bi], out, stride, train, dilation)
             stage_state.append(bs)
         new_state[name] = stage_state
         skips.append(out)
@@ -149,19 +161,19 @@ def stem_folded_s2d4(folded_conv1, x48):
     return pool3s2_from_parity(torch.relu(out + b4), w.shape[-1])
 
 
-def walk_stages(enc, out, conv):
+def walk_stages(enc, out, conv, dilate_last_stage=False):
     """The four bottleneck stages on a pooled stem output with a pluggable
-    conv(node, x, stride=1, padding="SAME"); site order per block: conv1,
-    conv2, conv3, down_conv. Returns (enc1..enc4)."""
+    conv(node, x, stride=1, padding="SAME", dilation=1); site order per
+    block: conv1, conv2, conv3, down_conv. Returns (enc1..enc4)."""
     skips = []
     for si, (blocks, _) in enumerate(RESNET50_STAGES):
         name = "layer{}".format(si + 1)
         for bi in range(blocks):
             qb = enc[name][bi]
-            stride = 2 if (bi == 0 and si > 0) else 1
+            stride, d = _stage_geometry(si, bi, dilate_last_stage)
             inner = torch.relu(conv(qb["conv1"], out))
             # Torch-style symmetric padding (SAME would pad (0, 1) at stride 2).
-            inner = torch.relu(conv(qb["conv2"], inner, stride=stride, padding=((1, 1), (1, 1))))
+            inner = torch.relu(conv(qb["conv2"], inner, stride=stride, padding=((d, d), (d, d)), dilation=d))
             inner = conv(qb["conv3"], inner)
             shortcut = conv(qb["down_conv"], out, stride=stride) if "down_conv" in qb else out
             out = torch.relu(inner + shortcut)
@@ -169,9 +181,9 @@ def walk_stages(enc, out, conv):
     return tuple(skips)
 
 
-def apply_folded_stages(folded, out):
+def apply_folded_stages(folded, out, dilate_last_stage=False):
     """The four folded bottleneck stages on a pooled stem output."""
-    return walk_stages(folded, out, conv_bias_apply)
+    return walk_stages(folded, out, conv_bias_apply, dilate_last_stage)
 
 
 def stem_folded(folded_conv1, x):
@@ -181,12 +193,12 @@ def stem_folded(folded_conv1, x):
     return max_pool(out, window=3, stride=2, padding=1)
 
 
-def apply_folded(folded, x):
+def apply_folded(folded, x, dilate_last_stage=False):
     """Inference forward over BN-folded params on fine input x (N, H, W, 3):
     the stem, then the stages."""
-    return apply_folded_stages(folded, stem_folded(folded["conv1"], x))
+    return apply_folded_stages(folded, stem_folded(folded["conv1"], x), dilate_last_stage)
 
 
-def apply_folded_s2d4(folded, x48):
+def apply_folded_s2d4(folded, x48, dilate_last_stage=False):
     """`apply_folded` on 4x4 space-to-depth (host-blocked) input (N, H/4, W/4, 48)."""
-    return apply_folded_stages(folded, stem_folded_s2d4(folded["conv1"], x48))
+    return apply_folded_stages(folded, stem_folded_s2d4(folded["conv1"], x48), dilate_last_stage)

@@ -1,4 +1,4 @@
-"""The train, QAT, distillation, eval and predict steps of the U-Net and the fast family.
+"""The train, QAT, distillation, eval and predict steps of the U-Net, the fast family and DeepLab.
 
 Counterpart of robosat_tpu/parallel/steps.py's make_train_step,
 make_qat_train_step, make_distill_train_step, make_eval_step,
@@ -35,7 +35,11 @@ distillation student of a U-Net teacher. Its float predict takes fine
 input into its own sub-pixel head (`predict_quantized_folded`); its int8
 predict is the model-owned protocol (`_model_int8_predict_step`): the
 dense convs through rs_int8_conv (models/qconv.py), the up-convs through
-K5, the head in torch ops.
+K5, the head in torch ops. DeepLabv3+ (models/deeplab.py) takes the same
+branches: it trains through `apply`, its float predict is its own
+margin-then-resize head on fine input, and its int8 predict the
+model-owned protocol (K3/K4 for the encoder, layer4 at dilation 2,
+rs_int8_conv for ASPP and the decoder), returning fine uint8.
 
 A step copies its uint8 input to the device without waiting for it (from
 pinned memory the copy is asynchronous), so a caller can issue the next

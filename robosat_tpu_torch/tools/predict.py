@@ -1,9 +1,10 @@
-"""`predict` — per-tile class-probability PNGs from a trained U-Net or fast model.
+"""`predict` — per-tile class-probability PNGs from a trained U-Net, fast or DeepLab model.
 
 The port of `rs predict` (robosat_tpu/tools/predict.py), with the same
 flags and output contract: quantized foreground probabilities as palette
 PNGs ("pink" continuous palette) in a slippy-map directory, from buffered
-overlap tiles. It runs the model (`model = "unet"` or `"fast"`) on the
+overlap tiles. It runs the model (`model = "unet"`, `"fast"` or
+`"deeplabv3plus"`) on the
 config's device, as the model TOML selects:
 
 - `int8 = true`: the hybrid-int8 step (parallel/steps.py), with
@@ -18,7 +19,11 @@ config's device, as the model TOML selects:
   and, with an overlap that is a multiple of 4, 16-channel blocked output
   that the writer peels like "sep"'s), otherwise its float sub-pixel head
   on fine input; `pallas_tail` and `pallas_enc` are ignored, and the
-  buffered side needs a multiple of 32 (the U-Net: 64).
+  buffered side needs a multiple of 32 (the U-Net: 64);
+- `model = "deeplabv3plus"`: with `int8` its own int8 walk (host-blocked
+  input, fine output: K3/K4 and rs_int8_conv on the GPU, the margin
+  resized before the sigmoid), otherwise its float margin-then-resize
+  head on fine input; no side multiple is checked (the model asserts 16).
 
 With `host_s2d` (the default; it takes `s2d`, the fused head, `--strip 1`
 and a buffered side that is a multiple of 4, as the JAX tool does) the
@@ -43,7 +48,7 @@ and a batch's PNGs go to the writer pool once two newer batches are in
 flight. The steady clock starts when the first batch is done.
 
 Not ported yet (ROADMAP Queue 1): the per-channel 'pc' calibrations and
-the DeepLab and SegFormer families.
+the SegFormer family.
 """
 
 import argparse

@@ -1,4 +1,4 @@
-"""`train` — fit the U-Net or the fast family to a slippy-map dataset.
+"""`train` — fit the U-Net, the fast family or DeepLabv3+ to a slippy-map dataset.
 
 The port of `rs train` (robosat_tpu/tools/train.py), with its flags,
 messages, log lines and files: the two-TOML configuration, the four
@@ -30,7 +30,9 @@ quantizes with; `--resume` calibrates again from the loaded weights, as
 the JAX tool does. `--teacher` distills from a trained checkpoint of
 `--teacher_model`'s family (default `--model`'s), folded once
 (make_distill_train_step): a U-Net teacher distils a fast student, as
-config/model-fast.toml's header trains it. A reference `.pth` converts as
+config/model-fast.toml's header trains it. DeepLabv3+ trains and distils
+through `deeplab.apply`; it has no fake-quant forward, so `--qat` exits
+with the JAX tool's message. A reference `.pth` converts as
 a U-Net whatever `model` says, as the JAX loader does. Validation runs the float eval step in either
 mode.
 

@@ -14,7 +14,11 @@ family's dense sites, each case asserting the route it took
 (`qconv.route`: halo_conv_kernel for the stride-1 3x3 sites,
 conv_kernel for the stride-2 "SAME" convs): the dilated b4b, the
 residual blocks and the concatenations' convs, also at batch 8 on the
-walk's own 18-, 36- and 72-px grids and on 1 x W and H x 1 grids.
+walk's own 18-, 36- and 72-px grids and on 1 x W and H x 1 grids; and at
+DeepLab's seven sites (ASPP's 1x1, its 3x3 convs at dilations 6, 12 and
+18, also where the padding is wider than the grid, its projection, and the
+decoder's Cin-304 and Cin-256 convs), with K3 at dilation 2 at layer4's
+widths.
 """
 
 import pytest
@@ -206,6 +210,86 @@ def test_int8_conv_kernel_epilogues_and_scale_cache(gen, epilogue):
     for scale in (0.019, 0.031, 0.019):
         got = qconv.int8_conv(x, node, scale, epilogue=epilogue)
         assert torch.equal(got, qconv.int8_conv_plain(x, node, scale, epilogue=epilogue))
+
+
+@pytest.mark.parametrize("down,cin,h,w,n", [
+    (True, 1024, 5, 7, 2),    # layer4.0: the stride-1 projection
+    (False, 2048, 6, 6, 2),   # layer4.1
+    (False, 2048, 2, 3, 2),   # dilation 2 on a 2 x 3 grid: most taps in the padding
+    (True, 1024, 13, 9, 3),
+    (False, 2048, 36, 36, 2),  # the 36 x 36 grid of a 576-px tile
+])
+def test_dilated_bottleneck_block_kernel_bit_equal(gen, down, cin, h, w, n):
+    """K3 at dilation 2 (DeepLab's layer4 at output stride 16), Cmid 512,
+    Cout 2048."""
+    std = lambda fan_in: fan_in ** -0.5
+    qb = {"conv1": _node(gen, 1, 1, cin, 512, std=std(cin)), "conv2": _node(gen, 3, 3, 512, 512, std=std(9 * 512)),
+          "conv3": _node(gen, 1, 1, 512, 2048, std=std(512))}
+    if down:
+        qb["down_conv"] = _node(gen, 1, 1, cin, 2048, std=std(cin))
+    x = _act(gen, (n, h, w, cin))
+    scales = (0.02, 0.015, 0.01, 0.02 if down else None)
+    before = qenc.bottleneck_block.launches
+    got = qenc.bottleneck_block(x, qb, *scales, dilation=2)
+    torch.cuda.synchronize()
+    assert qenc.bottleneck_block.launches == before + 1
+    assert tuple(got.shape) == (n, h, w, 2048)
+    assert torch.equal(got, qenc.bottleneck_block_plain(x, qb, *scales, dilation=2))
+
+
+def test_bottleneck_block_rejects_bad_dilation(gen, monkeypatch):
+    """The wrapper refuses dilation 0 and a dilated stride-2 block; past the
+    wrapper's check the C entry refuses them too."""
+    qb = {"conv1": _node(gen, 1, 1, 64, 16), "conv2": _node(gen, 3, 3, 16, 16), "conv3": _node(gen, 1, 1, 16, 64),
+          "down_conv": _node(gen, 1, 1, 64, 64)}
+    x = _act(gen, (1, 8, 8, 64))
+    with pytest.raises(ValueError, match="dilation"):
+        qenc.bottleneck_block(x, qb, 0.02, 0.02, 0.02, 0.02, dilation=0)
+    with pytest.raises(ValueError, match="dilation"):
+        qenc._launch_block(x, qb, 0.02, 0.02, 0.02, 0.02, stride=2, dilation=2)
+    monkeypatch.setattr(qenc, "_check_geometry", lambda stride, dilation: None)
+    for stride, dilation in ((1, 0), (2, 2)):
+        with pytest.raises(RuntimeError, match="rs_bottleneck_block launch failed"):
+            qenc._launch_block(x, qb, 0.02, 0.02, 0.02, 0.02, stride=stride, dilation=dilation)
+
+
+# DeepLab's rs_int8_conv sites: (kernel side, Cin, Cout, dilation), with "SAME" padding and a relu.
+_DEEPLAB_SITES = {"aspp1": (1, 2048, 256, 1), "aspp_d0": (3, 2048, 256, 6), "aspp_d1": (3, 2048, 256, 12),
+                  "aspp_d2": (3, 2048, 256, 18), "aspp_proj": (1, 1280, 256, 1), "dec1": (3, 304, 256, 1),
+                  "dec2": (3, 256, 256, 1)}
+
+
+@pytest.mark.parametrize("site,h,w,n", [
+    ("aspp1", 9, 7, 2),
+    ("aspp_d0", 13, 11, 2),   # every tap reaches data for some outputs
+    ("aspp_d1", 4, 4, 2),     # the padding (12) wider than the grid
+    ("aspp_d1", 30, 26, 1),
+    ("aspp_d2", 4, 4, 2),     # the 4 x 4 grid of a 64-px tile: only the center tap inside
+    ("aspp_d2", 36, 36, 2),   # the 36 x 36 grid of a 576-px tile
+    ("aspp_proj", 9, 9, 2),
+    ("dec1", 16, 16, 2),      # Cin 304: four 64-channel chunks and a 48-channel one
+    ("dec1", 13, 11, 2),
+    ("dec2", 9, 9, 2),
+])
+def test_deeplab_int8_conv_kernel_bit_equal(gen, site, h, w, n):
+    """Bit-equal to the plain version on the route qconv.route names:
+    conv_kernel for ASPP's 1x1 and dilated convs, the halo kernel for the
+    decoder's 3x3 convs (Cout 256 as two 128-wide items)."""
+    from robosat_tpu_torch.models import qconv
+
+    k, cin, cout, dilation = _DEEPLAB_SITES[site]
+    node = _node(gen, k, k, cin, cout, std=(k * k * cin) ** -0.5)
+    x = torch.relu(_act(gen, (n, h, w, cin)))
+    before, routes = qconv.int8_conv.launches, dict(qconv.int8_conv.by_route)
+    got = qconv.int8_conv(x, node, 0.023, dilation=dilation)
+    torch.cuda.synchronize()
+    route = qconv.route(k, 1, dilation)
+    assert route == ("halo" if site.startswith("dec") else "conv_kernel")
+    assert qconv.int8_conv.launches == before + 1
+    assert qconv.int8_conv.by_route == {**routes, route: routes[route] + 1}
+    ref = qconv.int8_conv_plain(x, node, 0.023, dilation=dilation)
+    assert got.shape == ref.shape == (n, h, w, cout)
+    assert torch.equal(got, ref)
 
 
 def _s2d_tail_nodes(gen):

@@ -87,7 +87,7 @@ def net():
 
 def test_registry_returns_fastnet():
     assert get_model("fast") is fastnet
-    with pytest.raises(NotImplementedError, match="model 'segformer' is not ported .*DeepLab and SegFormer"):
+    with pytest.raises(NotImplementedError, match="model 'segformer' is not ported .*SegFormer: ROADMAP"):
         get_model("segformer")
 
 

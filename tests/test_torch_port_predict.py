@@ -490,9 +490,9 @@ def test_predict_tool_profile_writes_trace(tmp_path, predict_fixture):
 
 @pytest.mark.parametrize(
     "common,overrides,error",
-    [({"model": "deeplabv3plus"}, {}, NotImplementedError), ({"int8_calibration": "pc"}, {}, NotImplementedError),
+    [({"model": "segformer"}, {}, NotImplementedError), ({"int8_calibration": "pc"}, {}, NotImplementedError),
      ({"int8_calibration": "pcx"}, {}, ValueError)],
-    ids=["deeplab", "per-channel", "pc-bad-spec"],
+    ids=["segformer", "per-channel", "pc-bad-spec"],
 )
 def test_predict_tool_unported_modes_raise(tmp_path, predict_fixture, common, overrides, error):
     """The modes still to port raise NotImplementedError, citing the
