@@ -42,8 +42,10 @@ extract to GeoJSON, and last DeepLabv3+ (`model = "deeplabv3plus"`):
    `int8 = false`, bf16; `host_s2d = false` (fine input, K6 at overlap 0,
    fine output); `--strip 8` (one 4160 x 576 strip a batch); `--tile_size
    510 --overlap 33` (an odd overlap: K6 at overlap 0, fine 510-px PNGs);
-   bf16 with `--strip 8`. The fine-stem int8 paths read phase 3's scales
-   from a QAT checkpoint's qat_amaxes. Per path: one decodable palette PNG
+   bf16 with `--strip 8`. Every int8 path but the first reads phase 3's
+   scales from a QAT checkpoint's qat_amaxes (the first calibrates to the
+   same scales), and every int8 path's first-batch check takes them: each
+   calibration of the full U-Net takes ~10 s of the card. Per path: one decodable palette PNG
    per tile; each kernel's launch counter per batch (PATHS: 13 K3, 3 K4 and
    5 K5 with 1 K6 on every int8 path with the fused head, 1 K7 and 1 K1 on
    "tail", 4 K5 with 1 K8, 1 K9 and 1 K1 on "sep", 1 K7 unfused; 1 K1 on
@@ -247,10 +249,13 @@ SOURCES = {
     "K10": ("robosat_tpu_torch/csrc/head_rungs.cu", "benchmarks/bisect_mosaic_head.py:108"),
     # No Pallas kernel: it stands in for XLA's int8 conv, which the fast family's walk calls.
     "int8_conv": ("robosat_tpu_torch/csrc/qconv.cu", "robosat_tpu/models/int8.py:228"),
+    # No Pallas kernel: the activation quantize of SegFormer's dense sites, XLA's elementwise op.
+    "quantize": ("robosat_tpu_torch/csrc/int8_mm.cu", "robosat_tpu/models/int8.py:209"),
 }
 ENCODER = {"K3": 13, "K4": 3}
 # Substrings of the port's kernel names in torch.profiler's rows.
-KERNEL_ROWS = ("conv_kernel", "tail_kernel", "up_kernel", "margin_head_kernel", "int8_mm_kernel", "head_rung_kernel")
+KERNEL_ROWS = ("conv_kernel", "tail_kernel", "up_kernel", "margin_head_kernel", "int8_mm_kernel", "head_rung_kernel",
+               "quantize_act_kernel")
 # An int8 conv kernel by name (any *conv_kernel, tail_kernel, up_kernel);
 # every one must be an instance of csrc/int8_conv_sm90.cuh's, in rs::sm90.
 INT8_CONV = re.compile(r"\b(\w*conv_kernel|tail_kernel|up_kernel)\b")
@@ -342,9 +347,17 @@ FAST_PATHS = (("fast-int8", {}, FAST_INT8), ("fast-bf16", {"int8": False}, {}))
 DEEPLAB_INT8 = {"K3": 14, "K4": 2, "int8_conv": 7}
 DEEPLAB_INT8_ROUTES = {"halo": 2, "conv_kernel": 5}
 DEEPLAB_PATHS = (("deeplab-int8", {}, DEEPLAB_INT8), ("deeplab-bf16", {"int8": False, "bf16": True}, {}))
+# Phase 12 (SegFormer, config/model-unet.toml with model = "segformer"):
+# launches per batch on its int8 path (51 dense and spatial-reduction sites,
+# each the quantize kernel and K2's dequant epilogue; the 3 patch embeds on
+# rs_int8_conv's conv_kernel), those by route, and the predict paths.
+SEGFORMER_INT8 = {"K2": 51, "quantize": 51, "int8_conv": 3}
+SEGFORMER_INT8_ROUTES = {"halo": 0, "conv_kernel": 3}
+SEGFORMER_PATHS = (("segformer-int8", {}, SEGFORMER_INT8), ("segformer-bf16", {"int8": False, "bf16": True}, {}))
 EDGE_ROWS = 128  # rows next to a tile edge inside a strip, where a strip's context exceeds the tile's
-# Paths that run on phase 3's scales through a QAT checkpoint's qat_amaxes.
-QAT_PATHS = ("int8-fine", "int8-strip")
+# Paths that run on phase 3's scales through a QAT checkpoint's qat_amaxes
+# (every int8 path but the configured one, which calibrates in `predict`).
+QAT_PATHS = ("int8-tail", "int8-sep", "int8-unfused", "int8-fine", "int8-strip", "int8-odd")
 # Each path's PNGs against earlier paths': (other path, held to +-1 bin on
 # <= 0.1% of pixels, or counted only, for the reason in NOT_HELD).
 COMPARED = {
@@ -380,6 +393,11 @@ def main():
     parser.add_argument("--deeplab-from", default=None, metavar="WORK",
                         help="with --deeplab: the full run's work directory, whose phase-6c dataset phase 11c "
                              "uses; the results go to WORK/deeplab.json (the full run's phase 11)")
+    parser.add_argument("--segformer", action="store_true",
+                        help="only phases 1, 2 and 12 (SegFormer: its kernels, predict, train step and tools)")
+    parser.add_argument("--segformer-from", default=None, metavar="WORK",
+                        help="with --segformer: the full run's work directory, whose phase-6c dataset phase 12c "
+                             "uses; the results go to WORK/segformer.json (the full run's phase 12)")
     parser.add_argument("--fast-from", default=None, metavar="WORK",
                         help="with --fast: the full run's work directory, whose phase-6c U-Net checkpoint and "
                              "dataset phase 8d uses; the results go to WORK/fast.json (the full run's phase 8)")
@@ -470,16 +488,20 @@ def main():
         log(smi)
         return
 
-    if opts.deeplab:
-        per_kernel, launches, by_path = {}, {"K3": 0, "K4": 0, "int8_conv": 0}, {}
-        if opts.deeplab_from:
-            run_deeplab(torch, opts.deeplab_from, SEED, smi, wrappers(), launches, by_path, per_kernel,
-                        train_root=os.path.join(opts.deeplab_from, "slippy"))
-            with open(os.path.join(opts.deeplab_from, "deeplab.json"), "w") as f:
+    for flag, run_family, names, from_work in (("deeplab", run_deeplab, ("K3", "K4", "int8_conv"), opts.deeplab_from),
+                                               ("segformer", run_segformer, ("K2", "quantize", "int8_conv"),
+                                                opts.segformer_from)):
+        if not getattr(opts, flag):
+            continue
+        per_kernel, launches, by_path = {}, dict.fromkeys(names, 0), {}
+        if from_work:
+            run_family(torch, from_work, SEED, smi, wrappers(), launches, by_path, per_kernel,
+                       train_root=os.path.join(from_work, "slippy"))
+            with open(os.path.join(from_work, flag + ".json"), "w") as f:
                 json.dump({"per_kernel": per_kernel, "launches": launches, "by_path": by_path}, f)
             return
         with tempfile.TemporaryDirectory(prefix="rs_chip_smoke_") as work:
-            run_deeplab(torch, work, SEED, smi, wrappers(), launches, by_path, per_kernel)
+            run_family(torch, work, SEED, smi, wrappers(), launches, by_path, per_kernel)
         log(json.dumps({"kernels": [{"name": name, "launches": launches[name], "launches_by_path": {
             p: c[name] for p, c in by_path.items() if name in c}, **per_kernel.get(name, {})} for name in launches]}))
         log(smi)
@@ -492,6 +514,13 @@ def main():
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
+
+
+def lap(marks, phase):
+    """Log the seconds since the last of `marks` as `phase`'s, and mark now."""
+    now = time.perf_counter()
+    log("{}: {:.1f} s (the run's {:.1f} s so far)".format(phase, now - marks[-1], now - marks[0]))
+    marks.append(now)
 
 
 def u8_flips(torch, got, ref):
@@ -657,6 +686,11 @@ def log_step_profile(torch, step, label, per_batch, steps=5, top=8, phase="phase
     if mine:
         log(phase + ": [{}]   K6/K7/K9 by kernel name (tail_kernel): {:.3f} ms/step, {} launches".format(
             label, sum(r[0] for r in mine), sum(r[1] for r in mine)))
+    for name, row in (("K2", "int8_mm_kernel"), ("quantize", "quantize_act_kernel")):
+        mine = [r for r in rows if row in r[2]]
+        if mine:
+            log(phase + ": [{}]   {} by kernel name ({}): {:.3f} ms/step, {} launches".format(
+                label, name, row, sum(r[0] for r in mine), sum(r[1] for r in mine)))
     for name, pattern in UP_KERNELS:
         mine = [r for r in rows if pattern.search(r[2])]
         if sum(r[1] for r in mine) != per_batch.get(name, 0):
@@ -696,15 +730,33 @@ def write_tiles(root, seed):
     return tiles
 
 
+class Launches:
+    """The launch count of a kernel behind several wrappers (K2: its
+    requantize and its dequant epilogue), read and set as one wrapper's."""
+
+    def __init__(self, *wrappers):
+        self.wrappers = wrappers
+
+    @property
+    def launches(self):
+        return sum(fn.launches for fn in self.wrappers)
+
+    @launches.setter
+    def launches(self, value):
+        for fn in self.wrappers:
+            fn.launches = value
+
+
 def wrappers():
     """Each kernel's wrapper, whose `.launches` counts its launches."""
     from robosat_tpu_torch.models import qconv, qdec, qenc, qtail
     from robosat_tpu_torch.ops import head, head_rungs, int8_mm
 
-    return {"K1": head.margin_head, "K2": int8_mm.int8_matmul_requant, "K3": qenc.bottleneck_block,
-            "K4": qenc.bottleneck_block_s2, "K5": qdec.parity_up_conv, "K6": qtail.fused_tail,
-            "K7": qtail.fused_tail_features, "K8": qdec.parity_up_conv_separated,
-            "K9": qtail.fused_tail_features_sep, "K10": head_rungs.head_rung, "int8_conv": qconv.int8_conv}
+    return {"K1": head.margin_head, "K2": Launches(int8_mm.int8_matmul_requant, int8_mm.int8_matmul_dequant),
+            "K3": qenc.bottleneck_block, "K4": qenc.bottleneck_block_s2, "K5": qdec.parity_up_conv,
+            "K6": qtail.fused_tail, "K7": qtail.fused_tail_features, "K8": qdec.parity_up_conv_separated,
+            "K9": qtail.fused_tail_features_sep, "K10": head_rungs.head_rung, "int8_conv": qconv.int8_conv,
+            "quantize": int8_mm.quantize_act}
 
 
 def predict_args(work, tiles_dir, probs, model_toml, checkpoint, **flags):
@@ -789,6 +841,7 @@ def run(torch, work, seed, smi):
     from robosat_tpu_torch.parallel.steps import _normalize_s2d4
     from robosat_tpu_torch.tools import predict
 
+    marks = [time.perf_counter()]
     device = configure_device(True)
     tiles_dir = os.path.join(work, "tiles")
     tiles = write_tiles(tiles_dir, seed)
@@ -929,6 +982,7 @@ def run(torch, work, seed, smi):
                     bound_by))
     del checks, kargs, got, ref, feats
     torch.cuda.empty_cache()
+    lap(marks, "phase 3")
 
     # ---- phase 4: the probes path (K2, K10) ------------------------------
     counted = wrappers()
@@ -937,23 +991,27 @@ def run(torch, work, seed, smi):
     for name, c in by_path["probes"].items():
         launches[name] += c
     torch.cuda.empty_cache()
+    lap(marks, "phase 4")
 
     # ---- phase 5: predict on the card, along each path, then masks -------
     run_paths(torch, work, tiles, checkpoint, params, state, params_d, state_d, amaxes, counted, launches, by_path,
               smi)
     del params_d, state_d
     torch.cuda.empty_cache()
+    lap(marks, "phase 5")
 
     # ---- phase 9: the vector tools, on phase 5's masks and a 16 x 16 block -
     # (run here, early in the process, where torch.profiler still records
     # every kernel)
     run_vector(torch, work, smi, masks_dir=os.path.join(work, "masks"))
     torch.cuda.empty_cache()
+    lap(marks, "phase 9")
 
     # ---- phase 6: train ----------------------------------------------------
     train_card_vs_cpu(torch, seed)
     trained = configured_train_step(torch, seed, smi)["trained"]
     tool_checkpoint = train_tool(torch, work, seed, counted, launches, by_path, smi)
+    lap(marks, "phase 6")
 
     # ---- phase 7: QAT and distillation -------------------------------------
     qat_distill_card_vs_cpu(torch, seed)
@@ -963,6 +1021,7 @@ def run(torch, work, seed, smi):
     for path in ("qat-contract", "qat-predict"):
         for name, c in by_path[path].items():
             launches[name] += c
+    lap(marks, "phase 7")
 
     # ---- phase 8: the fast family, in a process of its own -----------------
     torch.cuda.empty_cache()
@@ -973,22 +1032,26 @@ def run(torch, work, seed, smi):
     for name, c in fast["launches"].items():
         launches[name] += c
     by_path.update(fast["by_path"])
+    lap(marks, "phase 8")
 
     # ---- phase 10: the README's workflow on the port alone -----------------
     torch.cuda.empty_cache()
     by_path["workflow"] = run_workflow(torch, work, seed, smi, counted)["launches"]
     for name, c in by_path["workflow"].items():
         launches[name] += c
+    lap(marks, "phase 10")
 
-    # ---- phase 11: DeepLabv3+, in a process of its own ---------------------
-    torch.cuda.empty_cache()
-    deeplab = run_phase_process(work, "--deeplab", "deeplab")
-    for name, entry in deeplab["per_kernel"].items():
-        for site in entry["sites"]:
-            add_site(per_kernel, name, site)
-    for name, c in deeplab["launches"].items():
-        launches[name] += c
-    by_path.update(deeplab["by_path"])
+    # ---- phases 11 and 12: DeepLabv3+ and SegFormer, each in a process of its own ----
+    for flag in ("deeplab", "segformer"):
+        torch.cuda.empty_cache()
+        family = run_phase_process(work, "--" + flag, flag)
+        for name, entry in family["per_kernel"].items():
+            for site in entry["sites"]:
+                add_site(per_kernel, name, site)
+        for name, c in family["launches"].items():
+            launches[name] += c
+        by_path.update(family["by_path"])
+        lap(marks, "phase {}".format(11 if flag == "deeplab" else 12))
 
     return [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
@@ -1015,9 +1078,10 @@ def run_paths(torch, work, tiles, checkpoint, params, state, params_d, state_d, 
 
     tiles_dir = os.path.join(work, "tiles")
     base_config = load_config(os.path.join(ROOT, "config", "model-unet.toml"))
-    # The fine-stem int8 paths quantize with phase 3's scales, which the
-    # int8 run calibrates to again (reproducible, phase 3), through a QAT
-    # checkpoint's qat_amaxes, so that their PNGs compare on equal scales.
+    # The int8 paths after the first quantize with phase 3's scales, which
+    # the int8 run calibrates to again (reproducible, phase 3), through a
+    # QAT checkpoint's qat_amaxes: their PNGs compare on equal scales, and
+    # the full U-Net's float32 calibration (~10 s) runs once in `predict`.
     qat_checkpoint = os.path.join(work, "unet_qat.npz")
     save_checkpoint(qat_checkpoint, {"params": to_jax(params), "state": to_jax(state)},
                     meta={"epoch": 0, "qat_amaxes": [float(a) for a in amaxes]})
@@ -1084,7 +1148,7 @@ def run_paths(torch, work, tiles, checkpoint, params, state, params_d, state_d, 
         if config["common"].get("int8", False):
             step, qt = make_int8_predict_step(
                 unet, params_d, state_d, raw, overlap=pargs.overlap, fused_head=keys.get("fused_head", True),
-                host_s2d=use_host_s2d, calib_percentile=99.8, calib_amaxes=amaxes if label in QAT_PATHS else None,
+                host_s2d=use_host_s2d, calib_percentile=99.8, calib_amaxes=amaxes,
                 pallas_tail=keys.get("pallas_tail"))
 
             def run_step(plain=False, step=step, qt=qt, raw=raw):
@@ -2105,9 +2169,10 @@ def tool_checkpoint_path(work):
 
 
 def run_phase_process(work, flag, name):
-    """The full run's phase 8 (`--fast --fast-from work`, name "fast") or
-    11 (`--deeplab --deeplab-from work`, "deeplab") in a process of its
-    own, its output going to this one's: late in one long process
+    """The full run's phase 8 (`--fast --fast-from work`, name "fast"), 11
+    (`--deeplab --deeplab-from work`, "deeplab") or 12 (`--segformer
+    --segformer-from work`, "segformer") in a process of its own, its
+    output going to this one's: late in one long process
     torch.profiler drops kernel events (device times read "not measured",
     a step profile counts missing launches), and a fresh process profiles
     as `--fast` does. Returns the results it wrote to work/<name>.json
@@ -2254,17 +2319,17 @@ def fast_kernels(torch, work, tiles_dir, checkpoint, per_kernel, smi):
 
 
 def model_predict_paths(torch, work, tiles_dir, tiles, checkpoint, model, base, paths, int8_routes, phase, counted,
-                        launches, by_path, smi):
-    """Phase 8b or 11b (`phase`): `predict.main` with the family's model
+                        launches, by_path, smi, exact=False):
+    """Phase 8b, 11b or 12b (`phase`): `predict.main` with the family's model
     TOML `base` along `paths` (label, keys over `base`, launches per batch
     of each kernel: the int8 path as configured, then `int8 = false`),
     each through a TOML copy in the work directory, every launch count set
     to 0 just before and read just after: 64 palette PNGs, the path's
     launches and, on the int8 path, rs_int8_conv's by route
     (`int8_routes` a batch), steady tiles/s; then the first batch through
-    the kernels against the plain step (+-1 bin on <= 0.1% of pixels) and
-    equal to the PNGs written, the step by CUDA events, and a profile of
-    the step."""
+    the kernels against the plain step (+-1 bin on <= 0.1% of pixels; with
+    `exact`, bit-equal) and equal to the PNGs written, the step by CUDA
+    events, and a profile of the step."""
     from PIL import Image
 
     from robosat_tpu_torch.checkpoint import load_model_checkpoint
@@ -2341,7 +2406,7 @@ def model_predict_paths(torch, work, tiles_dir, tiles, checkpoint, model, base, 
         step_ms = cuda_ms(torch, run_step, [()], 5)
         flips, err = u8_flips(torch, got, ref)
         fine = fine_u8(got)
-        if fine.shape != (BATCH, TILE, TILE) or err > 1 or flips > MAX_FLIP_SHARE * got.numel():
+        if fine.shape != (BATCH, TILE, TILE) or err > 1 or flips > (0 if exact else MAX_FLIP_SHARE * got.numel()):
             raise AssertionError("[{}] step {}: {} flipped bins vs the plain path (max distance {})".format(
                 label, tuple(got.shape), flips, err))
         written = read_pngs(probs, [tuple(t) for t in first.meta])
@@ -2553,14 +2618,15 @@ def fast_tools(torch, work, root, unet_checkpoint, counted, launches, by_path, s
                                                                                       n_batches))
 
 
-def deeplab_toml(work):
-    """A TOML copy of config/model-unet.toml with model = "deeplabv3plus"
-    (as tests/test_deeplab.py configures the family) in `work`."""
+def family_toml(work, model):
+    """A TOML copy of config/model-unet.toml with `model` set (as
+    tests/test_deeplab.py and tests/test_segformer.py configure their
+    families) in `work`, as model-<model>.toml; returns (path, config)."""
     from robosat_tpu_torch.config import load_config, save_config
 
     base = load_config(os.path.join(ROOT, "config", "model-unet.toml"))
-    config = {**base, "common": {**base["common"], "model": "deeplabv3plus"}}
-    path = os.path.join(work, "model-deeplab.toml")
+    config = {**base, "common": {**base["common"], "model": model}}
+    path = os.path.join(work, "model-{}.toml".format(model))
     save_config(config, path)
     return path, config
 
@@ -2578,7 +2644,7 @@ def run_deeplab(torch, work, seed, smi, counted, launches, by_path, per_kernel, 
     from robosat_tpu_torch.models import deeplab
 
     configure_device(True)
-    model_toml, config = deeplab_toml(work)
+    model_toml, config = family_toml(work, "deeplabv3plus")
     tiles_dir = os.path.join(work, "tiles-deeplab")
     tiles = write_tiles(tiles_dir, seed)  # phase 5's tiles
     params, state = deeplab.init(seed, num_classes=2)
@@ -2590,12 +2656,12 @@ def run_deeplab(torch, work, seed, smi, counted, launches, by_path, per_kernel, 
     model_predict_paths(torch, work, tiles_dir, tiles, checkpoint, deeplab, config, DEEPLAB_PATHS, DEEPLAB_INT8_ROUTES,
                         11, counted, launches, by_path, smi)
     torch.cuda.empty_cache()
-    deeplab_train_step(torch, seed, config, smi)
+    family_train_step(torch, seed, config, smi, deeplab, "phase 11: [11c step]")
     torch.cuda.empty_cache()
     if train_root is None:
         train_root = os.path.join(work, "slippy")
         write_training_set(train_root, seed)
-    deeplab_tools(torch, work, train_root, config, counted, launches, by_path, smi)
+    family_tools(torch, work, train_root, config, counted, launches, by_path, smi, deeplab, 11, DEEPLAB_INT8)
 
 
 def taps_inside(h, w, k, dilation, pads, out_hw):
@@ -2731,14 +2797,183 @@ def deeplab_kernels(torch, work, tiles_dir, checkpoint, model_toml, config, per_
     del walk, qtree, got, ref
 
 
-def deeplab_train_step(torch, seed, config, smi):
-    """Phase 11c: the DeepLab TOML's train step as it stands (bf16, its
-    loss, batch 64 at 512 px, augmentation on) from `deeplab.init`, on one
-    learnable batch, timed by `time_train_steps` (with remat = true
-    instead, said so, if the batch does not fit). Returns the numbers."""
+def run_segformer(torch, work, seed, smi, counted, launches, by_path, per_kernel, train_root=None):
+    """Phase 12: SegFormer (MiT-B0) on a copy of config/model-unet.toml
+    with model = "segformer", weights from `segformer.init(seed)`: 12a its
+    kernels against their plain versions at every int8 site, 12b the
+    predict paths (the int8 PNGs bit-equal to the plain path's), 12c the
+    configured train step and the tools. `train_root` (6c's dataset) is
+    12c's dataset; without it (`--segformer`) a new one stands in. Adds the
+    launches of 12b's int8 path and 12c's predict to `launches` and
+    `by_path`, and the kernels' sites to `per_kernel`."""
+    from robosat_tpu_torch.checkpoint import save_checkpoint, to_jax
+    from robosat_tpu_torch.device import configure_device
+    from robosat_tpu_torch.models import segformer
+
+    configure_device(True)
+    model_toml, config = family_toml(work, "segformer")
+    tiles_dir = os.path.join(work, "tiles-segformer")
+    tiles = write_tiles(tiles_dir, seed)  # phase 5's tiles
+    params, state = segformer.init(seed, num_classes=2)
+    checkpoint = os.path.join(work, "segformer.npz")
+    save_checkpoint(checkpoint, {"params": to_jax(params), "state": to_jax(state)}, meta={"epoch": 0})
+    del params, state
+    segformer_kernels(torch, work, tiles_dir, checkpoint, model_toml, config, per_kernel, smi)
+    torch.cuda.empty_cache()
+    model_predict_paths(torch, work, tiles_dir, tiles, checkpoint, segformer, config, SEGFORMER_PATHS,
+                        SEGFORMER_INT8_ROUTES, 12, counted, launches, by_path, smi, exact=True)
+    torch.cuda.empty_cache()
+    family_train_step(torch, seed, config, smi, segformer, "phase 12: [12c step]")
+    torch.cuda.empty_cache()
+    if train_root is None:
+        train_root = os.path.join(work, "slippy")
+        write_training_set(train_root, seed)
+    family_tools(torch, work, train_root, config, counted, launches, by_path, smi, segformer, 12, SEGFORMER_INT8)
+
+
+def int_mm_ms(torch, arg_sets):
+    """torch._int_mm's milliseconds over (xq, wq) pairs, or None where its
+    constraints refuse the shape."""
+    try:
+        return cuda_ms(torch, lambda a, w: torch._int_mm(a, w), arg_sets, 10)
+    except RuntimeError:
+        return None
+
+
+def segformer_kernels(torch, work, tiles_dir, checkpoint, model_toml, config, per_kernel, smi):
+    """Phase 12a: the first predict batch (8 host-blocked 576-px tiles)
+    through SegFormer's float32 calibration walk, which keeps every site's
+    input; then each of the 54 int8 sites on that input with the calibrated
+    scale, against its plain version (bf16 bit-equal): the 51 dense and SR
+    sites through `int8_mm.int8_dense` (the quantize kernel, then K2's
+    dequant epilogue; the quantized input equal to quantize_act_plain's),
+    the 3 patch embeds through rs_int8_conv (conv_kernel). Each distinct
+    shape is timed once, as phase 3 times its kernels: K2 alone on the
+    quantized input beside torch._int_mm's product at the same (M, K, N),
+    the quantize kernel alone, rs_int8_conv; sites that repeat a shape are
+    checked and not timed again."""
+    from robosat_tpu_torch.checkpoint import load_model_checkpoint
+    from robosat_tpu_torch.data.loader import batches
+    from robosat_tpu_torch.models import int8 as q8
+    from robosat_tpu_torch.models import qconv, segformer
+    from robosat_tpu_torch.ops import int8_mm
+    from robosat_tpu_torch.parallel.steps import _normalize_s2d4
+    from robosat_tpu_torch.tools import predict
+
+    common = config["common"]
+    pargs = predict_args(work, tiles_dir, None, model_toml, checkpoint)
+    directory, _ = predict.input_directory(pargs, predict.host_s2d_input(common, pargs))
+    raw48 = next(iter(batches(directory, BATCH, workers=2))).arrays[0]
+    side = (TILE + 2 * OVERLAP) // 4
+    if raw48.shape != (BATCH, side, side, 48):
+        raise AssertionError("phase 12: first batch has shape {}".format(raw48.shape))
+    params, state, _ = load_model_checkpoint(checkpoint, device=torch.device("cuda"))
+    percentile = q8.calibration_spec(common.get("int8_calibration", 99.8))
+    with torch.no_grad():
+        folded = segformer.fold(params, state)
+        x48 = _normalize_s2d4(torch.as_tensor(raw48).cuda())
+        walk = SiteInputs(q8._Sites(scales=None, percentile=percentile), torch.bfloat16)
+        segformer._walk_int8(segformer._float_tree_for_calibration(folded), x48.float(), walk, float_mode=True,
+                             blocked=True)
+        amaxes = torch.stack(walk.sites.taps).float().cpu()
+        if not torch.equal(amaxes, segformer.calibration_amaxes_int8(folded, x48, blocked=True,
+                                                                     percentile=percentile)):
+            raise AssertionError("phase 12: the calibration walk is not reproducible on the card")
+        scales = [float(v) for v in q8.scales_from_amaxes(amaxes)]
+        qtree = segformer.quantize_folded_int8(folded)
+        segformer.prepare_int8(qtree, scales)
+    del params, state, folded, x48
+    sites = segformer.sites(qtree)
+    if not len(sites) == len(scales) == len(walk.inputs) == 54:
+        raise AssertionError("phase 12: {} sites, {} scales, {} inputs".format(len(sites), len(scales),
+                                                                             len(walk.inputs)))
+    log("phase 12: [12a] float32 calibration of {} sites on {} x {} (int8_calibration = {})".format(
+        len(scales), BATCH, raw48.shape[1:], common.get("int8_calibration", 99.8)))
+    timed = {}
+    with torch.no_grad():
+        for (name, node, route, stride), x, scale in zip(sites, walk.inputs, scales):
+            site = name + " (segformer)"
+            if route == "conv":
+                kargs = (x, node, scale, stride, 1, ((1, 1), (1, 1)), "linear")
+                routes = dict(qconv.int8_conv.by_route)
+                got, ref = qconv.int8_conv(*kargs), qconv.int8_conv_plain(*kargs)
+                torch.cuda.synchronize()
+                if got.shape != ref.shape or not torch.equal(got, ref):
+                    raise AssertionError("phase 12: int8_conv {}: {} vs plain {}, max |diff| {}".format(
+                        name, tuple(got.shape), tuple(ref.shape), float((got.float() - ref.float()).abs().max())))
+                if qconv.int8_conv.by_route != {**routes, "conv_kernel": routes["conv_kernel"] + 1}:
+                    raise AssertionError("phase 12: int8_conv {} did not take conv_kernel".format(name))
+                arg_sets = rotated(torch, kargs)
+                ms = cuda_ms(torch, qconv.int8_conv, arg_sets, 20)
+                dev_ms = device_ms(torch, qconv.int8_conv, arg_sets, 20)
+                plain_ms = cuda_ms(torch, qconv.int8_conv_plain, arg_sets, 2)
+                del arg_sets
+                work_ = site_work("int8_conv", kargs, got)
+                bound_ms, bound_by = record(per_kernel, "int8_conv", site, x.shape, 0.0, ms, plain_ms, work_,
+                                            device_ms=dev_ms, tops=work_[1] / (dev_ms or ms) / 1e9,
+                                            kernel="conv_kernel")
+                log("phase 12: [12a] int8_conv {} 3x3 stride 2 on conv_kernel {} -> {}: bit-equal; kernel {:.4f} ms "
+                    "(events), {} (device), plain {:.3f} ms, bound {:.4f} ms ({}); {}".format(
+                        name, tuple(x.shape), tuple(got.shape), ms,
+                        "not measured" if dev_ms is None else "{:.4f} ms".format(dev_ms), plain_ms, bound_ms, bound_by,
+                        smi))
+                continue
+            got, ref = int8_mm.int8_dense(x, node, scale, stride), int8_mm.int8_dense_plain(x, node, scale, stride)
+            xq = int8_mm.quantize_act(x, scale, stride)
+            torch.cuda.synchronize()
+            if got.shape != ref.shape or not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+                raise AssertionError("phase 12: dense {}: {} vs plain {}, {} values differ".format(
+                    name, tuple(got.shape), tuple(ref.shape), int((got != ref).sum())))
+            if not torch.equal(xq, int8_mm.quantize_act_plain(x, scale, stride)):
+                raise AssertionError("phase 12: the quantize kernel at {} differs from its plain version".format(name))
+            wq, sc, b = int8_mm.dense_operands(node, scale)
+            a = xq.reshape(-1, xq.shape[-1])
+            (m, k), n = a.shape, wq.shape[1]
+            key = ("dense", m, k, n, tuple(x.shape), stride)
+            if key in timed:
+                log("phase 12: [12a] K2 {} (M, K, N) = {}: bit-equal (timed as {})".format(name, (m, k, n), timed[key]))
+                continue
+            timed[key] = name
+            arg_sets = rotated(torch, (a, wq, sc, b))
+            ms = cuda_ms(torch, int8_mm.int8_matmul_dequant, arg_sets, 10)
+            dev_ms = device_ms(torch, int8_mm.int8_matmul_dequant, arg_sets, 10)
+            plain_ms = cuda_ms(torch, int8_mm.int8_matmul_dequant_plain, arg_sets, 1)
+            lib_ms = int_mm_ms(torch, [args[:2] for args in arg_sets])
+            del arg_sets
+            moved, ops = nbytes(a, wq, sc, b) + 2 * m * n, 2 * m * k * n
+            t = dev_ms or ms
+            bound_ms, bound_by = record(per_kernel, "K2", site, (m, k, n), 0.0, ms, plain_ms, (moved, ops, "int8"),
+                                        library_ms=lib_ms, device_ms=dev_ms, gbs=moved / t / 1e6, tops=ops / t / 1e9,
+                                        share_of_bound=bound(moved, ops, "int8")[0] / t, epilogue="dequant",
+                                        stride=stride)
+            q_sets = rotated(torch, (x, scale, stride))
+            q_ms = cuda_ms(torch, int8_mm.quantize_act, q_sets, 10)
+            q_dev = device_ms(torch, int8_mm.quantize_act, q_sets, 10)
+            q_plain = cuda_ms(torch, int8_mm.quantize_act_plain, q_sets, 2)
+            del q_sets
+            q_bound, q_by = record(per_kernel, "quantize", site, x.shape, 0.0, q_ms, q_plain,
+                                   (nbytes(x, xq), x.numel(), "f32"), device_ms=q_dev, stride=stride)
+            log("phase 12: [12a] K2 {} (M, K, N) = {}{}: bit-equal; kernel {:.4f} ms (events), {} (device), {:.0f} "
+                "GB/s, {:.1f} TOP/s, {:.1%} of its bound; _int_mm {}, plain {:.3f} ms, bound {:.4f} ms ({}); "
+                "quantize {} -> {}: {:.4f} ms (events), {} (device), plain {:.3f} ms, bound {:.4f} ms ({}); "
+                "{}".format(name, (m, k, n), " (space-to-depth {})".format(stride) if stride > 1 else "", ms,
+                            "not measured" if dev_ms is None else "{:.4f} ms".format(dev_ms), moved / t / 1e6,
+                            ops / t / 1e9, bound_ms / t,
+                            "refused" if lib_ms is None else "{:.4f} ms".format(lib_ms), plain_ms, bound_ms, bound_by,
+                            tuple(x.shape), tuple(xq.shape), q_ms,
+                            "not measured" if q_dev is None else "{:.4f} ms".format(q_dev), q_plain, q_bound, q_by,
+                            smi))
+    del walk, qtree, got, ref
+
+
+def family_train_step(torch, seed, config, smi, model, prefix):
+    """Phase 11c or 12c (log `prefix`): the family TOML's train step as it
+    stands (bf16, its loss, batch 64 at 512 px, augmentation on) from
+    `model.init`, on one learnable batch, timed by `time_train_steps` (with
+    remat = true instead, said so, if the batch does not fit). Returns the
+    numbers."""
     from robosat_tpu_torch import optim
     from robosat_tpu_torch.checkpoint import from_jax, to_jax
-    from robosat_tpu_torch.models import deeplab
     from robosat_tpu_torch.ops.losses import get_loss
     from robosat_tpu_torch.parallel.steps import make_train_step
 
@@ -2748,17 +2983,17 @@ def deeplab_train_step(torch, seed, config, smi):
     weight = PARKING_WEIGHTS if opt["loss"] != "Lovasz" else None
     images, masks = learnable_batches(np.random.default_rng(seed + 11), 1, batch, size)[0]
     images, masks = torch.from_numpy(images).pin_memory(), torch.from_numpy(masks).pin_memory()
-    params0, state0 = deeplab.init(seed)
+    params0, state0 = model.init(seed)
     remat = common.get("remat", False)
 
     def attempt(remat):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         params, state = from_jax(to_jax(params0), to_jax(state0), "cuda")
-        step = make_train_step(deeplab, get_loss(opt["loss"]), optim.adam(params, opt["lr"]), weight=weight,
+        step = make_train_step(model, get_loss(opt["loss"]), optim.adam(params, opt["lr"]), weight=weight,
                                compute_dtype=dtype, remat=remat)
-        return time_train_steps(torch, "phase 11: [11c step]", step, params, state, (), images, masks, seed,
-                                opt["loss"], dtype, TRAIN_KERNEL_GROUPS, smi)[0]
+        return time_train_steps(torch, prefix, step, params, state, (), images, masks, seed, opt["loss"], dtype,
+                                TRAIN_KERNEL_GROUPS, smi)[0]
 
     try:
         result, oom = attempt(remat), None
@@ -2767,33 +3002,35 @@ def deeplab_train_step(torch, seed, config, smi):
             raise
         oom = str(exc).splitlines()[0][:160]
     if oom is not None:  # retried outside the handler, whose traceback holds the first attempt's tensors
-        log("phase 11: [11c step] batch {} at {} px does not fit without remat ({}); running remat = true".format(
-            batch, size, oom))
+        log("{} batch {} at {} px does not fit without remat ({}); running remat = true".format(prefix, batch, size,
+                                                                                               oom))
         remat = True
         result = attempt(remat)
     result["remat"] = remat
-    log("phase 11: [11c step] {}".format(json.dumps(result)))
+    log("{} {}".format(prefix, json.dumps(result)))
     return result
 
 
-def deeplab_tools(torch, work, root, base, counted, launches, by_path, smi):
-    """Phase 11c's tools, on the dataset at `root`: `train.main` with the
-    DeepLab TOML (batch TOOL_BATCH) for one epoch, then int8 `predict` as
-    configured from its checkpoint over the training tiles (14 K3, 2 K4 and
-    7 rs_int8_conv launches a batch)."""
+def family_tools(torch, work, root, base, counted, launches, by_path, smi, model, phase, per_batch):
+    """Phase 11c's or 12c's (`phase`) tools, on the dataset at `root`:
+    `train.main` with the family TOML `base` (batch TOOL_BATCH) for one
+    epoch, then int8 `predict` as configured from its checkpoint over the
+    training tiles (`per_batch` launches a batch: DeepLab's 14 K3, 2 K4 and
+    7 rs_int8_conv; SegFormer's 51 quantize and K2, 3 rs_int8_conv)."""
     from robosat_tpu_torch.checkpoint import load_checkpoint
     from robosat_tpu_torch.config import load_config, save_config
-    from robosat_tpu_torch.models import deeplab
     from robosat_tpu_torch.tools import train
 
+    name = base["common"]["model"]
+    prefix = "phase {}: [{}c".format(phase, phase)
     dataset = load_config(os.path.join(ROOT, "config", "dataset-parking.toml"))
     dataset["common"]["dataset"] = root
-    dataset_toml = os.path.join(work, "dataset-deeplab.toml")
+    dataset_toml = os.path.join(work, "dataset-{}.toml".format(name))
     save_config(dataset, dataset_toml)
-    ckpt_dir = os.path.join(work, "train-deeplab")
+    ckpt_dir = os.path.join(work, "train-{}".format(name))
     config = {**base, "common": {**base["common"], "batch_size": TOOL_BATCH, "checkpoint": ckpt_dir},
               "opt": {**base["opt"], "epochs": 1}}
-    model_toml = os.path.join(work, "model-deeplab-train.toml")
+    model_toml = os.path.join(work, "model-{}-train.toml".format(name))
     save_config(config, model_toml)
     args = argparse.Namespace(model=model_toml, dataset=dataset_toml, checkpoint=None, resume=False, workers=4,
                               profile=None)
@@ -2805,21 +3042,22 @@ def deeplab_tools(torch, work, root, base, counted, launches, by_path, smi):
     trees, meta = load_checkpoint(checkpoint)
     count = int(trees["opt_state"][0])
     losses = out["history"].get("train loss", [])
-    if out["steps"] != steps or count != steps or set(trees["params"]) != set(deeplab.init(0)[0]) \
+    if out["steps"] != steps or count != steps or set(trees["params"]) != set(model.init(0)[0]) \
             or not all(math.isfinite(v) for v in losses):
-        raise AssertionError("11c train: steps {}, count {}, params {}, history {}".format(
-            out["steps"], count, sorted(trees["params"]), out["history"]))
-    log("phase 11: [11c train] one epoch, batch {}: {} steps in {:.2f} s on {}; {} (opt_state count {}); "
-        "history {}".format(TOOL_BATCH, out["steps"], wall, smi, os.path.basename(checkpoint), count, out["history"]))
-    counts, pngs, wall, n_batches = predict_split_tiles(root, os.path.join(work, "probs-deeplab-trained"), checkpoint,
-                                                        counted, "11c predict",
-                                                        model_toml=os.path.join(work, "model-deeplab.toml"),
-                                                        per_batch=DEEPLAB_INT8)
-    by_path["deeplab-train-predict"] = counts
-    for name, c in counts.items():
-        launches[name] += c
-    log("phase 11: [11c predict] int8 as configured from the trained checkpoint: {} PNGs in {:.2f} s on {}; "
-        "launches {} ({} batches)".format(pngs, wall, smi, counts, n_batches))
+        raise AssertionError("{}c train: steps {}, count {}, params {}, history {}".format(
+            phase, out["steps"], count, sorted(trees["params"]), out["history"]))
+    log("{} train] one epoch, batch {}: {} steps in {:.2f} s on {}; {} (opt_state count {}); history {}".format(
+        prefix, TOOL_BATCH, out["steps"], wall, smi, os.path.basename(checkpoint), count, out["history"]))
+    label = "deeplab" if name == "deeplabv3plus" else name
+    counts, pngs, wall, n_batches = predict_split_tiles(root, os.path.join(work, "probs-{}-trained".format(name)),
+                                                        checkpoint, counted, "{}c predict".format(phase),
+                                                        model_toml=os.path.join(work, "model-{}.toml".format(name)),
+                                                        per_batch=per_batch)
+    by_path[label + "-train-predict"] = counts
+    for kernel, c in counts.items():
+        launches[kernel] += c
+    log("{} predict] int8 as configured from the trained checkpoint: {} PNGs in {:.2f} s on {}; launches {} "
+        "({} batches)".format(prefix, pngs, wall, smi, counts, n_batches))
 
 
 def blob_masks(rng, n, size):

@@ -172,6 +172,50 @@ def convert_torch_deeplab(state_dict, num_classes=2):
     return params, state
 
 
+def convert_torch_segformer(state_dict, num_classes=2):
+    """A torch SegFormer state_dict (the raw-torch layout of
+    robosat_tpu/checkpoint.py's convert_torch_segformer: `stages.<i>.*` MiT
+    stages with `patch`, `patch_ln`, `blocks.<j>.*` and `ln`; `proj.<i>`
+    decoder projections; `fuse`, `fuse_bn`, `final`) -> SegFormer's
+    (params, state): conv weights OIHW -> HWIO (a depthwise (C, 1, kh, kw)
+    -> (kh, kw, 1, C)), dense weights (out, in) -> (in, out), LayerNorm
+    weight/bias -> scale/bias."""
+    from robosat_tpu_torch.models.segformer import DEPTHS, EMBED_DIMS, SR_RATIOS
+
+    sd = _strip_module(state_dict)
+
+    def dense(key):
+        return {"w": np.transpose(_array(sd[key + ".weight"]), (1, 0)), "b": _array(sd[key + ".bias"])}
+
+    def ln(key):
+        return {"scale": _array(sd[key + ".weight"]), "bias": _array(sd[key + ".bias"])}
+
+    def conv(key):
+        return {"w": _hwio(sd[key + ".weight"]), "b": _array(sd[key + ".bias"])}
+
+    params = {"stages": []}
+    for si in range(len(EMBED_DIMS)):
+        base = "stages.{}".format(si)
+        stage = {"patch": conv(base + ".patch"), "patch_ln": ln(base + ".patch_ln"), "blocks": [],
+                 "ln": ln(base + ".ln")}
+        for bi in range(DEPTHS[si]):
+            bb = "{}.blocks.{}".format(base, bi)
+            block = {"ln1": ln(bb + ".ln1"), "q": dense(bb + ".q"), "kv": dense(bb + ".kv"),
+                     "proj": dense(bb + ".proj"), "ln2": ln(bb + ".ln2"), "fc1": dense(bb + ".fc1"),
+                     "dw": conv(bb + ".dw"), "fc2": dense(bb + ".fc2")}
+            if SR_RATIOS[si] > 1:
+                block["sr"] = conv(bb + ".sr")
+                block["sr_ln"] = ln(bb + ".sr_ln")
+            stage["blocks"].append(block)
+        params["stages"].append(stage)
+    params["proj"] = [dense("proj.{}".format(i)) for i in range(len(EMBED_DIMS))]
+    params["fuse"] = {"w": _hwio(sd["fuse.weight"])}
+    params["fuse_bn"] = {"scale": _array(sd["fuse_bn.weight"]), "bias": _array(sd["fuse_bn.bias"])}
+    state = {"fuse_bn": {"mean": _array(sd["fuse_bn.running_mean"]), "var": _array(sd["fuse_bn.running_var"])}}
+    params["final"] = {"w": _hwio(sd["final.weight"]), "b": _array(sd["final.bias"])}
+    return params, state
+
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}

@@ -1,4 +1,5 @@
-// int8 matmul with a fused requantize epilogue on Hopper (kernel K2).
+// int8 matmul with a fused requantize or dequant epilogue on Hopper (kernel
+// K2), and the activation quantize that feeds its dense sites.
 //
 // Replaces the Pallas kernels benchmarks/bench_pallas_mm.py:make_mm_a and
 // make_mm_b, the probe of the U-Net's 1x1 and per-tap int8 contractions:
@@ -10,6 +11,24 @@
 //
 //   a, channels-major: out(cout, P) = w(cout, cin) @ x(cin, P), s (cout, 1)
 //   b, NHWC-flat:      out(P, cout) = x(P, cin) @ w(cin, cout), s (1, cout)
+//
+// A second epilogue, orientation b only, runs SegFormer's 51 dense int8
+// sites (robosat_tpu/models/segformer.py:314 _int8_dense, an XLA dot in the
+// JAX package; its spatial-reduction convs as a dense over their
+// space-to-depth, its fuse 1x1 conv as a dense over pixels):
+//
+//   out = bf16_rne(__fmaf_rn(f32(acc), sc[n], b[n]))     sc = ws * s
+//
+// one fused multiply-add, as XLA:CPU compiles the JAX package's
+// acc * (ws * s) + b (its dot and its conv alike), then one round to bf16. Its input comes from
+// rs_quantize_act (below): clip(rintf(__fmul_rn(v, 1 / s)), -127, 127) of
+// the bf16 activations, written with an optional r x r space-to-depth
+// (channel (er r + ec) C + c), a pass of its own over the activations
+// (folding it into K2's loads is later work). At SegFormer's shapes (batch
+// 8 at 576 px: M = 2592-165888 pixels, K = 32-2048, N = 32-1024) the
+// dense sites do 16-512 ops per byte of x and bf16 out, all bound by
+// device memory like the probe's; a bf16 output doubles the epilogue's
+// staged tile and halves the columns of each 16-byte row piece.
 //
 // What bounds it on the H100: at the probe's shapes (cout 64-256, cin
 // 64-1280, P = 165,888 or 41,472) it does 2 cout cin ops per (cin + cout)
@@ -76,9 +95,13 @@ using rs::sm90::cp_async16;
 using rs::sm90::mbar_arrive;
 using rs::sm90::mbar_init;
 using rs::sm90::mbar_wait;
+using rs::sm90::quantize8;
 using rs::sm90::smem_u32;
 
 enum Orientation { ORIENT_A = 0, ORIENT_B = 1 };
+// The epilogue: requantize to int8 (either orientation), or dequantize with
+// a bias to bf16 (orientation b).
+enum Epilogue { EPI_REQUANT = 0, EPI_DEQUANT_BF16 = 1 };
 
 constexpr int kKc = 64;           // K bytes per ring stage
 constexpr int kProducers = 128;   // one copy warpgroup, after the consumer warps
@@ -114,23 +137,36 @@ struct Cfg {
   static_assert(WM * MW == TM && WN * NW == TN, "tile split");
 };
 
+// Bytes of one output element, and the row pitch of a warp's staged tile in
+// bytes. bf16 rows (2 NW bytes) are stored 16 bytes a thread by quarter
+// warps that cover rows g and g + 1: a pitch of 64 bytes modulo 128 puts
+// the two rows on disjoint bank halves.
+template <int EPI>
+__host__ __device__ constexpr int elem_bytes() { return EPI == EPI_REQUANT ? 1 : 2; }
+
+template <int ORIENT, int SLAB, int EPI>
+__host__ __device__ constexpr int stage_pitch() {
+  return EPI == EPI_REQUANT ? Cfg<ORIENT, SLAB>::LDW : (Cfg<ORIENT, SLAB>::NW == 32 ? 64 : 2 * Cfg<ORIENT, SLAB>::NW + 64);
+}
+
 // Byte offsets of the dynamic shared memory: 3 x `stages` mbarriers, the
-// slab's scales (f32), its weights (SLAB rows of `row_w` bytes), the
-// consumer warps' staged output tiles, the ring. ops/int8_mm.py:smem_bytes
-// computes the same total.
+// slab's scales (f32) and, for the dequant epilogue, its biases (f32), its
+// weights (SLAB rows of `row_w` bytes), the consumer warps' staged output
+// tiles, the ring. ops/int8_mm.py:smem_bytes computes the same total.
 struct Plan {
-  int scale, w, out, ring, bytes, row_w;
+  int scale, bias, w, out, ring, bytes, row_w;
 };
 
-template <int ORIENT, int SLAB>
+template <int ORIENT, int SLAB, int EPI>
 __host__ __device__ inline Plan plan(int k, int stages) {
   using C = Cfg<ORIENT, SLAB>;
   Plan p;
   p.row_w = (k + kKc - 1) / kKc * kKc + 16;
   p.scale = align128(24 * stages);
-  p.w = align128(p.scale + 4 * SLAB);
+  p.bias = p.scale + 4 * SLAB;
+  p.w = align128(p.scale + 4 * SLAB * (EPI == EPI_REQUANT ? 1 : 2));
   p.out = align128(p.w + SLAB * p.row_w);
-  p.ring = align128(p.out + C::WARPS * C::MW * C::LDW);
+  p.ring = align128(p.out + C::WARPS * C::MW * stage_pitch<ORIENT, SLAB, EPI>());
   p.bytes = p.ring + stages * kKc * C::BP;
   return p;
 }
@@ -180,6 +216,12 @@ __device__ __forceinline__ uint32_t requant(int acc, float s) {
   return __float_as_uint(__fadd_rn(y, 12582912.0f));
 }
 
+// Two f32 values rounded to bf16 (RNE) in one word, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // Four bytes (the low bytes of v0..v3) in one word, v0 lowest.
 __device__ __forceinline__ uint32_t pack4(uint32_t v0, uint32_t v1, uint32_t v2, uint32_t v3) {
   return __byte_perm(__byte_perm(v0, v1, 0x0040), __byte_perm(v2, v3, 0x0040), 0x5410);
@@ -208,15 +250,18 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 
 // Orientation a: a = w (M = cout, K), b = x (K, N = P), out (cout, P).
 // Orientation b: a = x (M = P, K), b = w (K, N = cout), out (P, cout).
-// K and N are multiples of 16; gridDim.x is slabs x walkers.
-template <int ORIENT, int SLAB>
+// K and N are multiples of 16; gridDim.x is slabs x walkers. `bias` is
+// read by the dequant epilogue only; `out` holds int8 (requant) or bf16.
+template <int ORIENT, int SLAB, int EPI>
 __global__ void __launch_bounds__(Cfg<ORIENT, SLAB>::THREADS, 1)
     int8_mm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b, const float* __restrict__ scale,
-                   int8_t* __restrict__ out, int m, int n, int k, int stages) {
+                   const float* __restrict__ bias, void* __restrict__ out, int m, int n, int k, int stages) {
+  static_assert(EPI == EPI_REQUANT || ORIENT == ORIENT_B, "the dequant epilogue is orientation b's");
   using C = Cfg<ORIENT, SLAB>;
   constexpr int BP = C::BP;
+  constexpr int kPitch = stage_pitch<ORIENT, SLAB, EPI>();
   extern __shared__ __align__(128) uint8_t smem[];
-  const Plan L = plan<ORIENT, SLAB>(k, stages);
+  const Plan L = plan<ORIENT, SLAB, EPI>(k, stages);
   const uint32_t base = smem_u32(smem);
   const uint32_t full0 = base;                 // full[s] at full0 + 8 s: the stage is ready for the MMAs
   const uint32_t empty0 = base + 8 * stages;   // empty[s]: one arrival per consumer warp
@@ -335,10 +380,14 @@ __global__ void __launch_bounds__(Cfg<ORIENT, SLAB>::THREADS, 1)
 
   // ---- consumers: the slab's scales and weights into shared memory, once ----
   float* ss = reinterpret_cast<float*>(smem + L.scale);
+  float* bs = reinterpret_cast<float*>(smem + L.bias);
   int8_t* ws = reinterpret_cast<int8_t*>(smem + L.w);
   const int row_w = L.row_w;
   const int kp = row_w - 16;
-  for (int i = tid; i < SLAB; i += C::CONSUMERS) ss[i] = c0 + i < cout ? scale[c0 + i] : 0.0f;
+  for (int i = tid; i < SLAB; i += C::CONSUMERS) {
+    ss[i] = c0 + i < cout ? scale[c0 + i] : 0.0f;
+    if (EPI == EPI_DEQUANT_BF16) bs[i] = c0 + i < cout ? bias[c0 + i] : 0.0f;
+  }
   if (ORIENT == ORIENT_A) {
     // w (cout, K): slab row r at r * row_w, zeros past K and cout.
     const int pieces = kp / 16;
@@ -394,11 +443,15 @@ __global__ void __launch_bounds__(Cfg<ORIENT, SLAB>::THREADS, 1)
   // This thread's scales, for all tiles: a per output row (MI x 2 rows),
   // b per output column (NG x 8 columns).
   constexpr int kScales = ORIENT == ORIENT_A ? 2 * C::MI : 8 * C::NG;
+  constexpr int kBiases = EPI == EPI_DEQUANT_BF16 ? kScales : 1;
   float sc[kScales];
+  float bi[kBiases];
 #pragma unroll
   for (int i = 0; i < kScales; ++i) {
-    sc[i] = ORIENT == ORIENT_A ? ss[wm * C::MW + (i >> 1) * 16 + g + 8 * (i & 1)]
-                               : ss[wn * C::NW + (i >> 3) * 32 + 8 * tq + (i & 7)];
+    const int col = ORIENT == ORIENT_A ? wm * C::MW + (i >> 1) * 16 + g + 8 * (i & 1)
+                                       : wn * C::NW + (i >> 3) * 32 + 8 * tq + (i & 7);
+    sc[i] = ss[col];
+    if (EPI == EPI_DEQUANT_BF16) bi[i % kBiases] = bs[col];
   }
   // ldmatrix row addresses of this lane in the resident weights (the
   // A operand's rows in a, the B operand's n8 rows in b) and, in b, the
@@ -407,7 +460,7 @@ __global__ void __launch_bounds__(Cfg<ORIENT, SLAB>::THREADS, 1)
                                        : wn * C::NW + 8 * (lane >> 4) + (lane & 7);
   const uint32_t w_lane = smem_u32(ws + w_row * row_w + 16 * (ORIENT == ORIENT_A ? lane >> 4 : (lane >> 3) & 1));
   const int a_row = wm * C::MW + (lane & 7) + 8 * ((lane >> 3) & 1);  // b: + 16 mi
-  uint8_t* stg = smem + L.out + warp * (C::MW * C::LDW);
+  uint8_t* stg = smem + L.out + warp * (C::MW * kPitch);
   for (int t = walker, it = 0; t < tiles; t += walkers, it += chunks) {
     int acc[C::MI][C::NG * 4][4];
 #pragma unroll
@@ -468,9 +521,9 @@ __global__ void __launch_bounds__(Cfg<ORIENT, SLAB>::THREADS, 1)
       if (lane == 0) mbar_arrive(empty0 + 8 * s);
     }
 
-    // ---- epilogue: requantize into this warp's staged tile, then whole rows out ----
+    // ---- epilogue: requantize or dequantize into this warp's staged tile, then whole rows out ----
     // Accumulator e of n8 tile 4 G + j sits at row g + 8 (e >> 1), column
-    // 32 G + 4 (2 tq + (e & 1)) + j: byte q of the thread's 8 columns
+    // 32 G + 4 (2 tq + (e & 1)) + j: element q of the thread's 8 columns
     // 32 G + 8 tq + q is acc[..][4 G + (q & 3)][2 half + (q >> 2)].
 #pragma unroll
     for (int mi = 0; mi < C::MI; ++mi) {
@@ -478,62 +531,103 @@ __global__ void __launch_bounds__(Cfg<ORIENT, SLAB>::THREADS, 1)
       for (int half = 0; half < 2; ++half) {
 #pragma unroll
         for (int gr = 0; gr < C::NG; ++gr) {
-          uint32_t v[8];
+          uint8_t* row = stg + (mi * 16 + g + 8 * half) * kPitch;
+          if constexpr (EPI == EPI_REQUANT) {
+            uint32_t v[8];
 #pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            v[q] = requant(acc[mi][gr * 4 + (q & 3)][2 * half + (q >> 2)],
-                           ORIENT == ORIENT_A ? sc[2 * mi + half] : sc[8 * gr + q]);
+            for (int q = 0; q < 8; ++q) {
+              v[q] = requant(acc[mi][gr * 4 + (q & 3)][2 * half + (q >> 2)],
+                             ORIENT == ORIENT_A ? sc[2 * mi + half] : sc[8 * gr + q]);
+            }
+            *reinterpret_cast<uint2*>(row + gr * 32 + 8 * tq) =
+                make_uint2(pack4(v[0], v[1], v[2], v[3]), pack4(v[4], v[5], v[6], v[7]));
+          } else {
+            float y[8];
+#pragma unroll
+            for (int q = 0; q < 8; ++q) {
+              y[q] = __fmaf_rn(__int2float_rn(acc[mi][gr * 4 + (q & 3)][2 * half + (q >> 2)]), sc[8 * gr + q],
+                               bi[8 * gr + q]);
+            }
+            *reinterpret_cast<uint4*>(row + 2 * (gr * 32 + 8 * tq)) =
+                make_uint4(pack_bf16x2(y[0], y[1]), pack_bf16x2(y[2], y[3]), pack_bf16x2(y[4], y[5]),
+                           pack_bf16x2(y[6], y[7]));
           }
-          *reinterpret_cast<uint2*>(stg + (mi * 16 + g + 8 * half) * C::LDW + gr * 32 + 8 * tq) =
-              make_uint2(pack4(v[0], v[1], v[2], v[3]), pack4(v[4], v[5], v[6], v[7]));
         }
       }
     }
     __syncwarp();
-    // The warp's MW rows of NW bytes, 16 bytes a lane, a row's pieces on
+    // The warp's MW rows of NW elements, 16 bytes a lane, a row's pieces on
     // neighbouring lanes.
     const int p0 = t * BP;
     const int rows = ORIENT == ORIENT_A ? cout : p_total;
     const int cols = ORIENT == ORIENT_A ? p_total : cout;
-    constexpr int kRowPieces = C::NW / 16;
+    constexpr int kEb = elem_bytes<EPI>();
+    constexpr int kRowPieces = C::NW * kEb / 16;
 #pragma unroll
     for (int i = lane; i < C::MW * kRowPieces; i += 32) {
       const int r = i / kRowPieces, c = i % kRowPieces;
       const int grow = (ORIENT == ORIENT_A ? c0 : p0) + wm * C::MW + r;
-      const int gcol = (ORIENT == ORIENT_A ? p0 : c0) + wn * C::NW + 16 * c;
-      const uint4 v = *reinterpret_cast<const uint4*>(stg + r * C::LDW + 16 * c);
-      if (grow < rows && gcol < cols) *reinterpret_cast<uint4*>(out + static_cast<size_t>(grow) * cols + gcol) = v;
+      const int gcol = (ORIENT == ORIENT_A ? p0 : c0) + wn * C::NW + 16 / kEb * c;
+      const uint4 v = *reinterpret_cast<const uint4*>(stg + r * kPitch + 16 * c);
+      if (grow < rows && gcol < cols) {
+        *reinterpret_cast<uint4*>(static_cast<uint8_t*>(out) + (static_cast<size_t>(grow) * cols + gcol) * kEb) = v;
+      }
     }
     __syncwarp();
   }
 }
 
-template <int ORIENT, int SLAB>
-int launch_int8_mm(const int8_t* a, const int8_t* b, const float* scale, int8_t* out, int m, int n, int k,
-                   int stages, int grid, cudaStream_t stream) {
-  const Plan L = plan<ORIENT, SLAB>(k, stages);
+template <int ORIENT, int SLAB, int EPI>
+int launch_int8_mm(const int8_t* a, const int8_t* b, const float* scale, const float* bias, void* out, int m, int n,
+                   int k, int stages, int grid, cudaStream_t stream) {
+  const Plan L = plan<ORIENT, SLAB, EPI>(k, stages);
   const int cout = ORIENT == ORIENT_A ? m : n;
   if (stages < 2 || grid <= 0 || L.bytes > kMaxSmem || grid % ((cout + SLAB - 1) / SLAB) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = int8_mm_kernel<ORIENT, SLAB>;
+  auto kernel = int8_mm_kernel<ORIENT, SLAB, EPI>;
   static bool sized = false;  // the dynamic shared-memory limit raised for this instantiation
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     sized = true;
   }
-  kernel<<<grid, Cfg<ORIENT, SLAB>::THREADS, L.bytes, stream>>>(a, b, scale, out, m, n, k, stages);
+  kernel<<<grid, Cfg<ORIENT, SLAB>::THREADS, L.bytes, stream>>>(a, b, scale, bias, out, m, n, k, stages);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int ORIENT>
-int launch_slab(const int8_t* a, const int8_t* b, const float* scale, int8_t* out, int m, int n, int k, int slab,
-                int stages, int grid, cudaStream_t stream) {
-  if (slab == 64) return launch_int8_mm<ORIENT, 64>(a, b, scale, out, m, n, k, stages, grid, stream);
-  if (slab == 128) return launch_int8_mm<ORIENT, 128>(a, b, scale, out, m, n, k, stages, grid, stream);
-  if (slab == 256) return launch_int8_mm<ORIENT, 256>(a, b, scale, out, m, n, k, stages, grid, stream);
+template <int ORIENT, int EPI>
+int launch_slab(const int8_t* a, const int8_t* b, const float* scale, const float* bias, void* out, int m, int n,
+                int k, int slab, int stages, int grid, cudaStream_t stream) {
+  if (slab == 64) return launch_int8_mm<ORIENT, 64, EPI>(a, b, scale, bias, out, m, n, k, stages, grid, stream);
+  if (slab == 128) return launch_int8_mm<ORIENT, 128, EPI>(a, b, scale, bias, out, m, n, k, stages, grid, stream);
+  if (slab == 256) return launch_int8_mm<ORIENT, 256, EPI>(a, b, scale, bias, out, m, n, k, stages, grid, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The activation quantize: one thread per 16 channels of a pixel (two
+// 16-byte loads of bf16, one 16-byte store of int8), a grid-stride loop;
+// with r > 1 the pixel's bytes land in its r x r block's slot.
+__global__ void quantize_act_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ out, float inv, int n,
+                                    int h, int w, int c, int r) {
+  const int groups = c / 16;
+  const size_t total = static_cast<size_t>(n) * h * w * groups;
+  const int hr = h / r, wr = w / r;
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < total;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int cg = static_cast<int>(i % groups);
+    const size_t pix = i / groups;
+    const int xx = static_cast<int>(pix % w);
+    const size_t rest = pix / w;
+    const int yy = static_cast<int>(rest % h);
+    const size_t img = rest / h;
+    const uint4* src = reinterpret_cast<const uint4*>(x + pix * c + 16 * cg);
+    const uint2 lo = quantize8(src[0], inv);
+    const uint2 hi = quantize8(src[1], inv);
+    const size_t block = (img * hr + yy / r) * wr + xx / r;
+    const size_t dst = (block * r * r + (yy % r) * r + xx % r) * c + 16 * cg;
+    *reinterpret_cast<uint4*>(out + dst) = make_uint4(lo.x, lo.y, hi.x, hi.y);
+  }
 }
 
 }  // namespace
@@ -547,7 +641,38 @@ extern "C" int rs_int8_mm(const void* a, const void* b, const float* scale, void
   const int8_t* pa = static_cast<const int8_t*>(a);
   const int8_t* pb = static_cast<const int8_t*>(b);
   int8_t* po = static_cast<int8_t*>(out);
-  if (orient == ORIENT_A) return launch_slab<ORIENT_A>(pa, pb, scale, po, m, n, k, slab, stages, grid, stream);
-  if (orient == ORIENT_B) return launch_slab<ORIENT_B>(pa, pb, scale, po, m, n, k, slab, stages, grid, stream);
+  if (orient == ORIENT_A) {
+    return launch_slab<ORIENT_A, EPI_REQUANT>(pa, pb, scale, nullptr, po, m, n, k, slab, stages, grid, stream);
+  }
+  if (orient == ORIENT_B) {
+    return launch_slab<ORIENT_B, EPI_REQUANT>(pa, pb, scale, nullptr, po, m, n, k, slab, stages, grid, stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Orientation b with the dequant epilogue: x int8 (m, k) @ w int8 (k, n) ->
+// bf16 (m, n) = bf16(fma(f32(acc), sc[col], bias[col])); sc and bias f32 (n,).
+// Slab, ring stages and grid from ops/int8_mm.py:plan(..., "dequant").
+extern "C" int rs_int8_mm_dequant(const void* x, const void* w, const float* sc, const float* bias, void* out, int m,
+                                  int n, int k, int slab, int stages, int grid, void* stream_ptr) {
+  if (bias == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_slab<ORIENT_B, EPI_DEQUANT_BF16>(static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), sc,
+                                                 bias, out, m, n, k, slab, stages, grid,
+                                                 static_cast<cudaStream_t>(stream_ptr));
+}
+
+// x bf16 (n, h, w, c), c a multiple of 16, 16-byte aligned -> int8 (n, h / r,
+// w / r, r r c), channel (er r + ec) c + ch of block (i, j) from pixel (r i +
+// er, r j + ec): clip(rintf(__fmul_rn(v, inv)), -127, 127), inv = 1 / s.
+extern "C" int rs_quantize_act(const void* x, void* out, float inv, int n, int h, int w, int c, int r,
+                               void* stream_ptr) {
+  if (c % 16 || r < 1 || h % r || w % r) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t total = static_cast<size_t>(n) * h * w * (c / 16);
+  if (total == 0) return 0;
+  const int threads = 256;
+  const size_t blocks = (total + threads - 1) / threads;
+  const int grid = static_cast<int>(blocks < 132 * 16 ? blocks : 132 * 16);
+  quantize_act_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(out), inv, n, h, w, c, r);
+  return static_cast<int>(cudaGetLastError());
 }

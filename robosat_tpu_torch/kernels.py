@@ -44,6 +44,10 @@ _SIGNATURES = {
     "rs_margin_head": [_P] * 3 + [_I] * 6 + [_P],
     # a, b, scale, out, m, n, k, orientation, slab, stages, grid, stream
     "rs_int8_mm": [_P] * 4 + [_I] * 7 + [_P],
+    # x, w, sc, bias, out, m, n, k, slab, stages, grid, stream
+    "rs_int8_mm_dequant": [_P] * 5 + [_I] * 6 + [_P],
+    # x, out, inv, n, h, w, c, r, stream
+    "rs_quantize_act": [_P, _P, _F] + [_I] * 5 + [_P],
     # x, wm, bm, out, n, h, w, stage, mm, stream
     "rs_head_rung": [_P] * 4 + [_I] * 5 + [_P],
 }

@@ -23,17 +23,17 @@ convs through rs_int8_conv (qconv: aspp1, aspp_d0-2 and aspp_proj on
 conv_kernel, dec1 and dec2 on halo_conv_kernel). `plain=True` runs their
 plain versions on any device. The binary head takes the margin w1 - w0 at
 1/4 resolution and upsamples that one channel (resize is linear), then
-the sigmoid and the 256-bin digitize. Weights differ from the JAX
+the sigmoid and the 256-bin digitize (`ops/head.resized_margin_head`, SegFormer's head
+too). Weights differ from the JAX
 package's init for the same seed (a torch.Generator draws them); the
 tests carry the JAX package's weights across.
 """
 
-import numpy as np
 import torch
 
 from robosat_tpu_torch.models import int8 as q8
 from robosat_tpu_torch.models import qconv, qenc, resnet
-from robosat_tpu_torch.models.layers import bn_apply, conv_bias_apply, conv_nhwc, fold_conv_bn
+from robosat_tpu_torch.models.layers import _resize_bilinear, bn_apply, conv_bias_apply, conv_nhwc, fold_conv_bn
 from robosat_tpu_torch.ops import head as heads
 
 ASPP_RATES = (6, 12, 18)
@@ -67,43 +67,6 @@ def init(seed, num_classes=2, in_channels=3):
     params["dec2"], state["dec2"] = _cbr_init(gen, 3, ASPP_CH, ASPP_CH)
     params["final"] = {"w": resnet.he_normal(gen, (1, 1, ASPP_CH, num_classes)), "b": torch.zeros(num_classes)}
     return params, state
-
-
-def _resize_weights(size_in, size_out, dtype, device):
-    """jax.image.resize's bilinear weight matrix (size_in, size_out) of one
-    axis (jax/_src/image/scale.py compute_weight_mat, antialiased, no
-    translation), built in float32 as it is: half-pixel sample positions,
-    the triangle kernel (scaled by the inverse scale when downsampling),
-    each column normalized by its sum, zeros where the sample falls outside
-    the input; then cast to `dtype`."""
-    inv_scale = float(np.float32(1.0 / (size_out / size_in)))
-    kernel_scale = max(inv_scale, 1.0)
-    sample = (torch.arange(size_out, dtype=torch.float32) + 0.5) * inv_scale - 0.5
-    dist = (sample[None, :] - torch.arange(size_in, dtype=torch.float32)[:, None]).abs() / kernel_scale
-    weights = torch.clamp_min(1.0 - dist, 0.0)
-    total = weights.sum(dim=0, keepdim=True)
-    weights = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
-                          weights / torch.where(total != 0, total, torch.ones_like(total)), torch.zeros_like(weights))
-    inside = (sample >= -0.5) & (sample <= size_in - 0.5)
-    return torch.where(inside[None, :], weights, torch.zeros_like(weights)).to(device=device, dtype=dtype)
-
-
-def _resize_bilinear(x, h, w):
-    """NHWC x resized to (h, w) as jax.image.resize(method="bilinear")
-    computes it: one weight matrix per resized axis (`_resize_weights`, in
-    x's dtype), contracted rows first, then columns, each contraction a
-    float32 product of x's values rounded to x's dtype (the einsum of the
-    JAX package: in bf16 the rows' result is rounded to bf16 before the
-    columns' contraction). An axis that keeps its size is left alone."""
-    n, hi, wi, c = x.shape
-    out = x
-    if hi != h:
-        wm = _resize_weights(hi, h, x.dtype, x.device).float()
-        out = torch.einsum("nhwc,hH->nHwc", out.float(), wm).to(x.dtype)
-    if wi != w:
-        wm = _resize_weights(wi, w, x.dtype, x.device).float()
-        out = torch.einsum("nhwc,wW->nhWc", out.float(), wm).to(x.dtype)
-    return out
 
 
 def _check_side(h, w):
@@ -190,23 +153,11 @@ def apply_folded(folded, x):
     return _resize_bilinear(logits, h, w)
 
 
-def _binary_head(final, feats, h, w, overlap):
-    """The margin-then-resize head: the float32 margin w1 - w0 of the
-    256-channel features at 1/4 resolution (summed in channel order, as
-    XLA:CPU reduces the JAX package's jnp.sum), bilinear to (h, w), then
-    the sigmoid, the 256-bin digitize and the crop -> uint8 (N, h - 2o,
-    w - 2o). Equal to the softmax of the resized 2-class logits up to
-    float rounding, since the resize is linear."""
-    margin = heads._margin(feats, final["w"], final["b"], 1, 0)
-    margin = _resize_bilinear(margin, h, w)[..., 0]
-    return heads._crop(heads._to_u8(heads._digitize_exact(torch.sigmoid(margin))), overlap)
-
-
 def predict_quantized_folded(folded, x, overlap=0):
     """The float predict: fine normalized x -> quantized foreground uint8
     (N, H - 2o, W - 2o)."""
     n, h, w, _ = x.shape
-    return _binary_head(folded["final"], _decoder_folded(folded, x), h, w, overlap)
+    return heads.resized_margin_head(folded["final"], _decoder_folded(folded, x), h, w, overlap)
 
 
 def quantize_folded_int8(folded, act_amaxes=None):
@@ -294,4 +245,4 @@ def predict_quantized_int8(qtree, scales, x, overlap=0, blocked=False, plain=Fal
     sites = q8._Sites(scales=scales)
     feats = _walk_int8(qtree, x, sites, blocked=blocked, plain=plain)
     assert sites.idx == len(scales), "conv-site count mismatch with calibration"
-    return _binary_head(qtree["final"], feats, h, w, overlap)
+    return heads.resized_margin_head(qtree["final"], feats, h, w, overlap)

@@ -1,10 +1,13 @@
-"""Layer helpers and weight rewrites of the U-Net (NHWC, HWIO).
+"""Layer helpers and weight rewrites of the U-Net (NHWC, HWIO), and the
+bilinear resize of DeepLab and SegFormer.
 
 Counterpart of robosat_tpu/models/layers.py, limited to what the U-Net's
-training forward, the int8 predict walk and its float calibration need.
-Activations stay NHWC and conv kernels HWIO at every public function; the
-convs and the batch norm run through torch's NCHW operators on permuted
-views (channels-last in memory).
+training forward, the int8 predict walk and its float calibration need,
+plus jax.image.resize's bilinear mode (`_resize_bilinear`), which the JAX
+package's deeplab.py and segformer.py call. Activations stay NHWC and conv
+kernels HWIO at every public function; the convs and the batch norm run
+through torch's NCHW operators on permuted views (channels-last in
+memory).
 """
 
 import numpy as np
@@ -18,9 +21,10 @@ def _same_pads(size, k, stride, dilation):
     return total // 2, total - total // 2
 
 
-def conv_nhwc(x, w, stride=1, padding="SAME", dilation=1):
-    """XLA-style conv: x (N, H, W, Cin), w (KH, KW, Cin, Cout); `padding` is
-    "SAME" or ((top, bottom), (left, right)). Runs in x's dtype."""
+def conv_nhwc(x, w, stride=1, padding="SAME", dilation=1, groups=1):
+    """XLA-style conv: x (N, H, W, Cin), w (KH, KW, Cin / groups, Cout);
+    `padding` is "SAME" or ((top, bottom), (left, right)); `groups` is
+    feature_group_count (Cin for a depthwise conv). Runs in x's dtype."""
     kh, kw = w.shape[0], w.shape[1]
     if padding == "SAME":
         padding = (_same_pads(x.shape[1], kh, stride, dilation), _same_pads(x.shape[2], kw, stride, dilation))
@@ -28,9 +32,9 @@ def conv_nhwc(x, w, stride=1, padding="SAME", dilation=1):
     xc = x.permute(0, 3, 1, 2)
     wc = w.to(x.dtype).permute(3, 2, 0, 1)
     if pt == pb and pl == pr:
-        y = F.conv2d(xc, wc, stride=stride, padding=(pt, pl), dilation=dilation)
+        y = F.conv2d(xc, wc, stride=stride, padding=(pt, pl), dilation=dilation, groups=groups)
     else:
-        y = F.conv2d(F.pad(xc, (pl, pr, pt, pb)), wc, stride=stride, dilation=dilation)
+        y = F.conv2d(F.pad(xc, (pl, pr, pt, pb)), wc, stride=stride, dilation=dilation, groups=groups)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -68,6 +72,43 @@ def fold_conv_bn(conv_params, bn_params, bn_state, eps=1e-5):
 
 def conv_bias_apply(params, x, stride=1, padding="SAME", dilation=1):
     return conv_nhwc(x, params["w"], stride=stride, padding=padding, dilation=dilation) + params["b"].to(x.dtype)
+
+
+def _resize_weights(size_in, size_out, dtype, device):
+    """jax.image.resize's bilinear weight matrix (size_in, size_out) of one
+    axis (jax/_src/image/scale.py compute_weight_mat, antialiased, no
+    translation), built in float32 as it is: half-pixel sample positions,
+    the triangle kernel (scaled by the inverse scale when downsampling),
+    each column normalized by its sum, zeros where the sample falls outside
+    the input; then cast to `dtype`."""
+    inv_scale = float(np.float32(1.0 / (size_out / size_in)))
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(size_out, dtype=torch.float32) + 0.5) * inv_scale - 0.5
+    dist = (sample[None, :] - torch.arange(size_in, dtype=torch.float32)[:, None]).abs() / kernel_scale
+    weights = torch.clamp_min(1.0 - dist, 0.0)
+    total = weights.sum(dim=0, keepdim=True)
+    weights = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                          weights / torch.where(total != 0, total, torch.ones_like(total)), torch.zeros_like(weights))
+    inside = (sample >= -0.5) & (sample <= size_in - 0.5)
+    return torch.where(inside[None, :], weights, torch.zeros_like(weights)).to(device=device, dtype=dtype)
+
+
+def _resize_bilinear(x, h, w):
+    """NHWC x resized to (h, w) as jax.image.resize(method="bilinear")
+    computes it: one weight matrix per resized axis (`_resize_weights`, in
+    x's dtype), contracted rows first, then columns, each contraction a
+    float32 product of x's values rounded to x's dtype (the einsum of the
+    JAX package: in bf16 the rows' result is rounded to bf16 before the
+    columns' contraction). An axis that keeps its size is left alone."""
+    n, hi, wi, c = x.shape
+    out = x
+    if hi != h:
+        wm = _resize_weights(hi, h, x.dtype, x.device).float()
+        out = torch.einsum("nhwc,hH->nHwc", out.float(), wm).to(x.dtype)
+    if wi != w:
+        wm = _resize_weights(wi, w, x.dtype, x.device).float()
+        out = torch.einsum("nhwc,wW->nhWc", out.float(), wm).to(x.dtype)
+    return out
 
 
 def max_pool(x, window, stride, padding):
@@ -203,6 +244,15 @@ def pool3s2_from_parity(x, cout):
                 t = left(t)
             out = t if out is None else torch.maximum(out, t)
     return out.contiguous()
+
+
+def space_to_depth(x, r):
+    """(N, H, W, C) -> (N, H/r, W/r, r r C), slot (er, ec) channel-minor:
+    channel (er r + ec) C + c holds pixel (r i + er, r j + ec) (the layout
+    of space_to_depth2 and space_to_depth4 at any r; SegFormer's
+    spatial-reduction convs as denses)."""
+    n, h, w, c = x.shape
+    return x.reshape(n, h // r, r, w // r, r, c).permute(0, 1, 3, 2, 4, 5).reshape(n, h // r, w // r, r * r * c)
 
 
 def space_to_depth2(x):

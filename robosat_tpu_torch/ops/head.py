@@ -31,7 +31,7 @@ flip. `pallas_prediction_head` is the G = 1 call with the JAX signature.
 import torch
 
 from robosat_tpu_torch import kernels
-from robosat_tpu_torch.models.layers import depth_to_space2
+from robosat_tpu_torch.models.layers import _resize_bilinear, depth_to_space2
 
 # Features' grid per group count: the crop divisor of the fine overlap.
 _CROP_DIVISOR = {1: 1, 4: 2, 16: 4}
@@ -168,6 +168,18 @@ def interleave_subpixel_u8(blocked, block=4):
 
 
 _PLAIN = {1: fused_prediction_head, 4: fused_prediction_head_s2d_blocked, 16: fused_prediction_head_s2d_blocked_sep}
+
+
+def resized_margin_head(final, feats, h, w, overlap=0):
+    """DeepLab's and SegFormer's margin-then-resize head: the float32
+    margin w1 - w0 of the features at their grid (summed in channel order,
+    as XLA:CPU reduces the JAX package's jnp.sum), bilinear to (h, w), then
+    the sigmoid, the 256-bin digitize and the crop -> uint8 (N, h - 2o,
+    w - 2o). Equal to the softmax of the resized 2-class logits up to float
+    rounding, since the resize is linear. No kernel: torch ops."""
+    margin = _margin(feats, final["w"], final["b"], 1, 0)
+    margin = _resize_bilinear(margin, h, w)[..., 0]
+    return _crop(_to_u8(_digitize_exact(torch.sigmoid(margin))), overlap)
 
 
 def margin_head_plain(features, w, b, overlap=0, groups=1):

@@ -1,4 +1,4 @@
-"""The train, QAT, distillation, eval and predict steps of the U-Net, the fast family and DeepLab.
+"""The train, QAT, distillation, eval and predict steps of the U-Net, the fast family, DeepLab and SegFormer.
 
 Counterpart of robosat_tpu/parallel/steps.py's make_train_step,
 make_qat_train_step, make_distill_train_step, make_eval_step,
@@ -39,7 +39,11 @@ K5, the head in torch ops. DeepLabv3+ (models/deeplab.py) takes the same
 branches: it trains through `apply`, its float predict is its own
 margin-then-resize head on fine input, and its int8 predict the
 model-owned protocol (K3/K4 for the encoder, layer4 at dilation 2,
-rs_int8_conv for ASPP and the decoder), returning fine uint8.
+rs_int8_conv for ASPP and the decoder), returning fine uint8. SegFormer
+(models/segformer.py) takes them too: its `fold` is the identity pair
+(params, state), its float predict the same margin-then-resize head, its
+int8 predict K2's dequant epilogue for its 51 dense and spatial-reduction
+sites and rs_int8_conv for its 3 patch embeds.
 
 A step copies its uint8 input to the device without waiting for it (from
 pinned memory the copy is asynchronous), so a caller can issue the next
@@ -290,11 +294,11 @@ def make_predict_step(model, overlap=0, compute_dtype=torch.float32, fused_head=
         with torch.no_grad():
             raw = _to_device(raw, params["final"]["w"].device)
             folded = model.fold(params, state)
-            w, b = folded["final"]["w"], folded["final"]["b"]
             if not fused_head:
                 return _crop(softmax_quantize(model.apply_folded(folded, normalize(raw).to(compute_dtype))), overlap)
             if own_head:
                 return model.predict_quantized_folded(folded, normalize(raw).to(compute_dtype), overlap=overlap)
+            w, b = folded["final"]["w"], folded["final"]["b"]
             if use_host_s2d:
                 features = model.apply_features_folded_s2d_from48(folded, _normalize_s2d4(raw).to(compute_dtype))
             else:

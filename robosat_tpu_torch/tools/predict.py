@@ -1,10 +1,10 @@
-"""`predict` — per-tile class-probability PNGs from a trained U-Net, fast or DeepLab model.
+"""`predict` — per-tile class-probability PNGs from a trained U-Net, fast, DeepLab or SegFormer model.
 
 The port of `rs predict` (robosat_tpu/tools/predict.py), with the same
 flags and output contract: quantized foreground probabilities as palette
 PNGs ("pink" continuous palette) in a slippy-map directory, from buffered
-overlap tiles. It runs the model (`model = "unet"`, `"fast"` or
-`"deeplabv3plus"`) on the
+overlap tiles. It runs the model (`model = "unet"`, `"fast"`,
+`"deeplabv3plus"` or `"segformer"`) on the
 config's device, as the model TOML selects:
 
 - `int8 = true`: the hybrid-int8 step (parallel/steps.py), with
@@ -23,7 +23,11 @@ config's device, as the model TOML selects:
 - `model = "deeplabv3plus"`: with `int8` its own int8 walk (host-blocked
   input, fine output: K3/K4 and rs_int8_conv on the GPU, the margin
   resized before the sigmoid), otherwise its float margin-then-resize
-  head on fine input; no side multiple is checked (the model asserts 16).
+  head on fine input; no side multiple is checked (the model asserts 16);
+- `model = "segformer"`: as DeepLab (host-blocked int8 input, fine
+  output: K2's dequant epilogue for its 51 dense and spatial-reduction
+  sites, rs_int8_conv for its 3 patch embeds), with a buffered side that
+  is a multiple of its SIDE_MULTIPLE, 32.
 
 With `host_s2d` (the default; it takes `s2d`, the fused head, `--strip 1`
 and a buffered side that is a multiple of 4, as the JAX tool does) the
@@ -47,8 +51,8 @@ card), its output starts back into pinned host memory behind a CUDA event,
 and a batch's PNGs go to the writer pool once two newer batches are in
 flight. The steady clock starts when the first batch is done.
 
-Not ported yet (ROADMAP Queue 1): the per-channel 'pc' calibrations and
-the SegFormer family.
+Not ported yet (ROADMAP Queue 1, item 3): the per-channel 'pc'
+calibrations, which raise.
 """
 
 import argparse

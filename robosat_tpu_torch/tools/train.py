@@ -1,4 +1,4 @@
-"""`train` — fit the U-Net, the fast family or DeepLabv3+ to a slippy-map dataset.
+"""`train` — fit the U-Net, the fast family, DeepLabv3+ or SegFormer to a slippy-map dataset.
 
 The port of `rs train` (robosat_tpu/tools/train.py), with its flags,
 messages, log lines and files: the two-TOML configuration, the four
@@ -30,9 +30,11 @@ quantizes with; `--resume` calibrates again from the loaded weights, as
 the JAX tool does. `--teacher` distills from a trained checkpoint of
 `--teacher_model`'s family (default `--model`'s), folded once
 (make_distill_train_step): a U-Net teacher distils a fast student, as
-config/model-fast.toml's header trains it. DeepLabv3+ trains and distils
-through `deeplab.apply`; it has no fake-quant forward, so `--qat` exits
-with the JAX tool's message. A reference `.pth` converts as
+config/model-fast.toml's header trains it. DeepLabv3+ and SegFormer
+train and distil through their `apply`; neither has a fake-quant forward,
+so `--qat` exits with the JAX tool's message. SegFormer has no folded
+forward either: as a `--teacher_model` family it exits here, where the JAX
+tool fails in its step. A reference `.pth` converts as
 a U-Net whatever `model` says, as the JAX loader does. Validation runs the float eval step in either
 mode.
 
@@ -190,6 +192,9 @@ def main(args):
         teacher_model_path = getattr(args, "teacher_model", None)
         teacher_config = load_config(teacher_model_path) if teacher_model_path else model_config
         teacher_model = get_model(teacher_config["common"].get("model", "unet"))
+        if not hasattr(teacher_model, "apply_folded"):
+            sys.exit("Error: --teacher needs a teacher family with a folded forward (apply_folded): "
+                     "unet, fast or deeplabv3plus")
         t_params, t_state, _ = load_model_checkpoint(teacher_path, num_classes, device=device)
         with torch.no_grad():
             teacher_folded = teacher_model.fold(t_params, t_state)

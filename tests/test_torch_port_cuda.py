@@ -18,7 +18,9 @@ walk's own 18-, 36- and 72-px grids and on 1 x W and H x 1 grids; and at
 DeepLab's seven sites (ASPP's 1x1, its 3x3 convs at dilations 6, 12 and
 18, also where the padding is wider than the grid, its projection, and the
 decoder's Cin-304 and Cin-256 convs), with K3 at dilation 2 at layer4's
-widths.
+widths. K2's dequant epilogue (SegFormer's dense route) is held at every
+dense site shape of SegFormer's predict path and at M tails, the quantize
+kernel at space-to-depth factors 1, 2, 4 and 8, and a whole dense site.
 """
 
 import pytest
@@ -447,6 +449,80 @@ def test_int8_matmul_requant_kernel_rejects_weights_past_shared_memory(gen, orie
     with pytest.raises(ValueError, match="232448"):
         int8_mm.int8_matmul_requant(lhs, rhs, scale, orientation)
     assert int8_mm.int8_matmul_requant.launches == before
+
+
+# SegFormer's K2 dense sites (M, K, N) at batch 8 and 576 px: every distinct
+# shape of the predict path (q/proj, kv, fc1, fc2 per stage, the SR convs as
+# denses over their space-to-depth, the decoder projections, the fuse), then
+# M tails off every P tile (64, 128 and 256 rows) at the narrowest and widest N.
+SEGFORMER_DENSE = sorted({(m, k, n) for d, m in ((32, 165888), (64, 41472), (160, 10368), (256, 2592))
+                          for k, n in ((d, d), (d, 4 * d), (4 * d, d), (d, 256))}
+                         | {(2592, d, 2 * d) for d in (32, 64, 160, 256)}
+                         | {(2592, 2048, 32), (2592, 1024, 64), (2592, 640, 160), (165888, 1024, 256)})
+DENSE_TAILS = [(1, 32, 32), (63, 32, 32), (257, 64, 32), (130, 1024, 256), (65, 256, 1024), (2591, 2048, 32)]
+
+
+@pytest.mark.parametrize("m,k,n", SEGFORMER_DENSE + DENSE_TAILS,
+                         ids=["{}x{}x{}".format(*s) for s in SEGFORMER_DENSE + DENSE_TAILS])
+def test_int8_matmul_dequant_kernel_bit_equal(gen, m, k, n):
+    """K2's dequant epilogue, bf16(fma(f32(acc), sc, b)), at SegFormer's site
+    shapes and at M tails, with a row and a column at +-127."""
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    xq[0], wq[:, 0] = 127, -127
+    sc = torch.empty(n, device="cuda").uniform_(1e-6, 1e-3, generator=gen)
+    b = torch.randn(n, generator=gen, device="cuda")
+    before = int8_mm.int8_matmul_dequant.launches
+    got = int8_mm.int8_matmul_dequant(xq, wq, sc, b)
+    torch.cuda.synchronize()
+    assert int8_mm.int8_matmul_dequant.launches == before + 1
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (m, n)
+    assert torch.equal(got.view(torch.int16), int8_mm.int8_matmul_dequant_plain(xq, wq, sc, b).view(torch.int16))
+
+
+@pytest.mark.parametrize("r,c,h,w", [(1, 32, 13, 7), (1, 1024, 9, 11), (2, 160, 18, 18), (4, 64, 36, 36),
+                                     (8, 32, 72, 72), (8, 32, 16, 24)])
+def test_quantize_act_kernel_bit_equal(gen, r, c, h, w):
+    """The quantize kernel at r = 1, 2, 4 and 8 (SegFormer's SR ratios on
+    their grids at 576 px), values past +-127 clipped."""
+    x = _act(gen, (3, h, w, c), scale=2.0)
+    x[0, 0, 0, :16] = 1e4
+    before = int8_mm.quantize_act.launches
+    got = int8_mm.quantize_act(x, 0.02, r)
+    torch.cuda.synchronize()
+    assert int8_mm.quantize_act.launches == before + 1
+    assert torch.equal(got, int8_mm.quantize_act_plain(x, 0.02, r))
+
+
+@pytest.mark.parametrize("r,cin,cout,grid", [(1, 64, 64, (5, 7)), (1, 1024, 256, (9, 9)), (8, 32, 32, (16, 24)),
+                                             (2, 160, 160, (6, 4))])
+def test_int8_dense_site_bit_equal(gen, r, cin, cout, grid):
+    """A whole dense site (quantize, then K2's dequant epilogue) against
+    int8_dense_plain, the weight (K, N) or an SR conv's (r, r, C, N)."""
+    node = _node(gen, r, r, cin, cout, std=(r * r * cin) ** -0.5)
+    if r == 1:
+        node = {"wq": node["wq"][0, 0], "ws": node["ws"], "b": node["b"]}
+    x = _act(gen, (2, grid[0], grid[1], cin))
+    before = (int8_mm.quantize_act.launches, int8_mm.int8_matmul_dequant.launches)
+    got = int8_mm.int8_dense(x, node, 0.03, r)
+    torch.cuda.synchronize()
+    assert (int8_mm.quantize_act.launches, int8_mm.int8_matmul_dequant.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, int8_mm.int8_dense_plain(x, node, 0.03, r))
+
+
+def test_int8_dense_raises_without_fallback(gen):
+    """On CUDA tensors the dense route launches or raises: a channel count
+    off 16 and a bf16 weight are refused, and nothing falls back."""
+    node = {"wq": torch.zeros(24, 32, device="cuda", dtype=torch.int8), "ws": torch.ones(32, device="cuda"),
+            "b": torch.zeros(32, device="cuda")}
+    with pytest.raises(ValueError, match="multiple of 16"):
+        int8_mm.int8_dense(torch.zeros(2, 24, device="cuda", dtype=torch.bfloat16), node, 0.1)
+    with pytest.raises(ValueError, match="bfloat16"):
+        int8_mm.quantize_act(torch.zeros(2, 32, device="cuda"), 0.1)
+    with pytest.raises(ValueError, match="int8"):
+        int8_mm.int8_matmul_dequant(torch.zeros(4, 32, device="cuda", dtype=torch.int8),
+                                    torch.zeros(32, 32, device="cuda"), torch.ones(32, device="cuda"),
+                                    torch.zeros(32, device="cuda"))
 
 
 @pytest.mark.parametrize("shape", [(1, 8, 288, 128), (2, 5, 7, 128)])

@@ -1,8 +1,9 @@
 """robosat_tpu_torch's DeepLabv3+ through the registry, the train step, the
 checkpoint converter and the `train` and `predict` tools, on the CPU.
 
-- `get_model("deeplabv3plus")` is the port's models/deeplab.py; a family
-  the port lacks (SegFormer) raises, citing ROADMAP Queue 1, item 8.
+- `get_model("deeplabv3plus")` is the port's models/deeplab.py; a name
+  the registry does not hold raises the JAX registry's ValueError, which
+  lists the four families.
 - One `make_train_step` step over `deeplab.apply` (CrossEntropy with
   dataset-parking's weights, augmentation off, 64 px, batch 2) from the
   JAX package's init against the JAX package's step, computed with
@@ -67,8 +68,8 @@ def weights():
 
 def test_registry_returns_deeplab():
     assert get_model("deeplabv3plus") is deeplab
-    with pytest.raises(NotImplementedError, match="model 'segformer' is not ported .*SegFormer: ROADMAP Queue 1"):
-        get_model("segformer")
+    with pytest.raises(ValueError, match="unknown model 'deeplabv3'; available: deeplabv3plus, fast, segformer, unet"):
+        get_model("deeplabv3")
 
 
 def _jax_step(params, state, images, masks):

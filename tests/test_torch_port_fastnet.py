@@ -87,8 +87,8 @@ def net():
 
 def test_registry_returns_fastnet():
     assert get_model("fast") is fastnet
-    with pytest.raises(NotImplementedError, match="model 'segformer' is not ported .*SegFormer: ROADMAP"):
-        get_model("segformer")
+    with pytest.raises(ValueError, match="unknown model 'fastnet'; available: deeplabv3plus, fast, segformer, unet"):
+        get_model("fastnet")
 
 
 def test_subpixel_layout_exact():

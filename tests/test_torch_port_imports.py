@@ -44,6 +44,7 @@ def test_entry_points_load_no_jax_package():
         "import robosat_tpu_torch.tools.predict, robosat_tpu_torch.tools.train, robosat_tpu_torch.checkpoint\n"
         "import robosat_tpu_torch.ops.int8_mm, robosat_tpu_torch.ops.head_rungs\n"
         "import robosat_tpu_torch.models.fastnet, robosat_tpu_torch.models.qconv, robosat_tpu_torch.models.deeplab\n"
+        "import robosat_tpu_torch.models.segformer\n"
         "import robosat_tpu_torch.tools.features, robosat_tpu_torch.tools.merge, robosat_tpu_torch.tools.dedupe\n"
         "import robosat_tpu_torch.tools.__main__\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('robosat_tpu', 'jax', 'jaxlib'))\n"

@@ -490,14 +490,17 @@ def test_predict_tool_profile_writes_trace(tmp_path, predict_fixture):
 
 @pytest.mark.parametrize(
     "common,overrides,error",
-    [({"model": "segformer"}, {}, NotImplementedError), ({"int8_calibration": "pc"}, {}, NotImplementedError),
+    [({"model": "segformer", "int8_calibration": "pc99.8"}, {}, NotImplementedError),
+     ({"int8_calibration": "pc"}, {}, NotImplementedError),
      ({"int8_calibration": "pcx"}, {}, ValueError)],
     ids=["segformer", "per-channel", "pc-bad-spec"],
 )
 def test_predict_tool_unported_modes_raise(tmp_path, predict_fixture, common, overrides, error):
-    """The modes still to port raise NotImplementedError, citing the
-    ROADMAP; a "pc<percentile>" spec whose percentile is no number fails
-    when the config is read, with the JAX tool's ValueError."""
+    """The modes still to port (the per-channel calibrations, for the U-Net
+    and for a model-owned walk such as SegFormer's) raise
+    NotImplementedError, citing the ROADMAP; a "pc<percentile>" spec whose
+    percentile is no number fails when the config is read, with the JAX
+    tool's ValueError."""
     from robosat_tpu_torch.tools import predict
 
     root, checkpoint, _ = predict_fixture

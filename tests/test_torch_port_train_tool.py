@@ -25,8 +25,8 @@
 - The parser's flags and defaults are the JAX tool's; `--qat` without
   `--checkpoint`, `--qat` with `--teacher` and a per-channel
   `int8_calibration` exit with the JAX tool's messages, and a
-  `--teacher_model` of a family the port lacks (SegFormer) raises
-  get_model's NotImplementedError (ROADMAP Queue 1, item 8); CrossEntropy without
+  `--teacher_model` of a family without a folded forward (SegFormer)
+  exits before its checkpoint loads; CrossEntropy without
   class weights exits with the JAX tool's message; `cuda = true` without
   a GPU raises.
 - One bfloat16 train step (the configured dtype) against the JAX
@@ -246,8 +246,10 @@ def test_qat_and_teacher_error_paths(dataset64, case):
         config = load_config(model_toml)
         config["common"]["model"] = "segformer"
         save_config(config, teacher_toml)
-        with pytest.raises(NotImplementedError, match="model 'segformer' is not ported .*ROADMAP Queue 1, item 8"):
+        with pytest.raises(SystemExit) as exc:
             train.main(_args(model_toml, dataset_toml, teacher=trained, teacher_model=teacher_toml))
+        assert str(exc.value) == ("Error: --teacher needs a teacher family with a folded forward (apply_folded): "
+                                  "unet, fast or deeplabv3plus")
         return
     message = {"no_checkpoint": "Error: --qat finetunes a trained model; provide --checkpoint",
                "with_teacher": "Error: --qat and --teacher are mutually exclusive",
