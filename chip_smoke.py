@@ -169,6 +169,31 @@ extract to GeoJSON, and last DeepLabv3+ (`model = "deeplabv3plus"`):
    then `train.main` one epoch on 6c's dataset (batch 16) and int8
    `predict` from its checkpoint with the launch counts above.
 
+12. SegFormer (`model = "segformer"`), in a process of its own
+   (`--segformer --segformer-from WORK`): its kernels (K2's dequant
+   epilogue, the quantize kernel, rs_int8_conv's patch embeds), predict and
+   train, as phase 11 runs DeepLab's.
+
+13. The per-channel calibration (int8_calibration = "pc99.8"), in a
+   process of its own (`--pc --pc-from WORK`), weights from each family's
+   `init(0)`, on phase 5's tiles: 13a, the first predict batch through the
+   U-Net's, the fast family's and DeepLab's float32 calibration walks
+   (each site's input kept, the seconds of the walk and of the balanced
+   fold logged), then the kernels' per-channel instantiations on those
+   inputs against their plain versions (bf16 bit-equal; K6's uint8 up to
+   counted +-1 flips), timed as phase 3: K3 at layer1.0 and layer3.1, K4
+   at layer2.0, K5 at center, dec1 and dec3, K6 dec3 -> head (U-Net);
+   rs_int8_conv at b1, down2 and d1 (fast); K3 at layer4.0, dilation 2,
+   and rs_int8_conv at aspp_d2, dilation 18 (DeepLab); 13b, `predict.main`
+   for the U-Net through a TOML copy with int8_calibration = "pc99.8" on
+   the 64 tiles (13 K3, 3 K4, 5 K5, 1 K6 a batch), its first batch against
+   the plain step, the step by CUDA events and its profile; 13c, one batch
+   of each family's per-channel int8 step against its plain step (the fast
+   family's launches, 12 rs_int8_conv and 3 K5, and DeepLab's, 14 K3, 2 K4
+   and 7 rs_int8_conv, counted), and its time by CUDA events in turns with
+   the per-tensor (amax) step's. Its launches count under the kernels'
+   names.
+
 `python3 chip_smoke.py --k2 [--tree DIR]` runs phases 1-2 and K2's part of
 phase 4 only, on the robosat_tpu_torch of checkout DIR (default: this one),
 so that two versions of K2 can be timed on one card, one after the other.
@@ -178,7 +203,8 @@ the kernels at first use). `python3 chip_smoke.py --fast` runs phases 1, 2
 and 8 only, with a U-Net checkpoint of `unet.init(0)` and a new dataset in
 place of 6c's. `python3 chip_smoke.py --workflow` runs phases 1, 2 and 10
 only. `python3 chip_smoke.py --deeplab` runs phases 1, 2 and 11 only,
-with a new dataset in place of 6c's.
+with a new dataset in place of 6c's; `--segformer` phases 1, 2 and 12;
+`--pc` phases 1, 2 and 13.
 
 Each kernel's line also carries its bound: the least time the card could
 take for the same work, max(bytes / 3.35 TB/s, operations / peak) with each
@@ -260,11 +286,13 @@ KERNEL_ROWS = ("conv_kernel", "tail_kernel", "up_kernel", "margin_head_kernel", 
 # every one must be an instance of csrc/int8_conv_sm90.cuh's, in rs::sm90.
 INT8_CONV = re.compile(r"\b(\w*conv_kernel|tail_kernel|up_kernel)\b")
 SM90 = "rs::sm90::"
-# up_kernel's instances by output layout (template argument): K5 NHWC, K8 planes.
-UP_KERNELS = (("K5", re.compile(r"rs::sm90::up_kernel<\d+, 0>")), ("K8", re.compile(r"rs::sm90::up_kernel<\d+, 1>")))
-# K4's conv2: conv_kernel<BN, int8 input, EPI_RELU_Q8, stride 2>; a K4 block
-# launches conv1, conv2, the projection, conv3 in that order.
-K4_CONV2 = re.compile(r"rs::sm90::conv_kernel<\d+, false, 3, 2>")
+# up_kernel's instances by output layout (template argument): K5 NHWC, per
+# tensor or per channel (PC), K8 planes.
+UP_KERNELS = (("K5", re.compile(r"rs::sm90::up_kernel<\d+, 0, (false|true)>")),
+              ("K8", re.compile(r"rs::sm90::up_kernel<\d+, 1, false>")))
+# K4's conv2: conv_kernel<BN, int8 input, EPI_RELU_Q8, stride 2, PC>; a K4
+# block launches conv1, conv2, the projection, conv3 in that order.
+K4_CONV2 = re.compile(r"rs::sm90::conv_kernel<\d+, false, 3, 2, (false|true)>")
 # The predict paths: label, model TOML keys over config/model-unet.toml,
 # predict's flags other than its defaults here, launches per batch of each
 # kernel (every other kernel: 0).
@@ -354,6 +382,11 @@ DEEPLAB_PATHS = (("deeplab-int8", {}, DEEPLAB_INT8), ("deeplab-bf16", {"int8": F
 SEGFORMER_INT8 = {"K2": 51, "quantize": 51, "int8_conv": 3}
 SEGFORMER_INT8_ROUTES = {"halo": 0, "conv_kernel": 3}
 SEGFORMER_PATHS = (("segformer-int8", {}, SEGFORMER_INT8), ("segformer-bf16", {"int8": False, "bf16": True}, {}))
+# Phase 13 (the per-channel calibration): its spec, and the U-Net's predict
+# path under it (label, model TOML keys over config/model-unet.toml,
+# launches per batch: those of phase 5's int8 path).
+PC_SPEC = "pc99.8"
+PC_PATHS = (("unet-" + PC_SPEC, {"int8_calibration": PC_SPEC}, {**ENCODER, "K5": 5, "K6": 1}),)
 EDGE_ROWS = 128  # rows next to a tile edge inside a strip, where a strip's context exceeds the tile's
 # Paths that run on phase 3's scales through a QAT checkpoint's qat_amaxes
 # (every int8 path but the configured one, which calibrates in `predict`).
@@ -398,6 +431,12 @@ def main():
     parser.add_argument("--segformer-from", default=None, metavar="WORK",
                         help="with --segformer: the full run's work directory, whose phase-6c dataset phase 12c "
                              "uses; the results go to WORK/segformer.json (the full run's phase 12)")
+    parser.add_argument("--pc", action="store_true",
+                        help="only phases 1, 2 and 13 (the per-channel calibration: its kernel instantiations, "
+                             "predict for the U-Net, the fast family's and DeepLab's steps)")
+    parser.add_argument("--pc-from", default=None, metavar="WORK",
+                        help="with --pc: the full run's work directory; the results go to WORK/pc.json (the full "
+                             "run's phase 13)")
     parser.add_argument("--fast-from", default=None, metavar="WORK",
                         help="with --fast: the full run's work directory, whose phase-6c U-Net checkpoint and "
                              "dataset phase 8d uses; the results go to WORK/fast.json (the full run's phase 8)")
@@ -490,7 +529,8 @@ def main():
 
     for flag, run_family, names, from_work in (("deeplab", run_deeplab, ("K3", "K4", "int8_conv"), opts.deeplab_from),
                                                ("segformer", run_segformer, ("K2", "quantize", "int8_conv"),
-                                                opts.segformer_from)):
+                                                opts.segformer_from),
+                                               ("pc", run_pc, ("K3", "K4", "K5", "K6", "int8_conv"), opts.pc_from)):
         if not getattr(opts, flag):
             continue
         per_kernel, launches, by_path = {}, dict.fromkeys(names, 0), {}
@@ -1041,8 +1081,9 @@ def run(torch, work, seed, smi):
         launches[name] += c
     lap(marks, "phase 10")
 
-    # ---- phases 11 and 12: DeepLabv3+ and SegFormer, each in a process of its own ----
-    for flag in ("deeplab", "segformer"):
+    # ---- phases 11, 12 and 13: DeepLabv3+, SegFormer and the per-channel ----
+    # calibration, each in a process of its own
+    for phase, flag in ((11, "deeplab"), (12, "segformer"), (13, "pc")):
         torch.cuda.empty_cache()
         family = run_phase_process(work, "--" + flag, flag)
         for name, entry in family["per_kernel"].items():
@@ -1051,7 +1092,7 @@ def run(torch, work, seed, smi):
         for name, c in family["launches"].items():
             launches[name] += c
         by_path.update(family["by_path"])
-        lap(marks, "phase {}".format(11 if flag == "deeplab" else 12))
+        lap(marks, "phase {}".format(phase))
 
     return [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
@@ -2170,8 +2211,9 @@ def tool_checkpoint_path(work):
 
 def run_phase_process(work, flag, name):
     """The full run's phase 8 (`--fast --fast-from work`, name "fast"), 11
-    (`--deeplab --deeplab-from work`, "deeplab") or 12 (`--segformer
-    --segformer-from work`, "segformer") in a process of its own, its
+    (`--deeplab --deeplab-from work`, "deeplab"), 12 (`--segformer
+    --segformer-from work`, "segformer") or 13 (`--pc --pc-from work`,
+    "pc") in a process of its own, its
     output going to this one's: late in one long process
     torch.profiler drops kernel events (device times read "not measured",
     a step profile counts missing launches), and a fresh process profiles
@@ -2419,6 +2461,8 @@ def model_predict_paths(torch, work, tiles_dir, tiles, checkpoint, model, base, 
         log_step_profile(torch, run_step, label, per_batch, phase="phase {}".format(phase))
         del run_step, got, ref
         torch.cuda.empty_cache()
+    if len(paths) != 2:
+        return
     (int8_label, _, _), (float_label, _, _) = paths
     flips, err = u8_flips(torch, torch.from_numpy(pngs_by_path[int8_label]), torch.from_numpy(pngs_by_path[float_label]))
     log("{}] int8 PNGs vs the bf16 run's (counted only: random weights, another datapath): {} of {} pixels "
@@ -2830,6 +2874,231 @@ def run_segformer(torch, work, seed, smi, counted, launches, by_path, per_kernel
         write_training_set(train_root, seed)
     family_tools(torch, work, train_root, config, counted, launches, by_path, smi, segformer, 12, SEGFORMER_INT8)
 
+
+def pc_site(torch, per_kernel, smi, kname, site, kernel, plain, kargs, bit_equal=True, work_fn=None):
+    """Phase 13a: one per-channel site through its kernel and its plain
+    version (bit-equal, or for K6's head +-1 bin on <= 0.1%), timed as
+    phase 3 times its kernels (events, device time, plain), its bound from
+    `work_fn` (default `site_work`); recorded under `kname` as "<site> (pc)"."""
+    got, ref = kernel(*kargs), plain(*kargs)
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError("phase 13: {} {}: kernel {} vs plain {}".format(kname, site, tuple(got.shape),
+                                                                          tuple(ref.shape)))
+    if bit_equal:
+        err = float((got.float() - ref.float()).abs().max())
+        if not torch.equal(got, ref):
+            raise AssertionError("phase 13: {} {}: not bit-equal, max |diff| {}".format(kname, site, err))
+        detail = "bit-equal"
+    else:
+        flips, err = u8_flips(torch, got, ref)
+        if err > 1 or flips > MAX_FLIP_SHARE * got.numel():
+            raise AssertionError("phase 13: {} {}: {} flipped bins (max distance {})".format(kname, site, flips, err))
+        detail = "{} of {} bins flipped by 1".format(flips, got.numel())
+    arg_sets = rotated(torch, kargs)
+    ms = cuda_ms(torch, kernel, arg_sets, 20)
+    dev_ms = device_ms(torch, kernel, arg_sets, 20)
+    plain_ms = cuda_ms(torch, plain, arg_sets, 2)
+    del arg_sets
+    cost = (work_fn or site_work)(kname, kargs, got)[:3]
+    tops = cost[1] / (dev_ms or ms) / 1e9
+    bound_ms, bound_by = record(per_kernel, kname, site + " (pc)", kargs[0].shape, err, ms, plain_ms, cost,
+                                device_ms=dev_ms, tops=tops)
+    log("phase 13: [13a] {} {} (per-channel) {} -> {}: {}; kernel {:.4f} ms (events), {} (device), {:.1f} TOP/s "
+        "({:.1%} of 1979), plain {:.3f} ms, bound {:.4f} ms ({}); {}".format(
+            kname, site, tuple(kargs[0].shape), tuple(got.shape), detail, ms,
+            "not measured" if dev_ms is None else "{:.4f} ms".format(dev_ms), tops, tops / 1979, plain_ms, bound_ms,
+            bound_by, smi))
+
+
+def pc_calibrate(torch, walk_fn, quantize, folded, x48, label):
+    """A family's per-channel (PC_SPEC) calibration on the card: the float32
+    walk through `walk_fn(folded, x, sites)` keeping each site's bf16 input,
+    then `quantize(folded, act_amaxes=taps)`. Returns (qtree, host scale
+    vectors, site inputs)."""
+    from robosat_tpu_torch.models import int8 as q8
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    walk = SiteInputs(q8._Sites(scales=None, percentile=PC_SPEC), torch.bfloat16)
+    walk_fn(folded, x48.float(), walk)
+    taps = q8.site_taps(walk.sites, PC_SPEC)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - start
+    start = time.perf_counter()
+    qtree, scale_list = quantize(folded, act_amaxes=taps)
+    scales = q8.host_scales(scale_list)
+    torch.cuda.synchronize()
+    log("phase 13: [13a] {}: float32 calibration ({}) of {} sites on {} x {} in {:.2f} s (host clock, "
+        "synchronized; the walk keeps each site's input), the balanced fold and quantize in {:.2f} s".format(
+            label, PC_SPEC, len(scales), x48.shape[0], tuple(x48.shape[1:]), calib_s, time.perf_counter() - start))
+    return qtree, scales, walk.inputs
+
+
+def run_pc(torch, work, seed, smi, counted, launches, by_path, per_kernel, train_root=None):
+    """Phase 13: the per-channel calibration (int8_calibration = PC_SPEC)
+    of the U-Net, the fast family and DeepLab, weights from each family's
+    `init(seed)`, on phase 5's tiles. 13a: each family's float32
+    calibration walk on the first predict batch (8 host-blocked 576-px
+    tiles) keeping every site's input, the balanced fold, then the kernels'
+    per-channel instantiations at main-path sites on those inputs against
+    their plain versions, timed as phase 3: K3 at layer1.0 and layer3.1, K4
+    at layer2.0, K5 at center, dec1 and dec3, K6 dec3 -> head (the U-Net);
+    rs_int8_conv at b1, down2 and d1 (the fast family); K3 at layer4.0
+    (dilation 2) and rs_int8_conv at aspp_d2 (DeepLab). 13b: `predict.main`
+    for the U-Net through a TOML copy of config/model-unet.toml with
+    int8_calibration = PC_SPEC, as model_predict_paths runs a path. 13c:
+    one batch of each family's per-channel int8 step against its plain
+    step (the fast family's and DeepLab's launches counted), timed in turns
+    with the per-tensor step. `train_root` is unused (the signature of the
+    other family phases)."""
+    from robosat_tpu_torch.checkpoint import load_model_checkpoint, save_checkpoint, to_jax
+    from robosat_tpu_torch.config import load_config
+    from robosat_tpu_torch.data.loader import batches
+    from robosat_tpu_torch.device import configure_device
+    from robosat_tpu_torch.models import deeplab, fastnet, qconv, qdec, qenc, qtail, unet
+    from robosat_tpu_torch.models import int8 as q8
+    from robosat_tpu_torch.models.resnet import RESNET50_STAGES
+    from robosat_tpu_torch.parallel.steps import _normalize_s2d4, make_int8_predict_step
+    from robosat_tpu_torch.tools import predict
+
+    device = configure_device(True)
+    tiles_dir = os.path.join(work, "tiles-pc")
+    tiles = write_tiles(tiles_dir, seed)  # phase 5's tiles
+    base = load_config(os.path.join(ROOT, "config", "model-unet.toml"))
+    checkpoints = {}
+    for name, model in (("unet", unet), ("fast", fastnet), ("deeplab", deeplab)):
+        params, state = model.init(seed, num_classes=2)
+        checkpoints[name] = os.path.join(work, "pc-{}.npz".format(name))
+        save_checkpoint(checkpoints[name], {"params": to_jax(params), "state": to_jax(state)}, meta={"epoch": 0})
+    del params, state
+    pargs = predict_args(work, tiles_dir, None, None, checkpoints["unet"])
+    directory, _ = predict.input_directory(pargs, True)
+    raw48 = next(iter(batches(directory, BATCH, workers=2))).arrays[0]
+    side = (TILE + 2 * OVERLAP) // 4
+    if raw48.shape != (BATCH, side, side, 48):
+        raise AssertionError("phase 13: first batch has shape {}".format(raw48.shape))
+    x48 = _normalize_s2d4(torch.as_tensor(raw48).to(device))
+
+    # ---- 13a: the kernels' per-channel instantiations at main-path sites ----
+    with torch.no_grad():
+        params, state, _ = load_model_checkpoint(checkpoints["unet"], device=device)
+        folded = unet.fold(params, state)
+        qtree, scales, inputs = pc_calibrate(
+            torch, lambda f, x, s: q8._walk(f, x, s, float_mode=True, blocked=True), q8.quantize_unet_folded, folded,
+            x48, "U-Net")
+        del params, state, folded
+        enc = qtree["encoder"]
+
+        def block(site, down):
+            return [scales[site + i] for i in range(4 if down else 3)]
+
+        cases = [
+            ("K3", "layer1.0 (projection)", qenc.bottleneck_block, qenc.bottleneck_block_plain,
+             (inputs[0], enc["layer1"][0], *block(0, True)), True),
+            ("K3", "layer3.1 (identity)", qenc.bottleneck_block, qenc.bottleneck_block_plain,
+             (inputs[27], enc["layer3"][1], *block(27, False)), True),
+            ("K4", "layer2.0", qenc.bottleneck_block_s2, qenc.bottleneck_block_s2_plain,
+             (inputs[10], enc["layer2"][0], *block(10, True)), True),
+        ] + [
+            ("K5", name, qdec.parity_up_conv, qdec.parity_up_conv_plain, (inputs[site], qtree[name], scales[site]), True)
+            for name, site in (("center", 52), ("dec1", 54), ("dec3", 56))
+        ] + [
+            ("K6", "dec3 -> head", qtail.fused_tail, qtail.fused_tail_plain,
+             (inputs[57], qtree["dec4"], scales[57], qtree["dec5"], scales[58], qtree["final"]["w"],
+              qtree["final"]["b"], OVERLAP), False),
+        ]
+        for kname, site, kernel, plain, kargs, bit_equal in cases:
+            pc_site(torch, per_kernel, smi, kname, site + " (unet)", kernel, plain, kargs, bit_equal)
+        del cases, inputs, qtree, enc
+        torch.cuda.empty_cache()
+
+        params, state, _ = load_model_checkpoint(checkpoints["fast"], device=device)
+        folded = fastnet.fold(params, state)
+        qtree, scales, inputs = pc_calibrate(
+            torch, lambda f, x, s: fastnet._walk48_sites(f, x, s, float_mode=True), fastnet.quantize_folded_int8,
+            folded, x48, "fast family")
+        fastnet.prepare_int8(qtree, scales)
+        del params, state, folded
+        order = fastnet._ENC + fastnet._DEC
+        for name in ("b1", "down2", "d1"):
+            i = order.index(name)
+            stride, dilation, epilogue = FAST_DENSE[name]
+            pc_site(torch, per_kernel, smi, "int8_conv", name + " (fast)", qconv.int8_conv, qconv.int8_conv_plain,
+                    (inputs[i], qtree[name], scales[i], stride, dilation, "SAME", epilogue))
+        del inputs, qtree
+        torch.cuda.empty_cache()
+
+        params, state, _ = load_model_checkpoint(checkpoints["deeplab"], device=device)
+        folded = deeplab.fold(params, state)
+        qtree, scales, inputs = pc_calibrate(
+            torch, lambda f, x, s: deeplab._walk_int8(f, x, s, float_mode=True, blocked=True),
+            deeplab.quantize_folded_int8, folded, x48, "DeepLab")
+        deeplab.prepare_int8(qtree, scales)
+        del params, state, folded
+        j = sum(3 + ("down_conv" in qb) for si in range(len(RESNET50_STAGES) - 1)
+                for qb in qtree["encoder"]["layer{}".format(si + 1)])  # layer4.0's conv1
+        pc_site(torch, per_kernel, smi, "K3", "layer4.0 (projection, dilation 2) (deeplab)", qenc.bottleneck_block,
+                lambda *a: qenc.bottleneck_block_plain(*a[:6], dilation=a[6]),
+                (inputs[j], qtree["encoder"]["layer4"][0], *scales[j:j + 4], 2), work_fn=deeplab_site_work)
+        i = len(scales) - len(deeplab.DENSE_SITES) + 3  # aspp_d2, dilation 18
+        pc_site(torch, per_kernel, smi, "int8_conv", "aspp_d2 (dilation 18) (deeplab)", qconv.int8_conv,
+                qconv.int8_conv_plain, (inputs[i], qtree["aspp_d2"], scales[i], 1, 18, "SAME", "relu"),
+                work_fn=deeplab_site_work)
+        del inputs, qtree, x48
+        torch.cuda.empty_cache()
+
+    # ---- 13b: rs predict for the U-Net with the per-channel calibration ----
+    model_predict_paths(torch, work, tiles_dir, tiles, checkpoints["unet"], unet, base, PC_PATHS,
+                        {"halo": 0, "conv_kernel": 0}, 13, counted, launches, by_path, smi)
+    torch.cuda.empty_cache()
+
+    # ---- 13c: one batch of each family's per-channel step, and beside it the per-tensor one ----
+    # (amax: a per-tensor percentile takes ~10 s of kthvalue over whole
+    # tensors on the card, and the step's time does not depend on the spec)
+    for label, model, per_batch in (("unet-" + PC_SPEC, unet, None), ("fast-" + PC_SPEC, fastnet, FAST_INT8),
+                                    ("deeplab-" + PC_SPEC, deeplab, DEEPLAB_INT8)):
+        params, state, _ = load_model_checkpoint(checkpoints[label.split("-")[0]], device=device)
+        steps, build_s = {}, {}
+        for spec in (None, PC_SPEC):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            steps[spec] = make_int8_predict_step(model, params, state, raw48, overlap=OVERLAP, host_s2d=True,
+                                                 calib_percentile=spec)
+            torch.cuda.synchronize()
+            build_s[spec] = time.perf_counter() - start
+        step, qt = steps[PC_SPEC]
+        for fn in counted.values():
+            fn.launches = 0
+        got = step(qt, raw48)
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in counted.items()}
+        if per_batch is not None:  # the U-Net's launches are 13b's
+            if counts != {name: per_batch.get(name, 0) for name in counted}:
+                raise AssertionError("phase 13: [{}] launch counts {} != expected {}".format(label, counts,
+                                                                                          per_batch))
+            by_path[label] = {name: c for name, c in counts.items() if c}
+            for name, c in by_path[label].items():
+                launches[name] += c
+        ref = step(qt, raw48, plain=True)
+        torch.cuda.synchronize()
+        flips, err = u8_flips(torch, got, ref)
+        if err > 1 or flips > MAX_FLIP_SHARE * got.numel():
+            raise AssertionError("phase 13: [{}] {} flipped bins vs the plain step (max distance {})".format(
+                label, flips, err))
+        # The per-tensor and the per-channel step in turns: per-tensor, pc, pc, per-tensor.
+        timed = {None: [], PC_SPEC: []}
+        for spec in (None, PC_SPEC, PC_SPEC, None):
+            run_step, run_qt = steps[spec]
+            timed[spec].append(cuda_ms(torch, lambda: run_step(run_qt, raw48), [()], 5))
+        log("phase 13: [13c {}] steps built (fold, calibration, quantize, packing) in {:.2f} s (amax) / {:.2f} s "
+            "({}); batch {} -> {} through the kernels (launches {}) vs the plain step: {} of {} bins flipped by 1; "
+            "step by CUDA events, per-tensor / per-channel / per-channel / per-tensor: {:.2f} / {:.2f} / {:.2f} / "
+            "{:.2f} ms; {}".format(label, build_s[None], build_s[PC_SPEC], PC_SPEC, raw48.shape, tuple(got.shape),
+                                   {n: c for n, c in counts.items() if c}, flips, got.numel(), timed[None][0],
+                                   timed[PC_SPEC][0], timed[PC_SPEC][1], timed[None][1], smi))
+        del steps, step, qt, params, state, got, ref
+        torch.cuda.empty_cache()
 
 def int_mm_ms(torch, arg_sets):
     """torch._int_mm's milliseconds over (xq, wq) pairs, or None where its

@@ -14,7 +14,11 @@
 // K = taps x Cin) of bf16 inputs quantized as clip(rintf(__fmul_rn(v, inv)),
 // -127, 127), exact int32 accumulators, and the dequant epilogue
 // bf16_rne(__fadd_rn(__fmul_rn(f32(acc), ws * s), b)), then relu or
-// residual-relu.
+// residual-relu. With per-channel scales (the "pc" calibrations) the
+// quantize multiplies channel c by its own reciprocal inv[c] and the
+// epilogue's scale is ws alone (the scales are folded into the weights):
+// the kernels' PC template parameter, off in the per-tensor instantiations,
+// which compile to the same code as without it.
 //
 // What bounds it on the H100: at the main-path shapes the 1x1 convs of
 // layers 1-2 move more bytes than the tensor cores need time for (64-256
@@ -124,6 +128,8 @@ struct Params {
   const float* wmb;        // EPI_HEAD: 32 margin weights and the margin bias
   float inv_in;            // reciprocal scale of a bf16 input
   float inv_out;           // EPI_RELU_Q8: reciprocal scale of the next conv's input
+  const float* inv_in_v;   // PC: per-channel reciprocals of a bf16 input (cin, zero-padded to a multiple of 64)
+  const float* inv_out_v;  // PC, EPI_RELU_Q8: per-channel reciprocals of the next conv's input (cout)
   int n, h, w, cin, cout, cout_pad;
   int ho, wo;              // output grid of conv_kernel (conv_params: ((h - 1) / stride + 1, (w - 1) / stride + 1))
   int k, pad;              // k x k taps, `pad` zero rows before the first row (conv_kernel's stride is a template parameter)
@@ -210,16 +216,37 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo = kLbo, uin
 // The activation quantize, clip(rintf(__fmul_rn(v, inv)), -127, 127), of
 // 8 bf16 (4 packed pairs) into 8 int8: the clip of the product, then one
 // round-to-nearest-even conversion (the same values, NaN included), bytes
-// packed with byte_perm.
-__device__ __forceinline__ uint32_t quantize_pair(uint32_t bf16x2, float inv) {
-  const int lo = __float2int_rn(fminf(fmaxf(__fmul_rn(__uint_as_float(bf16x2 << 16), inv), -127.0f), 127.0f));
-  const int hi = __float2int_rn(fminf(fmaxf(__fmul_rn(__uint_as_float(bf16x2 & 0xffff0000u), inv), -127.0f), 127.0f));
+// packed with byte_perm. A pair's low half is the lower channel.
+__device__ __forceinline__ uint32_t quantize_pair(uint32_t bf16x2, float inv_lo, float inv_hi) {
+  const int lo = __float2int_rn(fminf(fmaxf(__fmul_rn(__uint_as_float(bf16x2 << 16), inv_lo), -127.0f), 127.0f));
+  const int hi =
+      __float2int_rn(fminf(fmaxf(__fmul_rn(__uint_as_float(bf16x2 & 0xffff0000u), inv_hi), -127.0f), 127.0f));
   return __byte_perm(lo, hi, 0x0040);  // bytes 0, 1: lo, hi
 }
 
 __device__ __forceinline__ uint2 quantize8(uint4 v, float inv) {
-  return make_uint2(__byte_perm(quantize_pair(v.x, inv), quantize_pair(v.y, inv), 0x5410),
-                    __byte_perm(quantize_pair(v.z, inv), quantize_pair(v.w, inv), 0x5410));
+  return make_uint2(__byte_perm(quantize_pair(v.x, inv, inv), quantize_pair(v.y, inv, inv), 0x5410),
+                    __byte_perm(quantize_pair(v.z, inv, inv), quantize_pair(v.w, inv, inv), 0x5410));
+}
+
+// Per channel: channel j of the 8 by inv[j] (read-only, 32-byte aligned:
+// two 16-byte loads).
+__device__ __forceinline__ uint2 quantize8(uint4 v, const float* inv) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(inv));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(inv) + 1);
+  return make_uint2(__byte_perm(quantize_pair(v.x, a.x, a.y), quantize_pair(v.y, a.z, a.w), 0x5410),
+                    __byte_perm(quantize_pair(v.z, b.x, b.y), quantize_pair(v.w, b.z, b.w), 0x5410));
+}
+
+// The quantize of the 8 channels from channel c: per tensor by `inv`, or
+// (PC) per channel by inv_v[c], ..., inv_v[c + 7].
+template <bool PC>
+__device__ __forceinline__ uint2 quantize8_at(uint4 v, float inv, const float* inv_v, int c) {
+  if constexpr (PC) {
+    return quantize8(v, inv_v + c);
+  } else {
+    return quantize8(v, inv);
+  }
 }
 
 // Byte offset of (row, k) in a tile of 64-byte K rows in core-matrix order.
@@ -349,7 +376,7 @@ __device__ __forceinline__ void fill_anchors(float* anchors, int tid, int thread
   for (int i = tid; i < 258; i += threads) anchors[i] = __fdiv_rn(static_cast<float>(i - 1), 255.0f);
 }
 
-template <int BN, int EPI, typename PixelOf>
+template <int BN, int EPI, bool PC = false, typename PixelOf>
 __device__ __forceinline__ void store_tile(const Params& p, const int* acc, __nv_bfloat16* out_s, int n0, int tid,
                                            int bar, PixelOf pixel, const float* anchors = nullptr) {
   constexpr int kOutStride = BN + 8;
@@ -420,7 +447,9 @@ __device__ __forceinline__ void store_tile(const Params& p, const int* acc, __nv
     for (int i = 0; i < kPasses; ++i) {
       if (!live[i]) continue;
       if (EPI == EPI_RELU_Q8) {
-        *reinterpret_cast<uint2*>(static_cast<int8_t*>(p.y) + off[i]) = quantize8(v[i], p.inv_out);
+        const int col = n0 + 8 * ((tid + 128 * i) % kChunks);
+        *reinterpret_cast<uint2*>(static_cast<int8_t*>(p.y) + off[i]) =
+            quantize8_at<PC>(v[i], p.inv_out, p.inv_out_v, col);
       } else if (EPI == EPI_RESIDUAL_RELU) {
         *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.y) + off[i]) =
             make_uint4(residual_relu2(v[i].x, r[i].x), residual_relu2(v[i].y, r[i].y), residual_relu2(v[i].z, r[i].z),
@@ -468,8 +497,9 @@ struct Smem {
 // multiplies and runs the epilogue. Threads [128, 256): the producer
 // warpgroup, which runs through this CTA's (tile, K step) items without
 // waiting for epilogues, so the next tile's loads overlap this tile's
-// epilogue.
-template <int BN, bool IN_BF16, int EPI, int STRIDE>
+// epilogue. PC: per-channel reciprocals on load (p.inv_in_v) and in
+// EPI_RELU_Q8 (p.inv_out_v).
+template <int BN, bool IN_BF16, int EPI, int STRIDE, bool PC = false>
 __global__ void __launch_bounds__(256, 2) conv_kernel(const __grid_constant__ Params p) {
   using S = Smem<BN, IN_BF16>;
   extern __shared__ __align__(128) uint8_t smem[];
@@ -582,11 +612,14 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(const __grid_constant__ Pa
       if (IN_BF16) {
         cp_async_wait_group<S::kRawTiles - 1>();
         const int slot = it % S::kRawTiles;
+        // Item it is K step it % n_steps of its tile: this thread's 8 channels of its chunk start at c.
+        const int c = PC ? it % p.n_steps % chunks * kBK + piece * 8 : 0;
 #pragma unroll
         for (int i = 0; i < kItems; ++i) {
           const int row = pt / kPieces + kRowsPerPass * i;
           const uint4 v = *reinterpret_cast<const uint4*>(smem + S::kRaw + slot * S::kRawTile + row * (2 * kBK) + piece * 16);
-          *reinterpret_cast<uint2*>(smem + s * S::kStage + tile_offset(row, piece * 8)) = quantize8(v, p.inv_in);
+          *reinterpret_cast<uint2*>(smem + s * S::kStage + tile_offset(row, piece * 8)) =
+              quantize8_at<PC>(v, p.inv_in, p.inv_in_v, c);
         }
         fence_proxy_async();
         __syncwarp();
@@ -642,14 +675,14 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(const __grid_constant__ Pa
     }
     wgmma_wait<0>();
     if (lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % S::kRing));
-    store_tile<BN, EPI>(p, acc, reinterpret_cast<__nv_bfloat16*>(smem + S::kOut), n0, tid, 1,
-                        [&](int r) { return m0 + r < m_total ? m0 + r : -1; });
+    store_tile<BN, EPI, PC>(p, acc, reinterpret_cast<__nv_bfloat16*>(smem + S::kOut), n0, tid, 1,
+                            [&](int r) { return m0 + r < m_total ? m0 + r : -1; });
   }
 }
 
 // Launch one dense conv, as many CTAs as fit on the card at once (at most
 // one per tile); returns the CUDA error code (0 on success).
-template <int BN, bool IN_BF16, int EPI, int STRIDE>
+template <int BN, bool IN_BF16, int EPI, int STRIDE, bool PC = false>
 int launch(const Params& p, cudaStream_t stream) {
   using S = Smem<BN, IN_BF16>;
   const long long m_total = static_cast<long long>(p.n) * p.ho * p.wo;
@@ -661,7 +694,10 @@ int launch(const Params& p, cudaStream_t stream) {
   if (m_total + kBM >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   const long long n_tiles = (m_total + kBM - 1) / kBM * ((p.cout + BN - 1) / BN);
   if (n_tiles == 0) return 0;
-  auto kernel = conv_kernel<BN, IN_BF16, EPI, STRIDE>;
+  if (PC && ((IN_BF16 && p.inv_in_v == nullptr) || (EPI == EPI_RELU_Q8 && p.inv_out_v == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = conv_kernel<BN, IN_BF16, EPI, STRIDE, PC>;
   static long long resident = 0;  // CTAs of this instantiation the card holds at once, found at first launch
   if (resident == 0) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
@@ -675,9 +711,10 @@ int launch(const Params& p, cudaStream_t stream) {
 }
 
 // A dense conv: BN = 64 up to 64 output channels, else 128.
-template <bool IN_BF16, int EPI, int STRIDE = 1>
+template <bool IN_BF16, int EPI, int STRIDE = 1, bool PC = false>
 int launch_dense(const Params& p, cudaStream_t stream) {
-  return p.cout <= 64 ? launch<64, IN_BF16, EPI, STRIDE>(p, stream) : launch<128, IN_BF16, EPI, STRIDE>(p, stream);
+  return p.cout <= 64 ? launch<64, IN_BF16, EPI, STRIDE, PC>(p, stream)
+                      : launch<128, IN_BF16, EPI, STRIDE, PC>(p, stream);
 }
 
 // A k x k conv (k odd) of stride `stride` with k / 2 rows and columns of
@@ -697,6 +734,8 @@ inline Params conv_params(const void* x, const void* wp, const float* scale, con
   p.wmb = nullptr;
   p.inv_in = inv_in;
   p.inv_out = inv_out;
+  p.inv_in_v = nullptr;
+  p.inv_out_v = nullptr;
   p.n = n;
   p.h = h;
   p.w = w;
@@ -782,8 +821,9 @@ struct TailSmem {
 // in turn, so one's MMAs overlap another's epilogue (WGS = 1 only where
 // shared memory holds no second staged tile). Threads [128 WGS,
 // 128 WGS + 128): the producer warpgroup. x lies in IN_LAYOUT, y in
-// OUT_LAYOUT (NHWC for the head, which crops on the grid).
-template <bool IN_BF16, int EPI, int NB, int WGS, int IN_LAYOUT, int OUT_LAYOUT>
+// OUT_LAYOUT (NHWC for the head, which crops on the grid). PC: per-channel
+// reciprocals on load and in EPI_RELU_Q8.
+template <bool IN_BF16, int EPI, int NB, int WGS, int IN_LAYOUT, int OUT_LAYOUT, bool PC = false>
 __global__ void __launch_bounds__(384, 1) tail_kernel(const __grid_constant__ TailParams tp) {
   static_assert(EPI != EPI_HEAD || OUT_LAYOUT == LAYOUT_NHWC, "the head stores NHWC");
   const Params& p = tp.conv;
@@ -876,7 +916,7 @@ __global__ void __launch_bounds__(384, 1) tail_kernel(const __grid_constant__ Ta
         for (int q = pt; q < kHalo * kHalo * kPieces; q += 128) {
           const uint4 v = *reinterpret_cast<const uint4*>(smem + L.raw + slot * 2 * kHaloBytes + q * 16);
           *reinterpret_cast<uint2*>(smem + L.halos + s * kHaloBytes + (q % 16 >> 1) * kPlane + q / 16 * 16 +
-                                    (q & 1) * 8) = quantize8(v, p.inv_in);
+                                    (q & 1) * 8) = quantize8_at<PC>(v, p.inv_in, p.inv_in_v, (q & 15) * 8);
         }
         fence_proxy_async();
         __syncwarp();
@@ -937,8 +977,8 @@ __global__ void __launch_bounds__(384, 1) tail_kernel(const __grid_constant__ Ta
     const int rem = t - img * tiles_img;
     const int ty = rem / tiles_x * 8;
     const int tx = rem % tiles_x * 8;
-    store_tile<128, EPI>(p, acc, reinterpret_cast<__nv_bfloat16*>(smem + L.out + wg * out_bytes<128>()), 0, tid & 127,
-                         1 + wg, [&](int r) {
+    store_tile<128, EPI, PC>(p, acc, reinterpret_cast<__nv_bfloat16*>(smem + L.out + wg * out_bytes<128>()), 0,
+                             tid & 127, 1 + wg, [&](int r) {
       const int y = ty + (r >> 3);
       const int x = tx + (r & 7);
       return y < p.h && x < p.w ? tail_pixel<OUT_LAYOUT>(img, y, x, p.h, p.w) : -1;
@@ -951,12 +991,13 @@ __global__ void __launch_bounds__(384, 1) tail_kernel(const __grid_constant__ Ta
 // one CTA per SM; shared memory decides two consumer warpgroups or one
 // (only dense weights, 36 blocks a slice, need one) and, for bf16 input,
 // how many raw halos are in flight (up to 3). Parity planes need an even grid.
-template <bool IN_BF16, int EPI, int IN_LAYOUT = LAYOUT_NHWC, int OUT_LAYOUT = LAYOUT_NHWC>
+template <bool IN_BF16, int EPI, int IN_LAYOUT = LAYOUT_NHWC, int OUT_LAYOUT = LAYOUT_NHWC, bool PC = false>
 int launch_tail(TailParams tp, cudaStream_t stream) {
   const Params& p = tp.conv;
   const bool planes = IN_LAYOUT == LAYOUT_PLANES || OUT_LAYOUT == LAYOUT_PLANES;
   if (tp.nb < 1 || tp.nb > kMaxBlocks + 1 || p.cin != 128 || p.cout != 128 ||
-      static_cast<long long>(p.n) * p.h * p.w >= (1LL << 31) || (planes && (p.h % 2 || p.w % 2))) {
+      static_cast<long long>(p.n) * p.h * p.w >= (1LL << 31) || (planes && (p.h % 2 || p.w % 2)) ||
+      (PC && ((IN_BF16 && p.inv_in_v == nullptr) || (EPI == EPI_RELU_Q8 && p.inv_out_v == nullptr)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   constexpr int kRing = tail_ring(IN_BF16);
@@ -969,11 +1010,11 @@ int launch_tail(TailParams tp, cudaStream_t stream) {
   if (n_tiles == 0) return 0;
   void (*kernel)(TailParams) = nullptr;
   if (wgs == 2) {
-    kernel = tp.per_slice == 9 ? tail_kernel<IN_BF16, EPI, 9, 2, IN_LAYOUT, OUT_LAYOUT>
-             : tp.per_slice == 16 ? tail_kernel<IN_BF16, EPI, 16, 2, IN_LAYOUT, OUT_LAYOUT>
-             : tp.per_slice == 36 ? tail_kernel<IN_BF16, EPI, 36, 2, IN_LAYOUT, OUT_LAYOUT> : nullptr;
+    kernel = tp.per_slice == 9 ? tail_kernel<IN_BF16, EPI, 9, 2, IN_LAYOUT, OUT_LAYOUT, PC>
+             : tp.per_slice == 16 ? tail_kernel<IN_BF16, EPI, 16, 2, IN_LAYOUT, OUT_LAYOUT, PC>
+             : tp.per_slice == 36 ? tail_kernel<IN_BF16, EPI, 36, 2, IN_LAYOUT, OUT_LAYOUT, PC> : nullptr;
   } else if (tp.per_slice == 36) {
-    kernel = tail_kernel<IN_BF16, EPI, 36, 1, IN_LAYOUT, OUT_LAYOUT>;
+    kernel = tail_kernel<IN_BF16, EPI, 36, 1, IN_LAYOUT, OUT_LAYOUT, PC>;
   }
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
@@ -1054,8 +1095,9 @@ struct UpSmem {
 // their halos through L2. Threads [0, 256): the two consumer warpgroups,
 // warpgroup g on tile 2 pair + g (past the last tile: zeros in, nothing
 // stored). Threads [256, 384): the weights' warpgroup, one thread of it
-// running ahead through the (item, chunk, half) stages.
-template <int BN, int OUT_LAYOUT>
+// running ahead through the (item, chunk, half) stages. PC: per-channel
+// reciprocals on load.
+template <int BN, int OUT_LAYOUT, bool PC = false>
 __global__ void __launch_bounds__(384, 1) up_kernel(const __grid_constant__ Params p) {
   using S = UpSmem<BN>;
   extern __shared__ __align__(128) uint8_t smem[];
@@ -1184,7 +1226,8 @@ __global__ void __launch_bounds__(384, 1) up_kernel(const __grid_constant__ Para
       for (int i = 0; i < kUpPasses; ++i) {
         const int q = wt + 128 * i;
         if (q < kUpPieces) {
-          *reinterpret_cast<uint2*>(halo_s + (piece >> 1) * kPlane + (q >> 3) * 16 + (q & 1) * 8) = quantize8(raw[i], p.inv_in);
+          *reinterpret_cast<uint2*>(halo_s + (piece >> 1) * kPlane + (q >> 3) * 16 + (q & 1) * 8) =
+              quantize8_at<PC>(raw[i], p.inv_in, p.inv_in_v, kc * kBK + piece * 8);
         }
       }
       fence_proxy_async();  // this thread's generic-proxy stores, for wgmma
@@ -1252,9 +1295,10 @@ __global__ void __launch_bounds__(384, 1) up_kernel(const __grid_constant__ Para
 
 // Launch an up-block (K5: OUT_LAYOUT NHWC, K8: parity planes), one CTA per
 // SM (at most one per item).
-template <int BN, int OUT_LAYOUT = LAYOUT_NHWC>
+template <int BN, int OUT_LAYOUT = LAYOUT_NHWC, bool PC = false>
 int launch_up(const Params& p, cudaStream_t stream) {
   using S = UpSmem<BN>;
+  if (PC && p.inv_in_v == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   // Fine pixel indices (either layout) and a halo's byte offsets are 32-bit in the kernel.
   if (4LL * p.n * p.h * p.w >= (1LL << 31) || (kHalo * (p.w + 1LL)) * p.cin * 2 >= (1LL << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1262,7 +1306,7 @@ int launch_up(const Params& p, cudaStream_t stream) {
   const long long n_tiles = static_cast<long long>(p.n) * ((p.h + 7) / 8) * ((p.w + 7) / 8);
   const long long n_items = (n_tiles + 1) / 2 * ((p.cout + BN - 1) / BN);
   if (n_items == 0) return 0;
-  auto kernel = up_kernel<BN, OUT_LAYOUT>;
+  auto kernel = up_kernel<BN, OUT_LAYOUT, PC>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<static_cast<unsigned>(n_items < sm_count() ? n_items : sm_count()), 384, S::kBytes, stream>>>(p);
@@ -1334,8 +1378,9 @@ struct HaloSmem {
 // their halos through L2. Threads [0, 256): the two consumer warpgroups,
 // warpgroup g on tile 2 pair + g (past the last tile: zeros in, nothing
 // stored). Threads [256, 384): the weights' warpgroup, one thread of it
-// running ahead through the (item, chunk, half) stages.
-template <int BN, int EPI, int DIL>
+// running ahead through the (item, chunk, half) stages. PC: per-channel
+// reciprocals on load.
+template <int BN, int EPI, int DIL, bool PC = false>
 __global__ void __launch_bounds__(384, 1) halo_conv_kernel(const __grid_constant__ Params p) {
   using S = HaloSmem<BN, DIL>;
   using G = HaloGeom<DIL>;
@@ -1461,7 +1506,7 @@ __global__ void __launch_bounds__(384, 1) halo_conv_kernel(const __grid_constant
         const int q = wt + 128 * i;
         if (q < G::kPieces) {
           *reinterpret_cast<uint2*>(halo_s + (piece >> 1) * G::kPlane + (q >> 3) * 16 + (q & 1) * 8) =
-              quantize8(raw[i], p.inv_in);
+              quantize8_at<PC>(raw[i], p.inv_in, p.inv_in_v, kc * kBK + piece * 8);
         }
       }
       fence_proxy_async();  // this thread's generic-proxy stores, for wgmma
@@ -1521,9 +1566,10 @@ __global__ void __launch_bounds__(384, 1) halo_conv_kernel(const __grid_constant
 
 // Launch a stride-1 3x3 conv of dilation DIL (p.k = 3, p.dil = DIL), one
 // CTA per SM (at most one per item); returns the CUDA error code.
-template <int BN, int EPI, int DIL>
+template <int BN, int EPI, int DIL, bool PC = false>
 int launch_halo(const Params& p, cudaStream_t stream) {
   using S = HaloSmem<BN, DIL>;
+  if (PC && p.inv_in_v == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   // The last output row's and column's windows start inside the padded input.
   if (p.k != 3 || p.dil != DIL || p.ho < 1 || p.wo < 1 || p.pad < 0 || p.pad_w < 0 || p.ho - 1 - p.pad >= p.h ||
       p.wo - 1 - p.pad_w >= p.w) {
@@ -1537,7 +1583,7 @@ int launch_halo(const Params& p, cudaStream_t stream) {
   const long long n_tiles = static_cast<long long>(p.n) * ((p.ho + 7) / 8) * ((p.wo + 7) / 8);
   const long long n_items = (n_tiles + 1) / 2 * ((p.cout + BN - 1) / BN);
   if (n_items == 0) return 0;
-  auto kernel = halo_conv_kernel<BN, EPI, DIL>;
+  auto kernel = halo_conv_kernel<BN, EPI, DIL, PC>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<static_cast<unsigned>(n_items < sm_count() ? n_items : sm_count()), 384, S::kBytes, stream>>>(p);

@@ -40,40 +40,51 @@
 
 namespace {
 
-template <int STRIDE, int EPI>
+template <int STRIDE, int EPI, bool PC>
 int conv(const rs::sm90::Params& p, cudaStream_t stream) {
-  return rs::sm90::launch_dense<true, EPI, STRIDE>(p, stream);
+  return rs::sm90::launch_dense<true, EPI, STRIDE, PC>(p, stream);
 }
 
-template <int BN, int DIL>
+template <int BN, int DIL, bool PC>
 int halo_epi(const rs::sm90::Params& p, int epi, cudaStream_t stream) {
   namespace s9 = rs::sm90;
   switch (epi) {
     case rs::EPI_LINEAR:
-      return s9::launch_halo<BN, rs::EPI_LINEAR, DIL>(p, stream);
+      return s9::launch_halo<BN, rs::EPI_LINEAR, DIL, PC>(p, stream);
     case rs::EPI_RELU:
-      return s9::launch_halo<BN, rs::EPI_RELU, DIL>(p, stream);
+      return s9::launch_halo<BN, rs::EPI_RELU, DIL, PC>(p, stream);
     case rs::EPI_RESIDUAL_RELU:
-      return s9::launch_halo<BN, rs::EPI_RESIDUAL_RELU, DIL>(p, stream);
+      return s9::launch_halo<BN, rs::EPI_RESIDUAL_RELU, DIL, PC>(p, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int DIL>
+template <int DIL, bool PC>
 int halo(const rs::sm90::Params& p, int epi, cudaStream_t stream) {
-  return p.cout <= 64 ? halo_epi<64, DIL>(p, epi, stream) : halo_epi<128, DIL>(p, epi, stream);
+  return p.cout <= 64 ? halo_epi<64, DIL, PC>(p, epi, stream) : halo_epi<128, DIL, PC>(p, epi, stream);
 }
 
-template <int STRIDE>
+template <int STRIDE, bool PC>
 int conv_epi(const rs::sm90::Params& p, int epi, cudaStream_t stream) {
   switch (epi) {
     case rs::EPI_LINEAR:
-      return conv<STRIDE, rs::EPI_LINEAR>(p, stream);
+      return conv<STRIDE, rs::EPI_LINEAR, PC>(p, stream);
     case rs::EPI_RELU:
-      return conv<STRIDE, rs::EPI_RELU>(p, stream);
+      return conv<STRIDE, rs::EPI_RELU, PC>(p, stream);
     case rs::EPI_RESIDUAL_RELU:
-      return conv<STRIDE, rs::EPI_RESIDUAL_RELU>(p, stream);
+      return conv<STRIDE, rs::EPI_RESIDUAL_RELU, PC>(p, stream);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The route (qconv.route): stride 1, k = 3 and dilation 1 or 2 take the
+// halo kernel; every other conv takes conv_kernel.
+template <bool PC>
+int routed(const rs::sm90::Params& p, int k, int stride, int dil, int epi, cudaStream_t stream) {
+  if (stride == 1 && k == 3 && dil == 1) return halo<1, PC>(p, epi, stream);
+  if (stride == 1 && k == 3 && dil == 2) return halo<2, PC>(p, epi, stream);
+  if (stride == 1) return conv_epi<1, PC>(p, epi, stream);
+  if (stride == 2) return conv_epi<2, PC>(p, epi, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -81,14 +92,17 @@ int conv_epi(const rs::sm90::Params& p, int epi, cudaStream_t stream) {
 
 // x bf16 (n, h, w, cin); wp: the (k, k, cin, cout) kernel packed for the
 // route's kernel (qconv.packed_tap_slabs for the halo route, else
-// qenc.packed_weights); e = ws * s and b (or null) f32 (cout,); inv = 1 / s; out bf16
-// (n, ho, wo, cout); pad_top, pad_left: zero rows and columns before the grid.
-extern "C" int rs_int8_conv(const void* x, const void* wp, const float* e, const float* b, float inv, void* out, int n,
-                            int h, int w, int cin, int cout, int k, int stride, int dil, int pad_top, int pad_left,
-                            int ho, int wo, int epi, void* stream_ptr) {
+// qenc.packed_weights); e = ws * s and b (or null) f32 (cout,); inv = 1 / s,
+// or with per-channel scales inv_v (else null) the reciprocal vector,
+// zero-padded to a multiple of 128, and e = ws; out bf16 (n, ho, wo, cout);
+// pad_top, pad_left: zero rows and columns before the grid.
+extern "C" int rs_int8_conv(const void* x, const void* wp, const float* e, const float* b, float inv,
+                            const float* inv_v, void* out, int n, int h, int w, int cin, int cout, int k, int stride,
+                            int dil, int pad_top, int pad_left, int ho, int wo, int epi, void* stream_ptr) {
   namespace s9 = rs::sm90;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   s9::Params p = s9::conv_params(x, wp, e, b, out, inv, 0.0f, n, h, w, cin, cout, k, stride);
+  p.inv_in_v = inv_v;
   p.pad = pad_top;
   p.pad_w = pad_left;
   p.dil = dil;
@@ -98,11 +112,5 @@ extern "C" int rs_int8_conv(const void* x, const void* wp, const float* e, const
     if (cin != cout || stride != 1 || ho != h || wo != w) return static_cast<int>(cudaErrorInvalidValue);
     p.residual = static_cast<const __nv_bfloat16*>(x);
   }
-  // The route (qconv.route): stride 1, k = 3 and dilation 1 or 2 take the
-  // halo kernel; every other conv takes conv_kernel.
-  if (stride == 1 && k == 3 && dil == 1) return halo<1>(p, epi, stream);
-  if (stride == 1 && k == 3 && dil == 2) return halo<2>(p, epi, stream);
-  if (stride == 1) return conv_epi<1>(p, epi, stream);
-  if (stride == 2) return conv_epi<2>(p, epi, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return inv_v != nullptr ? routed<true>(p, k, stride, dil, epi, stream) : routed<false>(p, k, stride, dil, epi, stream);
 }

@@ -37,23 +37,30 @@
 
 namespace {
 
-template <int OUT_LAYOUT>
-int up_conv(const void* x, const void* wp, const float* e, const float* b, float inv, void* out, int n, int h, int w,
-            int cin, int cout, void* stream_ptr) {
+template <int OUT_LAYOUT, bool PC = false>
+int up_conv(const void* x, const void* wp, const float* e, const float* b, float inv, const float* inv_v, void* out,
+            int n, int h, int w, int cin, int cout, void* stream_ptr) {
   namespace s9 = rs::sm90;
-  const s9::Params p = s9::conv_params(x, wp, e, b, out, inv, 0.0f, n, h, w, cin, cout, 1);
-  return s9::launch_up<64, OUT_LAYOUT>(p, static_cast<cudaStream_t>(stream_ptr));
+  s9::Params p = s9::conv_params(x, wp, e, b, out, inv, 0.0f, n, h, w, cin, cout, 1);
+  p.inv_in_v = inv_v;
+  return s9::launch_up<64, OUT_LAYOUT, PC>(p, static_cast<cudaStream_t>(stream_ptr));
 }
 
 }  // namespace
 
 // wp: qdec.packed_parity_weights (16 slabs of 64 x 32 per output tile, chunk and half) for both.
-extern "C" int rs_parity_up_conv(const void* x, const void* wp, const float* e, const float* b, float inv, void* out,
-                                 int n, int h, int w, int cin, int cout, void* stream_ptr) {
-  return up_conv<rs::LAYOUT_NHWC>(x, wp, e, b, inv, out, n, h, w, cin, cout, stream_ptr);
+// inv_v: null (per-tensor: inv) or the per-channel reciprocal vector, zero-padded to a multiple of 128 (K5 only:
+// the parity-separated K8 runs only with per-tensor scales).
+extern "C" int rs_parity_up_conv(const void* x, const void* wp, const float* e, const float* b, float inv,
+                                 const float* inv_v, void* out, int n, int h, int w, int cin, int cout,
+                                 void* stream_ptr) {
+  if (inv_v != nullptr) {
+    return up_conv<rs::LAYOUT_NHWC, true>(x, wp, e, b, inv, inv_v, out, n, h, w, cin, cout, stream_ptr);
+  }
+  return up_conv<rs::LAYOUT_NHWC>(x, wp, e, b, inv, nullptr, out, n, h, w, cin, cout, stream_ptr);
 }
 
 extern "C" int rs_parity_up_conv_separated(const void* x, const void* wp, const float* e, const float* b, float inv,
                                            void* out, int n, int h, int w, int cin, int cout, void* stream_ptr) {
-  return up_conv<rs::LAYOUT_PLANES>(x, wp, e, b, inv, out, n, h, w, cin, cout, stream_ptr);
+  return up_conv<rs::LAYOUT_PLANES>(x, wp, e, b, inv, nullptr, out, n, h, w, cin, cout, stream_ptr);
 }

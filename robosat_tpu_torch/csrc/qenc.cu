@@ -36,30 +36,39 @@
 //   out = bf16(relu(bf16(conv3_1x1(h2)) + sc))           -> out
 //
 // qk(v) = clip(rintf(__fmul_rn(v, invk)), -127, 127): the activation quantize.
+// With per-channel scales (the "pc" calibrations: v1, v2, v3 and vd, the
+// sites' reciprocal vectors, all given) channel c is multiplied by vk[c]:
+// conv1 and the projection quantize the same x with v1 and vd, conv1's
+// and conv2's epilogues requantize with v2 and v3 (the PC instantiations).
 
 #include "int8_conv_sm90.cuh"
 
 namespace {
 
-template <int STRIDE>
+template <int STRIDE, bool PC>
 int block(const void* x, const void* w1, const float* e1, const float* b1, const void* w2, const float* e2,
           const float* b2, const void* w3, const float* e3, const float* b3, const void* wd, const float* ed,
-          const float* bd, float inv1, float inv2, float inv3, float invd, void* h1, void* h2, void* sc, void* out,
-          int n, int h, int w, int cin, int cmid, int cout, int dilation, cudaStream_t stream) {
+          const float* bd, float inv1, float inv2, float inv3, float invd, const float* v1, const float* v2,
+          const float* v3, const float* vd, void* h1, void* h2, void* sc, void* out, int n, int h, int w, int cin,
+          int cmid, int cout, int dilation, cudaStream_t stream) {
   namespace s9 = rs::sm90;
   int rc;
   s9::Params p = s9::conv_params(x, w1, e1, b1, h1, inv1, inv2, n, h, w, cin, cmid, 1);
-  if ((rc = s9::launch_dense<true, s9::EPI_RELU_Q8>(p, stream)) != 0) return rc;
+  p.inv_in_v = v1;
+  p.inv_out_v = v2;
+  if ((rc = s9::launch_dense<true, s9::EPI_RELU_Q8, 1, PC>(p, stream)) != 0) return rc;
 
   p = s9::conv_params(h1, w2, e2, b2, h2, 0.0f, inv3, n, h, w, cmid, cmid, 3, STRIDE);
+  p.inv_out_v = v3;
   p.dil = p.pad = p.pad_w = dilation;  // torch-style (d, d) padding: the output grid stays (h - 1) / STRIDE + 1
-  if ((rc = s9::launch_dense<false, s9::EPI_RELU_Q8, STRIDE>(p, stream)) != 0) return rc;
+  if ((rc = s9::launch_dense<false, s9::EPI_RELU_Q8, STRIDE, PC>(p, stream)) != 0) return rc;
   const int ho = p.ho, wo = p.wo;
 
   const void* shortcut = x;
   if (wd != nullptr) {
     p = s9::conv_params(x, wd, ed, bd, sc, invd, 0.0f, n, h, w, cin, cout, 1, STRIDE);
-    if ((rc = s9::launch_dense<true, rs::EPI_LINEAR, STRIDE>(p, stream)) != 0) return rc;
+    p.inv_in_v = vd;
+    if ((rc = s9::launch_dense<true, rs::EPI_LINEAR, STRIDE, PC>(p, stream)) != 0) return rc;
     shortcut = sc;
   }
 
@@ -68,24 +77,43 @@ int block(const void* x, const void* w1, const float* e1, const float* b1, const
   return s9::launch_dense<false, rs::EPI_RESIDUAL_RELU>(p, stream);
 }
 
+template <bool PC>
+int any_stride(const void* x, const void* w1, const float* e1, const float* b1, const void* w2, const float* e2,
+               const float* b2, const void* w3, const float* e3, const float* b3, const void* wd, const float* ed,
+               const float* bd, float inv1, float inv2, float inv3, float invd, const float* v1, const float* v2,
+               const float* v3, const float* vd, void* h1, void* h2, void* sc, void* out, int n, int h, int w,
+               int cin, int cmid, int cout, int stride, int dilation, cudaStream_t stream) {
+  if (stride == 1 && dilation >= 1) {
+    return block<1, PC>(x, w1, e1, b1, w2, e2, b2, w3, e3, b3, wd, ed, bd, inv1, inv2, inv3, invd, v1, v2, v3, vd, h1,
+                        h2, sc, out, n, h, w, cin, cmid, cout, dilation, stream);
+  }
+  if (stride == 2 && dilation == 1 && wd != nullptr) {
+    return block<2, PC>(x, w1, e1, b1, w2, e2, b2, w3, e3, b3, wd, ed, bd, inv1, inv2, inv3, invd, v1, v2, v3, vd, h1,
+                        h2, sc, out, n, h, w, cin, cmid, cout, 1, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // stride 1 (K3; wd may be null: the identity residual; conv2 at any dilation >= 1) or 2
-// (K4; even h and w, dilation 1).
+// (K4; even h and w, dilation 1). v1, v2, v3, vd: null (per-tensor: inv1..invd) or the
+// sites' per-channel reciprocal vectors (vd with wd), padded with zeros to a multiple of 128.
 extern "C" int rs_bottleneck_block(const void* x, const void* w1, const float* e1, const float* b1, const void* w2,
                                    const float* e2, const float* b2, const void* w3, const float* e3, const float* b3,
                                    const void* wd, const float* ed, const float* bd, float inv1, float inv2,
-                                   float inv3, float invd, void* h1, void* h2, void* sc, void* out, int n, int h,
-                                   int w, int cin, int cmid, int cout, int stride, int dilation,
-                                   void* stream_ptr) {
+                                   float inv3, float invd, const float* v1, const float* v2, const float* v3,
+                                   const float* vd, void* h1, void* h2, void* sc, void* out, int n, int h, int w,
+                                   int cin, int cmid, int cout, int stride, int dilation, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (stride == 1 && dilation >= 1) {
-    return block<1>(x, w1, e1, b1, w2, e2, b2, w3, e3, b3, wd, ed, bd, inv1, inv2, inv3, invd, h1, h2, sc, out, n, h, w,
-                    cin, cmid, cout, dilation, stream);
+  if (v1 == nullptr) {
+    if (v2 != nullptr || v3 != nullptr || vd != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return any_stride<false>(x, w1, e1, b1, w2, e2, b2, w3, e3, b3, wd, ed, bd, inv1, inv2, inv3, invd, v1, v2, v3,
+                             vd, h1, h2, sc, out, n, h, w, cin, cmid, cout, stride, dilation, stream);
   }
-  if (stride == 2 && dilation == 1 && wd != nullptr) {
-    return block<2>(x, w1, e1, b1, w2, e2, b2, w3, e3, b3, wd, ed, bd, inv1, inv2, inv3, invd, h1, h2, sc, out, n, h, w,
-                    cin, cmid, cout, 1, stream);
+  if (v2 == nullptr || v3 == nullptr || (wd == nullptr) != (vd == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return any_stride<true>(x, w1, e1, b1, w2, e2, b2, w3, e3, b3, wd, ed, bd, inv1, inv2, inv3, invd, v1, v2, v3, vd,
+                          h1, h2, sc, out, n, h, w, cin, cmid, cout, stride, dilation, stream);
 }

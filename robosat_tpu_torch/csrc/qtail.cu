@@ -59,14 +59,22 @@ int tail_params(s9::TailParams& tp, const void* x, const void* blocks, const int
 
 // dec4 (bf16 x in LAYOUT -> int8 y4, NHWC) then dec5 (y4 -> out: EPI5 = the
 // head, uint8 NHWC, or relu'd bf16 in LAYOUT) over the (n, h, w) grid.
+// v4, v5: null (per-tensor: inv4, inv5) or dec4's and dec5's per-channel
+// reciprocal vectors (128 each), dec4's quantize on load and its epilogue's.
 template <int EPI5, int LAYOUT>
 int tail_convs(const void* x, const void* b4, const int* t4, int n4, const float* e4, const void* b5, const int* t5,
-               int n5, const float* e5, const float* wmb, int crop, float inv4, float inv5, void* y4, void* out, int n,
-               int h, int w, void* stream_ptr) {
+               int n5, const float* e5, const float* wmb, int crop, float inv4, float inv5, const float* v4,
+               const float* v5, void* y4, void* out, int n, int h, int w, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if ((v4 == nullptr) != (v5 == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   s9::TailParams tp;
   int rc = tail_params(tp, x, b4, t4, n4, e4, y4, inv4, inv5, n, h, w);
-  if (rc == 0) rc = s9::launch_tail<true, s9::EPI_RELU_Q8, LAYOUT, rs::LAYOUT_NHWC>(tp, stream);
+  tp.conv.inv_in_v = v4;
+  tp.conv.inv_out_v = v5;
+  if (rc == 0) {
+    rc = v4 != nullptr ? s9::launch_tail<true, s9::EPI_RELU_Q8, LAYOUT, rs::LAYOUT_NHWC, true>(tp, stream)
+                       : s9::launch_tail<true, s9::EPI_RELU_Q8, LAYOUT, rs::LAYOUT_NHWC>(tp, stream);
+  }
   if (rc == 0) rc = tail_params(tp, y4, b5, t5, n5, e5, out, 0.0f, 0.0f, n, h, w);
   if (rc != 0) return rc;
   tp.conv.wmb = wmb;
@@ -78,20 +86,23 @@ int tail_convs(const void* x, const void* b4, const int* t4, int n4, const float
 
 // b4 / b5: the listed weight blocks of dec4 / dec5 and a zero block
 // (device, packed), t4 / t5 their MMA tables (host), n4 / n5 packed
-// blocks; y4: (n, h, w, 128) int8 scratch.
+// blocks; v4 / v5: null or the per-channel reciprocal vectors; y4:
+// (n, h, w, 128) int8 scratch.
 extern "C" int rs_fused_tail(const void* x, const void* b4, const int* t4, int n4, const float* e4, const void* b5,
                              const int* t5, int n5, const float* e5, const float* wmb, float inv4, float inv5,
-                             void* y4, void* out, int n, int h, int w, int o, void* stream_ptr) {
-  return tail_convs<s9::EPI_HEAD, rs::LAYOUT_NHWC>(x, b4, t4, n4, e4, b5, t5, n5, e5, wmb, o, inv4, inv5, y4, out, n,
-                                                   h, w, stream_ptr);
+                             const float* v4, const float* v5, void* y4, void* out, int n, int h, int w, int o,
+                             void* stream_ptr) {
+  return tail_convs<s9::EPI_HEAD, rs::LAYOUT_NHWC>(x, b4, t4, n4, e4, b5, t5, n5, e5, wmb, o, inv4, inv5, v4, v5, y4,
+                                                   out, n, h, w, stream_ptr);
 }
 
 // y5: (n, h, w, 128) bf16.
 extern "C" int rs_fused_tail_features(const void* x, const void* b4, const int* t4, int n4, const float* e4,
                                       const void* b5, const int* t5, int n5, const float* e5, float inv4, float inv5,
-                                      void* y4, void* y5, int n, int h, int w, void* stream_ptr) {
-  return tail_convs<rs::EPI_RELU, rs::LAYOUT_NHWC>(x, b4, t4, n4, e4, b5, t5, n5, e5, nullptr, 0, inv4, inv5, y4, y5,
-                                                   n, h, w, stream_ptr);
+                                      const float* v4, const float* v5, void* y4, void* y5, int n, int h, int w,
+                                      void* stream_ptr) {
+  return tail_convs<rs::EPI_RELU, rs::LAYOUT_NHWC>(x, b4, t4, n4, e4, b5, t5, n5, e5, nullptr, 0, inv4, inv5, v4, v5,
+                                                   y4, y5, n, h, w, stream_ptr);
 }
 
 // x, y5: (n, hc, wc, 512) parity planes of the (n, 2 hc, 2 wc, 128) grid;
@@ -99,6 +110,6 @@ extern "C" int rs_fused_tail_features(const void* x, const void* b4, const int* 
 extern "C" int rs_fused_tail_features_sep(const void* x, const void* b4, const int* t4, int n4, const float* e4,
                                           const void* b5, const int* t5, int n5, const float* e5, float inv4,
                                           float inv5, void* y4, void* y5, int n, int hc, int wc, void* stream_ptr) {
-  return tail_convs<rs::EPI_RELU, rs::LAYOUT_PLANES>(x, b4, t4, n4, e4, b5, t5, n5, e5, nullptr, 0, inv4, inv5, y4,
-                                                     y5, n, 2 * hc, 2 * wc, stream_ptr);
+  return tail_convs<rs::EPI_RELU, rs::LAYOUT_PLANES>(x, b4, t4, n4, e4, b5, t5, n5, e5, nullptr, 0, inv4, inv5, nullptr,
+                                                     nullptr, y4, y5, n, 2 * hc, 2 * wc, stream_ptr);
 }

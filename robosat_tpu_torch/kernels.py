@@ -27,18 +27,22 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, (w, e, b) x 4 [conv1, conv2, conv3, down], inv x 4, h1, h2, sc, out, n, h, w, cin, cmid, cout, stride,
-    # dilation, stream
-    "rs_bottleneck_block": [_P] * 13 + [_F] * 4 + [_P] * 4 + [_I] * 8 + [_P],
+    # x, (w, e, b) x 4 [conv1, conv2, conv3, down], inv x 4, inv vector x 4, h1, h2, sc, out, n, h, w, cin, cmid,
+    # cout, stride, dilation, stream
+    "rs_bottleneck_block": [_P] * 13 + [_F] * 4 + [_P] * 8 + [_I] * 8 + [_P],
+    # x, w, e, b, inv, inv vector, out, n, h, w, cin, cout, stream
+    "rs_parity_up_conv": [_P, _P, _P, _P, _F, _P, _P] + [_I] * 5 + [_P],
     # x, w, e, b, inv, out, n, h, w, cin, cout, stream
-    "rs_parity_up_conv": [_P, _P, _P, _P, _F, _P] + [_I] * 5 + [_P],
     "rs_parity_up_conv_separated": [_P, _P, _P, _P, _F, _P] + [_I] * 5 + [_P],
-    # x, w, e, b, inv, out, n, h, w, cin, cout, k, stride, dil, pad_top, pad_left, ho, wo, epilogue, stream
-    "rs_int8_conv": [_P, _P, _P, _P, _F, _P] + [_I] * 13 + [_P],
-    # x, (blocks, table, n_blocks, e) x 2 [dec4, dec5], wmb, inv4, inv5, y4, out, n, h, w, o, stream
-    "rs_fused_tail": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _F, _F, _P, _P] + [_I] * 4 + [_P],
-    # x, (blocks, table, n_blocks, e) x 2 [dec4, dec5], inv4, inv5, y4, y5, n, h, w (planes: hc, wc), stream
-    "rs_fused_tail_features": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _F, _P, _P] + [_I] * 3 + [_P],
+    # x, w, e, b, inv, inv vector, out, n, h, w, cin, cout, k, stride, dil, pad_top, pad_left, ho, wo, epilogue,
+    # stream
+    "rs_int8_conv": [_P, _P, _P, _P, _F, _P, _P] + [_I] * 13 + [_P],
+    # x, (blocks, table, n_blocks, e) x 2 [dec4, dec5], wmb, inv4, inv5, inv vectors 4 and 5, y4, out, n, h, w, o,
+    # stream
+    "rs_fused_tail": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _F, _F, _P, _P, _P, _P] + [_I] * 4 + [_P],
+    # x, (blocks, table, n_blocks, e) x 2 [dec4, dec5], inv4, inv5, inv vectors 4 and 5, y4, y5, n, h, w, stream
+    "rs_fused_tail_features": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _F, _P, _P, _P, _P] + [_I] * 3 + [_P],
+    # x, (blocks, table, n_blocks, e) x 2 [dec4, dec5], inv4, inv5, y4, y5, hc, wc, stream
     "rs_fused_tail_features_sep": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _F, _P, _P] + [_I] * 3 + [_P],
     # features, wmb, out, n, h, w, groups, o, bf16, stream
     "rs_margin_head": [_P] * 3 + [_I] * 6 + [_P],

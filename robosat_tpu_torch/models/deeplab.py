@@ -164,15 +164,19 @@ def quantize_folded_int8(folded, act_amaxes=None):
     """Folded tree -> int8 tree: the bottleneck stages, ASPP's convs and
     projection and the decoder's two convs per-output-channel int8; the
     stem, the pool branch, the low-level projection and the classifier stay
-    float. Per-tensor activation scales only: `act_amaxes` (the per-channel
-    "pc" calibration) raises."""
-    if act_amaxes is not None:
-        raise NotImplementedError(q8._PER_CHANNEL)
-    q = {"encoder": q8.quantize_encoder_stages(folded["encoder"])}
+    float. With `act_amaxes` (the "pc" calibration: one per-input-channel
+    range vector per site, in the walk's order) each site's balanced scales
+    fold into its kernel (int8.ScaleCursor) and the function returns
+    (qtree, scale vectors)."""
+    cursor = q8.ScaleCursor(act_amaxes)
+    q = {"encoder": q8.quantize_encoder_stages(folded["encoder"], cursor)}
     for name, _ in DENSE_SITES:
-        q[name] = q8._qconv(folded[name])
+        q[name] = q8._qconv_pc(folded[name], cursor)
+    cursor.assert_done()
     for name in ("aspp_pool", "lowlevel", "final"):
         q[name] = dict(folded[name])
+    if act_amaxes is not None:
+        return q, cursor.out_scales
     return q
 
 
@@ -228,11 +232,11 @@ def calibration_amaxes_int8(folded, x, blocked=False, percentile=None):
     """Per-site input amaxes (or |x| percentiles, or grid clips) from one
     float32 forward over normalized x, fine (N, H, W, 3) or with `blocked`
     4x4 space-to-depth (N, H/4, W/4, 48); a float32 vector of 59 on the
-    host in site order."""
+    host in site order, or for a per-channel spec a list of 59 vectors."""
     sites = q8._Sites(scales=None, percentile=percentile)
     with torch.no_grad():
         _walk_int8(folded, x.float(), sites, float_mode=True, blocked=blocked)
-    return torch.stack(sites.taps).float().cpu()
+    return q8.site_taps(sites, percentile)
 
 
 def predict_quantized_int8(qtree, scales, x, overlap=0, blocked=False, plain=False):

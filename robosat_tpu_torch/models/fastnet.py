@@ -209,14 +209,21 @@ def predict_quantized_folded(folded, x, overlap=0):
 def quantize_folded_int8(folded, act_amaxes=None):
     """Folded tree -> int8 tree: per-output-channel int8 kernels, the
     up-convs in their 4x4 parity-combined form (K5's weights), the head
-    float. Per-tensor activation scales only: `act_amaxes` (the per-channel
-    "pc" calibration) raises."""
-    if act_amaxes is not None:
-        raise NotImplementedError(q8._PER_CHANNEL)
-    q = {name: q8._qconv(folded[name]) for name in _ENC}
+    float. With `act_amaxes` (the "pc" calibration: one per-input-channel
+    range vector per site, _ENC then _DEC) each site's balanced scales fold
+    into its kernel (int8.ScaleCursor) and the function returns (qtree,
+    scale vectors)."""
+    cursor = q8.ScaleCursor(act_amaxes)
+    q = {name: q8._qconv_pc(folded[name], cursor) for name in _ENC}
     for name in _DEC:
-        q[name] = q8._qkernel(fused_k4(folded[name]["w"].float())) if name.startswith("u") else q8._qconv(folded[name])
+        if name.startswith("u"):
+            q[name] = q8._qkernel_pc(fused_k4(folded[name]["w"].float()), cursor)
+        else:
+            q[name] = q8._qconv_pc(folded[name], cursor)
+    cursor.assert_done()
     q["final"] = dict(folded["final"])
+    if act_amaxes is not None:
+        return q, cursor.out_scales
     return q
 
 
@@ -300,12 +307,13 @@ def calibration_amaxes_int8(folded, x, blocked=False, percentile=None):
     """Per-conv-site input amaxes (or |x| percentiles, or grid clips) from
     one float32 forward over normalized x, fine (N, H, W, 3) or with
     `blocked` 4x4 space-to-depth (N, H/4, W/4, 48); a float32 vector of 15
-    on the host in conv-site order."""
+    on the host in conv-site order, or for a per-channel spec a list of one
+    vector per site."""
     x48 = x if blocked else space_to_depth4(x)
     sites = q8._Sites(scales=None, percentile=percentile)
     with torch.no_grad():
         _walk48_sites(folded, x48.float(), sites, float_mode=True)
-    return torch.stack(sites.taps).float().cpu()
+    return q8.site_taps(sites, percentile)
 
 
 def predict_quantized_int8(qtree, scales, x, overlap=0, blocked=False, plain=False):

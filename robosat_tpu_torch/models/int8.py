@@ -1,14 +1,20 @@
 """Hybrid int8 inference datapath of the U-Net: bf16 stem, int8 elsewhere.
 
-Counterpart of robosat_tpu/models/int8.py in its per-tensor modes:
+Counterpart of robosat_tpu/models/int8.py:
 
 - weights: symmetric per-output-channel int8, quantized once at load, the
   decoder in its rewritten forms (4x4 parity-combined kernels for
   center..dec3, the s2d kernels for dec4/dec5);
-- activations: symmetric per-tensor int8 with static scales from a
-  one-batch float calibration (per site: amax, a percentile of |x|, or the
-  clip of a grid of amax fractions that minimizes the mean squared ("mse")
-  or absolute ("mae") quantize-dequantize error);
+- activations: symmetric int8 with static scales from a one-batch float
+  calibration. Per tensor, a site's scale is its amax, a percentile of |x|,
+  or the clip of a grid of amax fractions that minimizes the mean squared
+  ("mse") or absolute ("mae") quantize-dequantize error, over 127. Per
+  channel ("pc", "pcamax": the amax of each input channel; "pc<p>": its
+  p-th percentile), `ScaleCursor` balances each channel's activation range
+  against the kernel's weight range on that input channel, folds the
+  resulting scale vector s into the kernel before its weights are
+  quantized (W[..., c, :] * s_c), and the site quantizes x_c with 1 / s_c
+  and dequantizes with the weight scale alone;
 - the stem stays bf16: the fine 7x7/s2 conv and max pool, or on 4x4
   host-blocked input (`blocked`) their space-to-depth form;
 - every int8 site runs through a hand-written CUDA kernel on the GPU:
@@ -51,8 +57,6 @@ from robosat_tpu_torch.models.layers import (
 from robosat_tpu_torch.models.layers import fused_k4 as _fused_k4  # the 4x4 parity-combined kernel
 from robosat_tpu_torch.models.resnet import RESNET50_STAGES, stem_folded, stem_folded_s2d4, walk_stages
 
-_PER_CHANNEL = "per-channel int8 calibration ('pc' modes) is not ported yet (ROADMAP Queue 1, item 3)"
-
 # Candidate clip fractions of the site amax for the "mse"/"mae" grids.
 _MSE_GRID = np.geomspace(0.02, 1.0, 28).astype(np.float32)
 
@@ -62,41 +66,98 @@ _RECIP_127 = float(np.float32(1.0) / np.float32(127.0))
 
 
 def _quantize_weight(w, act_scale=None):
-    """HWIO float kernel -> (int8 kernel, float32 per-output-channel scale)."""
-    if act_scale is not None:
-        raise NotImplementedError(_PER_CHANNEL)
+    """HWIO float kernel -> (int8 kernel, float32 per-output-channel scale).
+    With `act_scale`, a per-input-channel vector ("pc"), the kernel is
+    first multiplied by it along its input axis: W[..., c, :] * s_c."""
     w = w.float()
+    if act_scale is not None:
+        w = w * torch.as_tensor(act_scale, dtype=torch.float32, device=w.device)[:, None]
     scale = torch.clamp_min(w.abs().amax(dim=(0, 1, 2)), 1e-12) * _RECIP_127
     wq = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return wq, scale
 
 
-def _qconv(node):
-    wq, ws = _quantize_weight(node["w"])
+def _qconv(node, act_scale=None):
+    wq, ws = _quantize_weight(node["w"], act_scale)
     out = {"wq": wq, "ws": ws}
     if "b" in node:
         out["b"] = node["b"].float()
     return out
 
 
-def _qkernel(k):
-    """Pre-rewritten float kernel -> {"wq", "ws"} (per-output-channel)."""
-    wq, ws = _quantize_weight(k)
+def _qkernel(k, act_scale=None):
+    """Pre-rewritten float kernel -> {"wq", "ws"} (per-output-channel),
+    `act_scale` folded along its input axis first (see _quantize_weight)."""
+    wq, ws = _quantize_weight(k, act_scale)
     return {"wq": wq, "ws": ws}
 
 
-def quantize_encoder_stages(enc):
-    """The four bottleneck stages quantized (conv1, conv2, conv3, down_conv
-    per block); the stem stays float."""
+class ScaleCursor:
+    """Positional planner of the per-channel ("pc") scales, consumed by the
+    quantizers in the walk's site order, as the JAX package's.
+
+    Per site it balances the calibrated per-input-channel activation range
+    a_c against the kernel's per-input-channel weight range w_c:
+    s_c = sqrt(a_c / w_c), then scaled so that max_c(a_c / s_c) = 127, in
+    the arithmetic XLA compiles the JAX package's to (the division by 127 a
+    multiply by its f32 reciprocal, the square root correctly rounded).
+    `out_scales` collects the vectors, on the kernel's device, which the
+    walk must quantize with. Without amaxes (per-tensor modes) fold_scale
+    returns None."""
+
+    def __init__(self, act_amaxes=None):
+        self.act_amaxes = None if act_amaxes is None else list(act_amaxes)
+        self.idx = 0
+        self.out_scales = []
+
+    def fold_scale(self, kernel):
+        if self.act_amaxes is None:
+            return None
+        assert self.idx < len(self.act_amaxes), (
+            "act-amax count mismatch: more conv sites than the {} amax vectors".format(len(self.act_amaxes))
+        )
+        a = torch.clamp_min(torch.as_tensor(self.act_amaxes[self.idx], dtype=torch.float32, device=kernel.device),
+                            1e-12)
+        self.idx += 1
+        w_amax = torch.clamp_min(kernel.float().abs().amax(dim=(0, 1, 3)), 1e-12)
+        # The square root rounded once to f32, as XLA's (torch's f32 sqrt
+        # on the CPU is not correctly rounded; through float64 it is).
+        s = torch.sqrt((a / w_amax).double()).float()
+        s = s * ((a / s).amax() * _RECIP_127)
+        self.out_scales.append(s)
+        return s
+
+    def assert_done(self):
+        if self.act_amaxes is not None:
+            assert self.idx == len(self.act_amaxes), (
+                "act-amax count mismatch: consumed {} of {}".format(self.idx, len(self.act_amaxes))
+            )
+
+
+def _qconv_pc(node, cursor):
+    """_qconv with the cursor planning this site's per-channel fold."""
+    return _qconv(node, cursor.fold_scale(node["w"]))
+
+
+def _qkernel_pc(k, cursor):
+    """_qkernel on a pre-rewritten kernel, the cursor planning its fold."""
+    return _qkernel(k, cursor.fold_scale(k))
+
+
+def quantize_encoder_stages(enc, cursor=None):
+    """The four bottleneck stages quantized in walk order (conv1, conv2,
+    conv3, down_conv per block), each site's per-channel fold planned by
+    `cursor` ("pc"; None: per-tensor); the stem stays float."""
+    cursor = ScaleCursor() if cursor is None else cursor
     qenc = {"conv1": dict(enc["conv1"])}
     for si, (blocks, _) in enumerate(RESNET50_STAGES):
         name = "layer{}".format(si + 1)
         stage = []
         for bi in range(blocks):
             fb = enc[name][bi]
-            qb = {k: _qconv(fb[k]) for k in ("conv1", "conv2", "conv3")}
+            qb = {k: _qconv_pc(fb[k], cursor) for k in ("conv1", "conv2", "conv3")}
             if "down_conv" in fb:
-                qb["down_conv"] = _qconv(fb["down_conv"])
+                qb["down_conv"] = _qconv_pc(fb["down_conv"], cursor)
             stage.append(qb)
         qenc[name] = stage
     return qenc
@@ -104,32 +165,90 @@ def quantize_encoder_stages(enc):
 
 def quantize_unet_folded(folded, act_amaxes=None):
     """BN-folded U-Net params -> hybrid tree: bottleneck stages and decoder
-    int8 (the decoder in its rewritten kernel forms), stem and head float."""
-    if act_amaxes is not None:
-        raise NotImplementedError(_PER_CHANNEL)
-    q = {"encoder": quantize_encoder_stages(folded["encoder"])}
+    int8 (the decoder in its rewritten kernel forms), stem and head float.
+
+    With `act_amaxes` (the "pc" calibration: one per-input-channel range
+    vector per site, in walk order) each site's balanced scales fold into
+    its kernel (ScaleCursor) and the function returns (qtree, scale
+    vectors); the decoder's vectors are over the rewritten kernels' input
+    channels, the tensors the calibration walk tapped."""
+    cursor = ScaleCursor(act_amaxes)
+    q = {"encoder": quantize_encoder_stages(folded["encoder"], cursor)}
     for name in ("center", "dec0", "dec1", "dec2", "dec3"):
-        q[name] = _qkernel(_fused_k4(folded[name]["w"].float()))
-    q["dec4"] = _qkernel(s2d_up_conv3x3_kernel(folded["dec4"]["w"].float()))
-    q["dec5"] = _qkernel(s2d_conv3x3_kernel(folded["dec5"]["w"].float()))
+        q[name] = _qkernel_pc(_fused_k4(folded[name]["w"].float()), cursor)
+    q["dec4"] = _qkernel_pc(s2d_up_conv3x3_kernel(folded["dec4"]["w"].float()), cursor)
+    q["dec5"] = _qkernel_pc(s2d_conv3x3_kernel(folded["dec5"]["w"].float()), cursor)
+    cursor.assert_done()
     q["final"] = dict(folded["final"])
+    if act_amaxes is not None:
+        return q, cursor.out_scales
     return q
+
+
+def is_vector(scale):
+    """True for a per-channel site scale: a 1-d host float32 vector."""
+    return isinstance(scale, np.ndarray) and scale.ndim == 1
+
+
+def host_scales(scale_list):
+    """ScaleCursor's vectors as the walk consumes them: host float32 arrays."""
+    return [np.asarray(torch.as_tensor(s).cpu(), np.float32) for s in scale_list]
 
 
 def _act_inv(scale):
     """The host-f32 reciprocal every quantizer multiplies by (division is
-    reciprocal-approximated differently per backend; this is not)."""
-    if isinstance(scale, np.ndarray) and scale.ndim == 1:
-        raise NotImplementedError(_PER_CHANNEL)
+    reciprocal-approximated differently per backend; this is not): a float,
+    or for a per-channel vector a float32 vector."""
+    if is_vector(scale):
+        return np.float32(1.0) / np.asarray(scale, np.float32)
     return float(np.float32(1.0) / np.float32(scale))
 
 
+def device_inv(node, scale, device, channels=None):
+    """A per-channel site's reciprocals (`_act_inv` of its vector) as the
+    CUDA kernels read them: float32 on `device`, zero-padded to a multiple
+    of 128 channels (the kernels pad input channels to 64 and output
+    channels to 128), cached on the site's node for the last vector given.
+    `channels` checks the vector's length against the site's input."""
+    scale = np.asarray(scale, np.float32)
+    if channels is not None and scale.shape != (channels,):
+        raise ValueError("a per-channel scale of {} channels (got shape {})".format(channels, scale.shape))
+    key = scale.tobytes()
+    cached = node.get("inv_v")
+    if cached is None or cached[0] != key or cached[1].device != device:
+        padded = np.zeros(-(-scale.size // 128) * 128, np.float32)
+        padded[:scale.size] = _act_inv(scale)
+        cached = node["inv_v"] = (key, torch.from_numpy(padded).to(device))
+    return cached[1]
+
+
+def kernel_inv(node, scale, device, channels):
+    """A site's scale as a kernel takes it: (1 / s, None) per tensor, or
+    (0.0, the reciprocal vector on the card, `device_inv`) per channel."""
+    if is_vector(scale):
+        return 0.0, device_inv(node, scale, device, channels)
+    return _act_inv(scale), None
+
+
+def check_one_kind(scales):
+    """Raise a ValueError for a mix of per-tensor and per-channel scales
+    (None skipped), which no kernel launch takes."""
+    if len({is_vector(s) for s in scales if s is not None}) > 1:
+        raise ValueError("the scales of one launch are all per-tensor or all per-channel vectors")
+
+
 def _quantize_act(x, scale):
-    return torch.clamp(torch.round(x.float() * _act_inv(scale)), -127, 127).to(torch.int8)
+    inv = _act_inv(scale)
+    if isinstance(inv, np.ndarray):
+        inv = torch.from_numpy(inv).to(x.device)
+    return torch.clamp(torch.round(x.float() * inv), -127, 127).to(torch.int8)
 
 
 def scaled_ws(node, scale):
-    """The dequant scale ws * f32(s), rounded once in f32."""
+    """The dequant scale ws * f32(s), rounded once in f32; a per-channel
+    vector is folded into the weights, so it dequantizes by ws alone."""
+    if is_vector(scale):
+        return node["ws"]
     return node["ws"] * float(np.float32(scale))
 
 
@@ -166,8 +285,7 @@ def is_per_channel(spec):
 def calibration_spec(calib):
     """A config's `int8_calibration` as the walk's percentile spec: None
     for "amax", "mse"/"mae" as they are, a float percentile, or a "pc..."
-    spec, whose percentile is checked here (the walk then raises: the
-    per-channel modes are not ported yet)."""
+    spec, whose percentile is checked here."""
     if calib in ("amax", None):
         return None
     if calib in ("mse", "mae"):
@@ -222,8 +340,6 @@ class _Sites:
     """Positional conv-site cursor shared by calibration and inference."""
 
     def __init__(self, scales=None, percentile=None):
-        if isinstance(percentile, str) and percentile not in ("mse", "mae"):
-            raise NotImplementedError(_PER_CHANNEL)
         self.scales = scales
         self.percentile = percentile
         self.taps = []
@@ -232,7 +348,12 @@ class _Sites:
     def next_scale(self, x):
         if self.scales is None:
             a = x.detach().float().abs()
-            if self.percentile is None:
+            if is_per_channel(self.percentile):
+                # Per input channel, over batch and space: its amax
+                # ("pc", "pcamax") or its percentile ("pc<p>").
+                spec, a = self.percentile[2:], a.reshape(-1, a.shape[-1])
+                self.taps.append(a.amax(dim=0) if spec in ("", "amax") else _percentile(a, float(spec)))
+            elif self.percentile is None:
                 self.taps.append(a.amax())
             elif self.percentile in ("mse", "mae"):
                 self.taps.append(_grid_clip(a, self.percentile == "mse"))
@@ -241,7 +362,7 @@ class _Sites:
             return 1.0  # calibration runs in float; the scale is unused
         s = self.scales[self.idx]
         self.idx += 1
-        return float(s)
+        return s if is_vector(s) else float(s)
 
 
 def _grid_clip(a, squared):
@@ -263,17 +384,18 @@ def _grid_clip(a, squared):
 
 
 def _percentile(flat, percentile):
-    """jnp.percentile's linear interpolation, its index arithmetic in f32 as
-    the JAX package computes it; the order statistics come from kthvalue
-    (torch.quantile refuses inputs above 2**24 elements)."""
+    """jnp.percentile's linear interpolation along dim 0 (of all values of a
+    1-d `flat`, of each column of a 2-d one), its index arithmetic in f32
+    as the JAX package computes it; the order statistics come from
+    kthvalue (torch.quantile refuses inputs above 2**24 elements)."""
     f32 = np.float32
-    n = flat.numel()
+    n = flat.shape[0]
     pos = (f32(percentile) / f32(100.0)) * (f32(n) - f32(1.0))
     low, high = np.floor(pos), np.ceil(pos)
     hw = f32(pos - low)
     lw = f32(f32(1.0) - hw)
-    lo = flat.kthvalue(int(min(max(low, 0), n - 1)) + 1).values
-    hi = flat.kthvalue(int(min(max(high, 0), n - 1)) + 1).values
+    lo = flat.kthvalue(int(min(max(low, 0), n - 1)) + 1, dim=0).values
+    hi = flat.kthvalue(int(min(max(high, 0), n - 1)) + 1, dim=0).values
     return lo * float(lw) + hi * float(hw)
 
 
@@ -375,10 +497,18 @@ def calibration_amaxes(folded, x, blocked=False, percentile=None):
     """Per-conv-site input amaxes (or |activation| percentiles, or grid
     clips) from one float32 forward over the normalized batch `x` (fine, or
     4x4-blocked with `blocked`); a float32 vector on the host in conv-site
-    order."""
+    order, or for a per-channel spec a list of one vector per site."""
     sites = _Sites(scales=None, percentile=percentile)
     with torch.no_grad():
         _walk(folded, x.float(), sites, float_mode=True, blocked=blocked)
+    return site_taps(sites, percentile)
+
+
+def site_taps(sites, percentile):
+    """A calibration's taps on the host: stacked into one float32 vector,
+    or (per-channel spec) a ragged list of float32 vectors."""
+    if is_per_channel(percentile):
+        return [t.float().cpu() for t in sites.taps]
     return torch.stack(sites.taps).float().cpu()
 
 

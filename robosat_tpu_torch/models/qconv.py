@@ -19,9 +19,10 @@ dilation 1 or 2 runs halo_conv_kernel (one halo per 8 x 8-pixel output
 tile and 64-channel chunk, weights packed by `packed_tap_slabs`; its tiles
 are `halo_plan`'s), every other conv conv_kernel with a bf16 input
 (weights packed by `qenc.packed_weights`). The packing and the scale
-product ws * s are cached per site (`site_operands`). On a CPU tensor it
-runs `int8_conv_plain`. Activations are bf16 NHWC, channel counts
-multiples of 16.
+product ws * s (for a per-channel vector scale, the "pc" calibrations:
+ws, and the reciprocal vector on the card) are cached per site
+(`site_operands`). On a CPU tensor it runs `int8_conv_plain`. Activations
+are bf16 NHWC, channel counts multiples of 16.
 """
 
 from collections import namedtuple
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 from robosat_tpu_torch import kernels
-from robosat_tpu_torch.models.int8 import _act_inv, _int8_conv, scaled_ws
+from robosat_tpu_torch.models.int8 import _int8_conv, is_vector, kernel_inv, scaled_ws
 from robosat_tpu_torch.models.layers import _same_pads
 from robosat_tpu_torch.models.qenc import packed_weights
 
@@ -119,13 +120,16 @@ def halo_origin(plan, tile, pads):
 
 
 def site_operands(node, scale, stride=1, dilation=1):
-    """(packed weights for the conv's route, ws * s, 1 / s) of a site,
-    cached on the node (ws * s and 1 / s for the last scale given): the
+    """(packed weights for the conv's route, ws * s, 1 / s) of a site, or
+    for a per-channel vector scale (packed weights, ws, the reciprocal
+    vector on the card), cached on the node for the last scale given (a
+    vector keyed by its bytes, so no other scale reuses its operands): the
     tree is quantized once and every batch reuses them."""
-    key = float(np.float32(scale))
+    key = ("pc", np.asarray(scale, np.float32).tobytes()) if is_vector(scale) else float(np.float32(scale))
     cached = node.get("site")
     if cached is None or cached[0] != key:
-        cached = node["site"] = (key, scaled_ws(node, scale).contiguous(), _act_inv(scale))
+        inv, inv_v = kernel_inv(node, scale, node["wq"].device, node["wq"].shape[2])
+        cached = node["site"] = (key, scaled_ws(node, scale).contiguous(), inv if inv_v is None else inv_v)
     packer = packed_tap_slabs if route(node["wq"].shape[0], stride, dilation) == "halo" else packed_weights
     return (packer(node),) + cached[1:]
 
@@ -152,6 +156,7 @@ def _launch(x, node, scale, stride, dilation, padding, epilogue):
     if epilogue == "residual_relu" and (cin != cout or (ho, wo) != (h, w)):
         raise ValueError("the residual is the conv's input: Cin == Cout and an output grid of the input's size")
     wp, e, inv = site_operands(node, scale, stride, dilation)
+    inv, inv_v = (0.0, inv) if torch.is_tensor(inv) else (inv, None)
     if route(k, stride, dilation) == "halo":
         bn = halo_bn(cout)
         kernels.check_cuda(wp, "wp", torch.int8, (-(-cout // bn) * -(-cin // 64) * 18, bn * 32))
@@ -163,8 +168,8 @@ def _launch(x, node, scale, stride, dilation, padding, epilogue):
         b = kernels.check_cuda(b, "b", torch.float32, (cout,))
     out = torch.empty((n, ho, wo, cout), dtype=torch.bfloat16, device=x.device)
     p = kernels.ptr
-    kernels.launch("rs_int8_conv", p(x), p(wp), p(e), p(b), inv, p(out), n, h, w, cin, cout, k, stride, dilation,
-                   pt, pl, ho, wo, EPILOGUES[epilogue])
+    kernels.launch("rs_int8_conv", p(x), p(wp), p(e), p(b), inv, p(inv_v), p(out), n, h, w, cin, cout, k, stride,
+                   dilation, pt, pl, ho, wo, EPILOGUES[epilogue])
     return out
 
 

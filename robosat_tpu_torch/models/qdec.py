@@ -16,13 +16,16 @@ relu(bf16(acc * (ws * s) + b)), bit for bit the JAX package's up_block.
 Cout): space_to_depth2 of K5's output. On a CUDA tensor each launches
 csrc/qdec.cu: both run csrc/int8_conv_sm90.cuh's up_kernel on the weights of
 `packed_parity_weights`, K5 storing the fine NHWC grid and K8 its parity
-planes. On a CPU tensor each runs its `_plain` version.
+planes. On a CPU tensor each runs its `_plain` version. `s_in` is a
+per-tensor float or, for K5 only, a per-channel vector (the "pc"
+calibrations; the separated K8 serves `pallas_tail = "sep"`, which the
+per-channel modes refuse, and raises on one).
 """
 
 import torch
 
 from robosat_tpu_torch import kernels
-from robosat_tpu_torch.models.int8 import _act_inv, _int8_acc, _quantize_act, scaled_ws
+from robosat_tpu_torch.models.int8 import _int8_acc, _quantize_act, is_vector, kernel_inv, scaled_ws
 
 # Output parity -> (coarse row offsets, k4 rows), offsets ascending.
 _PARITY_TAPS = {0: ((-1, 0), (0, 2)), 1: ((0, 1), (1, 3))}
@@ -130,7 +133,9 @@ def _launch(x, node, s_in, separated):
         b = kernels.check_cuda(b, "b", torch.float32, (cout,))
     out = torch.empty(out_shape, dtype=torch.bfloat16, device=x.device)
     p = kernels.ptr
-    kernels.launch(entry, p(x), p(wp), p(e), p(b), _act_inv(s_in), p(out), n, h, w, cin, cout)
+    inv, inv_v = kernel_inv(node, s_in, x.device, cin)
+    vector = [] if separated else [p(inv_v)]
+    kernels.launch(entry, p(x), p(wp), p(e), p(b), inv, *vector, p(out), n, h, w, cin, cout)
     return out
 
 
@@ -152,6 +157,9 @@ parity_up_conv.launches = 0
 def parity_up_conv_separated(x, node, s_in):
     """int8 up-block with parity-separated output: bf16 x (N, H, W, Cin) ->
     relu'd (N, H, W, 4 Cout), space_to_depth2 of `parity_up_conv`'s."""
+    if is_vector(s_in):
+        raise ValueError("parity_up_conv_separated takes a per-tensor scale: the per-channel ('pc...') modes refuse "
+                         "pallas_tail")
     if x.device.type == "cpu":
         return parity_up_conv_separated_plain(x, node, s_in)
     out = _launch(x, node, s_in, separated=True)

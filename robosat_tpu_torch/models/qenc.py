@@ -11,17 +11,20 @@ stride-2 projection) compute, bit for bit,
     relu(inner + shortcut)      # f32 add of the bf16 operands, one rounding
 
 with d = 1, or for a stride-1 block a dilation d (DeepLab's layer4: d = 2).
-On a CUDA tensor they launch one C entry (csrc/qenc.cu) that runs the block
-as 3-4 launches of the pipelined wgmma conv of csrc/int8_conv_sm90.cuh,
-with weights packed by `packed_weights` and h1 and h2 in int8; the stride-2
-block's conv2 and projection gather every other input pixel. On a CPU
-tensor they run the plain PyTorch version above. Activations are bf16 NHWC.
+The scales s1, s2, s3, sd are all per-tensor floats or all per-channel
+vectors (the "pc" calibrations). On a CUDA tensor they launch one C entry
+(csrc/qenc.cu) that runs the block as 3-4 launches of the pipelined wgmma
+conv of csrc/int8_conv_sm90.cuh, with weights packed by `packed_weights`
+and h1 and h2 in int8; the stride-2 block's conv2 and projection gather
+every other input pixel; per-channel scales go to the card as reciprocal
+vectors (`int8.device_inv`). On a CPU tensor they run the plain PyTorch
+version above. Activations are bf16 NHWC.
 """
 
 import torch
 
 from robosat_tpu_torch import kernels
-from robosat_tpu_torch.models.int8 import _act_inv, _int8_conv, scaled_ws
+from robosat_tpu_torch.models.int8 import _int8_conv, check_one_kind, kernel_inv, scaled_ws
 from robosat_tpu_torch.models.qtail import conv_weights
 
 
@@ -99,24 +102,28 @@ def _launch_block(x, qb, s1, s2, s3, sd, stride, dilation=1):
     has_down = sd is not None
     if cin % 16 or cmid % 16 or cout % 16:
         raise ValueError("the int8 kernels need channel counts that are multiples of 16")
+    check_one_kind((s1, s2, s3, sd))
     ho, wo = h // stride, w // stride
 
     w1, e1, b1 = _site_args(qb["conv1"], s1, "conv1", cin, cmid, 1)
     w2, e2, b2 = _site_args(qb["conv2"], s2, "conv2", cmid, cmid, 9)
     w3, e3, b3 = _site_args(qb["conv3"], s3, "conv3", cmid, cout, 1)
-    wd = ed = bd = sc = None
+    inv1, v1 = kernel_inv(qb["conv1"], s1, x.device, cin)
+    inv2, v2 = kernel_inv(qb["conv2"], s2, x.device, cmid)
+    inv3, v3 = kernel_inv(qb["conv3"], s3, x.device, cmid)
+    wd = ed = bd = sc = vd = None
     invd = 0.0
     if has_down:
         wd, ed, bd = _site_args(qb["down_conv"], sd, "down_conv", cin, cout, 1)
-        invd = _act_inv(sd)
+        invd, vd = kernel_inv(qb["down_conv"], sd, x.device, cin)
         sc = torch.empty((n, ho, wo, cout), dtype=torch.bfloat16, device=x.device)
     h1 = torch.empty((n, h, w, cmid), dtype=torch.int8, device=x.device)
     h2 = torch.empty((n, ho, wo, cmid), dtype=torch.int8, device=x.device)
     out = torch.empty((n, ho, wo, cout), dtype=torch.bfloat16, device=x.device)
     p = kernels.ptr
     kernels.launch("rs_bottleneck_block", p(x), p(w1), p(e1), p(b1), p(w2), p(e2), p(b2), p(w3), p(e3), p(b3),
-                   p(wd), p(ed), p(bd), _act_inv(s1), _act_inv(s2), _act_inv(s3), invd, p(h1), p(h2), p(sc), p(out),
-                   n, h, w, cin, cmid, cout, stride, dilation)
+                   p(wd), p(ed), p(bd), inv1, inv2, inv3, invd, p(v1), p(v2), p(v3), p(vd), p(h1), p(h2), p(sc),
+                   p(out), n, h, w, cin, cmid, cout, stride, dilation)
     return out
 
 

@@ -23,12 +23,16 @@ over the 32 x 32 weight blocks `nonzero_blocks` lists (every block of dense
 weights; on the s2d weights of the model dec4's 4 of 9 taps and dec5's 9 of
 36 blocks per output parity), packed by `block_operands`;
 `sparse_tail_features_plain` is what that computes, in plain PyTorch.
+s4 and s5 are per-tensor floats or, for K6 and K7, per-channel vectors
+(the "pc" calibrations: dec4 quantizes its input and requantizes its
+output channel by channel); K9 serves `pallas_tail = "sep"`, which the
+per-channel modes refuse, and raises on a vector.
 """
 
 import torch
 
 from robosat_tpu_torch import kernels
-from robosat_tpu_torch.models.int8 import _act_inv, _int8_conv, _quantize_act, scaled_ws
+from robosat_tpu_torch.models.int8 import _int8_conv, _quantize_act, check_one_kind, is_vector, kernel_inv, scaled_ws
 from robosat_tpu_torch.models.layers import conv_nhwc, depth_to_space2, space_to_depth2
 from robosat_tpu_torch.ops.head import _margin_weights, fused_prediction_head_s2d_blocked
 
@@ -146,18 +150,22 @@ def _conv_operands(node4, s4, node5, s5):
     return ops
 
 
-def _launch(entry, x, node4, s4, node5, s5, fine_hw, out, head=None):
+def _launch(entry, x, node4, s4, node5, s5, fine_hw, out, head=None, vectors=True):
     """Launch a C entry of csrc/qtail.cu: the two convs over the listed
     blocks from x into `out`, through int8 scratch y4 on the fine grid
-    `fine_hw`; `head` (K6 only): its margin weights and bias, and its crop."""
+    `fine_hw`; `head` (K6 only): its margin weights and bias, and its crop;
+    `vectors`: the entry takes the per-channel reciprocal vectors (K6, K7)."""
     p = kernels.ptr
+    check_one_kind((s4, s5))
     ops = _conv_operands(node4, s4, node5, s5)
     y4 = torch.empty((x.shape[0], *fine_hw, 128), dtype=torch.int8, device=x.device)
     args = [p(x)]
     for blocks, table, e in ops:
         args += [p(blocks), p(table), len(blocks), p(e)]
     wmb, crop = ([], []) if head is None else ([p(head[0])], [head[1]])
-    kernels.launch(entry, *args, *wmb, _act_inv(s4), _act_inv(s5), p(y4), p(out), *x.shape[:3], *crop)
+    (inv4, v4), (inv5, v5) = kernel_inv(node4, s4, x.device, 128), kernel_inv(node5, s5, x.device, 128)
+    vecs = [p(v4), p(v5)] if vectors else []
+    kernels.launch(entry, *args, *wmb, inv4, inv5, *vecs, p(y4), p(out), *x.shape[:3], *crop)
     return out
 
 
@@ -185,10 +193,14 @@ def fused_tail_features_sep(x, node4, s4, node5, s5):
     """Separated dec3 (N, Hc, Wc, 512) bf16 -> separated dec5 activations,
     same shape: channel p288 * 128 + c of coarse pixel (i, j) is channel c
     of pixel (2i + p288 // 2, 2j + p288 % 2) of the 2Hc x 2Wc grid."""
+    if is_vector(s4) or is_vector(s5):
+        raise ValueError("fused_tail_features_sep takes per-tensor scales: the per-channel ('pc...') modes refuse "
+                         "pallas_tail")
     if x.device.type == "cpu":
         return fused_tail_features_sep_plain(x, node4, s4, node5, s5)
     _, hc, wc = _check_input(x, 512)
-    y5 = _launch("rs_fused_tail_features_sep", x, node4, s4, node5, s5, (2 * hc, 2 * wc), torch.empty_like(x))
+    y5 = _launch("rs_fused_tail_features_sep", x, node4, s4, node5, s5, (2 * hc, 2 * wc), torch.empty_like(x),
+                 vectors=False)
     fused_tail_features_sep.launches += 1
     return y5
 

@@ -281,14 +281,13 @@ def _qdense(node):
     return {"wq": wq[0, 0], "ws": ws, "b": node["b"].float()}
 
 
-def quantize_folded_int8(folded, act_amaxes=None):
+def quantize_folded_int8(folded):
     """(params, state) -> the int8 tree: the stage 1-3 patch convs, the SR
     convs and every dense layer per-output-channel int8, the fuse with its
     batch norm folded in; the stage-0 patch, the depthwise convs, the
     LayerNorms and the classifier stay float. Per-tensor activation scales
-    only: `act_amaxes` (the per-channel "pc" calibration) raises."""
-    if act_amaxes is not None:
-        raise NotImplementedError(q8._PER_CHANNEL)
+    only: as in the JAX package it takes no `act_amaxes`, so the predict
+    step refuses the per-channel ("pc") calibrations with a ValueError."""
     params, state = folded
     q = {"stages": []}
     for si, stage in enumerate(params["stages"]):
@@ -402,7 +401,10 @@ def calibration_amaxes_int8(folded, x, blocked=False, percentile=None):
     """Per-site input amaxes (or |x| percentiles, or grid clips) from one
     float32 forward over normalized x, fine (N, H, W, 3) or with `blocked`
     4x4 space-to-depth (N, H/4, W/4, 48); a float32 vector of 54 on the
-    host in site order."""
+    host in site order. The per-channel specs ("pc...") raise a ValueError,
+    as the JAX package's predict step does for this model."""
+    if q8.is_per_channel(percentile):
+        raise ValueError("{} does not support per-channel ('pc...') calibration; use a percentile".format(__name__))
     sites_ = q8._Sites(scales=None, percentile=percentile)
     with torch.no_grad():
         _walk_int8(_float_tree_for_calibration(folded), x.float(), sites_, float_mode=True, blocked=blocked)

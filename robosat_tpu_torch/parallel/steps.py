@@ -50,6 +50,8 @@ pinned memory the copy is asynchronous), so a caller can issue the next
 batch while the device runs this one.
 """
 
+import inspect
+
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -358,8 +360,16 @@ def make_int8_predict_step(
     (None/"full", "tail" or "sep"; see the module docstring); "full",
     "tail" and "sep" need blocked output (`host_s2d`, `fused_head` and an
     even overlap), "sep" an overlap that is a multiple of 4. `pallas_enc`
-    is accepted and changes nothing: the port always runs the encoder
-    through K3/K4, which the JAX package pins bit-equal to its XLA walk.
+    changes nothing: the port always runs the encoder through K3/K4, which
+    the JAX package pins bit-equal to its XLA walk.
+
+    A per-channel `calib_percentile` ("pc", "pcamax", "pc<p>") calibrates
+    one vector per site and folds the balanced scales into the weights
+    (`q8.quantize_unet_folded(folded, act_amaxes)`); the same kernels then
+    quantize with per-channel reciprocal vectors. As in the JAX package it
+    refuses `calib_amaxes` (a per-tensor QAT vector), `pallas_tail` and
+    `pallas_enc`, and a model whose `quantize_folded_int8` takes no
+    `act_amaxes` (SegFormer), each with a ValueError.
 
     Returns (step, qtree): step(qtree, raw) -> quantized foreground uint8 on
     the device:
@@ -375,6 +385,14 @@ def make_int8_predict_step(
     step(qtree, raw, plain=True) runs the kernels' plain versions instead,
     with the same qtree and scales.
     """
+    per_channel = q8.is_per_channel(calib_percentile)
+    if per_channel and calib_amaxes is not None:
+        raise ValueError(
+            "calib_amaxes carries a per-tensor QAT vector; per-channel ('pc...') calibration "
+            "would misread it — set int8_calibration to a percentile for QAT checkpoints"
+        )
+    if per_channel and (pallas_tail or pallas_enc):
+        raise ValueError("per-channel calibration ('pc...') is XLA-walk only: disable pallas_tail/pallas_enc")
     if hasattr(model, "predict_quantized_int8"):
         return _model_int8_predict_step(model, params, state, calib_raw, overlap, host_s2d, calib_percentile,
                                         calib_amaxes)
@@ -394,8 +412,12 @@ def make_int8_predict_step(
             calib_amaxes = q8.calibration_amaxes(
                 folded, norm(_to_device(calib_raw, device)), blocked=host_s2d, percentile=calib_percentile
             )
-        scales = tuple(q8.scales_from_amaxes(calib_amaxes))
-        qtree = q8.quantize_unet_folded(folded)
+        if per_channel:
+            qtree, scale_list = q8.quantize_unet_folded(folded, act_amaxes=calib_amaxes)
+            scales = q8.host_scales(scale_list)
+        else:
+            scales = tuple(q8.scales_from_amaxes(calib_amaxes))
+            qtree = q8.quantize_unet_folded(folded)
 
     def step(qtree, raw, plain=False):
         w, b = qtree["final"]["w"], qtree["final"]["b"]
@@ -428,8 +450,10 @@ def make_int8_predict_step(
 def _model_int8_predict_step(model, params, state, calib_raw, overlap, host_s2d, calib_percentile, calib_amaxes):
     """The JAX package's protocol of a model that owns its int8 walk: the
     model folds, calibrates (`calibration_amaxes_int8`, in float32; skipped
-    for `calib_amaxes`), quantizes (`quantize_folded_int8`) and runs its own
-    head (`predict_quantized_int8`). `pallas_tail` and `pallas_enc` are the
+    for `calib_amaxes`), quantizes (`quantize_folded_int8`, with the
+    per-channel calibrations' vectors `act_amaxes` where it takes them,
+    else a ValueError as in the JAX package) and runs its own head
+    (`predict_quantized_int8`). `pallas_tail` and `pallas_enc` are the
     U-Net's and change nothing here. On the GPU the sites' packed weights
     and scale products are made once, here (`model.prepare_int8`). The
     output is the model's: for the fast family 4x4-blocked uint8 (N,
@@ -437,6 +461,10 @@ def _model_int8_predict_step(model, params, state, calib_raw, overlap, host_s2d,
     multiple of its BLOCK, else fine (N, H - 2o, W - 2o). Returns (step,
     qtree) as `make_int8_predict_step`; step(qtree, raw, plain=True) runs
     the kernels' plain versions."""
+    per_channel = q8.is_per_channel(calib_percentile)
+    if per_channel and "act_amaxes" not in inspect.signature(model.quantize_folded_int8).parameters:
+        raise ValueError("{} does not support per-channel ('pc...') calibration; use a percentile".format(
+            getattr(model, "__name__", model)))
     device = params["final"]["w"].device
     norm = _normalize_s2d4 if host_s2d else normalize
     with torch.no_grad():
@@ -444,8 +472,12 @@ def _model_int8_predict_step(model, params, state, calib_raw, overlap, host_s2d,
         if calib_amaxes is None:
             calib_amaxes = model.calibration_amaxes_int8(
                 folded, norm(_to_device(calib_raw, device)), blocked=host_s2d, percentile=calib_percentile)
-        scales = tuple(q8.scales_from_amaxes(calib_amaxes))
-        qtree = model.quantize_folded_int8(folded)
+        if per_channel:
+            qtree, scale_list = model.quantize_folded_int8(folded, act_amaxes=calib_amaxes)
+            scales = q8.host_scales(scale_list)
+        else:
+            scales = tuple(q8.scales_from_amaxes(calib_amaxes))
+            qtree = model.quantize_folded_int8(folded)
         if device.type == "cuda":
             model.prepare_int8(qtree, scales)
 

@@ -51,8 +51,9 @@ card), its output starts back into pinned host memory behind a CUDA event,
 and a batch's PNGs go to the writer pool once two newer batches are in
 flight. The steady clock starts when the first batch is done.
 
-Not ported yet (ROADMAP Queue 1, item 3): the per-channel 'pc'
-calibrations, which raise.
+`int8_calibration` takes the JAX tool's values: "amax", a percentile,
+"mse", "mae", or a per-channel spec ("pc", "pcamax", "pc<percentile>"),
+which the U-Net, the fast family and DeepLab run and SegFormer refuses.
 """
 
 import argparse

@@ -274,20 +274,6 @@ def test_grid_calibration_oracle(spec, squared):
     assert np.array_equal(q8._MSE_GRID, jq8._MSE_GRID)
 
 
-@pytest.mark.parametrize("spec", ["pc", "pc99.8"])
-def test_unported_calibration_modes_raise(spec):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        q8._Sites(percentile=spec)
-
-
-def test_unported_quantization_modes_raise():
-    w = torch.zeros(1, 1, 4, 4)
-    for call in (lambda: q8._quantize_weight(w, act_scale=torch.ones(4)),
-                 lambda: q8.quantize_unet_folded({}, act_amaxes=[torch.ones(4)])):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-
-
 def test_configure_device():
     torch.backends.cudnn.allow_tf32 = True
     assert configure_device(False) == torch.device("cpu")

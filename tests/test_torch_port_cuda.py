@@ -21,7 +21,15 @@ decoder's Cin-304 and Cin-256 convs), with K3 at dilation 2 at layer4's
 widths. K2's dequant epilogue (SegFormer's dense route) is held at every
 dense site shape of SegFormer's predict path and at M tails, the quantize
 kernel at space-to-depth factors 1, 2, 4 and 8, and a whole dense site.
+The per-channel ("pc") instantiations are held with scale vectors whose
+channels differ by up to 100 x: K3/K4 (conv1's and the projection's
+vectors on the same x differ, the int8 epilogues requantize with the next
+sites' vectors), K5, K6 and K7 (dec4's on-load quantize and its int8
+epilogue), and rs_int8_conv on both routes, at main-path widths and
+channel tails.
 """
+
+import functools
 
 import pytest
 import torch
@@ -702,3 +710,170 @@ def test_morphology_on_the_card_matches_the_cpu(gen, op, args):
     got = fn(masks.cuda(), *args)
     assert got.dtype == torch.uint8 and got.is_cuda
     assert torch.equal(got.cpu(), want)
+
+
+# ---- the per-channel ("pc") instantiations: reciprocal vectors on load and in EPI_RELU_Q8 ----
+
+
+def _pc_amax(gen, cin, spread=100.0):
+    """Per-channel activation ranges that differ by up to `spread` x."""
+    return torch.exp(torch.rand(cin, generator=gen, device="cuda") * torch.log(torch.tensor(spread))) * 0.05
+
+
+def _pc_site(gen, kernel, bias=True):
+    """A per-channel site: the kernel folded and quantized by ScaleCursor on
+    random ranges, its host scale vector, and the ranges (to scale inputs)."""
+    a = _pc_amax(gen, kernel.shape[2])
+    cursor = q8.ScaleCursor([a])
+    node = q8._qkernel_pc(kernel, cursor)
+    if bias:
+        node["b"] = torch.randn(kernel.shape[-1], generator=gen, device="cuda") * 0.05
+    return node, q8.host_scales(cursor.out_scales)[0], a
+
+
+def _pc_act(gen, shape, a):
+    """bf16 activations whose channel c spans about a[c] (relu'd, as a site's input is)."""
+    return torch.relu(torch.randn(shape, generator=gen, device="cuda") * a / 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("stride,down,cin,cmid,cout,h,w,dilation", [
+    (1, True, 64, 64, 256, 9, 11, 1),       # layer1.0: conv1 and the projection read x with different vectors
+    (1, False, 256, 64, 256, 91, 93, 1),    # layer1.1
+    (2, True, 256, 128, 512, 10, 14, 1),    # layer2.0 (K4)
+    (1, False, 1024, 256, 1024, 6, 7, 1),   # layer3.1
+    (2, True, 48, 32, 80, 10, 14, 1),       # channel tails: Cin 48, Cmid 32, Cout 80
+    (1, True, 1024, 512, 2048, 5, 7, 2),    # DeepLab's layer4.0 at dilation 2
+])
+def test_bottleneck_block_pc_kernel_bit_equal(gen, stride, down, cin, cmid, cout, h, w, dilation):
+    """K3/K4 with per-channel vectors: conv1's and the projection's on-load
+    quantizes of the same x, and conv1's and conv2's int8 epilogues with the
+    next sites' vectors, bit-equal to the plain version."""
+    std = lambda fan_in: fan_in ** -0.5
+    qb, scales = {}, {}
+    shapes = {"conv1": (1, cin, cmid), "conv2": (3, cmid, cmid), "conv3": (1, cmid, cout)}
+    if down:
+        shapes["down_conv"] = (1, cin, cout)
+    amax = None
+    for key, (k, ci, co) in shapes.items():
+        kernel = torch.randn(k, k, ci, co, generator=gen, device="cuda") * std(k * k * ci)
+        qb[key], scales[key], a = _pc_site(gen, kernel)
+        amax = a if key == "conv1" else amax
+    if down:
+        ratio = scales["conv1"] / scales["down_conv"]
+        assert ratio.max() / ratio.min() > 10.0  # the two vectors on x differ channel by channel
+    x = _pc_act(gen, (2, h, w, cin), amax)
+    args = (scales["conv1"], scales["conv2"], scales["conv3"], scales.get("down_conv"))
+    fn = qenc.bottleneck_block_s2 if stride == 2 else functools.partial(qenc.bottleneck_block, dilation=dilation)
+    counter = qenc.bottleneck_block_s2 if stride == 2 else qenc.bottleneck_block
+    before = counter.launches
+    got = fn(x, qb, *args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    ref = qenc.bottleneck_block_plain(x, qb, *args, stride=stride, dilation=dilation)
+    assert got.shape == ref.shape == (2, (h - 1) // stride + 1, (w - 1) // stride + 1, cout)
+    assert torch.equal(got, ref)
+
+
+def test_bottleneck_block_pc_entry_checks(gen):
+    """The C entry refuses a partial set of vectors (v1 without v2), the
+    wrapper a mix of vectors and floats; the per-tensor launch (null
+    vectors) still equals its plain version."""
+    kernels = {"conv1": (1, 64, 16), "conv2": (3, 16, 16), "conv3": (1, 16, 64)}
+    qb, scales = {}, {}
+    for key, (k, ci, co) in kernels.items():
+        qb[key], scales[key], _ = _pc_site(gen, torch.randn(k, k, ci, co, generator=gen, device="cuda") * 0.1)
+    x = _act(gen, (1, 8, 8, 64))
+    with pytest.raises(ValueError, match="all per-tensor or all per-channel"):
+        qenc.bottleneck_block(x, qb, scales["conv1"], 0.02, scales["conv3"])
+    from robosat_tpu_torch import kernels as rk
+
+    p = rk.ptr
+    v1 = q8.device_inv(qb["conv1"], scales["conv1"], x.device, 64)
+    w = [qenc.packed_weights(qb[k]) for k in ("conv1", "conv2", "conv3")]
+    ws = [qb[k]["ws"] for k in ("conv1", "conv2", "conv3")]
+    outs = [torch.empty((1, 8, 8, c), dtype=dt, device="cuda") for c, dt in ((16, torch.int8), (16, torch.int8),
+                                                                             (64, torch.bfloat16))]
+    with pytest.raises(RuntimeError, match="rs_bottleneck_block launch failed"):
+        rk.launch("rs_bottleneck_block", p(x), p(w[0]), p(ws[0]), p(qb["conv1"]["b"]), p(w[1]), p(ws[1]),
+                  p(qb["conv2"]["b"]), p(w[2]), p(ws[2]), p(qb["conv3"]["b"]), None, None, None, 0.0, 0.0, 0.0, 0.0,
+                  p(v1), None, None, None, p(outs[0]), p(outs[1]), None, p(outs[2]), 1, 8, 8, 64, 16, 64, 1, 1)
+    got = qenc.bottleneck_block(x, qb, 0.02, 0.015, 0.01)
+    assert torch.equal(got, qenc.bottleneck_block_plain(x, qb, 0.02, 0.015, 0.01))
+
+
+@pytest.mark.parametrize("cin,cout,h,w", [
+    (2048, 256, 9, 9),     # center
+    (1280, 256, 16, 16),   # dec1
+    (320, 128, 16, 16),    # dec3
+    (96, 80, 9, 9),        # Cin and Cout off the 64-wide tiles
+])
+def test_parity_up_conv_pc_kernel_bit_equal(gen, cin, cout, h, w):
+    """K5 with a per-channel vector on load, bit-equal to the plain version;
+    K8 refuses one."""
+    k4 = q8._fused_k4(torch.randn(3, 3, cin, cout, generator=gen, device="cuda") * 3 * (9 * cin) ** -0.5)
+    node, s, a = _pc_site(gen, k4)
+    x = _pc_act(gen, (2, h, w, cin), a)
+    before = qdec.parity_up_conv.launches
+    got = qdec.parity_up_conv(x, node, s)
+    torch.cuda.synchronize()
+    assert qdec.parity_up_conv.launches == before + 1
+    assert torch.equal(got, qdec.parity_up_conv_plain(x, node, s))
+    with pytest.raises(ValueError, match="per-tensor"):
+        qdec.parity_up_conv_separated(x, node, s)
+
+
+@pytest.mark.parametrize("overlap,h,w", [(0, 16, 16), (8, 24, 20), (0, 13, 11)])
+def test_fused_tail_pc_kernel_matches_plain(gen, overlap, h, w):
+    """K6 and K7 with dec4's and dec5's vectors (dec4's quantize on load and
+    its EPI_RELU_Q8 with dec5's vector) on the s2d weights: K7 bit-equal,
+    K6 within one bin on at most 0.1% of pixels (the head's own rounding);
+    K9 refuses vectors."""
+    node4, s4, a4 = _pc_site(gen, s2d_up_conv3x3_kernel(torch.randn(3, 3, 128, 32, generator=gen, device="cuda")
+                                                        * 0.1), bias=False)
+    node5, s5, _ = _pc_site(gen, s2d_conv3x3_kernel(torch.randn(3, 3, 32, 32, generator=gen, device="cuda") * 0.1),
+                            bias=False)
+    w_final = torch.randn(1, 1, 32, 2, generator=gen, device="cuda") * 0.3
+    b_final = torch.randn(2, generator=gen, device="cuda") * 0.1
+    x = _pc_act(gen, (2, h, w, 128), a4)
+    before = qtail.fused_tail.launches, qtail.fused_tail_features.launches
+    got = qtail.fused_tail(x, node4, s4, node5, s5, w_final, b_final, overlap=overlap)
+    feats = qtail.fused_tail_features(x, node4, s4, node5, s5)
+    torch.cuda.synchronize()
+    assert (qtail.fused_tail.launches, qtail.fused_tail_features.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(feats, qtail.fused_tail_features_plain(x, node4, s4, node5, s5))
+    ref = qtail.fused_tail_plain(x, node4, s4, node5, s5, w_final, b_final, overlap=overlap)
+    d = (got.int() - ref.int()) % 256
+    d = torch.minimum(d, 256 - d)
+    assert int(d.max()) <= 1 and int((d != 0).sum()) <= 0.001 * d.numel()
+    if h % 2 == 0 and w % 2 == 0:
+        with pytest.raises(ValueError, match="per-tensor"):
+            qtail.fused_tail_features_sep(space_to_depth2(x).contiguous(), node4, s4, node5, s5)
+
+
+@pytest.mark.parametrize("site,k,cin,cout,stride,dilation,epilogue,h,w", [
+    ("stem", 3, 48, 128, 1, 1, "relu", 16, 16),            # Cin 48: a 64-channel chunk half padding
+    ("b1", 3, 128, 128, 1, 1, "residual_relu", 18, 18),
+    ("b4b", 3, 256, 256, 1, 2, "residual_relu", 6, 6),     # the dilated halo route
+    ("down2", 3, 128, 128, 2, 1, "relu", 16, 16),          # conv_kernel, stride 2
+    ("d1", 3, 256, 128, 1, 1, "relu", 36, 36),
+    ("aspp1", 1, 2048, 256, 1, 1, "relu", 9, 7),
+    ("aspp_d2", 3, 2048, 256, 1, 18, "relu", 36, 36),      # conv_kernel at dilation 18
+    ("dec1", 3, 304, 256, 1, 1, "relu", 16, 16),           # Cin 304: a 48-channel last chunk
+])
+def test_int8_conv_pc_kernel_bit_equal(gen, site, k, cin, cout, stride, dilation, epilogue, h, w):
+    """rs_int8_conv with a per-channel vector on both routes (halo_conv_kernel
+    and conv_kernel), bit-equal to the plain version."""
+    from robosat_tpu_torch.models import qconv
+
+    kernel = torch.randn(k, k, cin, cout, generator=gen, device="cuda") * (k * k * cin) ** -0.5
+    node, s, a = _pc_site(gen, kernel)
+    x = _pc_act(gen, (2, h, w, cin), a)
+    padding = ((dilation, dilation),) * 2 if dilation > 1 else "SAME"
+    before, routes = qconv.int8_conv.launches, dict(qconv.int8_conv.by_route)
+    got = qconv.int8_conv(x, node, s, stride=stride, dilation=dilation, padding=padding, epilogue=epilogue)
+    torch.cuda.synchronize()
+    route = qconv.route(k, stride, dilation)
+    assert qconv.int8_conv.launches == before + 1
+    assert qconv.int8_conv.by_route == {**routes, route: routes[route] + 1}
+    ref = qconv.int8_conv_plain(x, node, s, stride=stride, dilation=dilation, padding=padding, epilogue=epilogue)
+    assert torch.equal(got, ref)

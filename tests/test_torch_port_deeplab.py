@@ -202,11 +202,6 @@ def test_predict_quantized_int8_matches_jax(int8_net, blocked, overlap):
         deeplab.predict_quantized_int8(qtree, scales[:-1], tx, overlap=overlap, blocked=blocked)
 
 
-def test_per_channel_quantization_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 3"):
-        deeplab.quantize_folded_int8({}, act_amaxes=[np.ones(4)])
-
-
 def _jax_block(x, qb, s1, s2, s3, sd, d):
     """The block as the JAX package's walk_encoder runs it on _int8_conv."""
     inner = jax.nn.relu(jq8._int8_conv(qb["conv1"], x, s1))

@@ -490,23 +490,22 @@ def test_predict_tool_profile_writes_trace(tmp_path, predict_fixture):
 
 @pytest.mark.parametrize(
     "common,overrides,error",
-    [({"model": "segformer", "int8_calibration": "pc99.8"}, {}, NotImplementedError),
-     ({"int8_calibration": "pc"}, {}, NotImplementedError),
+    [({"model": "segformer", "int8_calibration": "pc99.8"}, {}, ValueError),
      ({"int8_calibration": "pcx"}, {}, ValueError)],
-    ids=["segformer", "per-channel", "pc-bad-spec"],
+    ids=["segformer", "pc-bad-spec"],
 )
 def test_predict_tool_unported_modes_raise(tmp_path, predict_fixture, common, overrides, error):
-    """The modes still to port (the per-channel calibrations, for the U-Net
-    and for a model-owned walk such as SegFormer's) raise
-    NotImplementedError, citing the ROADMAP; a "pc<percentile>" spec whose
-    percentile is no number fails when the config is read, with the JAX
-    tool's ValueError."""
+    """The per-channel calibrations with a model whose quantizer takes no
+    per-channel amaxes (SegFormer) raise the JAX package's ValueError
+    before anything is written; a "pc<percentile>" spec whose percentile is
+    no number fails when the config is read, with the JAX tool's
+    ValueError."""
     from robosat_tpu_torch.tools import predict
 
     root, checkpoint, _ = predict_fixture
     save_config({"common": {"cuda": False, "int8": True, **common}}, str(tmp_path / "model.toml"))
     save_config({"common": {"classes": ["background", "parking"]}}, str(tmp_path / "dataset.toml"))
-    with pytest.raises(error, match="ROADMAP|not ported" if error is NotImplementedError else "pcx|float"):
+    with pytest.raises(error, match="does not support per-channel|pcx|float"):
         predict.main(_predict_args(tmp_path, root / "tiles", tmp_path / "probs", checkpoint, **overrides))
     assert not (tmp_path / "probs").exists()
 

@@ -208,9 +208,9 @@ def test_quantize_folded_int8_sites(int8_net):
     routes = [(route, stride) for _, _, route, stride in sites]
     assert routes.count(("conv", 2)) == 3 and sum(r == "dense" for r, _ in routes) == 51
     assert sorted(s for r, s in routes if r == "dense" and s > 1) == [2, 2, 4, 4, 8, 8]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 3"):
+    with pytest.raises(TypeError, match="act_amaxes"):
         segformer.quantize_folded_int8((None, None), act_amaxes=[np.ones(4)])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 3"):
+    with pytest.raises(ValueError, match="does not support per-channel"):
         segformer.calibration_amaxes_int8((None, None), torch.zeros(1, 32, 32, 3), percentile="pc99.8")
 
 
