@@ -146,8 +146,19 @@ extract to GeoJSON, and last DeepLabv3+ (`model = "deeplabv3plus"`):
    validation tiles (13 K3, 3 K4, 5 K5, 1 K6 a batch, counted as
    `workflow` on the kernels line);
    `masks`, `features`, `merge`, `dedupe` against the extracted lots and
-   `compare`, each output valid GeoJSON or PNG. One log line a stage with
-   its seconds and counts.
+   `compare`, each output valid GeoJSON or PNG; then `serve` (its
+   Predictor on the trained checkpoint on the card behind its handler and
+   a local upstream over the imagery: 8 z18 tiles, then 16 timed requests,
+   each PNG mode P, 512 px, indices <= 1; 4 against the same segment step
+   on the CPU, equal but at near-tie pixels, at most 0.1%; the 404 of z17
+   and the 500 of a tile the upstream lacks; the median request and the
+   step's CUDA-event ms) and `export` (pt2 of the `logits` and `predict`
+   graphs at batch 8, traced on the card, and onnx: both programs
+   reloaded and run on 8 validation tiles, `logits` against eager
+   `unet.apply` within rtol 1e-5, `predict` bit-equal to the eager step,
+   its graph holding `robosat.margin_head`, its K1 launches counted as
+   `workflow-export`; the program's ms beside the eager step's). One log
+   line a stage with its seconds and counts.
 
 11. DeepLabv3+ on a TOML copy of config/model-unet.toml with model =
    "deeplabv3plus" (as tests/test_deeplab.py configures it), weights from
@@ -260,6 +271,12 @@ WORKFLOW_X0, WORKFLOW_Y0 = 140846, 86034
 WORKFLOW_LOTS = 40
 WORKFLOW_RATE = 16
 WORKFLOW_BATCH = 8
+SERVE_TILES = 8  # z18 tiles requested from serve, then SERVE_REPEATS timed requests over them
+SERVE_REPEATS = 16
+SERVE_COMPARED = 4  # served tiles held against the CPU's segment step
+SERVE_TIE = 1e-3  # a pixel whose CPU |l1 - l0| is below this share of the largest may flip
+EXPORT_BATCH = 8
+EXPORT_LAUNCHES = {"K1": 1}  # of the exported U-Net predict program, per batch
 
 # Each kernel: its source, and the pallas_call of the TPU kernel it replaces.
 SOURCES = {
@@ -700,6 +717,14 @@ def profile_kernels(torch, step, steps):
     return wall_ms, rows, prof
 
 
+def kernel_split(torch, step, steps=5):
+    """(wall ms, kernel ms) per call of step() over `steps` calls under
+    torch.profiler (`profile_kernels`); kernel ms None when the profiler
+    records no device time."""
+    wall_ms, rows, _ = profile_kernels(torch, step, steps)
+    return wall_ms, (sum(r[0] for r in rows) if rows else None)
+
+
 def log_step_profile(torch, step, label, per_batch, steps=5, top=8, phase="phase 5"):
     """Where one step's device time goes: torch.profiler's CUDA kernel rows
     over `steps` steps, against their wall time (host clock, synchronized),
@@ -1076,9 +1101,11 @@ def run(torch, work, seed, smi):
 
     # ---- phase 10: the README's workflow on the port alone -----------------
     torch.cuda.empty_cache()
-    by_path["workflow"] = run_workflow(torch, work, seed, smi, counted)["launches"]
-    for name, c in by_path["workflow"].items():
-        launches[name] += c
+    workflow = run_workflow(torch, work, seed, smi, counted)
+    by_path["workflow"], by_path["workflow-export"] = workflow["launches"], workflow["export"]["launches"]
+    for path in ("workflow", "workflow-export"):
+        for name, c in by_path[path].items():
+            launches[name] += c
     lap(marks, "phase 10")
 
     # ---- phases 11, 12 and 13: DeepLabv3+, SegFormer and the per-channel ----
@@ -3719,6 +3746,221 @@ def read_feature_collection(path):
     return collection["features"]
 
 
+def workflow_serve(torch, upstream, served, tiles, checkpoint, model_toml, dataset_toml, stage, smi):
+    """Phase 10's serve stage: `serve`'s Predictor on the workflow's
+    checkpoint (config/model-unet.toml, the card) behind its handler and a
+    local upstream http.server over the workflow's imagery. SERVE_TILES z18
+    tiles requested once, then SERVE_REPEATS timed requests over them; every
+    PNG mode P, TILE x TILE, indices <= 1; SERVE_COMPARED of them against the
+    same segment step on the CPU (equal but at pixels where the CPU's
+    |l1 - l0| is below SERVE_TIE of its largest |margin|, at most
+    MAX_FLIP_SHARE of the pixels); the 404 of z17 and the 500 of a tile the
+    upstream lacks. Returns the stage's numbers."""
+    import functools
+    import http.server
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import requests
+    from PIL import Image
+
+    from robosat_tpu_torch.checkpoint import load_model_checkpoint
+    from robosat_tpu_torch.config import load_config
+    from robosat_tpu_torch.device import configure_device
+    from robosat_tpu_torch.geo import tilemath
+    from robosat_tpu_torch.models import unet
+    from robosat_tpu_torch.ops.augment import normalize
+    from robosat_tpu_torch.parallel.steps import make_segment_step
+    from robosat_tpu_torch.tools import serve
+
+    class Quiet(http.server.SimpleHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    t = time.perf_counter()
+    predictor = serve.Predictor(checkpoint, load_config(model_toml), load_config(dataset_toml), TILE)
+    if predictor.params["final"]["w"].device.type != configure_device(True).type:
+        raise AssertionError("phase 10: serve's Predictor runs on {}".format(predictor.params["final"]["w"].device))
+    build_s = time.perf_counter() - t
+    session = requests.Session()
+    session.trust_env = False  # the loopback upstream, off any proxy of the environment
+    upstream_server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), functools.partial(Quiet, directory=upstream))
+    handler = serve.make_handler(predictor, session, "http://127.0.0.1:{}/{{z}}/{{x}}/{{y}}.png".format(
+        upstream_server.server_address[1]), "chip-smoke-token", TILE, 0)
+    server = http.server.HTTPServer(("127.0.0.1", 0), handler)
+    threads = [threading.Thread(target=s.serve_forever, daemon=True) for s in (upstream_server, server)]
+    for thread in threads:
+        thread.start()
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    base = "http://127.0.0.1:{}".format(server.server_address[1])
+
+    def get(path):
+        try:
+            with opener.open(base + path, timeout=120) as resp:
+                return resp.status, resp.headers.get("Access-Control-Allow-Origin"), resp.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.headers.get("Access-Control-Allow-Origin"), b""
+
+    requested = tiles[:SERVE_TILES]
+    if len(requested) != SERVE_TILES:
+        raise AssertionError("phase 10: {} tiles to serve, expected {}".format(len(requested), SERVE_TILES))
+    try:
+        pngs, latencies = {}, []
+        for k in range(SERVE_TILES + SERVE_REPEATS):
+            tile = requested[k % SERVE_TILES]
+            start = time.perf_counter()
+            code, cors, body = get("/18/{}/{}.png".format(tile.x, tile.y))
+            if k >= SERVE_TILES:
+                latencies.append((time.perf_counter() - start) * 1e3)
+            if code != 200 or cors != "*":
+                raise AssertionError("phase 10: serve answered {} (CORS {!r}) for {}".format(code, cors, tile))
+            img = Image.open(io.BytesIO(body))
+            idx = np.asarray(img)
+            if img.mode != "P" or img.size != (TILE, TILE) or idx.max() > 1:
+                raise AssertionError("phase 10: serve's PNG for {} is {} {} with indices up to {}".format(
+                    tile, img.mode, img.size, idx.max()))
+            if tile in pngs and not np.array_equal(pngs[tile], idx):
+                raise AssertionError("phase 10: serve answered {} differently on a repeat".format(tile))
+            pngs[tile] = idx
+        missing = tilemath.Tile(WORKFLOW_X0 - 1, WORKFLOW_Y0 - 1, 18)
+        codes = {"z17": get("/17/{}/{}.png".format(tiles[0].x // 2, tiles[0].y // 2))[:2],
+                 "missing upstream": get("/18/{}/{}.png".format(missing.x, missing.y))[:2]}
+        if codes != {"z17": (404, "*"), "missing upstream": (500, "*")}:
+            raise AssertionError("phase 10: serve answered {}".format(codes))
+    finally:
+        for s in (server, upstream_server):
+            s.shutdown()
+            s.server_close()
+        for thread in threads:
+            thread.join(timeout=30)
+
+    # The card's step by CUDA events, then SERVE_COMPARED tiles on the CPU.
+    raw = np.stack([served[(tile.x, tile.y)] for tile in requested[:1]])
+    step_ms = cuda_ms(torch, predictor.mask, [(raw,)], 16)
+    step_wall_ms, step_kernel_ms = kernel_split(torch, lambda: predictor.mask(raw))
+    # The step as it was before serve folded once: fold and segment per request.
+    refold_ms = cuda_ms(torch, lambda r: predictor.step(predictor.params, predictor.state, r), [(raw,)], 16)
+    cpu_params, cpu_state, _ = load_model_checkpoint(checkpoint)
+    compared = requested[:SERVE_COMPARED]
+    raw = np.stack([served[(tile.x, tile.y)] for tile in compared])
+    want = make_segment_step(unet)(cpu_params, cpu_state, raw).numpy()
+    with torch.no_grad():
+        logits = unet.apply_folded(unet.fold(cpu_params, cpu_state), normalize(torch.from_numpy(raw)))
+    margin = (logits[..., 1] - logits[..., 0]).abs().numpy()
+    near = margin < SERVE_TIE * margin.max(axis=(1, 2), keepdims=True)
+    differ = np.stack([pngs[tile] for tile in compared]) != want
+    if (differ & ~near).any():
+        raise AssertionError("phase 10: serve's PNGs differ from the CPU's segment step at {} pixels off a "
+                             "tie".format(int((differ & ~near).sum())))
+    flips, ties = int(differ.sum()), int(near.sum())
+    if flips > MAX_FLIP_SHARE * SERVE_COMPARED * TILE * TILE:
+        raise AssertionError("phase 10: serve's PNGs differ from the CPU at {} near-tie pixels".format(flips))
+    latency = float(np.median(latencies))
+    stage("serve", time.perf_counter() - t, predictor_s=round(build_s, 2), tiles=SERVE_TILES,
+          timed_requests=len(latencies), median_request_ms=round(latency, 2), step_ms=round(step_ms, 3),
+          step_with_fold_ms=round(refold_ms, 3),
+          step_profiled_wall_ms=round(step_wall_ms, 3), step_kernel_ms=step_kernel_ms,
+          compared_with_cpu=SERVE_COMPARED, near_tie_pixels=ties, differing_pixels=flips, codes=codes)
+    return {"median_request_ms": latency, "step_ms": step_ms, "step_with_fold_ms": refold_ms,
+            "step_profiled_wall_ms": step_wall_ms,
+            "step_kernel_ms": step_kernel_ms, "requests": SERVE_TILES + SERVE_REPEATS, "differing_pixels": flips,
+            "near_tie_pixels": ties, "card": smi}
+
+
+def workflow_export(torch, root, val_images, checkpoint, dataset_toml, counted, stage, smi):
+    """Phase 10's export stage: `export` of the workflow's checkpoint as
+    pt2 (`logits` and `predict`, batch EXPORT_BATCH at TILE px, traced on
+    the card) and as onnx; both programs reloaded and run on the first
+    EXPORT_BATCH validation tiles: `logits` against eager `unet.apply`
+    (rtol 1e-5, atol 1e-5 of the largest |logit|), `predict` bit-equal to
+    the eager `make_predict_step` and, as phase 3 holds K1, off the step
+    with the plain head by one bin on at most MAX_FLIP_SHARE of the pixels;
+    its graph holding robosat.margin_head,
+    its K1 launches counted (every count set to 0 just before the program
+    runs and read just after). Returns the stage's numbers and the
+    launches."""
+    from PIL import Image
+
+    from robosat_tpu_torch.checkpoint import load_model_checkpoint
+    from robosat_tpu_torch.device import configure_device
+    from robosat_tpu_torch.models import unet
+    from robosat_tpu_torch.ops.augment import normalize
+    from robosat_tpu_torch.parallel.steps import make_predict_step
+    from robosat_tpu_torch.tiles import tiles_from_slippy_map
+    from robosat_tpu_torch.tools import export
+
+    t = time.perf_counter()
+    device = configure_device(True)
+    paths = {"logits": os.path.join(root, "unet-logits.pt2"), "predict": os.path.join(root, "unet-predict.pt2"),
+             "onnx": os.path.join(root, "unet.onnx")}
+    export_s = {}  # export.main's seconds: the trace and the save (pt2), the fold and the write (onnx)
+    for name, path in paths.items():
+        start = time.perf_counter()
+        export.main(argparse.Namespace(dataset=dataset_toml, image_size=TILE, checkpoint=checkpoint,
+                                       batch_size=EXPORT_BATCH, graph="logits" if name == "onnx" else name,
+                                       family="unet", format="onnx" if name == "onnx" else "pt2", model=path))
+        export_s[name] = time.perf_counter() - start
+    sizes = {name: os.path.getsize(path) for name, path in paths.items()}
+    loaded = {name: torch.export.load(paths[name]) for name in ("logits", "predict")}
+    programs = {name: program.module() for name, program in loaded.items()}
+    nodes = [n for n in loaded["predict"].graph.nodes
+             if n.op == "call_function" and "robosat.margin_head" in str(n.target)]
+    if len(nodes) != 1:
+        raise AssertionError("phase 10: the predict program holds {} robosat.margin_head nodes".format(len(nodes)))
+    val = sorted(tiles_from_slippy_map(val_images))[:EXPORT_BATCH]
+    if len(val) != EXPORT_BATCH:
+        raise AssertionError("phase 10: {} validation tiles for a batch of {}".format(len(val), EXPORT_BATCH))
+    raw = torch.from_numpy(np.stack([np.asarray(Image.open(path).convert("RGB")) for _, path in val])).to(device)
+
+    # The predict program, as the main path: launches counted over one batch.
+    for fn in counted.values():
+        fn.launches = 0
+    got = programs["predict"](raw)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counted.items() if fn.launches}
+    if launches != EXPORT_LAUNCHES:
+        raise AssertionError("phase 10: the predict program launched {}, expected {}".format(launches,
+                                                                                           EXPORT_LAUNCHES))
+    params, state, _ = load_model_checkpoint(checkpoint, device=device)
+    step = make_predict_step(unet, overlap=0, compute_dtype=torch.bfloat16, fused_head=True)
+    eager = step(params, state, raw)
+    if got.dtype != torch.uint8 or got.shape != (EXPORT_BATCH, TILE, TILE) or not torch.equal(got, eager):
+        raise AssertionError("phase 10: the predict program's {} {} is not the eager step's".format(
+            got.dtype, tuple(got.shape)))
+    # K1 at this path's shape against its plain version: the same step with
+    # margin_head_plain, within phase 3's bound (flips by one bin only).
+    plain = step(params, state, raw, plain=True)
+    k1_flips, k1_err = u8_flips(torch, got, plain)
+    if k1_err > 1 or k1_flips > MAX_FLIP_SHARE * got.numel():
+        raise AssertionError("phase 10: the predict program's K1 flips {} bins of its plain head (max distance "
+                             "{})".format(k1_flips, k1_err))
+    x = normalize(raw)
+    with torch.no_grad():
+        want, _ = unet.apply(params, state, x, train=False)
+    logits = programs["logits"](x)
+    err = float((logits - want).abs().max())
+    torch.testing.assert_close(logits, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    # The program and the eager step in turns (program, eager, eager, program): events, then the profiler.
+    times = {"program": [], "eager": []}
+    split = {}
+    for name in ("program", "eager", "eager", "program"):
+        fn = programs["predict"] if name == "program" else (lambda r: step(params, state, r))
+        times[name].append(cuda_ms(torch, fn, [(raw,)], 10))
+        if name not in split:
+            split[name] = kernel_split(torch, lambda: fn(raw))
+    stage("export", time.perf_counter() - t, export_s={k: round(v, 2) for k, v in export_s.items()},
+          bytes=sizes, predict_program_ms=[round(v, 3) for v in times["program"]],
+          eager_step_ms=[round(v, 3) for v in times["eager"]],
+          profiled_wall_and_kernel_ms={k: [round(v, 3) if v else v for v in w] for k, w in split.items()},
+          batch=EXPORT_BATCH, logits_max_abs_err=err, predict="bit-equal",
+          k1_vs_plain="{} of {} bins flipped by 1".format(k1_flips, got.numel()), launches=launches)
+    return {"export_s": export_s, "bytes": sizes, "program_ms": times["program"], "eager_ms": times["eager"],
+            "profiled_wall_and_kernel_ms": split, "logits_max_abs_err": err, "k1_flips_vs_plain": k1_flips,
+            "launches": launches, "card": smi}
+
+
 def run_workflow(torch, work, seed, smi, counted):
     """Phase 10: the README's workflow on robosat_tpu_torch alone, each
     stage a call of the tool's `main`: a generated map as .osm XML and
@@ -3973,6 +4215,12 @@ def run_workflow(torch, work, seed, smi, counted):
     if n_strips != len(splits["validation"]):
         raise AssertionError("phase 10: {} strips for {} tiles".format(n_strips, len(splits["validation"])))
     stage("compare", time.perf_counter() - t, strips=n_strips)
+
+    # 11. serve the checkpoint, then export it
+    summary["serve"] = workflow_serve(torch, upstream, served, all_tiles, checkpoint, model_toml, dataset_toml,
+                                      stage, smi)
+    summary["export"] = workflow_export(torch, root, os.path.join(val, "validation", "images"), checkpoint,
+                                        dataset_toml, counted, stage, smi)
     summary["seconds"] = time.perf_counter() - start_phase
     log("phase 10: done in {:.1f} s".format(summary["seconds"]))
     return summary

@@ -25,7 +25,10 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 @functools.lru_cache(maxsize=None)
 def _statistics(mean, std, device):
     """(float64 mean, float32 1 / std) on `device`, copied there once (a
-    host -> device copy from pageable memory would wait for the device)."""
+    host -> device copy from pageable memory would wait for the device).
+    A trace (torch.export) calls the uncached builder, `__wrapped__`: the
+    tensors it makes are the tracer's, and a cached one would reach the
+    next trace or an eager call."""
     inv_std = torch.from_numpy(np.float32(1.0) / np.asarray(std, np.float32)).to(device)
     return torch.from_numpy(np.asarray(mean, np.float32)).to(device, torch.float64), inv_std
 
@@ -36,7 +39,8 @@ def normalize(images, mean=IMAGENET_MEAN, std=IMAGENET_STD):
     multiplies by float32 reciprocals, and `x * (1/255) - mean` one fused
     multiply-add. The float64 form below rounds that once, as the FMA does
     (u8 * f32 and the difference with the f32 mean are exact in float64)."""
-    mean, inv_std = _statistics(tuple(mean), tuple(std), images.device)
+    statistics = _statistics.__wrapped__ if torch.compiler.is_compiling() else _statistics
+    mean, inv_std = statistics(tuple(mean), tuple(std), images.device)
     centered = (images.double() * float(np.float32(1.0) / np.float32(255.0)) - mean).float()
     return centered * inv_std
 

@@ -21,9 +21,12 @@ These are plain PyTorch (any device); their margins sum in the order XLA
 compiles the JAX package's heads to (`_margin`), so their bins equal the
 JAX package's. `margin_head(features, w, b, overlap, groups)` is kernel K1
 (csrc/head.cu) behind all four: G groups of 32 channels per pixel, G = 1,
-4 or 16 for the three layouts. On a CUDA tensor it launches the kernel,
-which sums in the same order; on a CPU tensor it runs the plain head of
-its layout. The kernel's expf and torch's sigmoid may differ in the last
+4 or 16 for the three layouts, through the operator
+`torch.ops.robosat.margin_head` (`torch.library.custom_op`), which a
+torch.export program keeps as one node: a loaded `.pt2` needs this module
+imported first. On a CUDA tensor the operator launches the kernel, which
+sums in the same order; on a CPU tensor it runs the plain head of its
+layout. The kernel's expf and torch's sigmoid may differ in the last
 ulp, which can move a probability across a 1/255 bin edge: a counted +-1
 flip. `pallas_prediction_head` is the G = 1 call with the JAX signature.
 """
@@ -187,35 +190,60 @@ def margin_head_plain(features, w, b, overlap=0, groups=1):
     return _PLAIN[groups](features, w, b, overlap=overlap)
 
 
-def margin_head(features, w, b, overlap=0, groups=1):
-    """Margin head over `groups` blocks of 32 channels per pixel: features
-    (N, H, W, 32 G) f32 or bf16 -> uint8 (N, H - 2c, W - 2c, G), squeezed
-    to (N, H - 2c, W - 2c) for G = 1, with the crop c = overlap / (1, 2, 4)
-    for G = (1, 4, 16) on the features' grid."""
-    if groups not in _CROP_DIVISOR:
-        raise ValueError("groups must be 1, 4 or 16 (got {})".format(groups))
-    if features.device.type == "cpu":
-        return margin_head_plain(features, w, b, overlap, groups)
+def _out_shape(features, overlap, groups):
+    """The margin head's output shape, checking the crop against the grid."""
+    if overlap % _CROP_DIVISOR[groups]:
+        raise ValueError("overlap {} does not crop whole pixels of the G = {} grid".format(overlap, groups))
+    n, h, w_, _ = features.shape
+    o = overlap // _CROP_DIVISOR[groups]
+    if 2 * o >= min(h, w_):
+        raise ValueError("overlap must be smaller than the grid")
+    return (n, h - 2 * o, w_ - 2 * o) + ((groups,) if groups > 1 else ())
+
+
+@torch.library.custom_op("robosat::margin_head", mutates_args=(), device_types="cpu")
+def _margin_head_op(features: torch.Tensor, w: torch.Tensor, b: torch.Tensor, overlap: int,
+                    groups: int) -> torch.Tensor:
+    """K1 as an operator, so that a traced program (torch.export) keeps it
+    as one node, `robosat.margin_head`. On the CPU it is the plain head of
+    the layout; on the card the kernel launch below."""
+    return margin_head_plain(features, w, b, overlap, groups).contiguous()
+
+
+@_margin_head_op.register_kernel("cuda")
+def _margin_head_cuda(features, w, b, overlap, groups):
     if features.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("features must be float32 or bfloat16 (got {})".format(features.dtype))
     kernels.check_cuda(features, "features", features.dtype)
     n, h, w_, c = features.shape
     if c != 32 * groups:
         raise ValueError("features must have 32 * groups = {} channels (got {})".format(32 * groups, c))
-    if overlap % _CROP_DIVISOR[groups]:
-        raise ValueError("overlap {} does not crop whole pixels of the G = {} grid".format(overlap, groups))
-    o = overlap // _CROP_DIVISOR[groups]
-    if 2 * o >= min(h, w_):
-        raise ValueError("overlap must be smaller than the grid")
+    shape = _out_shape(features, overlap, groups)
     wm, bm = _margin_weights(w, b, 32)
     wmb = kernels.check_cuda(torch.cat([wm, bm.reshape(1)]).contiguous(), "final", torch.float32, (33,))
-    shape = (n, h - 2 * o, w_ - 2 * o) + ((groups,) if groups > 1 else ())
     out = torch.empty(shape, dtype=torch.uint8, device=features.device)
     p = kernels.ptr
-    kernels.launch("rs_margin_head", p(features), p(wmb), p(out), n, h, w_, groups, o,
-                   int(features.dtype == torch.bfloat16))
+    kernels.launch("rs_margin_head", p(features), p(wmb), p(out), n, h, w_, groups,
+                   overlap // _CROP_DIVISOR[groups], int(features.dtype == torch.bfloat16))
     margin_head.launches += 1
     return out
+
+
+@_margin_head_op.register_fake
+def _margin_head_fake(features, w, b, overlap, groups):
+    return features.new_empty(_out_shape(features, overlap, groups), dtype=torch.uint8)
+
+
+def margin_head(features, w, b, overlap=0, groups=1):
+    """Margin head over `groups` blocks of 32 channels per pixel: features
+    (N, H, W, 32 G) f32 or bf16 -> uint8 (N, H - 2c, W - 2c, G), squeezed
+    to (N, H - 2c, W - 2c) for G = 1, with the crop c = overlap / (1, 2, 4)
+    for G = (1, 4, 16) on the features' grid. Calls the operator
+    `torch.ops.robosat.margin_head`: K1 on the card, the plain head on the
+    CPU."""
+    if groups not in _CROP_DIVISOR:
+        raise ValueError("groups must be 1, 4 or 16 (got {})".format(groups))
+    return torch.ops.robosat.margin_head(features, w, b, overlap, groups)
 
 
 margin_head.launches = 0

@@ -20,8 +20,14 @@ ANCHORS = np.linspace(0, 1, 256)
 @functools.lru_cache(maxsize=None)
 def _anchors(device, dtype):
     """The anchors in `dtype` on `device`, copied there once (a host ->
-    device copy from pageable memory would wait for the device each step)."""
+    device copy from pageable memory would wait for the device each step).
+    A trace builds its own (`_anchors_on`), as `augment.normalize` does."""
     return torch.from_numpy(ANCHORS).to(device, dtype)
+
+
+def _anchors_on(device, dtype):
+    """`_anchors`, uncached while torch.export or torch.compile traces."""
+    return (_anchors.__wrapped__ if torch.compiler.is_compiling() else _anchors)(device, dtype)
 
 
 def quantize_probs(fg_probs):
@@ -29,13 +35,13 @@ def quantize_probs(fg_probs):
     against the anchors in the probabilities' dtype, which for increasing
     bins is searchsorted(anchors, p, side="right"); the uint8 cast wraps
     256 -> 0."""
-    q = torch.searchsorted(_anchors(fg_probs.device, fg_probs.dtype), fg_probs.contiguous(), right=True)
+    q = torch.searchsorted(_anchors_on(fg_probs.device, fg_probs.dtype), fg_probs.contiguous(), right=True)
     return (q & 0xFF).to(torch.uint8)
 
 
 def unquantize_probs(quantized):
     """uint8 palette indices -> float32 foreground probabilities."""
-    return _anchors(quantized.device, torch.float32)[quantized.long()]
+    return _anchors_on(quantized.device, torch.float32)[quantized.long()]
 
 
 def softmax_quantize(logits):

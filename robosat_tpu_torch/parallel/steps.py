@@ -1,9 +1,10 @@
-"""The train, QAT, distillation, eval and predict steps of the U-Net, the fast family, DeepLab and SegFormer.
+"""The train, QAT, distillation, eval, predict and segment steps of the four families.
 
+The families are the U-Net, the fast family, DeepLab and SegFormer.
 Counterpart of robosat_tpu/parallel/steps.py's make_train_step,
 make_qat_train_step, make_distill_train_step, make_eval_step,
-make_predict_step and make_int8_predict_step for one device. PyTorch runs
-eagerly, so a step is a plain function.
+make_predict_step, make_int8_predict_step and make_segment_step for one
+device. PyTorch runs eagerly, so a step is a plain function.
 
 The train step augments on the device, normalizes, runs the forward in the
 compute dtype (the space-to-depth tail, `unet.apply_s2d`), takes
@@ -15,8 +16,9 @@ runs the forward with frozen batch norm. All return the loss and the
 confusion counts on the device. The
 predict steps run the forward with the BN fold. The float step runs the folded
 forward as torch (cuDNN) convolutions and ends in the margin head, kernel
-K1 (`fused_head`), or in the final 1x1 conv, a softmax and the digitize.
-The int8 step's stem stays bf16 (fine, or on 4x4 host-blocked input its
+K1 (`fused_head`), or in the final 1x1 conv, a softmax and the digitize;
+the segment step (`serve`) runs the same folded forward to the logits and
+takes their argmax. The int8 step's stem stays bf16 (fine, or on 4x4 host-blocked input its
 space-to-depth form); every int8 site after it is a CUDA kernel on the
 GPU: K3/K4 for the 16 bottleneck blocks, K5 for the up-blocks, and per
 `pallas_tail` the decoder's end:
@@ -282,7 +284,10 @@ def make_predict_step(model, overlap=0, compute_dtype=torch.float32, fused_head=
     softmax, the digitize and the crop.
 
     Returns step(params, state, raw, plain=False); `plain=True` runs the
-    head's plain version instead of kernel K1.
+    head's plain version instead of kernel K1. `step.folded(folded, raw,
+    plain=False)` is the same step over params folded beforehand
+    (`model.fold`) and a uint8 batch already on their device: what `export`
+    traces, so that its program holds folded weights and runs no fold.
     """
     if not fold_bn:
         return _unfolded_predict_step(model, overlap, compute_dtype, fused_head)
@@ -292,10 +297,12 @@ def make_predict_step(model, overlap=0, compute_dtype=torch.float32, fused_head=
     blocked_out = use_host_s2d and overlap % 2 == 0
 
     def step(params, state, raw, plain=False):
+        with torch.no_grad():
+            return predict_folded(model.fold(params, state), _to_device(raw, params["final"]["w"].device), plain)
+
+    def predict_folded(folded, raw, plain=False):
         margin = head.margin_head_plain if plain else head.margin_head
         with torch.no_grad():
-            raw = _to_device(raw, params["final"]["w"].device)
-            folded = model.fold(params, state)
             if not fused_head:
                 return _crop(softmax_quantize(model.apply_folded(folded, normalize(raw).to(compute_dtype))), overlap)
             if own_head:
@@ -312,6 +319,7 @@ def make_predict_step(model, overlap=0, compute_dtype=torch.float32, fused_head=
                 return margin(features, w, b, overlap, 4)
             return head.fine_from_blocked(margin(features, w, b, 0, 4), overlap)
 
+    step.folded = predict_folded
     return step
 
 
@@ -329,6 +337,37 @@ def _unfolded_predict_step(model, overlap, compute_dtype, fused_head):
             logits, _ = model.apply(params, state, x, train=False)
             return _crop(softmax_quantize(logits), overlap)
 
+    return step
+
+
+def make_segment_step(model, compute_dtype=torch.float32):
+    """Hard-mask prediction for serving on the device of the params:
+    step(params, state, raw uint8 (N, H, W, 3)) -> argmax class uint8
+    (N, H, W), the forward in `compute_dtype`. It runs the BN-folded
+    forward (`model.apply_folded(model.fold(...))`) where the model has
+    both, else `model.apply` in eval mode (SegFormer); for a binary model
+    the argmax is the fused head's probability >= 0.5. torch.argmax, as
+    jnp.argmax, takes the first class of a tie.
+
+    Where the model folds, `step.folded(folded, raw)` is the same step over
+    params folded beforehand (`model.fold`), so that a server folds once."""
+    use_fold = hasattr(model, "fold") and hasattr(model, "apply_folded")
+
+    def step(params, state, raw):
+        with torch.no_grad():
+            if use_fold:
+                return segment_folded(model.fold(params, state), raw)
+            x = normalize(_to_device(raw, params["final"]["w"].device)).to(compute_dtype)
+            logits, _ = model.apply(params, state, x, train=False)
+            return torch.argmax(logits, dim=-1).to(torch.uint8)
+
+    def segment_folded(folded, raw):
+        with torch.no_grad():
+            x = normalize(_to_device(raw, folded["final"]["w"].device)).to(compute_dtype)
+            return torch.argmax(model.apply_folded(folded, x), dim=-1).to(torch.uint8)
+
+    if use_fold:
+        step.folded = segment_folded
     return step
 
 

@@ -1,11 +1,13 @@
 """`python -m robosat_tpu_torch.tools <tool>`: the port's command line.
 
-The ported tools keep the flags and the output contracts of their `rs`
+The 15 tools keep the flags and the output contracts of their `rs`
 counterparts (robosat_tpu/tools/), in the reference's order: the data
-tools `extract`, `cover`, `download` and `rasterize`; `train`, `predict`,
-`masks`, `features`, `merge` and `dedupe`; then `weights`, `compare` and
-`subset`. `download` needs the `requests` package, which it imports when it
-runs; the others load without it.
+tools `extract`, `cover`, `download` and `rasterize`; `train`, `export`,
+`predict`, `masks`, `features`, `merge` and `dedupe`; `serve`; then
+`weights`, `compare` and `subset`. `export` writes a torch.export program
+(`pt2`) where the JAX tool writes StableHLO. `download` and `serve` need
+the `requests` package, which they import when they run; the others load
+without it.
 """
 
 import argparse
@@ -15,19 +17,22 @@ from robosat_tpu_torch.tools import (
     cover,
     dedupe,
     download,
+    export,
     extract,
     features,
     masks,
     merge,
     predict,
     rasterize,
+    serve,
     subset,
     train,
     weights,
 )
 
-# Data prep -> ML -> post-processing -> utilities.
-TOOLS = (extract, cover, download, rasterize, train, predict, masks, features, merge, dedupe, weights, compare, subset)
+# Data prep -> ML -> post-processing -> serving -> utilities.
+TOOLS = (extract, cover, download, rasterize, train, export, predict, masks, features, merge, dedupe, serve, weights,
+         compare, subset)
 
 
 def main():

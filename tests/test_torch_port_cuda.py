@@ -26,7 +26,9 @@ channels differ by up to 100 x: K3/K4 (conv1's and the projection's
 vectors on the same x differ, the int8 epilogues requantize with the next
 sites' vectors), K5, K6 and K7 (dec4's on-load quantize and its int8
 epilogue), and rs_int8_conv on both routes, at main-path widths and
-channel tails.
+channel tails. K1 is also held through its operator,
+`torch.ops.robosat.margin_head`, against a direct launch, and inside a
+`predict` program that `export` traces on the card.
 """
 
 import functools
@@ -414,6 +416,55 @@ def test_margin_head_kernel_matches_plain(gen, groups, h, w, overlap, dtype):
     d = torch.minimum(d, 256 - d)
     assert int(d.max()) <= 1
     assert int((d != 0).sum()) <= max(1, 0.001 * d.numel())
+
+
+@pytest.mark.parametrize("groups,h,w,overlap", [(1, 20, 18, 4), (4, 13, 9, 2), (16, 10, 12, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_margin_head_op_equals_a_direct_launch(gen, groups, h, w, overlap, dtype):
+    """torch.ops.robosat.margin_head on the card is K1's launch, bit for bit,
+    and counts as one."""
+    feats = (torch.randn(3, h, w, 32 * groups, generator=gen, device="cuda") * 1.5).to(dtype)
+    w_final = torch.randn(1, 1, 32, 2, generator=gen, device="cuda") * 0.3
+    b_final = torch.randn(2, generator=gen, device="cuda") * 0.1
+    before = head.margin_head.launches
+    got = torch.ops.robosat.margin_head(feats, w_final, b_final, overlap, groups)
+    direct = head._margin_head_cuda(feats, w_final, b_final, overlap, groups)
+    torch.cuda.synchronize()
+    assert head.margin_head.launches == before + 2
+    assert torch.equal(got, direct)
+
+
+def test_predict_pt2_traced_on_the_card_keeps_k1(gen, tmp_path):
+    """`export --graph predict` traced on the card at 64 px: the program
+    holds one robosat.margin_head node, launches K1 once a batch when
+    reloaded, and equals the eager step bit for bit."""
+    import argparse
+
+    from robosat_tpu_torch.checkpoint import load_model_checkpoint, save_checkpoint, to_jax
+    from robosat_tpu_torch.config import save_config
+    from robosat_tpu_torch.models import unet
+    from robosat_tpu_torch.parallel.steps import make_predict_step
+    from robosat_tpu_torch.tools import export
+
+    params, state = unet.init(0, num_classes=2)
+    ckpt, dataset, out = str(tmp_path / "unet.npz"), str(tmp_path / "dataset.toml"), str(tmp_path / "predict.pt2")
+    save_checkpoint(ckpt, {"params": to_jax(params), "state": to_jax(state)}, meta={"epoch": 0})
+    save_config({"common": {"dataset": str(tmp_path), "classes": ["background", "parking"],
+                            "colors": ["denim", "orange"]}}, dataset)
+    export.main(argparse.Namespace(dataset=dataset, image_size=64, checkpoint=ckpt, batch_size=2, graph="predict",
+                                   family="unet", format="pt2", model=out), device=torch.device("cuda"))
+    program = torch.export.load(out)
+    nodes = [n for n in program.graph.nodes if n.op == "call_function" and "robosat.margin_head" in str(n.target)]
+    assert len(nodes) == 1
+    raw = torch.randint(0, 256, (2, 64, 64, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    before = head.margin_head.launches
+    got = program.module()(raw)
+    torch.cuda.synchronize()
+    assert head.margin_head.launches == before + 1
+    params_d, state_d, _ = load_model_checkpoint(ckpt, device="cuda")
+    eager = make_predict_step(unet, overlap=0, compute_dtype=torch.bfloat16, fused_head=True)(params_d, state_d, raw)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (2, 64, 64)
+    assert torch.equal(got, eager)
 
 
 @pytest.mark.parametrize("m,k,n", [
