@@ -9,7 +9,8 @@ checks each hand-written kernel against its plain PyTorch version, and
 trains the U-Net (`train`, then `predict` from what it wrote), also
 quantization-aware and by distillation; then the fast family
 (config/model-fast.toml) the same way, the README's workflow from an OSM
-extract to GeoJSON, and last DeepLabv3+ (`model = "deeplabv3plus"`):
+extract to GeoJSON, DeepLabv3+ (`model = "deeplabv3plus"`), SegFormer, the
+per-channel calibration, and last the multi-device layer:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the CUDA kernels from robosat_tpu_torch/csrc;
@@ -205,6 +206,30 @@ extract to GeoJSON, and last DeepLabv3+ (`model = "deeplabv3plus"`):
    the per-tensor (amax) step's. Its launches count under the kernels'
    names.
 
+14. The multi-device layer (parallel/mesh.py), in a process of its own
+   (`--mesh --mesh-from WORK`), on `unet.init(0)` (its train steps on
+   phase 6a's reference-style kernels): 14a, a one-rank NCCL group built
+   from RS_*: the configured train step (bf16, batch 64 at 512 px,
+   augmentation off, sync_bn) and the same in float32 on 8 rows, 3 steps
+   each against the step without a mesh, and the int8 step (amax
+   calibration) on phase 5's first batch, bit-equal; two NCCL ranks on the
+   one card, which NCCL refuses ("Duplicate GPU detected", printed); 14b,
+   two ranks over gloo on the card (`--mesh-rank gloo`, RS_* set): the
+   spatial step on one 2048 x 2048 raster, overlap 32, float32, against
+   the one-process step (one bin on at most 0.1% of pixels, the flips
+   counted, K1 counted on each rank as `spatial`, both steps timed by CUDA
+   events) and K1 on each rank's own features against its plain version,
+   the configured train step split 32/32 (sync_bn) and each rank the same
+   32 rows (no sync_bn) against one process, the float32 step on 8 rows
+   split 4/4 (sync_bn, within 1e-4 of 14a's one process; each rank's own
+   statistics, the control, outside it), `train.main` one epoch on 6c's
+   dataset and int8 `predict.main` on phase 5's 64 tiles (launches
+   counted as `mesh-predict`) against one process, and each rank's int8
+   step on its 4 rows of predict's first batch against the plain step.
+   gloo stages
+   CUDA tensors through the host, so 14b's times are of correctness, not
+   of NCCL's links.
+
 `python3 chip_smoke.py --k2 [--tree DIR]` runs phases 1-2 and K2's part of
 phase 4 only, on the robosat_tpu_torch of checkout DIR (default: this one),
 so that two versions of K2 can be timed on one card, one after the other.
@@ -215,7 +240,7 @@ and 8 only, with a U-Net checkpoint of `unet.init(0)` and a new dataset in
 place of 6c's. `python3 chip_smoke.py --workflow` runs phases 1, 2 and 10
 only. `python3 chip_smoke.py --deeplab` runs phases 1, 2 and 11 only,
 with a new dataset in place of 6c's; `--segformer` phases 1, 2 and 12;
-`--pc` phases 1, 2 and 13.
+`--pc` phases 1, 2 and 13; `--mesh` phases 1, 2 and 14.
 
 Each kernel's line also carries its bound: the least time the card could
 take for the same work, max(bytes / 3.35 TB/s, operations / peak) with each
@@ -404,6 +429,21 @@ SEGFORMER_PATHS = (("segformer-int8", {}, SEGFORMER_INT8), ("segformer-bf16", {"
 # launches per batch: those of phase 5's int8 path).
 PC_SPEC = "pc99.8"
 PC_PATHS = (("unet-" + PC_SPEC, {"int8_calibration": PC_SPEC}, {**ENCODER, "K5": 5, "K6": 1}),)
+MESH_RASTER = 2048  # phase 14b: one raster of this side, split by height over the ranks
+MESH_RANKS = 2
+MESH_TRAIN_STEPS = 3
+# The int8 predicts from a trained checkpoint (6c, 10, 11c, 12c) and phase
+# 14's calibrate on amax: a per-tensor 99.8 percentile calibration takes
+# ~10 s of the card (one kthvalue over a site's 42M values), and the
+# configured 99.8 already runs in phases 5, 7c (QAT), 8b, 11b and 12b.
+TRAINED_CALIBRATION = MESH_CALIBRATION = "amax"
+# Step 0's loss in bf16 between the synchronized batch norm (the JAX
+# package's float32 formula, one rounding to bf16) and cuDNN's: the two
+# round apart (6.7-7.2e-4 relative on one H100, where bf16 and float32
+# steps without a mesh part by 4.0e-3), so the bf16 steps are held to
+# about 3x that gap, and PERF.md section 2's 1e-4 holds in float32.
+MESH_BF16_STEP0 = 2e-3
+MESH_F32_ROWS = 8  # 14a's float32 comparison: the first rows of the batch
 EDGE_ROWS = 128  # rows next to a tile edge inside a strip, where a strip's context exceeds the tile's
 # Paths that run on phase 3's scales through a QAT checkpoint's qat_amaxes
 # (every int8 path but the configured one, which calibrates in `predict`).
@@ -454,6 +494,14 @@ def main():
     parser.add_argument("--pc-from", default=None, metavar="WORK",
                         help="with --pc: the full run's work directory; the results go to WORK/pc.json (the full "
                              "run's phase 13)")
+    parser.add_argument("--mesh", action="store_true",
+                        help="only phases 1, 2 and 14 (the multi-device layer: a one-rank NCCL group, then two "
+                             "ranks over gloo on the one card)")
+    parser.add_argument("--mesh-from", default=None, metavar="WORK",
+                        help="with --mesh: the full run's work directory, whose phase-6c dataset phase 14 uses; the "
+                             "results go to WORK/mesh.json (the full run's phase 14)")
+    parser.add_argument("--mesh-rank", default=None, choices=("nccl", "gloo"),
+                        help="one rank of phase 14, started by it with RS_* set (with --mesh-from WORK)")
     parser.add_argument("--fast-from", default=None, metavar="WORK",
                         help="with --fast: the full run's work directory, whose phase-6c U-Net checkpoint and "
                              "dataset phase 8d uses; the results go to WORK/fast.json (the full run's phase 8)")
@@ -469,6 +517,9 @@ def main():
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA GPU (torch.cuda.is_available() is false)")
+    if opts.mesh_rank:
+        run_mesh_rank(torch, opts.mesh_rank, opts.mesh_from)
+        return
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -547,7 +598,8 @@ def main():
     for flag, run_family, names, from_work in (("deeplab", run_deeplab, ("K3", "K4", "int8_conv"), opts.deeplab_from),
                                                ("segformer", run_segformer, ("K2", "quantize", "int8_conv"),
                                                 opts.segformer_from),
-                                               ("pc", run_pc, ("K3", "K4", "K5", "K6", "int8_conv"), opts.pc_from)):
+                                               ("pc", run_pc, ("K3", "K4", "K5", "K6", "int8_conv"), opts.pc_from),
+                                               ("mesh", run_mesh, ("K1", "K3", "K4", "K5", "K6"), opts.mesh_from)):
         if not getattr(opts, flag):
             continue
         per_kernel, launches, by_path = {}, dict.fromkeys(names, 0), {}
@@ -1108,9 +1160,9 @@ def run(torch, work, seed, smi):
             launches[name] += c
     lap(marks, "phase 10")
 
-    # ---- phases 11, 12 and 13: DeepLabv3+, SegFormer and the per-channel ----
-    # calibration, each in a process of its own
-    for phase, flag in ((11, "deeplab"), (12, "segformer"), (13, "pc")):
+    # ---- phases 11-14: DeepLabv3+, SegFormer, the per-channel calibration --
+    # and the multi-device layer, each in a process of its own
+    for phase, flag in ((11, "deeplab"), (12, "segformer"), (13, "pc"), (14, "mesh")):
         torch.cuda.empty_cache()
         family = run_phase_process(work, "--" + flag, flag)
         for name, entry in family["per_kernel"].items():
@@ -1599,7 +1651,7 @@ def write_training_set(root, seed):
 
 def train_tool(torch, work, seed, counted, launches, by_path, smi):
     """Phase 6c: `train.main` in-process for epoch 1, `--resume` to epoch
-    2, then int8 `predict` (as configured) from the trained checkpoint over
+    2, then int8 `predict` (TRAINED_CALIBRATION) from the trained checkpoint over
     the training tiles, its launches counted; returns the epoch-2
     checkpoint."""
     from robosat_tpu_torch.checkpoint import load_checkpoint
@@ -1650,18 +1702,19 @@ def train_tool(torch, work, seed, counted, launches, by_path, smi):
 
     checkpoint = tool_checkpoint_path(work)
     counts, pngs, wall, n_batches = predict_split_tiles(root, os.path.join(work, "probs-trained"), checkpoint,
-                                                        counted, "6c predict")
+                                                        counted, "6c predict", calibration=TRAINED_CALIBRATION)
     by_path["train-predict"] = counts
     for name, c in counts.items():
         launches[name] += c
-    log("phase 6: [6c] predict (int8 as configured) from checkpoint-00002-of-00002.npz: {} PNGs in {:.2f} s on {}; "
+    log("phase 6: [6c] predict (int8, amax calibration) from checkpoint-00002-of-00002.npz: {} PNGs in {:.2f} s on {}; "
         "launches {} ({} batches)".format(pngs, wall, smi, counts, n_batches))
     return checkpoint
 
 
 def predict_split_tiles(root, probs, checkpoint, counted, label, model_toml=None, per_batch=None,
-                        split="training", tiles=TRAIN_TILES_SIDE ** 2):
-    """int8 `predict` as configured (config/model-unet.toml, or `model_toml`)
+                        split="training", tiles=TRAIN_TILES_SIDE ** 2, calibration=None):
+    """int8 `predict` as configured (config/model-unet.toml, or `model_toml`;
+    through a copy with int8_calibration = `calibration` where one is given)
     over the `tiles` tiles of `split` of the dataset at `root` from
     `checkpoint`, every launch count set to 0 just before and read just
     after: one palette PNG of TILE px per tile, and per batch the launches
@@ -1669,10 +1722,16 @@ def predict_split_tiles(root, probs, checkpoint, counted, label, model_toml=None
     Returns (the nonzero launch counts, PNGs, seconds, batches)."""
     from PIL import Image
 
+    from robosat_tpu_torch.config import load_config, save_config
     from robosat_tpu_torch.tools import predict
 
-    pargs = predict_args(None, os.path.join(root, split, "images"), probs,
-                         model_toml or os.path.join(ROOT, "config", "model-unet.toml"), checkpoint)
+    model_toml = model_toml or os.path.join(ROOT, "config", "model-unet.toml")
+    if calibration is not None:
+        config = load_config(model_toml)
+        config["common"]["int8_calibration"] = calibration
+        model_toml = probs.rstrip(os.sep) + "-model.toml"
+        save_config(config, model_toml)
+    pargs = predict_args(None, os.path.join(root, split, "images"), probs, model_toml, checkpoint)
     n_batches = -(-tiles // BATCH)
     for fn in counted.values():
         fn.launches = 0
@@ -3127,6 +3186,516 @@ def run_pc(torch, work, seed, smi, counted, launches, by_path, per_kernel, train
         del steps, step, qt, params, state, got, ref
         torch.cuda.empty_cache()
 
+def mesh_env(port, size, rank):
+    """The RS_* environment of rank `rank` of `size` processes (parallel/mesh.py)."""
+    return {"RS_COORDINATOR": "127.0.0.1:{}".format(port), "RS_NUM_PROCESSES": str(size), "RS_PROCESS_ID": str(rank)}
+
+
+def start_ranks(work, task, size):
+    """`size` processes of `chip_smoke.py --mesh-rank task --mesh-from work`,
+    RS_* set for each (a fresh port), their output to work/mesh/<task><r>.log."""
+    from robosat_tpu_torch.parallel.mesh import free_port
+
+    port = free_port()
+    procs = []
+    for rank in range(size):
+        out = open(os.path.join(work, "mesh", "{}{}.log".format(task, rank)), "w")
+        cmd = [sys.executable, os.path.abspath(__file__), "--mesh-rank", task, "--mesh-from", work]
+        procs.append((subprocess.Popen(cmd, env=dict(os.environ, **mesh_env(port, size, rank)), stdout=out,
+                                       stderr=subprocess.STDOUT), out))
+    return procs
+
+
+def wait_ranks(procs, timeout):
+    """The ranks' exit codes and outputs; a rank past `timeout` is killed."""
+    codes, logs = [], []
+    deadline = time.perf_counter() + timeout
+    for proc, out in procs:
+        try:
+            codes.append(proc.wait(timeout=max(deadline - time.perf_counter(), 1)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            codes.append(proc.wait())
+        out.close()
+        with open(out.name) as f:
+            logs.append(f.read())
+    return codes, logs
+
+
+def mesh_raster(seed):
+    """14b's raster: MESH_RASTER^2 px of the phase-5 imagery's kind, one image."""
+    rng = np.random.default_rng(seed + 14)
+    yy, xx = np.mgrid[0:MESH_RASTER, 0:MESH_RASTER].astype(np.float32)
+    base = 0.5 + 0.35 * np.stack([np.sin(xx / (23 + 7 * c) + yy / (31 + 5 * c)) for c in range(3)], -1)
+    return np.clip(base * 255 + rng.normal(0, 12, base.shape), 0, 255).astype(np.uint8)[None]
+
+
+def mesh_train_steps(torch, seed, images, masks, mesh=None, sync_bn=True, dtype=None, steps=MESH_TRAIN_STEPS):
+    """`steps` of config/model-unet.toml's train step (its dtype,
+    bf16, unless `dtype` says otherwise; its loss; augmentation off) from
+    `mesh_train_weights(seed)` on (images, masks), which are this rank's
+    rows with a `mesh`: (losses, bn1's running mean and variance, the
+    weights as one float32 vector), all on the host."""
+    from robosat_tpu_torch import optim
+    from robosat_tpu_torch.checkpoint import from_jax, to_jax, tree_leaves
+    from robosat_tpu_torch.config import load_config
+    from robosat_tpu_torch.models import unet
+    from robosat_tpu_torch.ops.losses import get_loss
+    from robosat_tpu_torch.parallel.steps import make_train_step
+
+    config = load_config(os.path.join(ROOT, "config", "model-unet.toml"))
+    opt = config["opt"]
+    params, state = from_jax(*(to_jax(t) for t in mesh_train_weights(torch, seed)), "cuda")
+    step = make_train_step(unet, get_loss(opt["loss"]), optim.adam(params, opt["lr"]),
+                           weight=PARKING_WEIGHTS if opt["loss"] != "Lovasz" else None,
+                           compute_dtype=dtype or (torch.bfloat16 if config["common"].get("bf16") else torch.float32),
+                           augment=False, mesh=mesh, sync_bn=sync_bn)
+    images, masks = torch.from_numpy(images).pin_memory(), torch.from_numpy(masks).pin_memory()
+    losses = []
+    for _ in range(steps):
+        state, loss, _ = step(params, state, images, masks)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    flat = torch.cat([p.detach().float().reshape(-1) for p in tree_leaves(params)]).cpu().numpy()
+    bn = torch.cat([state["encoder"]["bn1"][k].float() for k in ("mean", "var")]).cpu().numpy()
+    del params, state, step
+    torch.cuda.empty_cache()
+    return [float(v) for v in losses], bn, flat
+
+
+def mesh_train_weights(torch, seed):
+    """`unet.init(seed)` with phase 6a's reference-style kernels
+    (N(0, 0.05^2)), whose losses stay where two faithful trajectories can be
+    held to 5%: (params, state) on the host."""
+    from robosat_tpu_torch.models import unet
+
+    params, state = unet.init(seed)
+    return reference_style(torch, params, seed), state
+
+
+def check_train_agreement(label, got, want, start, step0=1e-4):
+    """PERF.md section 2's training agreement between two runs of
+    `mesh_train_steps`: step 0's loss within `step0` relative (1e-4; in
+    bf16 MESH_BF16_STEP0), steps 1-2 within 5%, bn1's running statistics
+    within 5e-3; the update's cosine after the last step is printed
+    (Adam's first updates are ~lr * sign(grad), so near-zero gradients'
+    signs follow the summation order)."""
+    (g_losses, g_bn, g_flat), (w_losses, w_bn, w_flat) = got, want
+    rel = [abs(a - b) / abs(b) for a, b in zip(g_losses, w_losses)]
+    bn_err = float(np.abs(g_bn - w_bn).max())
+    cos = float(np.dot(g_flat - start, w_flat - start) /
+                (np.linalg.norm(g_flat - start) * np.linalg.norm(w_flat - start) + 1e-30))
+    log("phase 14: {}: losses {} vs {} (relative {}), bn1's statistics max |diff| {:.3g}, update cosine {:.5f}".format(
+        label, ["{:.5f}".format(v) for v in g_losses], ["{:.5f}".format(v) for v in w_losses],
+        ["{:.2e}".format(v) for v in rel], bn_err, cos))
+    if rel[0] > step0 or max(rel[1:]) > 0.05 or bn_err > 5e-3:
+        raise AssertionError("{}: outside the training agreement".format(label))
+
+
+def mesh_first_batch(torch, work):
+    """Phase 5's first int8 batch (8 host-blocked 576-px tiles), as predict loads it."""
+    from robosat_tpu_torch.data.loader import batches
+    from robosat_tpu_torch.tools import predict
+
+    directory, _ = predict.input_directory(predict_args(work, os.path.join(work, "tiles"), None, None, None), True)
+    return next(iter(batches(directory, BATCH, workers=2))).arrays[0]
+
+
+def mesh_predict_toml(work):
+    """config/model-unet.toml with int8_calibration = MESH_CALIBRATION."""
+    from robosat_tpu_torch.config import load_config, save_config
+
+    config = load_config(os.path.join(ROOT, "config", "model-unet.toml"))
+    config["common"]["int8_calibration"] = MESH_CALIBRATION
+    path = os.path.join(work, "mesh", "model-unet-mesh.toml")
+    save_config(config, path)
+    return path
+
+
+def mesh_train_args(work, root, name):
+    """`train` one epoch on 6c's dataset at TOOL_BATCH, checkpoints in work/mesh/name."""
+    from robosat_tpu_torch.config import load_config, save_config
+
+    base = load_config(os.path.join(ROOT, "config", "model-unet.toml"))
+    config = {**base, "common": {**base["common"], "batch_size": TOOL_BATCH,
+                                 "checkpoint": os.path.join(work, "mesh", name)}, "opt": {**base["opt"], "epochs": 1}}
+    dataset = load_config(os.path.join(ROOT, "config", "dataset-parking.toml"))
+    dataset["common"]["dataset"] = root
+    model_toml, dataset_toml = (os.path.join(work, "mesh", name + suffix) for suffix in ("-model.toml", "-data.toml"))
+    save_config(config, model_toml)
+    save_config(dataset, dataset_toml)
+    return argparse.Namespace(model=model_toml, dataset=dataset_toml, checkpoint=None, resume=False, workers=4,
+                              profile=None)
+
+
+def run_mesh(torch, work, seed, smi, counted, launches, by_path, per_kernel, train_root=None):
+    """Phase 14: the multi-device layer (parallel/mesh.py) on the one card.
+
+    14a, a real NCCL group of one rank through `maybe_init_distributed`
+    with RS_* set to localhost: the configured train step (bf16, its loss,
+    batch 64 at 512 px, augmentation off, sync_bn) for MESH_TRAIN_STEPS
+    against the step without a mesh, within PERF.md section 2's training
+    agreement (step 0 within MESH_BF16_STEP0 in bf16; in float32, on the
+    batch's first MESH_F32_ROWS rows, within 1e-4); the int8 predict step
+    (MESH_CALIBRATION) on phase 5's first batch, bit-equal to the step
+    without a mesh. Then two NCCL ranks on the
+    one card, which NCCL refuses ("Duplicate GPU detected"; the error is
+    printed). 14b, two ranks on the card over gloo (NCCL needs a card
+    each; gloo stages CUDA tensors through the host, so its times are of
+    correctness, not of NCCL's links): `make_spatial_predict_step` on one
+    MESH_RASTER^2 raster, overlap 32, float32, against the one-process
+    `make_predict_step` (within one bin on at most 0.1% of the pixels, the
+    flips counted; K1 launches counted on each rank as `spatial`; both
+    steps timed by CUDA events), and K1 on each rank's own features against
+    its plain version under the same rule; the configured train step,
+    batch 64 split 32/32, against the one-process step, sync_bn true (the
+    batch's 64 rows) and false (each rank the same 32 rows, against one
+    process on them); in float32 on MESH_F32_ROWS split over the ranks,
+    sync_bn true within 1e-4 of 14a's one process on them, and each rank's
+    own statistics (the control) outside that bound; `train.main` one epoch
+    on 6c's dataset and int8 `predict.main` on phase 5's tiles
+    (MESH_CALIBRATION), each as 2 processes under RS_*: rank 0 alone
+    writes the checkpoint, the PNGs equal the one-process run's within one
+    bin on at most 0.1%, and each rank's int8 step on its rows of the first
+    batch against the plain step under the same rule."""
+    import torch.distributed as dist
+
+    from robosat_tpu_torch.checkpoint import load_model_checkpoint, save_checkpoint, to_jax, tree_leaves
+    from robosat_tpu_torch.config import load_config
+    from robosat_tpu_torch.device import configure_device
+    from robosat_tpu_torch.models import unet
+    from robosat_tpu_torch.parallel.mesh import create_mesh, free_port
+    from robosat_tpu_torch.parallel.steps import make_int8_predict_step, make_predict_step
+    from robosat_tpu_torch.tools import predict, train
+
+    marks = [time.perf_counter()]
+    device = configure_device(True)
+    os.makedirs(os.path.join(work, "mesh"), exist_ok=True)
+    if not os.path.isdir(os.path.join(work, "tiles")):
+        write_tiles(os.path.join(work, "tiles"), seed)
+    if train_root is None:
+        train_root = os.path.join(work, "slippy")
+        write_training_set(train_root, seed)
+    checkpoint = os.path.join(work, "mesh", "unet.npz")
+    save_checkpoint(checkpoint, {"params": to_jax(unet.init(seed)[0]), "state": to_jax(unet.init(seed)[1])},
+                    meta={"epoch": 0})
+    # The NCCL probe (14a's last part) runs beside this process's work, and
+    # 14b's ranks start now and wait, their CUDA set up, for work/mesh/go.
+    nccl = start_ranks(work, "nccl", MESH_RANKS)
+    ranks = start_ranks(work, "gloo", MESH_RANKS)
+    try:
+
+        # ---- 14a: a one-rank NCCL group --------------------------------------
+        os.environ.update(mesh_env(free_port(), 1, 0))
+        start = time.perf_counter()
+        mesh = create_mesh(device)
+        log("phase 14: [14a] {} group of {} rank(s) through RS_* in {:.2f} s, device {}".format(
+            dist.get_backend(), mesh.size, time.perf_counter() - start, mesh.device))
+        config = load_config(os.path.join(ROOT, "config", "model-unet.toml"))["common"]
+        images, masks = learnable_batches(np.random.default_rng(seed + 7), 1, config["batch_size"],
+                                          config["image_size"])[0]
+        start_w = np.concatenate([t.float().reshape(-1).numpy()
+                                  for t in tree_leaves(mesh_train_weights(torch, seed)[0])])
+        t0 = time.perf_counter()
+        runs = {}
+        for dtype, rows in ((torch.float32, MESH_F32_ROWS), (None, len(images))):
+            runs[dtype] = [mesh_train_steps(torch, seed, images[:rows], masks[:rows], use_mesh, dtype=dtype)
+                           for use_mesh in (mesh, None)]
+        check_train_agreement("[14a] train float32 ({} rows), NCCL one rank vs no mesh".format(MESH_F32_ROWS),
+                              *runs[torch.float32], start_w)
+        check_train_agreement("[14a] train as configured (bf16), NCCL one rank vs no mesh", *runs[None], start_w,
+                              step0=MESH_BF16_STEP0)
+        log("phase 14: [14a] {} train steps each of the four ways in {:.2f} s".format(MESH_TRAIN_STEPS,
+                                                                                     time.perf_counter() - t0))
+        # 14a's steps without a mesh are 14b's references too: float32 on
+        # MESH_F32_ROWS rows, and the configured step on the batch's 64.
+        f32_ref, train_sync = runs[torch.float32][1], runs[None][1]
+        del runs
+        raw48 = mesh_first_batch(torch, work)
+        params, state, _ = load_model_checkpoint(checkpoint, device=device)
+        outs = []
+        for use_mesh in (mesh, None):
+            step, qtree = make_int8_predict_step(unet, params, state, raw48, overlap=OVERLAP, host_s2d=True,
+                                                 calib_percentile=None, mesh=use_mesh)
+            for fn in counted.values():
+                fn.launches = 0
+            outs.append(step(qtree, raw48))
+            torch.cuda.synchronize()
+            if use_mesh is not None:
+                by_path["mesh-nccl-predict"] = {name: fn.launches for name, fn in counted.items() if fn.launches}
+        if not torch.equal(outs[0], outs[1]) or by_path["mesh-nccl-predict"] != PATHS[0][3]:
+            raise AssertionError("14a: the int8 step on the NCCL mesh differs from the step without one, or launched "
+                                 "{}".format(by_path["mesh-nccl-predict"]))
+        log("phase 14: [14a] int8 predict ({} calibration) on the one-rank NCCL mesh: bit-equal to the step without a "
+            "mesh, {}; launches {}".format(MESH_CALIBRATION, tuple(outs[0].shape), by_path["mesh-nccl-predict"]))
+        del params, state, step, qtree, outs
+        dist.destroy_process_group()
+        for key in ("RS_COORDINATOR", "RS_NUM_PROCESSES", "RS_PROCESS_ID"):
+            os.environ.pop(key)
+        torch.cuda.empty_cache()
+
+        # ---- 14b references, in this process ---------------------------------
+        raster = mesh_raster(seed)
+        params, state, _ = load_model_checkpoint(checkpoint, device=device)
+        single = make_predict_step(unet, overlap=OVERLAP, fused_head=True, fold_bn=True, s2d=True)
+        spatial_ref = single(params, state, raster)
+        ms = cuda_ms(torch, lambda r: single(params, state, r), [(raster,)], 3)
+        spatial_ref = spatial_ref.cpu().numpy()
+        log("phase 14: [14b] one-process make_predict_step on the {0}x{0} raster, float32: {1:.3f} ms by CUDA events "
+            "on {2}".format(MESH_RASTER, ms, smi))
+        del params, state
+        np.save(os.path.join(work, "mesh", "images.npy"), images)
+        np.save(os.path.join(work, "mesh", "masks.npy"), masks)
+        with open(os.path.join(work, "mesh", "setup.json"), "w") as f:
+            json.dump({"train_root": train_root}, f)
+        half = len(images) // MESH_RANKS
+        train_local = mesh_train_steps(torch, seed, images[:half], masks[:half])
+        single_train = train.main(mesh_train_args(work, train_root, "train-single"))
+        predict.main(predict_args(work, os.path.join(work, "tiles"), os.path.join(work, "mesh", "probs-single"),
+                                  mesh_predict_toml(work), checkpoint))
+        lap(marks, "phase 14 (14a and 14b's one-process references)")
+
+        codes, logs = wait_ranks(nccl, 120)
+        refused = [line for text in logs for line in text.splitlines() if "Duplicate GPU" in line]
+        log("phase 14: [14a] two NCCL ranks on the one card: exit codes {}; {}".format(
+            codes, refused[0].strip()[:300] if refused else "no 'Duplicate GPU' error"))
+        if all(c == 0 for c in codes) or not refused:
+            raise AssertionError("14a: NCCL did not refuse two ranks on one card:\n" +
+                                 "\n".join(t[-2000:] for t in logs))
+
+        # ---- 14b: two ranks over gloo ----------------------------------------
+        log("phase 14: [14b] {} ranks on {} over gloo (passed to maybe_init_distributed; NCCL refuses two ranks on "
+            "one card)".format(MESH_RANKS, smi))
+        open(os.path.join(work, "mesh", "go"), "w").close()
+        codes, logs = wait_ranks(ranks, 600)
+        for rank, text in enumerate(logs):
+            for line in text.splitlines():
+                if line.startswith("phase 14"):
+                    log("  rank {} | {}".format(rank, line))
+        if any(codes):
+            raise AssertionError("14b: rank exit codes {}:\n{}".format(codes, "\n".join(t[-3000:] for t in logs)))
+        results = []
+        for rank in range(MESH_RANKS):
+            with open(os.path.join(work, "mesh", "gloo{}.json".format(rank))) as f:
+                results.append(json.load(f))
+        spatial = np.load(os.path.join(work, "mesh", "spatial0.npy"))
+        flips, err = u8_flips(torch, torch.from_numpy(spatial), torch.from_numpy(spatial_ref))
+        if spatial.shape != spatial_ref.shape or err > 1 or flips > MAX_FLIP_SHARE * spatial.size:
+            raise AssertionError("14b spatial: {} vs {}, {} flips (max {})".format(spatial.shape, spatial_ref.shape,
+                                                                                flips, err))
+        if [r["spatial_launches"] for r in results] != [1] * MESH_RANKS:
+            raise AssertionError("14b spatial: K1 launches by rank {}".format([r["spatial_launches"] for r in results]))
+        by_path["spatial"] = {"K1": sum(r["spatial_launches"] for r in results)}
+        log("phase 14: [14b] spatial step, 2 ranks over gloo: {} uint8 against one process: {} of {} bins flipped "
+            "by 1; {:.3f} ms (rank 0) / {:.3f} ms (rank 1) by CUDA events against {:.3f} (one process, no "
+            "exchange), K1 launches {} by rank".format(spatial.shape, flips, spatial.size, results[0]["spatial_ms"],
+                                                       results[1]["spatial_ms"], ms,
+                                                       [r["spatial_launches"] for r in results]))
+        rank_train = [np.load(os.path.join(work, "mesh", "train-{}.npz".format(kind))) for kind in ("sync", "local")]
+        # sync_bn's global statistics run the JAX package's float32 formula where
+        # the step without a mesh runs cuDNN's batch norm: in bf16 the two round
+        # apart; the local step runs cuDNN's on both sides.
+        for kind, ref, got, step0 in (
+                ("sync_bn = true, 64 rows split 32/32", train_sync, rank_train[0], MESH_BF16_STEP0),
+                ("sync_bn = false, each rank the same 32 rows", train_local, rank_train[1], 1e-4)):
+            check_train_agreement("[14b] train (bf16), 2 ranks, " + kind,
+                                  (list(got["losses"]), got["bn"], got["flat"]), ref, start_w, step0=step0)
+        # float32, 8 rows split 4/4, against 14a's one process on them: the
+        # synchronized statistics within section 2's 1e-4, and the same
+        # step on each rank's own statistics (the fault a missing
+        # all-reduce would make) outside it.
+        sync32, local32 = (np.load(os.path.join(work, "mesh", "train-{}.npz".format(k)))
+                           for k in ("sync-f32", "local-f32"))
+        check_train_agreement("[14b] train float32, 2 ranks, sync_bn = true, {} rows split {}/{}".format(
+            MESH_F32_ROWS, MESH_F32_ROWS // MESH_RANKS, MESH_F32_ROWS // MESH_RANKS),
+            (list(sync32["losses"]), sync32["bn"], sync32["flat"]), f32_ref, start_w)
+        per_rank = abs(float(local32["losses"][0]) - f32_ref[0][0]) / abs(f32_ref[0][0])
+        log("phase 14: [14b] train float32, 2 ranks, each rank's own statistics on the same rows (the control): step "
+            "0's loss {:.5f} vs {:.5f}, relative {:.2e}; bn1's statistics max |diff| {:.3g}".format(
+                float(local32["losses"][0]), f32_ref[0][0], per_rank, float(np.abs(local32["bn"] - f32_ref[1]).max())))
+        if per_rank <= 1e-4:
+            raise AssertionError("14b: step 0's 1e-4 bound does not tell per-rank batch statistics from global ones")
+        for rank, r in enumerate(results):
+            for key, what in (("k1", "K1 (G = 4) on the rank's spatial features"),
+                              ("int8_rows", "the int8 step (K3-K6) on the rank's rows of predict's first batch")):
+                c = r[key]
+                log("phase 14: [14b] rank {} {} {} vs its plain version: {} of {} bins flipped (max distance {}); "
+                    "{:.3f} ms with kernels, {:.3f} ms plain, by CUDA events on {}".format(
+                        rank, what, tuple(c["shape"]), c["flips"], c["bins"], c["max_err"], c["ms"], c["plain_ms"],
+                        smi))
+        hist, want = results[0]["train_history"], single_train["history"]
+        rel = max(abs(hist[k][0] - want[k][0]) / abs(want[k][0]) for k in want if "loss" in k)
+        files = sorted(os.listdir(os.path.join(work, "mesh", "train-mesh")))
+        if results[1]["train_history"] != hist or rel > 0.05 or files != sorted(
+                os.listdir(os.path.join(work, "mesh", "train-single"))):
+            raise AssertionError("14b train.main: history {} vs {}, files {}".format(hist, want, files))
+        log("phase 14: [14b] train.main one epoch, 2 ranks: {} steps each, losses within {:.2%} of one process's, "
+            "rank 0's files {}".format([r["train_steps"] for r in results], rel, files))
+        single_pngs, mesh_pngs = (png_dict(os.path.join(work, "mesh", d)) for d in ("probs-single", "probs-mesh"))
+        if sorted(single_pngs) != sorted(mesh_pngs) or len(mesh_pngs) != TILES_SIDE ** 2:
+            raise AssertionError("14b predict.main: {} PNGs vs {}".format(len(mesh_pngs), len(single_pngs)))
+        flips = 0
+        for key, ref in single_pngs.items():
+            f, e = u8_flips(torch, torch.from_numpy(mesh_pngs[key]), torch.from_numpy(ref))
+            if e > 1 or f > MAX_FLIP_SHARE * ref.size:
+                raise AssertionError("14b predict.main: {}: {} flips (max {})".format(key, f, e))
+            flips += f
+        n_batches = TILES_SIDE ** 2 // BATCH
+        by_path["mesh-predict"] = {}
+        for r in results:
+            if r["predict_launches"] != {name: c * n_batches for name, c in PATHS[0][3].items()}:
+                raise AssertionError("14b predict.main: a rank launched {}".format(r["predict_launches"]))
+            for name, c in r["predict_launches"].items():
+                by_path["mesh-predict"][name] = by_path["mesh-predict"].get(name, 0) + c
+        log("phase 14: [14b] predict.main int8 ({}), 2 ranks: {} PNGs, {} bins flipped by 1 against one process; "
+            "launches {} by rank, {} in all".format(MESH_CALIBRATION, len(mesh_pngs), flips,
+                                                     [r["predict_launches"] for r in results], by_path["mesh-predict"]))
+        for path in ("mesh-nccl-predict", "spatial", "mesh-predict"):
+            for name, c in by_path[path].items():
+                launches[name] = launches.get(name, 0) + c
+        lap(marks, "phase 14 (14b)")
+    finally:
+        for proc, out in nccl + ranks:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+
+
+def png_dict(probs):
+    """{relative path: palette indices} of every PNG under `probs`."""
+    from PIL import Image
+
+    out = {}
+    for dirpath, _, names in os.walk(probs):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            out[os.path.relpath(path, probs)] = np.asarray(Image.open(path))
+    return out
+
+
+def run_mesh_rank(torch, task, work):
+    """One rank of phase 14 (`--mesh-rank TASK --mesh-from WORK`, RS_* set
+    by run_mesh). TASK "nccl": an all-reduce over NCCL, which two ranks on
+    one card must not pass. TASK "gloo": 14b's rank: sets up CUDA, waits for
+    run_mesh's work/mesh/go (its references done), joins the gloo group,
+    then the spatial step (its K1 launches counted, its call timed by CUDA
+    events) and K1 on its features against the plain version, the train
+    steps sync_bn true (its rows of the batch) and false (the batch's
+    first 32 rows), the float32 steps on its rows of MESH_F32_ROWS
+    (sync_bn true and false), `train.main` and `predict.main` (launches
+    counted), and the int8 step on its rows of predict's first batch
+    against the plain step; rank 0 saves the arrays, each rank its numbers
+    in work/mesh/gloo<rank>.json."""
+    import torch.distributed as dist
+
+    from robosat_tpu_torch.checkpoint import load_model_checkpoint
+    from robosat_tpu_torch.device import configure_device
+    from robosat_tpu_torch.models import unet
+    from robosat_tpu_torch.ops import head
+    from robosat_tpu_torch.parallel.mesh import create_mesh, maybe_init_distributed, shard_batch
+    from robosat_tpu_torch.parallel.steps import make_int8_predict_step, make_spatial_predict_step
+    from robosat_tpu_torch.tools import predict, train
+
+    device = configure_device(True)
+    if task == "nccl":
+        maybe_init_distributed(use_cuda=True)
+        torch.cuda.set_device(0)
+        dist.all_reduce(torch.ones(1, device="cuda"))
+        torch.cuda.synchronize()
+        log("phase 14: [14a] an NCCL all-reduce over two ranks of one card returned")
+        return
+    torch.zeros(1, device="cuda")  # the CUDA context, set up while run_mesh works
+    go = os.path.join(work, "mesh", "go")
+    deadline = time.perf_counter() + 600
+    while not os.path.exists(go):
+        if time.perf_counter() > deadline:
+            raise AssertionError("phase 14: no go from run_mesh in 600 s")
+        time.sleep(0.05)
+    mesh = create_mesh(device, backend="gloo")
+    marks = [time.perf_counter()]
+    mdir = os.path.join(work, "mesh")
+    with open(os.path.join(mdir, "setup.json")) as f:
+        train_root = json.load(f)["train_root"]
+    checkpoint = os.path.join(mdir, "unet.npz")
+    out = {"rank": mesh.rank, "backend": dist.get_backend()}
+
+    params, state, _ = load_model_checkpoint(checkpoint, device=mesh.device)
+    raster = mesh_raster(SEED)
+    step = make_spatial_predict_step(unet, mesh, overlap=OVERLAP)
+    # K1 at this path's shape: the kernel and its plain version on the
+    # rank's own features (whose forward warms the step up).
+    inputs = step.head_inputs(params, state, raster)
+    got, ref = head.margin_head(*inputs, 0, 4), head.margin_head_plain(*inputs, 0, 4)
+    flips, err = u8_flips(torch, got, ref)
+    out["k1"] = {"shape": list(inputs[0].shape), "dtype": str(inputs[0].dtype), "flips": flips, "bins": got.numel(),
+                 "max_err": err, "ms": cuda_ms(torch, head.margin_head, [inputs + (0, 4)], 5),
+                 "plain_ms": cuda_ms(torch, head.margin_head_plain, [inputs + (0, 4)], 5)}
+    if err > 1 or flips > MAX_FLIP_SHARE * got.numel():
+        raise AssertionError("phase 14: [14b] rank {} K1 vs its plain version: {}".format(mesh.rank, out["k1"]))
+    del inputs, got, ref
+    torch.cuda.synchronize()
+    head.margin_head.launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    spatial = step(params, state, raster)
+    end.record()
+    torch.cuda.synchronize()
+    out["spatial_launches"], out["spatial_ms"] = head.margin_head.launches, start.elapsed_time(end)
+    if mesh.rank == 0:
+        np.save(os.path.join(mdir, "spatial0.npy"), spatial.cpu().numpy())
+    del params, state, spatial
+    lap(marks, "phase 14: [14b] rank {} spatial step".format(mesh.rank))
+
+    images, masks = np.load(os.path.join(mdir, "images.npy")), np.load(os.path.join(mdir, "masks.npy"))
+    half = len(images) // mesh.size
+    f32_images, f32_masks = images[:MESH_F32_ROWS], masks[:MESH_F32_ROWS]
+    runs = {"sync": mesh_train_steps(torch, SEED, shard_batch(mesh, images), shard_batch(mesh, masks), mesh, True),
+            "local": mesh_train_steps(torch, SEED, images[:half], masks[:half], mesh, False)}
+    # float32 on MESH_F32_ROWS split over the ranks: sync_bn, and one step
+    # on the same rows with each rank's own statistics (sync_bn = false:
+    # with the configured Lovasz, a mean over images, that step differs
+    # from the synchronized one in its batch statistics alone).
+    for kind, sync, steps in (("sync-f32", True, MESH_TRAIN_STEPS), ("local-f32", False, 1)):
+        runs[kind] = mesh_train_steps(torch, SEED, shard_batch(mesh, f32_images), shard_batch(mesh, f32_masks), mesh,
+                                      sync, dtype=torch.float32, steps=steps)
+    if mesh.rank == 0:
+        for kind, (losses, bn, flat) in runs.items():
+            np.savez(os.path.join(mdir, "train-{}.npz".format(kind)), losses=np.asarray(losses), bn=bn, flat=flat)
+    del runs
+    lap(marks, "phase 14: [14b] rank {} train steps".format(mesh.rank))
+
+    result = train.main(mesh_train_args(work, train_root, "train-mesh"))
+    out["train_history"], out["train_steps"] = result["history"], result["steps"]
+    lap(marks, "phase 14: [14b] rank {} train.main".format(mesh.rank))
+
+    counted = wrappers()
+    for fn in counted.values():
+        fn.launches = 0
+    predict.main(predict_args(work, os.path.join(work, "tiles"), os.path.join(mdir, "probs-mesh"),
+                              os.path.join(mdir, "model-unet-mesh.toml"), checkpoint))
+    out["predict_launches"] = {name: fn.launches for name, fn in counted.items() if fn.launches}
+    # predict.main's kernels at its shape (its first batch's rows of this
+    # rank, calibrated on the whole batch) against their plain versions.
+    rows = shard_batch(mesh, mesh_first_batch(torch, work))
+    params, state, _ = load_model_checkpoint(checkpoint, device=mesh.device)
+    step, qtree = make_int8_predict_step(unet, params, state, rows, overlap=OVERLAP, host_s2d=True,
+                                         calib_percentile=None, mesh=mesh)
+    got, ref = step(qtree, rows), step(qtree, rows, plain=True)
+    flips, err = u8_flips(torch, got, ref)
+    out["int8_rows"] = {"shape": list(rows.shape), "flips": flips, "bins": got.numel(), "max_err": err,
+                        "ms": cuda_ms(torch, lambda: step(qtree, rows), [()], 5),
+                        "plain_ms": cuda_ms(torch, lambda: step(qtree, rows, plain=True), [()], 2)}
+    if err > 1 or flips > MAX_FLIP_SHARE * got.numel():
+        raise AssertionError("phase 14: [14b] rank {} int8 step vs the plain step: {}".format(mesh.rank,
+                                                                                              out["int8_rows"]))
+    del params, state, step, qtree, got, ref
+    lap(marks, "phase 14: [14b] rank {} predict.main".format(mesh.rank))
+    with open(os.path.join(mdir, "gloo{}.json".format(mesh.rank)), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
 def int_mm_ms(torch, arg_sets):
     """torch._int_mm's milliseconds over (xq, wq) pairs, or None where its
     constraints refuse the shape."""
@@ -3310,7 +3879,7 @@ def family_train_step(torch, seed, config, smi, model, prefix):
 def family_tools(torch, work, root, base, counted, launches, by_path, smi, model, phase, per_batch):
     """Phase 11c's or 12c's (`phase`) tools, on the dataset at `root`:
     `train.main` with the family TOML `base` (batch TOOL_BATCH) for one
-    epoch, then int8 `predict` as configured from its checkpoint over the
+    epoch, then int8 `predict` (TRAINED_CALIBRATION) from its checkpoint over the
     training tiles (`per_batch` launches a batch: DeepLab's 14 K3, 2 K4 and
     7 rs_int8_conv; SegFormer's 51 quantize and K2, 3 rs_int8_conv)."""
     from robosat_tpu_torch.checkpoint import load_checkpoint
@@ -3348,11 +3917,11 @@ def family_tools(torch, work, root, base, counted, launches, by_path, smi, model
     counts, pngs, wall, n_batches = predict_split_tiles(root, os.path.join(work, "probs-{}-trained".format(name)),
                                                         checkpoint, counted, "{}c predict".format(phase),
                                                         model_toml=os.path.join(work, "model-{}.toml".format(name)),
-                                                        per_batch=per_batch)
+                                                        per_batch=per_batch, calibration=TRAINED_CALIBRATION)
     by_path[label + "-train-predict"] = counts
     for kernel, c in counts.items():
         launches[kernel] += c
-    log("{} predict] int8 as configured from the trained checkpoint: {} PNGs in {:.2f} s on {}; launches {} "
+    log("{} predict] int8 (amax calibration) from the trained checkpoint: {} PNGs in {:.2f} s on {}; launches {} "
         "({} batches)".format(prefix, pngs, wall, smi, counts, n_batches))
 
 
@@ -4169,7 +4738,7 @@ def run_workflow(torch, work, seed, smi, counted):
     probs = os.path.join(root, "probs")
     counts, pngs, seconds, n_batches = predict_split_tiles(
         dataset["common"]["dataset"], probs, checkpoint, counted, "phase 10: predict", model_toml=model_toml,
-        split="validation", tiles=len(splits["validation"]))
+        split="validation", tiles=len(splits["validation"]), calibration=TRAINED_CALIBRATION)
     summary["launches"] = counts
     stage("predict", seconds, pngs=pngs, batches=n_batches, launches=counts)
 

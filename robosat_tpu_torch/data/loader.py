@@ -32,11 +32,25 @@ def _pad_stack(items, batch_size):
     return arr
 
 
-def batches(dataset, batch_size, shuffle=False, drop_last=False, workers=4, seed=0, prefetch=2):
+def _rank_rows(idx, batch_size, mesh):
+    """(dataset indices, real rows) of this rank's rows of one global batch
+    `idx` padded to `batch_size` by repeating its last index."""
+    padded = np.concatenate([idx, np.repeat(idx[-1:], batch_size - len(idx))])
+    rows = mesh.rows(batch_size)
+    return padded[rows], int(np.clip(len(idx) - rows.start, 0, rows.stop - rows.start))
+
+
+def batches(dataset, batch_size, shuffle=False, drop_last=False, workers=4, seed=0, prefetch=2, mesh=None):
     """Yield Batch objects over `dataset` with background prefetch.
 
     `dataset[i]` must return a tuple whose leading elements are numpy arrays
     (stacked/padded) and whose last element is per-sample metadata.
+
+    With a `mesh` (parallel/mesh.py) `batch_size` is the global batch, a
+    multiple of the world size: every rank walks the same order (`seed`)
+    and loads only its rows of each global batch, the padding of a short
+    last batch included (its `valid` counts the rank's real rows, 0 where
+    the rank's rows are all padding).
     """
     order = np.arange(len(dataset))
     if shuffle:
@@ -48,6 +62,9 @@ def batches(dataset, batch_size, shuffle=False, drop_last=False, workers=4, seed
         if drop_last and len(idx) < batch_size:
             continue
         chunks.append(idx)
+    if mesh is not None:
+        chunks = [_rank_rows(idx, batch_size, mesh) for idx in chunks]
+        batch_size //= mesh.size
 
     if not chunks:
         return
@@ -55,12 +72,13 @@ def batches(dataset, batch_size, shuffle=False, drop_last=False, workers=4, seed
     out_q = queue.Queue(maxsize=prefetch)
     stop = threading.Event()
 
-    def load_chunk(idx):
+    def load_chunk(chunk):
+        idx, valid = chunk if mesh is not None else (chunk, len(chunk))
         samples = [dataset[int(i)] for i in idx]
         n_arrays = len(samples[0]) - 1
         arrays = tuple(_pad_stack([s[k] for s in samples], batch_size) for k in range(n_arrays))
-        meta = [s[-1] for s in samples]
-        return Batch(arrays, meta, len(samples))
+        meta = [s[-1] for s in samples[:valid]]
+        return Batch(arrays, meta, valid)
 
     def producer():
         try:

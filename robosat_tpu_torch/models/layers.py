@@ -8,11 +8,48 @@ package's deeplab.py and segformer.py call. Activations stay NHWC and conv
 kernels HWIO at every public function; the convs and the batch norm run
 through torch's NCHW operators on permuted views (channels-last in
 memory).
+
+Two contexts switch layers onto a mesh of ranks (parallel/mesh.py's
+`Mesh`, or any object with its `size`, `sum` and `halo`) for a forward:
+
+- `sync_batch_norm(mesh)`: `bn_apply` in training mode takes its
+  statistics over the global batch (the JAX package's pjit semantics), by
+  an all-reduce that the backward pass all-reduces too;
+- `height_sharded(mesh)`: `conv_nhwc`, `max_pool` and `upsample_conv_k4`
+  take their halo rows from the neighbouring ranks (`Mesh.halo`), the
+  exchange GSPMD inserts for the JAX package's height-sharded predict step.
 """
+
+import contextlib
+import contextvars
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+_SYNC_BN = contextvars.ContextVar("sync_bn_mesh", default=None)
+_HEIGHT_SHARDS = contextvars.ContextVar("height_shards_mesh", default=None)
+
+
+@contextlib.contextmanager
+def _using(var, mesh):
+    token = var.set(mesh)
+    try:
+        yield
+    finally:
+        var.reset(token)
+
+
+def sync_batch_norm(mesh):
+    """Context: training-mode batch norm over the global batch of `mesh`
+    (None: the local batch)."""
+    return _using(_SYNC_BN, mesh)
+
+
+def height_sharded(mesh):
+    """Context: convolutions, max pools and transposed convolutions on a
+    raster split by height over `mesh`'s ranks exchange halo rows."""
+    return _using(_HEIGHT_SHARDS, mesh)
 
 
 def _same_pads(size, k, stride, dilation):
@@ -24,18 +61,48 @@ def _same_pads(size, k, stride, dilation):
 def conv_nhwc(x, w, stride=1, padding="SAME", dilation=1, groups=1):
     """XLA-style conv: x (N, H, W, Cin), w (KH, KW, Cin / groups, Cout);
     `padding` is "SAME" or ((top, bottom), (left, right)); `groups` is
-    feature_group_count (Cin for a depthwise conv). Runs in x's dtype."""
+    feature_group_count (Cin for a depthwise conv). Runs in x's dtype.
+
+    Under `height_sharded`, x is this rank's rows of a raster split by
+    height: SAME pads come from the raster's height, and the rows the
+    kernel reads across the split are the neighbours' (zeros past the
+    raster's edges), so each rank computes its rows of the whole conv."""
     kh, kw = w.shape[0], w.shape[1]
+    shards = _HEIGHT_SHARDS.get()
     if padding == "SAME":
-        padding = (_same_pads(x.shape[1], kh, stride, dilation), _same_pads(x.shape[2], kw, stride, dilation))
+        rows = x.shape[1] * (shards.size if shards is not None else 1)
+        padding = (_same_pads(rows, kh, stride, dilation), _same_pads(x.shape[2], kw, stride, dilation))
     (pt, pb), (pl, pr) = padding
+    if shards is not None:
+        x, h_out = _halo_rows(shards, x, kh, stride, dilation, pt, pb, 0.0)
+        pt = pb = 0
     xc = x.permute(0, 3, 1, 2)
     wc = w.to(x.dtype).permute(3, 2, 0, 1)
     if pt == pb and pl == pr:
         y = F.conv2d(xc, wc, stride=stride, padding=(pt, pl), dilation=dilation, groups=groups)
     else:
         y = F.conv2d(F.pad(xc, (pl, pr, pt, pb)), wc, stride=stride, dilation=dilation, groups=groups)
+    if shards is not None:
+        y = y[:, :, :h_out]
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _halo_rows(shards, x, k, stride, dilation, pt, pb, fill):
+    """A window op's input rows on one rank of a height split: x extended
+    by the rows its output rows read above and below (`Mesh.halo`, `fill`
+    past the raster's edges), and that output's row count. Output row o of
+    the whole raster reads rows o * stride - pt + i * dilation, i < k; a
+    rank's share of the output is an equal split, so its rows start at its
+    first input row over the stride."""
+    h = x.shape[1]
+    rows = h * shards.size
+    out_rows = (rows + pt + pb - (k - 1) * dilation - 1) // stride + 1
+    if out_rows * stride != rows or out_rows % shards.size:
+        raise ValueError("a height split needs each rank's rows to map to whole output rows "
+                         "({} rows, kernel {}, stride {}, pads {}/{})".format(rows, k, stride, pt, pb))
+    h_out = out_rows // shards.size
+    bottom = max((h_out - 1) * stride - pt + (k - 1) * dilation + 1 - h, 0)
+    return shards.halo(x, pt, bottom, fill), h_out
 
 
 def bn_apply(params, state, x, train, momentum=0.1, eps=1e-5):
@@ -47,18 +114,40 @@ def bn_apply(params, state, x, train, momentum=0.1, eps=1e-5):
     (the JAX package's `bn_apply`). F.batch_norm computes them once and
     updates copies of the running statistics; its running variance takes
     the unbiased variance, so the batch's share of that update is scaled
-    back by (n - 1) / n. In eval mode the running statistics normalize and
-    the state passes through.
+    back by (n - 1) / n. Under `sync_batch_norm` the statistics are
+    the global batch's (`_bn_global`). In eval mode the running statistics
+    normalize and the state passes through.
     """
     xc = x.permute(0, 3, 1, 2)
     if not train:
         y = F.batch_norm(xc, state["mean"], state["var"], params["scale"], params["bias"], training=False, eps=eps)
         return y.permute(0, 2, 3, 1), state
+    shards = _SYNC_BN.get()
+    if shards is not None:
+        return _bn_global(shards, params, state, x, momentum, eps)
     n = x.numel() // x.shape[-1]
     mean, var = state["mean"].clone(), state["var"].clone()
     y = F.batch_norm(xc, mean, var, params["scale"], params["bias"], training=True, momentum=momentum, eps=eps)
     kept = (1 - momentum) * state["var"]
     return y.permute(0, 2, 3, 1), {"mean": mean, "var": kept + (var - kept) * ((n - 1) / n)}
+
+
+def _bn_global(shards, params, state, x, momentum, eps):
+    """Training-mode batch norm over the global batch of the ranks of
+    `shards` (every rank holds as many rows): the per-channel mean, then
+    the biased variance about it, each a float32 sum over (N, H, W)
+    all-reduced with its gradient, so the backward pass reduces too. The
+    normalization and the running update are the JAX package's:
+    (x - mean) * (rsqrt(var + eps) * scale) + bias, in float32."""
+    xf = x.float()
+    n = xf.numel() // xf.shape[-1] * shards.size
+    mean = shards.sum(xf.sum(dim=(0, 1, 2))) / n
+    centered = xf - mean
+    var = shards.sum((centered * centered).sum(dim=(0, 1, 2))) / n
+    y = centered * (torch.rsqrt(var + eps) * params["scale"]) + params["bias"]
+    new_state = {"mean": (1 - momentum) * state["mean"] + momentum * mean.detach(),
+                 "var": (1 - momentum) * state["var"] + momentum * var.detach()}
+    return y.to(x.dtype), new_state
 
 
 def fold_conv_bn(conv_params, bn_params, bn_state, eps=1e-5):
@@ -112,9 +201,16 @@ def _resize_bilinear(x, h, w):
 
 
 def max_pool(x, window, stride, padding):
-    """Max pooling of NHWC `x`; `padding` is applied symmetrically."""
-    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, padding)
-    return y.permute(0, 2, 3, 1).contiguous()
+    """Max pooling of NHWC `x`; `padding` is applied symmetrically (-inf).
+    Under `height_sharded` the rows across the split are the
+    neighbours' (-inf past the raster's edges)."""
+    shards = _HEIGHT_SHARDS.get()
+    if shards is None:
+        y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, padding)
+        return y.permute(0, 2, 3, 1).contiguous()
+    x, h_out = _halo_rows(shards, x, window, stride, 1, padding, padding, float("-inf"))
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, (0, padding))
+    return y[:, :, :h_out].permute(0, 2, 3, 1).contiguous()
 
 
 _K4_SETS = ((0,), (0, 1), (1, 2), (2,))
@@ -138,9 +234,19 @@ def fused_upsample_conv3x3(params, x):
 def upsample_conv_k4(k4, x):
     """The JAX package's lhs-dilated conv (dilation 2, padding 2) of x with
     the 4x4 kernel `k4` (HWIO, cast to x's dtype), as the transposed conv
-    of its flipped kernel."""
+    of its flipped kernel.
+
+    Under `height_sharded`: output row o reads input rows (o + 1 - t) / 2
+    for the taps t, so a rank's 2h output rows read one row on either side
+    of its h. With those rows (zeros past the raster's edges) the
+    transposed conv gives 2h + 6 rows, the rank's rows 3 below the top:
+    padding 3 crops them, where padding 1 crops the whole raster's."""
     wt = k4.to(x.dtype).flip(0, 1).permute(2, 3, 0, 1)  # (Cin, Cout, 4, 4)
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), wt, stride=2, padding=1)
+    shards = _HEIGHT_SHARDS.get()
+    pad_h = 1
+    if shards is not None:
+        x, pad_h = shards.halo(x, 1, 1, 0.0), 3
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), wt, stride=2, padding=(pad_h, 1))
     return y.permute(0, 2, 3, 1).contiguous()
 
 

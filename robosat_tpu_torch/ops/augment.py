@@ -69,13 +69,18 @@ def apply_dihedral(images, masks, flips, rots):
     return select(images), select(masks)
 
 
-def augment_batch(generator, images, masks, p_flip=0.5, p_rot=0.5):
+def augment_batch(generator, images, masks, p_flip=0.5, p_rot=0.5, mesh=None):
     """Joint random horizontal flip and three independent quarter turns, per
     sample: the reference's JointRandomHorizontalFlip(0.5) then three
     JointRandomRotation(0.5, 90) (robosat/tools/train.py:253-256), so the
     rotation count is Binomial(3, 0.5) mod 4. `generator` is a
-    torch.Generator on the batch's device."""
-    n = images.shape[0]
+    torch.Generator on the batch's device. With a `mesh` (parallel/mesh.py)
+    the batch is this rank's rows of the global batch: the draws are the
+    global batch's and the rank applies its rows' share, the flips and
+    turns one process draws for the whole batch from the same generator."""
+    n = images.shape[0] * (mesh.size if mesh is not None else 1)
     flips = torch.rand((n,), generator=generator, device=images.device) < p_flip
     rots = (torch.rand((n, 3), generator=generator, device=images.device) < p_rot).sum(dim=1) % 4
+    if mesh is not None:
+        flips, rots = flips[mesh.rows(n)], rots[mesh.rows(n)]
     return apply_dihedral(images, masks, flips, rots)

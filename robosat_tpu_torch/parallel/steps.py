@@ -3,8 +3,16 @@
 The families are the U-Net, the fast family, DeepLab and SegFormer.
 Counterpart of robosat_tpu/parallel/steps.py's make_train_step,
 make_qat_train_step, make_distill_train_step, make_eval_step,
-make_predict_step, make_int8_predict_step and make_segment_step for one
-device. PyTorch runs eagerly, so a step is a plain function.
+make_predict_step, make_int8_predict_step, make_segment_step and
+make_spatial_predict_step. PyTorch runs eagerly, so a step is a plain
+function. With a `mesh` (parallel/mesh.py: one process per device) each
+rank's step takes its rows of the global batch, and the steps keep the JAX
+package's mesh semantics: the train step with `sync_bn` (pjit), the
+distillation and eval steps take the global batch's statistics and loss;
+the train step without `sync_bn` and the QAT step each rank's (shard_map),
+averaged once at the end; the predict steps run each rank's rows, the int8
+one on the whole first batch's calibration. The spatial step splits one
+raster's height over the ranks instead, with halo exchanges.
 
 The train step augments on the device, normalizes, runs the forward in the
 compute dtype (the space-to-depth tail, `unet.apply_s2d`), takes
@@ -58,9 +66,10 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from robosat_tpu_torch.checkpoint import tree_leaves
 from robosat_tpu_torch.models import int8 as q8
 from robosat_tpu_torch.models import qdec, qtail
-from robosat_tpu_torch.models.layers import depth_to_space2
+from robosat_tpu_torch.models.layers import depth_to_space2, height_sharded, sync_batch_norm
 from robosat_tpu_torch.ops import head
 from robosat_tpu_torch.ops.augment import IMAGENET_MEAN, IMAGENET_STD, augment_batch, normalize
 from robosat_tpu_torch.ops.metrics import confusion_counts
@@ -96,7 +105,8 @@ def _class_weights(weight):
     return weight_on
 
 
-def make_train_step(model, loss_fn, optimizer, weight=None, compute_dtype=torch.float32, augment=True, remat=False):
+def make_train_step(model, loss_fn, optimizer, weight=None, compute_dtype=torch.float32, augment=True, remat=False,
+                    mesh=None, sync_bn=True):
     """One training step on the device of the params.
 
     `optimizer` is the port's Adam over the leaves of the params the step
@@ -115,20 +125,61 @@ def make_train_step(model, loss_fn, optimizer, weight=None, compute_dtype=torch.
     whole forward, as jax.checkpoint(forward)); the new BN statistics are
     those of the first forward, since the recomputation's outputs are
     discarded.
+
+    With a `mesh` (parallel/mesh.py) each rank is given its rows of the
+    global batch, and `sync_bn` picks the JAX package's semantics:
+
+    - True (pjit over the global batch): augmentation draws the global
+      batch's flips and turns from the generator, which every rank seeds
+      alike; batch norm takes the global batch's statistics
+      (`layers.sync_batch_norm`); the loss is the global batch's, taken on
+      the logits and masks gathered from every rank (a class-weighted mean
+      is not the mean of the ranks' means); the gradients and the counts
+      are summed over ranks.
+    - False (shard_map, the reference's DataParallel): each rank augments
+      from its own generator and runs its rows alone, batch norm on its
+      rows; then one trailing round averages the gradients, the loss and
+      the BN running statistics over ranks and sums the counts.
     """
     weight_on = _class_weights(weight)
-    forward = _train_forward(model, remat)
+    global_batch = mesh is not None and sync_bn
+    forward = _train_forward(model, remat, mesh if global_batch else None)
 
     def step(params, state, images, masks, generator=None):
-        x, masks, device = _train_input(params, images, masks, augment, generator, compute_dtype)
+        x, masks, device = _train_input(params, images, masks, augment, generator, compute_dtype,
+                                        mesh if global_batch else None)
         optimizer.zero_grad(set_to_none=True)
         logits, new_state = forward(params, state, x)
-        loss = loss_fn(logits.float(), masks, weight_on(device))
+        loss = loss_fn(*_loss_rows(mesh if global_batch else None, logits, masks), weight_on(device))
         loss.backward()
+        counts = confusion_counts(logits.detach(), masks)
+        loss = loss.detach()
+        if mesh is not None:
+            _reduce_step(mesh, params, counts, loss if not sync_bn else None,
+                         new_state if not sync_bn else None)
         optimizer.step()
-        return new_state, loss.detach(), confusion_counts(logits.detach(), masks)
+        return new_state, loss, counts
 
     return step
+
+
+def _loss_rows(mesh, logits, masks):
+    """The float32 logits and the masks the loss is taken on: this rank's,
+    or with a mesh every rank's gathered (the logits with their gradient)."""
+    if mesh is None:
+        return logits.float(), masks
+    return mesh.gather_rows(logits.float()), mesh.gather(masks)
+
+
+def _reduce_step(mesh, params, counts, local_loss=None, local_state=None):
+    """A mesh step's collectives after the backward: the gradients summed
+    over ranks (a global loss) or averaged (`local_loss` given: each rank's
+    own loss, then averaged too), the counts summed, and `local_state`'s
+    running statistics averaged, all in place."""
+    mesh.sum_grads_(tree_leaves(params), mean=local_loss is not None)
+    mesh.sum_(counts)
+    if local_loss is not None:
+        mesh.mean_([local_loss] + ([] if local_state is None else tree_leaves(local_state)))
 
 
 def _model_forward(model):
@@ -138,32 +189,37 @@ def _model_forward(model):
     return getattr(model, "apply_s2d", model.apply)
 
 
-def _train_forward(model, remat):
+def _train_forward(model, remat, mesh=None):
     """forward(params, state, x) -> (logits, new_state): `_model_forward`
-    in training mode, recomputed in the backward with `remat`."""
+    in training mode, batch norm over `mesh`'s global batch where one is
+    given, recomputed in the backward with `remat` (the recomputation
+    enters the same context)."""
     forward = _model_forward(model)
 
     def run_forward(params, state, x):
-        return forward(params, state, x, True)
+        with sync_batch_norm(mesh):
+            return forward(params, state, x, True)
 
     if not remat:
         return run_forward
     return lambda params, state, x: checkpoint(run_forward, params, state, x, use_reentrant=False)
 
 
-def _train_input(params, images, masks, augment, generator, compute_dtype):
+def _train_input(params, images, masks, augment, generator, compute_dtype, mesh=None):
     """A uint8 batch and its masks on the params' device, augmented from
-    `generator`, normalized and cast: (x, masks, device)."""
+    `generator` (with `mesh`, this rank's share of the global batch's
+    draws), normalized and cast: (x, masks, device)."""
     device = params["final"]["w"].device
     images, masks = _to_device(images, device), _to_device(masks, device)
     if augment:
         if generator is None:
             raise ValueError("augment draws from a torch.Generator: pass generator=")
-        images, masks = augment_batch(generator, images, masks)
+        images, masks = augment_batch(generator, images, masks, mesh=mesh)
     return normalize(images).to(compute_dtype), masks, device
 
 
-def make_qat_train_step(model, loss_fn, optimizer, scales, weight=None, compute_dtype=torch.float32, augment=True):
+def make_qat_train_step(model, loss_fn, optimizer, scales, weight=None, compute_dtype=torch.float32, augment=True,
+                        mesh=None):
     """One quantization-aware finetune step (`train --qat`) on the device
     of the params, with make_train_step's call shape: step(params, state,
     images_u8, masks, generator=None) -> (state, loss, counts).
@@ -176,6 +232,11 @@ def make_qat_train_step(model, loss_fn, optimizer, scales, weight=None, compute_
     must use) and live per-output-channel weight grids, through the
     straight-through estimator. The loss is taken on float32 logits, then
     the port's Adam updates the ordinary params in place.
+
+    With a `mesh` each rank runs its rows alone (augmented from its own
+    generator), then the gradients and the loss are averaged over ranks
+    and the counts summed: the JAX package's shard_map step (BN is frozen,
+    so there are no statistics to share).
     """
     weight_on = _class_weights(weight)
     scales = [float(s) for s in scales]
@@ -186,8 +247,12 @@ def make_qat_train_step(model, loss_fn, optimizer, scales, weight=None, compute_
         logits = model.apply_logits_fake_quant(params, state, scales, x)
         loss = loss_fn(logits.float(), masks, weight_on(device))
         loss.backward()
+        counts = confusion_counts(logits.detach(), masks)
+        loss = loss.detach()
+        if mesh is not None:
+            _reduce_step(mesh, params, counts, loss)
         optimizer.step()
-        return state, loss.detach(), confusion_counts(logits.detach(), masks)
+        return state, loss, counts
 
     return step
 
@@ -208,7 +273,7 @@ def distillation_loss(logits32, t_logits, masks, loss_fn, weight, alpha, temp):
 
 
 def make_distill_train_step(model, teacher_model, loss_fn, optimizer, weight=None, compute_dtype=torch.float32,
-                            augment=True, remat=False, alpha=0.9, temp=2.0):
+                            augment=True, remat=False, alpha=0.9, temp=2.0, mesh=None):
     """One knowledge-distillation step (`train --teacher`) on the device of
     the params: step(params, state, teacher_folded, images_u8, masks,
     generator=None) -> (new_state, loss, counts).
@@ -217,29 +282,41 @@ def make_distill_train_step(model, teacher_model, loss_fn, optimizer, weight=Non
     `teacher_folded`) sees the same augmented, normalized batch as the
     student, without gradients, and its logits are cast to float32. The
     student, of this family or another, trains as in make_train_step
-    (`apply_s2d` or `apply`, `remat`) on `distillation_loss`.
+    (`apply_s2d` or `apply`, `remat`) on `distillation_loss`. With a
+    `mesh`, the global batch's semantics of make_train_step's `sync_bn`
+    (the JAX package's pjit step): shared augmentation draws, global batch
+    statistics, the loss on the gathered student and teacher logits and
+    masks, gradients and counts summed over ranks.
     """
     weight_on = _class_weights(weight)
-    forward = _train_forward(model, remat)
+    forward = _train_forward(model, remat, mesh)
 
     def step(params, state, teacher_folded, images, masks, generator=None):
-        x, masks, device = _train_input(params, images, masks, augment, generator, compute_dtype)
+        x, masks, device = _train_input(params, images, masks, augment, generator, compute_dtype, mesh)
         with torch.no_grad():
             t_logits = teacher_model.apply_folded(teacher_folded, x).float()
         optimizer.zero_grad(set_to_none=True)
         logits, new_state = forward(params, state, x)
-        loss = distillation_loss(logits.float(), t_logits, masks, loss_fn, weight_on(device), alpha, temp)
+        logits32, all_masks = _loss_rows(mesh, logits, masks)
+        if mesh is not None:
+            t_logits = mesh.gather(t_logits)
+        loss = distillation_loss(logits32, t_logits, all_masks, loss_fn, weight_on(device), alpha, temp)
         loss.backward()
+        counts = confusion_counts(logits.detach(), masks)
+        if mesh is not None:
+            _reduce_step(mesh, params, counts)
         optimizer.step()
-        return new_state, loss.detach(), confusion_counts(logits.detach(), masks)
+        return new_state, loss.detach(), counts
 
     return step
 
 
-def make_eval_step(model, loss_fn, weight=None, compute_dtype=torch.float32):
+def make_eval_step(model, loss_fn, weight=None, compute_dtype=torch.float32, mesh=None):
     """Validation on the device of the params, batch norm frozen at the
     running statistics: step(params, state, images_u8, masks) -> (loss,
-    counts), both on the device."""
+    counts), both on the device. With a `mesh`, each rank's rows of the
+    global batch: the loss on the logits and masks gathered from every
+    rank, the counts summed over ranks."""
     weight_on = _class_weights(weight)
     forward = _model_forward(model)
 
@@ -248,8 +325,11 @@ def make_eval_step(model, loss_fn, weight=None, compute_dtype=torch.float32):
         with torch.no_grad():
             images, masks = _to_device(images, device), _to_device(masks, device)
             logits, _ = forward(params, state, normalize(images).to(compute_dtype), False)
-            loss = loss_fn(logits.float(), masks, weight_on(device))
-            return loss, confusion_counts(logits, masks)
+            loss = loss_fn(*_loss_rows(mesh, logits, masks), weight_on(device))
+            counts = confusion_counts(logits, masks)
+            if mesh is not None:
+                mesh.sum_(counts)
+            return loss, counts
 
     return step
 
@@ -288,6 +368,10 @@ def make_predict_step(model, overlap=0, compute_dtype=torch.float32, fused_head=
     plain=False)` is the same step over params folded beforehand
     (`model.fold`) and a uint8 batch already on their device: what `export`
     traces, so that its program holds folded weights and runs no fold.
+
+    On a mesh each rank gives the step its rows of the global batch
+    (`data.loader.batches(mesh=)`) and gets its rows' output: a float step
+    needs no collective, so it takes no mesh.
     """
     if not fold_bn:
         return _unfolded_predict_step(model, overlap, compute_dtype, fused_head)
@@ -340,6 +424,50 @@ def _unfolded_predict_step(model, overlap, compute_dtype, fused_head):
     return step
 
 
+def make_spatial_predict_step(model, mesh, overlap=0, compute_dtype=torch.float32):
+    """Whole-raster prediction with the raster's HEIGHT split over the ranks
+    of `mesh`: the JAX package's make_spatial_predict_step, whose GSPMD
+    partition inserts the halo exchanges every convolution needs at the
+    splits, so that no rank sees a seam and the result is the unsplit
+    forward's.
+
+    step(params, state, raw u8 (N, H, W, 3)) -> quantized foreground
+    uint8 (N, H - 2 overlap, W - 2 overlap), the whole raster on every
+    rank: the U-Net's folded float forward with the space-to-depth tail
+    (`apply_features_folded_s2d`, in `compute_dtype`) on this rank's
+    H / size rows, its convolutions, max pools and transposed convolutions
+    taking their halo rows from the neighbouring ranks
+    (`layers.height_sharded`); then K1 (`head.margin_head`, groups 4) on
+    the rank's blocked features, the blocked uint8 gathered from every
+    rank, the depth-to-space and the crop. H must be a multiple of 64 times
+    the world size, so that every rank's rows pool to whole rows down to
+    the center block's 2x2 pool. Equal to make_predict_step(fused_head=True,
+    fold_bn=True, s2d=True) on one process, up to float summation order.
+
+    `step.head_inputs(params, state, raw)` is K1's input on this rank,
+    (blocked features, final conv's w, b), for holding K1 against its
+    plain version at this step's shape.
+    """
+    def head_inputs(params, state, raw):
+        h = raw.shape[1]
+        if h % (64 * mesh.size):
+            raise ValueError("the raster's height {} must be a multiple of 64 x {} ranks".format(h, mesh.size))
+        with torch.no_grad():
+            folded = model.fold(params, state)
+            x = normalize(_to_device(raw[:, mesh.rows(h)], params["final"]["w"].device)).to(compute_dtype)
+            with height_sharded(mesh):
+                features = model.apply_features_folded_s2d(folded, x)
+        return features, folded["final"]["w"], folded["final"]["b"]
+
+    def step(params, state, raw):
+        with torch.no_grad():
+            blocked = head.margin_head(*head_inputs(params, state, raw), 0, 4)
+            return head.fine_from_blocked(mesh.gather(blocked, dim=1), overlap)
+
+    step.head_inputs = head_inputs
+    return step
+
+
 def make_segment_step(model, compute_dtype=torch.float32):
     """Hard-mask prediction for serving on the device of the params:
     step(params, state, raw uint8 (N, H, W, 3)) -> argmax class uint8
@@ -383,6 +511,7 @@ def make_int8_predict_step(
     calib_amaxes=None,
     pallas_tail=None,
     pallas_enc=False,
+    mesh=None,
 ):
     """Hybrid-int8 prediction on the device of `params`: the U-Net's walk,
     or the walk of a model that owns one (`predict_quantized_int8`, the fast
@@ -423,6 +552,12 @@ def make_int8_predict_step(
 
     step(qtree, raw, plain=True) runs the kernels' plain versions instead,
     with the same qtree and scales.
+
+    With a `mesh`, `calib_raw` and every step's batch are this rank's rows
+    of the global batch. The calibration is the JAX package's, of the whole
+    first global batch: the ranks' rows are gathered, rank 0 calibrates and
+    broadcasts the amaxes, so every rank quantizes alike (`calib_amaxes`
+    skips it on every rank).
     """
     per_channel = q8.is_per_channel(calib_percentile)
     if per_channel and calib_amaxes is not None:
@@ -434,7 +569,7 @@ def make_int8_predict_step(
         raise ValueError("per-channel calibration ('pc...') is XLA-walk only: disable pallas_tail/pallas_enc")
     if hasattr(model, "predict_quantized_int8"):
         return _model_int8_predict_step(model, params, state, calib_raw, overlap, host_s2d, calib_percentile,
-                                        calib_amaxes)
+                                        calib_amaxes, mesh)
     if pallas_tail not in PALLAS_TAILS:
         raise ValueError("pallas_tail must be one of {} (got {!r})".format(PALLAS_TAILS, pallas_tail))
     blocked_out = host_s2d and fused_head and overlap % 2 == 0
@@ -448,9 +583,8 @@ def make_int8_predict_step(
     with torch.no_grad():
         folded = model.fold(params, state)
         if calib_amaxes is None:
-            calib_amaxes = q8.calibration_amaxes(
-                folded, norm(_to_device(calib_raw, device)), blocked=host_s2d, percentile=calib_percentile
-            )
+            calib_amaxes = _calibrate(mesh, calib_raw, device, lambda raw: q8.calibration_amaxes(
+                folded, norm(raw), blocked=host_s2d, percentile=calib_percentile))
         if per_channel:
             qtree, scale_list = q8.quantize_unet_folded(folded, act_amaxes=calib_amaxes)
             scales = q8.host_scales(scale_list)
@@ -486,7 +620,19 @@ def make_int8_predict_step(
     return step, qtree
 
 
-def _model_int8_predict_step(model, params, state, calib_raw, overlap, host_s2d, calib_percentile, calib_amaxes):
+def _calibrate(mesh, calib_raw, device, calibration):
+    """calibration(uint8 batch on `device`) of the first batch: this
+    process's, or with a `mesh` the global batch gathered from the ranks'
+    rows, calibrated on rank 0 and broadcast (host amaxes)."""
+    raw = _to_device(calib_raw, device)
+    if mesh is None:
+        return calibration(raw)
+    raw = mesh.gather(raw)
+    return mesh.broadcast_object(calibration(raw) if mesh.rank == 0 else None)
+
+
+def _model_int8_predict_step(model, params, state, calib_raw, overlap, host_s2d, calib_percentile, calib_amaxes,
+                             mesh=None):
     """The JAX package's protocol of a model that owns its int8 walk: the
     model folds, calibrates (`calibration_amaxes_int8`, in float32; skipped
     for `calib_amaxes`), quantizes (`quantize_folded_int8`, with the
@@ -498,8 +644,9 @@ def _model_int8_predict_step(model, params, state, calib_raw, overlap, host_s2d,
     output is the model's: for the fast family 4x4-blocked uint8 (N,
     (H - 2o) / 4, (W - 2o) / 4, 16) with `host_s2d` and an overlap that is a
     multiple of its BLOCK, else fine (N, H - 2o, W - 2o). Returns (step,
-    qtree) as `make_int8_predict_step`; step(qtree, raw, plain=True) runs
-    the kernels' plain versions."""
+    qtree) as `make_int8_predict_step`, whose `mesh` calibration it
+    shares; step(qtree, raw, plain=True) runs the kernels' plain
+    versions."""
     per_channel = q8.is_per_channel(calib_percentile)
     if per_channel and "act_amaxes" not in inspect.signature(model.quantize_folded_int8).parameters:
         raise ValueError("{} does not support per-channel ('pc...') calibration; use a percentile".format(
@@ -509,8 +656,8 @@ def _model_int8_predict_step(model, params, state, calib_raw, overlap, host_s2d,
     with torch.no_grad():
         folded = model.fold(params, state)
         if calib_amaxes is None:
-            calib_amaxes = model.calibration_amaxes_int8(
-                folded, norm(_to_device(calib_raw, device)), blocked=host_s2d, percentile=calib_percentile)
+            calib_amaxes = _calibrate(mesh, calib_raw, device, lambda raw: model.calibration_amaxes_int8(
+                folded, norm(raw), blocked=host_s2d, percentile=calib_percentile))
         if per_channel:
             qtree, scale_list = model.quantize_folded_int8(folded, act_amaxes=calib_amaxes)
             scales = q8.host_scales(scale_list)

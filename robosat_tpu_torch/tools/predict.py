@@ -51,6 +51,14 @@ card), its output starts back into pinned host memory behind a CUDA event,
 and a batch's PNGs go to the writer pool once two newer batches are in
 flight. The steady clock starts when the first batch is done.
 
+Several devices: launched as N processes with RS_COORDINATOR,
+RS_NUM_PROCESSES and RS_PROCESS_ID set (parallel/mesh.py: one process per
+GPU over NCCL, or gloo with `cuda = false`), the batch is rounded up to a
+multiple of N, every rank walks the same tiles in the same order and runs
+its rows of each batch, and writes the PNGs of its rows; the int8
+calibration is the whole first batch's, on rank 0, broadcast to every
+rank. `--shard` cuts the tile list first, the ranks then split its batches.
+
 `int8_calibration` takes the JAX tool's values: "amax", a percentile,
 "mse", "mae", or a per-channel spec ("pc", "pcamax", "pc<percentile>"),
 which the U-Net, the fast family and DeepLab run and SegFormer refuses.
@@ -78,6 +86,7 @@ from robosat_tpu_torch.models import int8 as q8
 from robosat_tpu_torch.models.layers import depth_to_space2, space_to_depth4
 from robosat_tpu_torch.models.registry import get_model
 from robosat_tpu_torch.native import imagecodec
+from robosat_tpu_torch.parallel.mesh import create_mesh
 from robosat_tpu_torch.parallel.steps import make_int8_predict_step, make_predict_step
 
 
@@ -232,6 +241,9 @@ def main(args):
             sys.exit("Error: --shard must be I/N with 0 <= I < N (got {!r})".format(args.shard))
 
     device = configure_device(common["cuda"])
+    mesh = create_mesh(device)
+    if mesh is not None:
+        device = mesh.device
     params, state, ckpt_meta = load_model_checkpoint(args.checkpoint, num_classes, device=device)
     # A QAT checkpoint carries the frozen calibration vector its finetune
     # trained against; predict quantizes with exactly those scales.
@@ -242,7 +254,8 @@ def main(args):
         print("shard {}/{}: no tiles in this block, nothing to do".format(*shard))
         return {"tiles": 0, "steady_s": 0.0}
     assert len(directory) > 0, "at least one tile in dataset"
-    batch_size = batch_items(args)
+    size = 1 if mesh is None else mesh.size
+    batch_size = -(-batch_items(args) // size) * size
 
     palette = continuous_palette_for_color("pink", 256)
     optimize = getattr(args, "png_optimize", False)
@@ -286,12 +299,13 @@ def main(args):
         nonlocal predict_step, qtree
         (images,) = batch.arrays
         if predict_step is None:
-            # Calibrate on the first batch as loaded, padded rows included.
+            # Calibrate on the first batch as loaded, padded rows included
+            # (with a mesh, the ranks' rows together).
             predict_step, qtree = make_int8_predict_step(
                 model, params, state, images, overlap=args.overlap, fused_head=use_fused, host_s2d=use_host_s2d,
                 calib_percentile=calib_percentile,
                 calib_amaxes=np.asarray(qat_amaxes, np.float64) if qat_amaxes is not None else None,
-                pallas_tail=pallas_tail, pallas_enc=pallas_enc,
+                pallas_tail=pallas_tail, pallas_enc=pallas_enc, mesh=mesh,
             )
         # Pinned, the input's copy to the card does not wait for the device;
         # the handle keeps it until the batch is fetched.
@@ -301,7 +315,8 @@ def main(args):
 
     size = args.tile_size
     with ThreadPoolExecutor(max_workers=max(args.workers, 2)) as writers:
-        progress = tqdm(total=total_tiles, desc="Eval", unit="tile", ascii=True)
+        progress = tqdm(total=total_tiles, desc="Eval", unit="tile", ascii=True,
+                        disable=mesh is not None and mesh.rank != 0)
 
         def write(batch, quantized):
             for meta, q in zip(batch.meta, quantized[: batch.valid]):
@@ -317,7 +332,8 @@ def main(args):
         with profiler(args.profile, device):
             # The steady clock starts after the first batch (calibration,
             # quantization and the kernel build stay out of steady_s).
-            setup_done_t = dispatch_ahead(batches(directory, batch_size, workers=max(args.workers, 2)), issue, write)
+            setup_done_t = dispatch_ahead(batches(directory, batch_size, workers=max(args.workers, 2), mesh=mesh),
+                                          issue, write)
         for fut in pending:
             fut.result()
         progress.close()

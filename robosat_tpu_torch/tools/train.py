@@ -38,11 +38,22 @@ tool fails in its step. A reference `.pth` converts as
 a U-Net whatever `model` says, as the JAX loader does. Validation runs the float eval step in either
 mode.
 
-One device: `sync_bn` is accepted and changes nothing (the batch is the
-global batch). The augmentation draws from a torch.Generator seeded per
-epoch from the config's `seed`: other flips and rotations than the JAX
-tool's for the same seed, from the same distribution. Without matplotlib
-the history chart is not written, and the log says so once.
+Several devices: launched as N processes with RS_COORDINATOR,
+RS_NUM_PROCESSES and RS_PROCESS_ID set (parallel/mesh.py; one process per
+GPU, NCCL, or gloo with `cuda = false`), the batch size is rounded up to a
+multiple of N as the global batch, every rank walks the same shuffled order
+and loads its rows of each batch, and the steps take the JAX package's
+mesh semantics: `sync_bn = true` (the default) global batch statistics, a
+global loss and summed gradients; `sync_bn = false` per-rank statistics
+and averaged gradients, losses and statistics; `--qat` per-rank, and
+`--teacher` and validation global. Rank 0 alone writes the log, the
+checkpoints and the chart. Without RS_COORDINATOR it trains on one device.
+
+The augmentation draws from a torch.Generator seeded per epoch from the
+config's `seed` (and, where each rank augments its rows alone, the rank):
+other flips and rotations than the JAX tool's for the same seed, from the
+same distribution. Without matplotlib the history chart is not written,
+and the log says so once.
 """
 
 import argparse
@@ -74,6 +85,7 @@ from robosat_tpu_torch.ops.augment import normalize
 from robosat_tpu_torch.ops.losses import get_loss
 from robosat_tpu_torch.ops.metrics import Metrics
 from robosat_tpu_torch.optim import adam
+from robosat_tpu_torch.parallel.mesh import create_mesh
 from robosat_tpu_torch.parallel.steps import (
     make_distill_train_step,
     make_eval_step,
@@ -119,10 +131,11 @@ def add_parser(subparser):
     parser.set_defaults(func=main)
 
 
-def _epoch_generator(seed, epoch, device):
-    """The augmentation stream of one epoch: a resumed run draws what an
-    uninterrupted one would."""
-    seq = np.random.SeedSequence([int(seed), int(epoch)])
+def _epoch_generator(seed, epoch, device, rank=None):
+    """The augmentation stream of one epoch (of one `rank`, where each rank
+    augments its rows alone): a resumed run draws what an uninterrupted one
+    would."""
+    seq = np.random.SeedSequence([int(seed), int(epoch)] + ([] if rank is None else [int(rank)]))
     return torch.Generator(device=device).manual_seed(int(seq.generate_state(1, np.uint64)[0]))
 
 
@@ -132,6 +145,10 @@ def main(args):
     common = model_config["common"]
 
     device = configure_device(common["cuda"])
+    mesh = create_mesh(device)
+    if mesh is not None:
+        device = mesh.device
+    writer = mesh is None or mesh.rank == 0
 
     num_classes = len(dataset_config["common"]["classes"])
     os.makedirs(common["checkpoint"], exist_ok=True)
@@ -171,7 +188,9 @@ def main(args):
     if resume_epoch >= num_epochs:
         sys.exit("Error: Epoch {} set in {} already reached by the checkpoint provided".format(num_epochs, args.model))
 
-    batch_size = common["batch_size"]
+    size = 1 if mesh is None else mesh.size
+    batch_size = -(-common["batch_size"] // size) * size
+    sync_bn = common.get("sync_bn", True)
     image_size = common["image_size"]
     compute_dtype = torch.bfloat16 if common.get("bf16", False) else torch.float32
     teacher_folded = None
@@ -201,11 +220,11 @@ def main(args):
         del t_params, t_state
         train_step = make_distill_train_step(model, teacher_model, loss_fn, optimizer, weight=weight,
                                              compute_dtype=compute_dtype, remat=common.get("remat", False),
-                                             alpha=distill_alpha, temp=distill_temp)
+                                             alpha=distill_alpha, temp=distill_temp, mesh=mesh)
     else:
         train_step = make_train_step(model, loss_fn, optimizer, weight=weight, compute_dtype=compute_dtype,
-                                     remat=common.get("remat", False))
-    eval_step = make_eval_step(model, loss_fn, weight=weight, compute_dtype=compute_dtype)
+                                     remat=common.get("remat", False), mesh=mesh, sync_bn=sync_bn)
+    eval_step = make_eval_step(model, loss_fn, weight=weight, compute_dtype=compute_dtype, mesh=mesh)
 
     path = dataset_config["common"]["dataset"]
     train_dataset = SlippyMapTilesConcatenation(
@@ -218,7 +237,7 @@ def main(args):
     assert len(val_dataset) > 0, "at least one tile in validation dataset"
 
     history = collections.defaultdict(list)
-    log = Log(os.path.join(common["checkpoint"], "log"))
+    log = Log(os.path.join(common["checkpoint"], "log")) if writer else Log(os.devnull, out=None)
 
     log.log("--- Hyper Parameters on Dataset: {} ---".format(dataset_config["common"]["dataset"]))
     log.log("Batch Size:\t {}".format(common["batch_size"]))
@@ -240,16 +259,23 @@ def main(args):
         if q8.is_per_channel(calib_spec):
             sys.exit("Error: --qat uses per-tensor site scales; set int8_calibration to a percentile/mse/mae/amax")
         pct = q8.calibration_spec(calib_spec)
-        calib_images = next(iter(batches(train_dataset, batch_size, shuffle=True, drop_last=True, workers=2,
-                                         seed=0))).arrays[0]
-        calibrate = getattr(model, "calibration_amaxes_int8", q8.calibration_amaxes)
-        with torch.no_grad():
-            folded = model.fold(params, state)
-            amaxes = calibrate(folded, normalize(torch.as_tensor(calib_images).to(device)), percentile=pct).numpy()
-            del folded
+        # With several ranks: the whole first global batch, on rank 0,
+        # broadcast, so every rank freezes the same scales.
+        amaxes = None
+        if writer:
+            calib_images = next(iter(batches(train_dataset, batch_size, shuffle=True, drop_last=True, workers=2,
+                                             seed=0))).arrays[0]
+            calibrate = getattr(model, "calibration_amaxes_int8", q8.calibration_amaxes)
+            with torch.no_grad():
+                folded = model.fold(params, state)
+                amaxes = calibrate(folded, normalize(torch.as_tensor(calib_images).to(device)),
+                                   percentile=pct).numpy()
+                del folded
+        if mesh is not None:
+            amaxes = mesh.broadcast_object(amaxes)
         qat_meta = {"qat_amaxes": [float(a) for a in amaxes], "qat_calibration": str(calib_spec)}
         train_step = make_qat_train_step(model, loss_fn, optimizer, list(q8.scales_from_amaxes(amaxes)),
-                                         weight=weight, compute_dtype=compute_dtype)
+                                         weight=weight, compute_dtype=compute_dtype, mesh=mesh)
         log.log("QAT finetune: {} int8 sites, int8_calibration = {} (frozen)".format(len(amaxes), calib_spec))
 
     def host(array):
@@ -259,8 +285,13 @@ def main(args):
         return t.pin_memory() if device.type == "cuda" else t
 
     def dispatch(loss, counts, valid):
-        # float64 holds the float32 loss and the int32 counts exactly.
-        return Dispatched(torch.cat([loss.double().view(1), counts.double()])), valid
+        # float64 holds the float32 loss and the int32 counts exactly. The
+        # loaders drop short batches, so every rank holds `valid` real rows.
+        return Dispatched(torch.cat([loss.double().view(1), counts.double()])), valid * size
+
+    # Each rank augments its rows alone where the step is the JAX package's
+    # shard_map (sync_bn = false, --qat), from the global batch's draws otherwise.
+    local_augment = mesh is not None and (qat_mode or (not sync_bn and not teacher_path))
 
     steps = 0
     chart_missing_logged = False
@@ -281,15 +312,16 @@ def main(args):
 
             # Train pass, one step deep: step k's values are read once step
             # k + 1 is issued (robosat_tpu/tools/train.py).
-            generator = _epoch_generator(common.get("seed", 0), epoch, device)
+            generator = _epoch_generator(common.get("seed", 0), epoch, device, mesh.rank if local_augment else None)
             pending = None
             for batch in tqdm(
                 batches(train_dataset, batch_size, shuffle=True, drop_last=True, workers=max(args.workers, 2),
-                        seed=epoch),
+                        seed=epoch, mesh=mesh),
                 total=len(train_dataset) // batch_size,
                 desc="Train",
                 unit="batch",
                 ascii=True,
+                disable=not writer,
             ):
                 images, masks = batch.arrays
                 with torch.profiler.record_function("train_step"):
@@ -328,11 +360,12 @@ def main(args):
             running_loss, num_samples = 0.0, 0
             pending = None
             for batch in tqdm(
-                batches(val_dataset, batch_size, drop_last=True, workers=max(args.workers, 2)),
+                batches(val_dataset, batch_size, drop_last=True, workers=max(args.workers, 2), mesh=mesh),
                 total=len(val_dataset) // batch_size,
                 desc="Validate",
                 unit="batch",
                 ascii=True,
+                disable=not writer,
             ):
                 images, masks = batch.arrays
                 loss, counts = eval_step(params, state, host(images), host(masks))
@@ -357,6 +390,8 @@ def main(args):
             for k, v in val_hist.items():
                 history["val " + k].append(v)
 
+            if not writer:
+                continue
             visual = "history-{:05d}-of-{:05d}.png".format(epoch + 1, num_epochs)
             try:
                 plot(os.path.join(common["checkpoint"], visual), history)

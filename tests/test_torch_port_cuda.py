@@ -28,7 +28,11 @@ sites' vectors), K5, K6 and K7 (dec4's on-load quantize and its int8
 epilogue), and rs_int8_conv on both routes, at main-path widths and
 channel tails. K1 is also held through its operator,
 `torch.ops.robosat.margin_head`, against a direct launch, and inside a
-`predict` program that `export` traces on the card.
+`predict` program that `export` traces on the card. The multi-device layer
+(parallel/mesh.py): a one-rank NCCL group from RS_*, and two gloo ranks on
+the card (tests/torch_mesh_workers.py) for the halo exchange of every
+spatial site on CUDA tensors and the height-split predict step, K1 on each
+rank.
 """
 
 import functools
@@ -928,3 +932,70 @@ def test_int8_conv_pc_kernel_bit_equal(gen, site, k, cin, cout, stride, dilation
     assert qconv.int8_conv.by_route == {**routes, route: routes[route] + 1}
     ref = qconv.int8_conv_plain(x, node, s, stride=stride, dilation=dilation, padding=padding, epilogue=epilogue)
     assert torch.equal(got, ref)
+
+
+def _mesh_workers():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_mesh_workers
+
+    return torch_mesh_workers
+
+
+def test_nccl_group_of_one_rank(gen):
+    """RS_* with one process on the card: an NCCL group (the backend the
+    config's CUDA device selects), the rank's device current, and the
+    mesh's sum, gather and object broadcast through it."""
+    workers = _mesh_workers()
+    (backend, device, total, gathered, obj), = workers.launch(workers.nccl_one_rank, 1)
+    assert (backend, device) == ("nccl", "cuda:0")
+    assert total == [0.0, 1.0, 2.0, 3.0] and gathered == [[0.0, 1.0, 2.0, 3.0]]
+    assert obj == {"amaxes": [1.5, 2.5]}
+
+
+def test_halo_sites_on_the_card_match_the_whole_raster(gen):
+    """Every spatial site of the U-Net's folded forward on CUDA tensors,
+    split by height over 2 gloo ranks of the one card, against the whole
+    raster's on the card, in float64 (the same products and sums)."""
+    import numpy as np
+
+    workers = _mesh_workers()
+    rng = np.random.default_rng(0)
+    c = 8
+    x = rng.standard_normal((2, 16, 12, 4 * c))
+    w = {"w3": rng.standard_normal((3, 3, 4 * c, c)), "w7": rng.standard_normal((7, 7, 4 * c, c)),
+         "w1": rng.standard_normal((1, 1, 4 * c, c)), "w3q": rng.standard_normal((3, 3, c, c))}
+    whole = workers.halo_site_outputs(torch.from_numpy(x).cuda(), {k: torch.from_numpy(v).cuda() for k, v in w.items()})
+    ranks = workers.launch(workers.halo_sites, 2, x, w, "cuda")
+    for name, ref in whole.items():
+        got = np.concatenate([r[name] for r in ranks], axis=1)
+        np.testing.assert_allclose(got, ref.cpu().numpy(), rtol=1e-12, atol=1e-12, err_msg=name)
+
+
+def test_spatial_step_on_the_card_launches_k1_on_each_rank(gen):
+    """make_spatial_predict_step on 2 gloo ranks of the card at (1, 256,
+    128), overlap 32, float32: K1 once on each rank, the uint8 of the
+    one-process make_predict_step(fused_head=True) within one bin on at
+    most 0.1% of the pixels, and K1 on each rank's own features against
+    its plain version under the same rule."""
+    import numpy as np
+
+    from robosat_tpu_torch.checkpoint import from_jax, to_jax
+    from robosat_tpu_torch.device import configure_device
+    from robosat_tpu_torch.models import unet
+    from robosat_tpu_torch.parallel.steps import make_predict_step
+
+    workers = _mesh_workers()
+    configure_device(True)
+    raw = np.random.default_rng(3).integers(0, 255, (1, 256, 128, 3), dtype=np.uint8)
+    params, state = from_jax(*(to_jax(t) for t in unet.init(0)), "cuda")
+    ref = make_predict_step(unet, overlap=32, fused_head=True, fold_bn=True, s2d=True)(params, state, raw).cpu().numpy()
+    for out, launches, k1, k1_plain in workers.launch(workers.spatial_predict_port, 2, raw, 32, "cuda"):
+        assert launches == 1 and out.shape == ref.shape == (1, 192, 64)
+        assert k1.shape == k1_plain.shape == (1, 64, 64, 4)
+        for got, want in ((out, ref), (k1, k1_plain)):
+            d = (got.astype(np.int32) - want.astype(np.int32)) % 256
+            d = np.minimum(d, 256 - d)
+            assert d.max() <= 1 and (d != 0).sum() <= 0.001 * d.size
