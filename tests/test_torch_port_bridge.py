@@ -5,6 +5,7 @@ the CPU. The quantizer must agree bit for bit; the float calibration walk
 agrees to float32 summation order (rtol 1e-5).
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -24,6 +25,7 @@ from robosat_tpu_torch.device import configure_device
 from robosat_tpu_torch.models import int8 as q8
 from robosat_tpu_torch.models import layers, unet
 from robosat_tpu_torch.parallel.steps import _normalize_s2d4
+from torch_port_refs import exact_var, unet_calibration
 
 
 def _leaves(tree):
@@ -36,16 +38,6 @@ def _leaves(tree):
 
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
-
-
-def _exact_var(tree):
-    """A copy of a BN state tree with var + eps == 1 exactly in float32."""
-    if isinstance(tree, dict):
-        return {k: (np.full_like(v, np.float32(1.0) - np.float32(1e-5)) if k == "var" else _exact_var(v))
-                for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_exact_var(v) for v in tree]
-    return tree
 
 
 @pytest.fixture(scope="module")
@@ -130,7 +122,7 @@ def test_fold_matches_jax(jax_unet):
     for a, b in zip(_leaves(folded), _leaves(unet.fold(tp, ts))):
         np.testing.assert_allclose(b.numpy(), a, rtol=2.5e-7, atol=0)
 
-    exact_state = _exact_var(state)
+    exact_state = exact_var(state)
     folded_exact = _np(jax.jit(junet.fold)(params, exact_state))
     tp, ts = from_jax(params, exact_state)
     for a, b in zip(_leaves(folded_exact), _leaves(unet.fold(tp, ts))):
@@ -183,41 +175,48 @@ def test_normalize_s2d4_bit_equal():
     assert np.array_equal(ref, _normalize_s2d4(torch.from_numpy(raw)).numpy())
 
 
+RAW = np.random.default_rng(7).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+
+
+@pytest.fixture(scope="module")
+def jax_amaxes(jax_unet):
+    """amaxes(blocked, percentile): the JAX package's calibration of the
+    fixture's folded U-Net on RAW (4x4-blocked when `blocked`), each
+    computed once for the module."""
+    folded = jax_unet[2]
+    raw48 = jax_space_to_depth4(RAW)
+
+    @functools.lru_cache(maxsize=None)
+    def amaxes(blocked, percentile):
+        return np.asarray(unet_calibration(folded, raw48 if blocked else RAW, blocked=blocked, percentile=percentile))
+
+    return amaxes
+
+
 @pytest.mark.parametrize("percentile", [None, 99.8], ids=["amax", "p99.8"])
-def test_calibration_amaxes_match_jax(jax_unet, percentile):
+def test_calibration_amaxes_match_jax(jax_unet, jax_amaxes, percentile):
     """Per-site calibration of a full-width U-Net at 64 px: float32 convs sum
     in another order than XLA's, so agreement is to rtol 1e-5."""
     _, _, folded = jax_unet
-    raw48 = jax_space_to_depth4(np.random.default_rng(7).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8))
-    ref = np.asarray(
-        jax.jit(lambda f, r: jq8.calibration_amaxes(f, jax_normalize_s2d4(r), blocked=True, percentile=percentile))(
-            folded, raw48
-        )
-    )
+    ref = jax_amaxes(True, percentile)
     tf, _ = from_jax(folded, {})
-    got = q8.calibration_amaxes(tf, _normalize_s2d4(torch.from_numpy(raw48)), blocked=True,
-                                percentile=percentile).numpy()
+    got = q8.calibration_amaxes(tf, _normalize_s2d4(torch.from_numpy(np.asarray(jax_space_to_depth4(RAW)))),
+                                blocked=True, percentile=percentile).numpy()
     assert got.shape == ref.shape == (59,)
     np.testing.assert_allclose(got, ref, rtol=1e-5)
     np.testing.assert_allclose(q8.scales_from_amaxes(got), jq8.scales_from_amaxes(ref), rtol=1e-5)
 
 
 @pytest.mark.parametrize("percentile", [None, 99.8], ids=["amax", "p99.8"])
-def test_calibration_amaxes_fine_match_jax(jax_unet, percentile):
+def test_calibration_amaxes_fine_match_jax(jax_unet, jax_amaxes, percentile):
     """`blocked=False`: the calibration walk from the fine stem (7x7/s2 conv
     and max pool) on fine input, against the JAX package's, rtol 1e-5."""
-    from robosat_tpu.parallel.steps import normalize as jax_normalize
     from robosat_tpu_torch.parallel.steps import normalize
 
     _, _, folded = jax_unet
-    raw = np.random.default_rng(7).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
-    ref = np.asarray(
-        jax.jit(lambda f, r: jq8.calibration_amaxes(f, jax_normalize(r), blocked=False, percentile=percentile))(
-            folded, raw
-        )
-    )
+    ref = jax_amaxes(False, percentile)
     tf, _ = from_jax(folded, {})
-    got = q8.calibration_amaxes(tf, normalize(torch.from_numpy(raw)), blocked=False, percentile=percentile).numpy()
+    got = q8.calibration_amaxes(tf, normalize(torch.from_numpy(RAW)), blocked=False, percentile=percentile).numpy()
     assert got.shape == ref.shape == (59,)
     np.testing.assert_allclose(got, ref, rtol=1e-5)
 
@@ -228,18 +227,15 @@ def _grid_fractions(clips, amaxes):
 
 
 @pytest.mark.parametrize("spec", ["mse", "mae"])
-def test_grid_calibration_matches_jax(jax_unet, spec):
+def test_grid_calibration_matches_jax(jax_unet, jax_amaxes, spec):
     """The "mse"/"mae" grids over the 59 sites of a full-width U-Net at 64
     px, host-blocked input: the port picks the JAX package's grid fraction
     at every site, and the clips agree to rtol 1e-5 (their amaxes differ by
     float32 summation order)."""
     _, _, folded = jax_unet
-    raw48 = jax_space_to_depth4(np.random.default_rng(7).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8))
-    jfold = jax.jit(lambda f, r, p: jq8.calibration_amaxes(f, jax_normalize_s2d4(r), blocked=True, percentile=p),
-                    static_argnums=2)
-    ref, ref_amax = (np.asarray(jfold(folded, raw48, p)) for p in (spec, None))
+    ref, ref_amax = jax_amaxes(True, spec), jax_amaxes(True, None)
     tf, _ = from_jax(folded, {})
-    x = _normalize_s2d4(torch.from_numpy(raw48))
+    x = _normalize_s2d4(torch.from_numpy(np.asarray(jax_space_to_depth4(RAW))))
     got, got_amax = (q8.calibration_amaxes(tf, x, blocked=True, percentile=p).numpy() for p in (spec, None))
     assert got.shape == ref.shape == (59,)
     assert np.all(got <= got_amax) and np.all(got > 0)
@@ -297,5 +293,5 @@ def test_port_imports_no_jax():
         "assert not bad, bad"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=root)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=20, cwd=root)
     assert proc.returncode == 0, proc.stderr

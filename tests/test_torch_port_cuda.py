@@ -934,6 +934,11 @@ def test_int8_conv_pc_kernel_bit_equal(gen, site, k, cin, cout, stride, dilation
     assert torch.equal(got, ref)
 
 
+# A launch on the card: not timed in tier-1 (these tests skip there); its
+# ranks may build the kernels first (~40 s).
+CARD_LAUNCH_TIMEOUT = 600
+
+
 def _mesh_workers():
     import os
     import sys
@@ -949,7 +954,7 @@ def test_nccl_group_of_one_rank(gen):
     config's CUDA device selects), the rank's device current, and the
     mesh's sum, gather and object broadcast through it."""
     workers = _mesh_workers()
-    (backend, device, total, gathered, obj), = workers.launch(workers.nccl_one_rank, 1)
+    (backend, device, total, gathered, obj), = workers.launch(workers.nccl_one_rank, 1, timeout=CARD_LAUNCH_TIMEOUT)
     assert (backend, device) == ("nccl", "cuda:0")
     assert total == [0.0, 1.0, 2.0, 3.0] and gathered == [[0.0, 1.0, 2.0, 3.0]]
     assert obj == {"amaxes": [1.5, 2.5]}
@@ -968,7 +973,7 @@ def test_halo_sites_on_the_card_match_the_whole_raster(gen):
     w = {"w3": rng.standard_normal((3, 3, 4 * c, c)), "w7": rng.standard_normal((7, 7, 4 * c, c)),
          "w1": rng.standard_normal((1, 1, 4 * c, c)), "w3q": rng.standard_normal((3, 3, c, c))}
     whole = workers.halo_site_outputs(torch.from_numpy(x).cuda(), {k: torch.from_numpy(v).cuda() for k, v in w.items()})
-    ranks = workers.launch(workers.halo_sites, 2, x, w, "cuda")
+    ranks = workers.launch(workers.halo_sites, 2, x, w, "cuda", timeout=CARD_LAUNCH_TIMEOUT)
     for name, ref in whole.items():
         got = np.concatenate([r[name] for r in ranks], axis=1)
         np.testing.assert_allclose(got, ref.cpu().numpy(), rtol=1e-12, atol=1e-12, err_msg=name)
@@ -992,7 +997,8 @@ def test_spatial_step_on_the_card_launches_k1_on_each_rank(gen):
     raw = np.random.default_rng(3).integers(0, 255, (1, 256, 128, 3), dtype=np.uint8)
     params, state = from_jax(*(to_jax(t) for t in unet.init(0)), "cuda")
     ref = make_predict_step(unet, overlap=32, fused_head=True, fold_bn=True, s2d=True)(params, state, raw).cpu().numpy()
-    for out, launches, k1, k1_plain in workers.launch(workers.spatial_predict_port, 2, raw, 32, "cuda"):
+    for out, launches, k1, k1_plain in workers.launch(workers.spatial_predict_port, 2, raw, 32, "cuda",
+                                                      timeout=CARD_LAUNCH_TIMEOUT):
         assert launches == 1 and out.shape == ref.shape == (1, 192, 64)
         assert k1.shape == k1_plain.shape == (1, 64, 64, 4)
         for got, want in ((out, ref), (k1, k1_plain)):

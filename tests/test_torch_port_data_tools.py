@@ -197,7 +197,7 @@ def _serve(directory):
     finally:
         server.shutdown()
         server.server_close()
-        thread.join(timeout=10)
+        thread.join(timeout=5)
         assert not thread.is_alive()
 
 
@@ -396,7 +396,7 @@ def cli():
             "print(sorted(k for k in sys.modules if k.split('.')[0] in ('requests', 'robosat_tpu', 'jax')))\n"
             "sys.argv = ['x', '--help']\n"
             "m.main()\n")
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=20, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
     return proc.stdout
 

@@ -49,9 +49,8 @@ from robosat_tpu.ops.augment import normalize as jax_normalize
 from robosat_tpu_torch.checkpoint import from_jax
 from robosat_tpu_torch.models import deeplab, qconv, qenc
 from robosat_tpu_torch.models import int8 as q8
-from test_torch_port_bridge import _exact_var
 from test_torch_port_predict import _assert_close_bins
-from test_torch_port_train_forward import torch_threads  # noqa: F401
+from torch_port_refs import exact_var, family_calibration, jit_call
 
 
 def _np(tree):
@@ -85,7 +84,7 @@ def test_resize_bilinear_matches_jax(size, dtype):
         jx, tx = _bf16(x)
     else:
         jx, tx = jnp.asarray(x), torch.from_numpy(x)
-    want = jax.jit(lambda t: jax.image.resize(t, (2, 4 * size, 4 * size, 8), method="bilinear"))(jx)
+    want = jit_call(jax.image.resize, jx, shape=(2, 4 * size, 4 * size, 8), method="bilinear")
     got = deeplab._resize_bilinear(tx, 4 * size, 4 * size)
     assert got.dtype == tx.dtype and tuple(got.shape) == want.shape
     if dtype == "bfloat16" or size != 4:
@@ -109,7 +108,7 @@ def test_resize_one_axis_and_edges():
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
 def test_apply_matches_jax(net, train):
     params, state, _, x = net
-    want, want_state = jax.jit(lambda p, s, xx: jdeeplab.apply(p, s, xx, train))(params, state, x)
+    want, want_state = jit_call(jdeeplab.apply, params, state, x, train=train)
     tp, ts = from_jax(params, state)
     got, got_state = deeplab.apply(tp, ts, torch.from_numpy(x), train)
     want, got = np.asarray(want), got.detach().numpy()
@@ -142,7 +141,7 @@ def test_fold_and_apply_folded_match_jax(net):
 def test_predict_quantized_folded_matches_jax(net):
     params, state, _, x = net
     folded = jax.jit(jdeeplab.fold)(params, state)
-    want = np.asarray(jax.jit(lambda f, xx: jdeeplab.predict_quantized_folded(f, xx, overlap=8))(folded, x))
+    want = np.asarray(jit_call(jdeeplab.predict_quantized_folded, folded, x, overlap=8))
     tp, ts = from_jax(params, state)
     got = deeplab.predict_quantized_folded(deeplab.fold(tp, ts), torch.from_numpy(x), overlap=8).numpy()
     assert got.shape == want.shape == (2, 48, 48)
@@ -154,8 +153,7 @@ def test_calibration_amaxes_match_jax(net, percentile):
     params, state, _, x = net
     folded = jax.jit(jdeeplab.fold)(params, state)
     x48 = np.asarray(jax_space_to_depth4(x))
-    want = np.asarray(jax.jit(lambda f, xx: jdeeplab.calibration_amaxes_int8(f, xx, blocked=True,
-                                                                             percentile=percentile))(folded, x48))
+    want = np.asarray(family_calibration(folded, x48, family=jdeeplab, blocked=True, percentile=percentile))
     tp, ts = from_jax(params, state)
     tfolded = deeplab.fold(tp, ts)
     got = deeplab.calibration_amaxes_int8(tfolded, torch.from_numpy(x48), blocked=True, percentile=percentile)
@@ -170,9 +168,9 @@ def int8_net(net):
     """Exact-var weights, the JAX package's 99.8 calibration and qtree, and
     the port's qtree from its own fold (equal to JAX's, checked)."""
     params, _, raw, x = net
-    state = _exact_var(net[1])
+    state = exact_var(net[1])
     folded = jax.jit(jdeeplab.fold)(params, state)
-    amaxes = np.asarray(jax.jit(lambda f, xx: jdeeplab.calibration_amaxes_int8(f, xx, percentile=99.8))(folded, x))
+    amaxes = np.asarray(family_calibration(folded, x, family=jdeeplab, blocked=False, percentile=99.8))
     tp, ts = from_jax(params, state)
     qtree = deeplab.quantize_folded_int8(deeplab.fold(tp, ts))
     jqt = _np(jax.jit(jdeeplab.quantize_folded_int8)(folded))
@@ -191,8 +189,8 @@ def test_predict_quantized_int8_matches_jax(int8_net, blocked, overlap):
     scales = tuple(jq8.scales_from_amaxes(amaxes))
     xin = np.asarray(jax_space_to_depth4(x)) if blocked else x
     jx, tx = _bf16(xin)
-    want = np.asarray(jax.jit(lambda t, xx: jdeeplab.predict_quantized_int8(t, scales, xx, overlap=overlap,
-                                                                            blocked=blocked))(jqt, jx))
+    want = np.asarray(jit_call(jdeeplab.predict_quantized_int8, jqt, scales=scales, x=jx, overlap=overlap,
+                               blocked=blocked))
     got = deeplab.predict_quantized_int8(qtree, scales, tx, overlap=overlap, blocked=blocked)
     assert tuple(got.shape) == want.shape == (2, 64 - 2 * overlap, 64 - 2 * overlap)
     _assert_close_bins(got.numpy(), want)

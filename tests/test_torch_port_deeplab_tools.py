@@ -7,7 +7,7 @@ checkpoint converter and the `train` and `predict` tools, on the CPU.
 - One `make_train_step` step over `deeplab.apply` (CrossEntropy with
   dataset-parking's weights, augmentation off, 64 px, batch 2) from the
   JAX package's init against the JAX package's step, computed with
-  XLA:CPU capped at AVX2 (`test_torch_port_train.run_capped`: its AVX-512
+  XLA:CPU capped at AVX2 (`torch_port_refs.run_capped`: its AVX-512
   code is 1.8e-4 from a float64 run of this loss, the port 9e-5, its AVX2
   code 8e-5): the loss (taken before the update) within 1e-4 relative, the
   stem's new BN statistics within 5e-3.
@@ -47,13 +47,15 @@ from robosat_tpu_torch.models.registry import get_model
 from robosat_tpu_torch.ops.losses import get_loss
 from robosat_tpu_torch.parallel import steps
 from robosat_tpu_torch.tools import predict, train
-from test_torch_port_train import run_capped
-from test_torch_port_train_forward import WEIGHT, learnable_batch, torch_threads  # noqa: F401
+from test_torch_port_train_forward import WEIGHT, learnable_batch
 from test_torch_port_train_tool import _args, _write_split
+from torch_port_refs import run_capped
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 1e-4
 SIZE = 64
+# The capped child's limit: about three times its time in tier-1's run.
+STEP_TIMEOUT = 180
 HEADS = ("aspp1", "aspp_d0", "aspp_d1", "aspp_d2", "aspp_pool", "aspp_proj", "lowlevel", "dec1", "dec2")
 
 
@@ -83,7 +85,7 @@ def _jax_step(params, state, images, masks):
 def test_train_step_matches_jax(weights):
     images, masks = learnable_batch(30)
     params, state = weights
-    want_loss, want_bn1 = run_capped(_jax_step, params, state, images, masks)
+    want_loss, want_bn1 = run_capped(_jax_step, params, state, images, masks, timeout=STEP_TIMEOUT)
     tparams, tstate = checkpoint.from_jax(params, state)
     step = steps.make_train_step(deeplab, get_loss("CrossEntropy"), optim.adam(tparams, LR), weight=WEIGHT,
                                  augment=False)

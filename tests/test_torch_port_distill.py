@@ -42,9 +42,9 @@ from robosat_tpu_torch.models import unet
 from robosat_tpu_torch.ops.losses import get_loss
 from robosat_tpu_torch.parallel.steps import distillation_loss, make_distill_train_step
 from test_torch_checkpoint import _reference_style_state_dict
-from test_torch_port_bridge import _exact_var
 from test_torch_port_train import _flat, check_optax_step, update_agreement
-from test_torch_port_train_forward import WEIGHT, learnable_batch, torch_threads  # noqa: F401
+from test_torch_port_train_forward import WEIGHT, learnable_batch
+from torch_port_refs import exact_var
 
 LR = 1e-4
 STEPS = 3
@@ -58,7 +58,7 @@ def _np(tree):
 @pytest.fixture(scope="module")
 def weights():
     params, state = convert_torch_unet(_reference_style_state_dict())
-    return _np(params), _exact_var(_np(state))
+    return _np(params), exact_var(_np(state))
 
 
 @pytest.fixture(scope="module")
@@ -96,6 +96,9 @@ def _jax_distillation_loss(logits32, t_logits, masks, alpha):
     return alpha * kd + (1.0 - alpha) * hard
 
 
+_jax_distillation_value_and_grad = jax.jit(jax.value_and_grad(_jax_distillation_loss), static_argnums=3)
+
+
 @pytest.mark.parametrize("alpha", [1.0, ALPHA], ids=["kd", "total"])
 def test_distillation_loss_matches_jax(batches, alpha):
     """alpha = 1 gives the KD term alone."""
@@ -103,8 +106,7 @@ def test_distillation_loss_matches_jax(batches, alpha):
     masks = batches[0][1]
     logits = (rng.normal(size=masks.shape + (2,)) * 4).astype(np.float32)
     t_logits = (rng.normal(size=masks.shape + (2,)) * 4).astype(np.float32)
-    want, want_grad = jax.jit(jax.value_and_grad(_jax_distillation_loss), static_argnums=3)(
-        logits, t_logits, masks, alpha)
+    want, want_grad = _jax_distillation_value_and_grad(logits, t_logits, masks, alpha)
     tl = torch.from_numpy(logits).requires_grad_(True)
     got = distillation_loss(tl, torch.from_numpy(t_logits), torch.from_numpy(masks), get_loss("CrossEntropy"),
                             torch.from_numpy(WEIGHT), alpha, TEMP)

@@ -39,20 +39,10 @@ from robosat_tpu_torch.models.registry import get_model
 from robosat_tpu_torch.ops import head
 from robosat_tpu_torch.parallel.steps import make_predict_step
 from robosat_tpu_torch.tools import export
+from torch_port_refs import jit_call
 
 SIZE = 64
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def torch_threads():
-    """Two intra-op threads while this module traces and runs full-width
-    models on the CPU: tier-1 runs six xdist workers, and a full OpenMP pool
-    in each oversubscribes the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _exact_var(tree):
@@ -166,7 +156,7 @@ def test_logits_pt2_reloads_equal_to_eager_apply(files, tmp_path, capsys):
     with torch.no_grad():
         eager, _ = get_model("unet").apply(tp, ts, torch.from_numpy(x), train=False)
     assert torch.equal(got, eager)
-    want, _ = jax.jit(lambda p, s, v: jax_get_model("unet").apply(p, s, v, train=False))(params, state, x)
+    want, _ = jit_call(jax_get_model("unet").apply, params, state, x, train=False)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3, atol=1e-2)
 
 

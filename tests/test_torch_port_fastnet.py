@@ -63,8 +63,8 @@ from robosat_tpu_torch.models import fastnet, qconv, qdec
 from robosat_tpu_torch.models import int8 as q8
 from robosat_tpu_torch.models.registry import get_model
 from robosat_tpu_torch.ops import head
-from test_torch_port_bridge import _exact_var
 from test_torch_port_predict import _assert_close_bins, _bin_distance
+from torch_port_refs import exact_var, family_calibration, jit_call
 
 
 def _np(tree):
@@ -104,7 +104,7 @@ def test_subpixel_layout_exact():
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
 def test_apply_matches_jax(net, train):
     params, state, _, x = net
-    want, want_state = jax.jit(lambda p, s, xx: jfastnet.apply(p, s, xx, train))(params, state, x)
+    want, want_state = jit_call(jfastnet.apply, params, state, x, train=train)
     tp, ts = from_jax(params, state)
     got, got_state = fastnet.apply(tp, ts, torch.from_numpy(x), train)
     want, got = np.asarray(want), got.detach().numpy()
@@ -202,8 +202,7 @@ def test_calibration_amaxes_match_jax(net, percentile):
     params, state, _, x = net
     folded = jax.jit(jfastnet.fold)(params, state)
     x48 = np.asarray(jax_space_to_depth4(x))
-    want = np.asarray(jax.jit(lambda f, xx: jfastnet.calibration_amaxes_int8(f, xx, blocked=True,
-                                                                             percentile=percentile))(folded, x48))
+    want = np.asarray(family_calibration(folded, x48, family=jfastnet, blocked=True, percentile=percentile))
     tp, ts = from_jax(params, state)
     tfolded = fastnet.fold(tp, ts)
     got = fastnet.calibration_amaxes_int8(tfolded, torch.from_numpy(x48), blocked=True, percentile=percentile)
@@ -217,9 +216,9 @@ def int8_net(net):
     """Exact-var weights, the JAX package's 99.8 calibration and qtree, and
     the port's qtree from its own fold (equal to JAX's, checked)."""
     params, _, raw, x = net
-    state = _exact_var(net[1])
+    state = exact_var(net[1])
     folded = jax.jit(jfastnet.fold)(params, state)
-    amaxes = np.asarray(jax.jit(lambda f, xx: jfastnet.calibration_amaxes_int8(f, xx, percentile=99.8))(folded, x))
+    amaxes = np.asarray(family_calibration(folded, x, family=jfastnet, blocked=False, percentile=99.8))
     tp, ts = from_jax(params, state)
     qtree = fastnet.quantize_folded_int8(fastnet.fold(tp, ts))
     jqt = _np(jax.jit(jfastnet.quantize_folded_int8)(folded))
@@ -236,8 +235,8 @@ def test_predict_quantized_int8_matches_jax(int8_net, blocked, overlap):
     scales = tuple(jq8.scales_from_amaxes(amaxes))
     xin = np.asarray(jax_space_to_depth4(x)) if blocked else x
     jx, tx = _bf16(xin)
-    want = np.asarray(jax.jit(lambda t, xx: jfastnet.predict_quantized_int8(t, scales, xx, overlap=overlap,
-                                                                            blocked=blocked))(jqt, jx))
+    want = np.asarray(jit_call(jfastnet.predict_quantized_int8, jqt, scales=scales, x=jx, overlap=overlap,
+                               blocked=blocked))
     got = fastnet.predict_quantized_int8(qtree, scales, tx, overlap=overlap, blocked=blocked)
     assert tuple(got.shape) == want.shape == ((2, 12, 12, 16) if blocked else (2, 64 - 2 * overlap, 64 - 2 * overlap))
     _assert_close_bins(got.numpy(), want)
@@ -259,8 +258,7 @@ def test_predict_quantized_folded_matches_jax(int8_net, dtype):
     float32 ones (measured 92.2%), not to ROADMAP's 99%."""
     params, state, _, x, _, _, _ = int8_net
     folded = jax.jit(jfastnet.fold)(params, state)
-    run = jax.jit(lambda f, xx: jfastnet.predict_quantized_folded(f, xx, overlap=8))
-    want32 = np.asarray(run(folded, x))
+    want32 = np.asarray(jit_call(jfastnet.predict_quantized_folded, folded, x, overlap=8))
     tp, ts = from_jax(params, state)
     tfolded = fastnet.fold(tp, ts)
     if dtype == "float32":
@@ -269,7 +267,7 @@ def test_predict_quantized_folded_matches_jax(int8_net, dtype):
         assert np.array_equal(got, want32)
         return
     jx, tx = _bf16(x)
-    want = np.asarray(run(folded, jx))
+    want = np.asarray(jit_call(jfastnet.predict_quantized_folded, folded, jx, overlap=8))
     got = fastnet.predict_quantized_folded(tfolded, tx, overlap=8).numpy()
     assert got.shape == want.shape == (2, 48, 48)
     port_jax, jax_own = (_bin_distance(got, want) <= 1).mean(), (_bin_distance(want, want32) <= 1).mean()

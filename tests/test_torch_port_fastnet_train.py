@@ -56,11 +56,11 @@ from robosat_tpu_torch.models import fastnet, unet
 from robosat_tpu_torch.ops.losses import get_loss
 from robosat_tpu_torch.parallel import steps
 from robosat_tpu_torch.tools import train
-from test_torch_port_bridge import _exact_var
 from test_torch_port_qat import forcing
 from test_torch_port_train import _flat, check_optax_step, update_agreement
-from test_torch_port_train_forward import WEIGHT, learnable_batch, torch_threads  # noqa: F401
+from test_torch_port_train_forward import WEIGHT, learnable_batch
 from test_torch_port_train_tool import _args, _write_split
+from torch_port_refs import exact_var, family_calibration, family_calibration_raw
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 1e-4
@@ -76,7 +76,7 @@ def _np(tree):
 @pytest.fixture(scope="module")
 def weights():
     params, state = _np(jfastnet.init(0, num_classes=2))
-    return params, _exact_var(state)
+    return params, exact_var(state)
 
 
 @pytest.fixture(scope="module")
@@ -87,7 +87,7 @@ def batches():
 @pytest.fixture(scope="module")
 def teacher():
     params, state = _np(junet.init(0, num_classes=2))
-    return params, _exact_var(state)
+    return params, exact_var(state)
 
 
 def _jax_run(weights, batches, step, extra=()):
@@ -167,7 +167,7 @@ def test_distill_fast_student_from_unet_teacher_matches_jax(weights, teacher, ba
 def scales(weights, batches):
     folded = jax.jit(jfastnet.fold)(*weights)
     x = np.asarray(jax_normalize(batches[0][0]))
-    amaxes = jax.jit(lambda f, xx: jfastnet.calibration_amaxes_int8(f, xx, percentile=99.8))(folded, x)
+    amaxes = family_calibration(folded, x, family=jfastnet, blocked=False, percentile=99.8)
     return [float(s) for s in jq8.scales_from_amaxes(np.asarray(amaxes))]
 
 
@@ -304,8 +304,7 @@ def test_train_tool_fast(tool_runs, name):
     dataset = SlippyMapTilesConcatenation([os.path.join(root, "training", "images")],
                                           os.path.join(root, "training", "labels"), size=SIZE)
     images = next(iter(load_batches(dataset, 2, shuffle=True, drop_last=True, workers=2, seed=0))).arrays[0]
-    want = jax.jit(lambda f, r: jfastnet.calibration_amaxes_int8(f, jax_normalize(r), percentile=99.8))(
-        jax.jit(jfastnet.fold)(start, start_state), images)
+    want = family_calibration_raw(jax.jit(jfastnet.fold)(start, start_state), images, family=jfastnet, percentile=99.8)
     np.testing.assert_allclose(meta["qat_amaxes"], np.asarray(want), rtol=1e-5)
     for got, want in zip(jax.tree_util.tree_leaves(state), jax.tree_util.tree_leaves(start_state)):
         assert np.array_equal(np.asarray(got), np.asarray(want))

@@ -49,7 +49,7 @@ def native_engines():
     if jnative.load() is None:
         tmp = "{}.tmp{}".format(jnative._LIB, os.getpid())
         subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-pthread", "-o", tmp, jnative._SRC],
-                       check=True, capture_output=True)
+                       check=True, capture_output=True, timeout=30)
         os.replace(tmp, jnative._LIB)
         jnative._lib, jnative._tried = None, False
     assert jnative.load() is not None, "the JAX package's geometry engine did not load"
@@ -301,7 +301,13 @@ def test_engine_builds_in_two_processes_at_once(tmp_path):
     procs = [subprocess.Popen([sys.executable, "-c", code], env=env, cwd=str(tmp_path),
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for _ in range(2)]
     go.write_text("")
-    outs = [p.communicate(timeout=240) for p in procs]
+    try:
+        outs = [p.communicate(timeout=45) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, err
         assert float(out.strip()) == native.overlay_area(

@@ -50,5 +50,5 @@ def test_entry_points_load_no_jax_package():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('robosat_tpu', 'jax', 'jaxlib'))\n"
         "assert not bad, bad\n"
     )
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=20, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr

@@ -17,6 +17,8 @@
   JAX package's, as tests/test_torch_port_train.py holds CrossEntropy.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +30,7 @@ from robosat_tpu.ops import losses as jlosses
 from robosat_tpu.ops import metrics as jmetrics
 from robosat_tpu_torch.ops import augment, losses, metrics
 from test_torch_port_train import (  # noqa: F401
-    batches, check_train_step, jax_trajectory, port_trajectories, torch_threads, weights)
+    batches, check_train_step, jax_trajectory, port_trajectories, weights)
 
 WEIGHT = np.asarray([1.6248, 5.762827], np.float32)  # config/dataset-parking.toml
 RTOL = 1e-5
@@ -41,9 +43,13 @@ def _inputs(seed, shape=(2, 16, 16, 2), scale=3.0):
     return logits, targets
 
 
+@functools.partial(jax.jit, static_argnames="name")
+def _jax_loss_value_and_grad(logits, targets, weight, name):
+    return jax.value_and_grad(lambda x: jlosses.get_loss(name)(x, targets, weight))(logits)
+
+
 def _jax_value_and_grad(name, logits, targets, weight):
-    fn = jlosses.get_loss(name)
-    value, grad = jax.jit(jax.value_and_grad(lambda x: fn(x, targets, weight)))(logits)
+    value, grad = _jax_loss_value_and_grad(logits, targets, weight, name=name)
     return float(value), np.asarray(grad)
 
 

@@ -3,7 +3,7 @@
 The port's counterparts of tests/test_parallel.py's cases, and the QAT,
 distillation and int8 predict steps, on 2 gloo ranks, one process each
 (tests/torch_mesh_workers.py); the JAX train steps run in one child
-process capped at AVX2 (`run_capped`, tests/test_torch_port_train.py) on
+process capped at AVX2 (`run_capped`, tests/torch_port_refs.py) on
 the suite's 2-device mesh, the JAX predict and eval steps in this one.
 
 - The sync-BN train step (CrossEntropy with weight [1, 2], SGD 1e-3, the
@@ -52,17 +52,18 @@ import torch_mesh_workers as workers
 from robosat_tpu.models import fastnet as jfastnet
 from robosat_tpu.models import int8 as jq8
 from robosat_tpu.models import unet as junet
-from robosat_tpu.ops.augment import normalize as jax_normalize
 from robosat_tpu.ops.losses import get_loss as jax_get_loss
 from robosat_tpu.parallel import steps as jsteps
 from robosat_tpu.parallel.mesh import create_mesh, replicate, shard_batch
 from robosat_tpu_torch.checkpoint import tree_leaves
-from test_torch_port_predict import MAX_FLIP_SHARE, _bin_distance, _exact_var
-from test_torch_port_train import run_capped
+from test_torch_port_predict import MAX_FLIP_SHARE, _bin_distance
 from test_torch_port_train_forward import learnable_batch
+from torch_port_refs import exact_var, family_calibration_raw, run_capped, unet_calibration
 
 WEIGHT = np.array([1.0, 2.0], np.float32)
 LR = 1e-3
+# The capped child's limit: about three times its time in tier-1's run.
+REFERENCES_TIMEOUT = 350
 
 
 def _np(tree):
@@ -146,8 +147,8 @@ def fast_setup():
     t_params, t_state = _np(jfastnet.init(1, num_classes=2))
     teacher_folded = _np(jax.jit(jfastnet.fold)(t_params, t_state))
     qat_images, qat_masks = learnable_batch(30, batch=2, size=64)
-    amaxes = np.asarray(jax.jit(lambda f, r: jfastnet.calibration_amaxes_int8(f, jax_normalize(r), percentile=99.8))(
-        jax.jit(jfastnet.fold)(params, state), qat_images))
+    amaxes = np.asarray(family_calibration_raw(jax.jit(jfastnet.fold)(params, state), qat_images, family=jfastnet,
+                                               percentile=99.8))
     scales = [float(s) for s in jq8.scales_from_amaxes(amaxes)]
     qat_tiled = (np.concatenate([qat_images] * 2), np.concatenate([qat_masks] * 2))
     return (params, state), teacher_folded, scales, (qat_tiled, learnable_batch(31, batch=4, size=64))
@@ -156,7 +157,8 @@ def fast_setup():
 @pytest.fixture(scope="module")
 def jax_refs(unet_weights, fast_setup, batch, tiled):
     fast_weights, teacher_folded, scales, fast_batches = fast_setup
-    return run_capped(_jax_references, unet_weights, fast_weights, teacher_folded, scales, batch, tiled, fast_batches)
+    return run_capped(_jax_references, unet_weights, fast_weights, teacher_folded, scales, batch, tiled, fast_batches,
+                      timeout=REFERENCES_TIMEOUT)
 
 
 def test_train_step_mesh_matches_jax(unet_weights, batch, jax_refs):
@@ -196,7 +198,7 @@ def test_local_bn_train_step_reference_semantics(unet_weights, batch, tiled, jax
 
 def test_eval_and_predict_steps_on_mesh(unet_weights, batch):
     images, masks = batch
-    params, state = unet_weights[0], _exact_var(unet_weights[1])
+    params, state = unet_weights[0], exact_var(unet_weights[1])
     raw = np.random.default_rng(5).integers(0, 256, (8, 128, 128, 3), dtype=np.uint8)
     mesh = create_mesh()
     weight = np.array([1.0, 1.0], np.float32)
@@ -250,15 +252,14 @@ def test_distill_train_step_on_mesh(fast_setup, jax_refs):
 
 
 def test_int8_predict_step_on_mesh_with_a_padded_batch(unet_weights):
-    params, state = unet_weights[0], _exact_var(unet_weights[1])
+    params, state = unet_weights[0], exact_var(unet_weights[1])
     tiles = np.random.default_rng(7).integers(0, 256, (3, 64, 64, 3), dtype=np.uint8)
     raw = np.concatenate([tiles, tiles[-1:]])  # the loader's padding of a short global batch
     ranks = workers.launch(workers.int8_predict, 2, params, state, raw)
     single = workers.int8_predict(params, state, raw, mesh_on=False)
     np.testing.assert_array_equal(np.concatenate(ranks), single)
 
-    amaxes = np.asarray(jax.jit(lambda f, r: jq8.calibration_amaxes(f, jax_normalize(r), percentile=99.8))(
-        jax.jit(junet.fold)(params, state), raw))
+    amaxes = np.asarray(unet_calibration(jax.jit(junet.fold)(params, state), raw, blocked=False, percentile=99.8))
     mesh = create_mesh()
     jstep, jqt = jsteps.make_int8_predict_step(junet, params, state, raw, mesh=mesh, calib_amaxes=amaxes)
     want = np.asarray(jstep(replicate(mesh, jqt), shard_batch(mesh, raw)))

@@ -37,8 +37,9 @@ from robosat_tpu.config import save_config
 from robosat_tpu.models import unet as junet
 from robosat_tpu_torch.checkpoint import load_checkpoint
 from robosat_tpu_torch.tools import predict, train
-from test_torch_port_predict import MAX_FLIP_SHARE, _bin_distance, _exact_var
+from test_torch_port_predict import MAX_FLIP_SHARE, _bin_distance
 from test_torch_port_train_tool import _args, _configs, _write_split
+from torch_port_refs import exact_var
 
 SIZE = 64
 
@@ -61,7 +62,8 @@ def dataset(tmp_path_factory):
 
 def test_train_on_two_ranks(dataset):
     single = train.main(_args(*_configs(dataset, "single", 1, image_size=SIZE)))
-    ranks = workers.launch(workers.tool_main, 2, "train", _args(*_configs(dataset, "mesh", 1, image_size=SIZE)))
+    ranks = workers.launch(workers.tool_main, 2, "train", _args(*_configs(dataset, "mesh", 1, image_size=SIZE)),
+                           timeout=120)
     assert ranks[0]["history"] == ranks[1]["history"]
     assert [r["steps"] for r in ranks] == [2, 2] and single["steps"] == 2
     for key, want in single["history"].items():
@@ -90,7 +92,7 @@ def tiles(tmp_path_factory):
         d.mkdir(parents=True, exist_ok=True)
         Image.fromarray(rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)).save(d / "{}.png".format(y))
     params, state = jax.tree_util.tree_map(np.asarray, junet.init(0, num_classes=2))
-    save_checkpoint(str(root / "model.npz"), {"params": params, "state": _exact_var(state)}, meta={"epoch": 1})
+    save_checkpoint(str(root / "model.npz"), {"params": params, "state": exact_var(state)}, meta={"epoch": 1})
     save_config({"common": {"cuda": False, "batch_size": 2, "image_size": SIZE, "checkpoint": str(root),
                             "bf16": True, "int8": True}}, str(root / "model.toml"))
     save_config({"common": {"dataset": str(root), "classes": ["background", "parking"],

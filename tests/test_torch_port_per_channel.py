@@ -46,14 +46,14 @@ from robosat_tpu.models import unet as junet
 from robosat_tpu.models.layers import CONV_DIMS
 from robosat_tpu.models.layers import space_to_depth4 as jax_space_to_depth4
 from robosat_tpu.ops.head import fused_prediction_head_s2d_blocked
-from robosat_tpu.parallel.steps import _normalize_s2d4 as jax_normalize_s2d4
 from robosat_tpu.parallel.steps import make_int8_predict_step as jax_make_int8_predict_step
-from robosat_tpu.parallel.steps import normalize as jax_normalize
 from robosat_tpu_torch.checkpoint import from_jax, to_jax
 from robosat_tpu_torch.models import deeplab, fastnet, qconv, qdec, qenc, qtail, segformer, unet
 from robosat_tpu_torch.models import int8 as q8
 from robosat_tpu_torch.ops.augment import normalize
 from robosat_tpu_torch.parallel.steps import _normalize_s2d4, make_int8_predict_step
+from torch_port_refs import (exact_var, family_calibration, family_calibration_raw, unet_calibration,
+                             unet_calibration_normalized)
 
 MAX_FLIP_SHARE = 0.001
 
@@ -68,18 +68,6 @@ def _leaves(tree):
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in _leaves(v)]
     return [tree]
-
-
-def _exact_var(tree):
-    """A copy of a BN state tree with var + eps == 1 exactly in float32
-    (the fold then agrees bit for bit: XLA:CPU's rsqrt and torch's differ
-    in the last bit elsewhere)."""
-    if isinstance(tree, dict):
-        return {k: (np.full_like(v, np.float32(1.0) - np.float32(1e-5)) if k == "var" else _exact_var(v))
-                for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_exact_var(v) for v in tree]
-    return tree
 
 
 def _bin_distance(a, b):
@@ -179,12 +167,11 @@ def test_scale_cursor_matches_jax(case):
 @pytest.fixture(scope="module")
 def unet_net():
     params, state = junet.init(0, num_classes=2)
-    state = _exact_var(state)
+    state = exact_var(state)
     raw = np.random.default_rng(7).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
     raw48 = np.asarray(jax_space_to_depth4(raw))
     folded = _np(jax.jit(junet.fold)(params, state))
-    taps = [np.asarray(t) for t in jax.jit(lambda f, r: jq8.calibration_amaxes(
-        f, jax_normalize_s2d4(r), blocked=True, percentile="pc99.8"))(folded, raw48)]
+    taps = [np.asarray(t) for t in unet_calibration(folded, raw48, blocked=True, percentile="pc99.8")]
     return params, state, folded, raw, raw48, taps
 
 
@@ -239,6 +226,13 @@ def test_family_quantize_folded_int8_matches_jax(family):
 # ---- the taps ----
 
 
+@functools.partial(jax.jit, static_argnames="spec")
+def _jax_site_tap(x, spec):
+    sites = jq8._Sites(scales=None, percentile=spec)
+    assert sites.next_scale(x) == 1.0
+    return sites.taps[0]
+
+
 @pytest.mark.parametrize("spec", ["pc", "pcamax", "pc99.8", "pc99.95"])
 def test_sites_taps_match_jax(spec):
     """One site's per-channel tap of |x| over batch and space: the amax
@@ -249,12 +243,7 @@ def test_sites_taps_match_jax(spec):
     x[..., 3] *= 300.0
     x[0, 1, 2, 5] = 1e4
 
-    def jax_tap(xx):
-        sites = jq8._Sites(scales=None, percentile=spec)
-        assert sites.next_scale(xx) == 1.0
-        return sites.taps[0]
-
-    ref = np.asarray(jax.jit(jax_tap)(x))
+    ref = np.asarray(_jax_site_tap(x, spec=spec))
     sites = q8._Sites(scales=None, percentile=spec)
     assert sites.next_scale(torch.from_numpy(x)) == 1.0
     got = sites.taps[0].numpy()
@@ -281,8 +270,7 @@ def test_calibration_taps_match_jax(unet_net, family, spec):
     the JAX package's: |diff| <= 1e-5 of each site's largest channel."""
     if family == "unet":
         _, _, folded, _, raw48, taps = unet_net
-        ref = taps if spec == "pc99.8" else jax.jit(lambda f, r: jq8.calibration_amaxes(
-            f, jax_normalize_s2d4(r), blocked=True, percentile=spec))(folded, raw48)
+        ref = taps if spec == "pc99.8" else unet_calibration(folded, raw48, blocked=True, percentile=spec)
         got = q8.calibration_amaxes(from_jax(folded, {})[0], _normalize_s2d4(torch.from_numpy(raw48)), blocked=True,
                                     percentile=spec)
         assert len(got) == 59
@@ -291,7 +279,7 @@ def test_calibration_taps_match_jax(unet_net, family, spec):
         params, state = jm.init(0, num_classes=2)
         folded = _np(jax.jit(jm.fold)(params, state))
         raw = np.random.default_rng(4).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
-        ref = jax.jit(lambda f, r: jm.calibration_amaxes_int8(f, jax_normalize(r), percentile=spec))(folded, raw)
+        ref = family_calibration_raw(folded, raw, family=jm, percentile=spec)
         got = tm.calibration_amaxes_int8(from_jax(folded, {})[0], normalize(torch.from_numpy(raw)), percentile=spec)
     _check_taps(got, ref)
 
@@ -512,23 +500,19 @@ def test_int8_conv_plain_takes_vectors(k, stride, dilation, epilogue):
 # ---- the steps, the gates and the tool ----
 
 
-def _jax_taps(jm, calibrate):
+def _jax_taps(jm):
     """A port calibration function that returns the JAX package's taps for
     the port's folded tree and input (converted to numpy)."""
 
     def calib(folded, x, blocked=False, percentile=None):
-        out = jax.jit(lambda f, xx: calibrate(jm, f, xx, blocked, percentile))(to_jax(folded), x.numpy())
+        f, xx = to_jax(folded), x.numpy()
+        if jm is junet:
+            out = unet_calibration_normalized(f, xx, blocked=blocked, percentile=percentile)
+        else:
+            out = family_calibration(f, xx, family=jm, blocked=blocked, percentile=percentile)
         return [torch.from_numpy(np.asarray(t)) for t in out]
 
     return calib
-
-
-def _unet_calibrate(jm, f, x, blocked, percentile):
-    return jq8.calibration_amaxes(f, x, blocked=blocked, percentile=percentile)
-
-
-def _family_calibrate(jm, f, x, blocked, percentile):
-    return jm.calibration_amaxes_int8(f, x, blocked=blocked, percentile=percentile)
 
 
 @pytest.mark.parametrize("family,spec,host_s2d", [("unet", "pc", False), ("fastnet", "pcamax", True),
@@ -543,14 +527,14 @@ def test_int8_predict_step_matches_jax(unet_net, monkeypatch, family, spec, host
     if family == "unet":
         params, state, _, raw, raw48, _ = unet_net
         jm, tm = junet, unet
-        monkeypatch.setattr(q8, "calibration_amaxes", _jax_taps(jm, _unet_calibrate))
+        monkeypatch.setattr(q8, "calibration_amaxes", _jax_taps(jm))
     else:
         jm, tm = (jfastnet, fastnet) if family == "fastnet" else (jdeeplab, deeplab)
         params, state = jm.init(0, num_classes=2)
-        state = _exact_var(state)
+        state = exact_var(state)
         raw = np.random.default_rng(8).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
         raw48 = np.asarray(jax_space_to_depth4(raw))
-        monkeypatch.setattr(tm, "calibration_amaxes_int8", _jax_taps(jm, _family_calibrate))
+        monkeypatch.setattr(tm, "calibration_amaxes_int8", _jax_taps(jm))
     batch = raw48 if host_s2d else raw
     jstep, jqt = jax_make_int8_predict_step(jm, params, state, batch, overlap=0, host_s2d=host_s2d,
                                             calib_percentile=spec)
@@ -631,12 +615,10 @@ def test_predict_tool_pc_matches_jax(tmp_path, monkeypatch, family):
     from robosat_tpu_torch.tools import predict
 
     jm, tm = (junet, unet) if family == "unet" else (jfastnet, fastnet)
-    if family == "unet":
-        monkeypatch.setattr(q8, "calibration_amaxes", _jax_taps(jm, _unet_calibrate))
-    else:
-        monkeypatch.setattr(tm, "calibration_amaxes_int8", _jax_taps(jm, _family_calibrate))
+    monkeypatch.setattr(q8 if family == "unet" else tm,
+                        "calibration_amaxes" if family == "unet" else "calibration_amaxes_int8", _jax_taps(jm))
     params, state = jm.init(0, num_classes=2)
-    state = _exact_var(state)
+    state = exact_var(state)
     rng = np.random.default_rng(11)
     for y in (104945, 104946):
         d = tmp_path / "tiles" / "18" / "69623"

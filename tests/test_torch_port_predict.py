@@ -22,6 +22,8 @@ packages: XLA:CPU's rsqrt and torch's differ in the last bit elsewhere, and
 int8 rounding amplifies a 1-ulp change of every folded weight.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,28 +33,19 @@ import torch
 from robosat_tpu.models import int8 as jq8
 from robosat_tpu.models import resnet as jresnet
 from robosat_tpu.models import unet as junet
-from robosat_tpu.models.layers import space_to_depth4 as jax_space_to_depth4
 from robosat_tpu.parallel.steps import _normalize_s2d4 as jax_normalize_s2d4
 from robosat_tpu.parallel.steps import make_int8_predict_step as jax_make_int8_predict_step
 from robosat_tpu_torch.checkpoint import from_jax
 from robosat_tpu_torch.models import int8 as q8
 from robosat_tpu_torch.models import unet
 from robosat_tpu_torch.parallel.steps import make_int8_predict_step
+from torch_port_refs import unet_int8_model
 
 MAX_FLIP_SHARE = 0.001
 
 
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
-
-
-def _exact_var(tree):
-    if isinstance(tree, dict):
-        return {k: (np.full_like(v, np.float32(1.0) - np.float32(1e-5)) if k == "var" else _exact_var(v))
-                for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_exact_var(v) for v in tree]
-    return tree
 
 
 def _bin_distance(a, b):
@@ -71,16 +64,13 @@ def _assert_close_bins(got, ref):
 
 @pytest.fixture(scope="module")
 def model():
-    params, state = junet.init(0, num_classes=2)
-    state = _exact_var(state)
-    raw48 = jax_space_to_depth4(np.random.default_rng(7).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8))
-    folded = jax.jit(junet.fold)(params, state)
-    amaxes = np.asarray(
-        jax.jit(lambda f, r: jq8.calibration_amaxes(f, jax_normalize_s2d4(r), blocked=True, percentile=99.8))(
-            folded, raw48
-        )
-    )
-    return params, state, raw48, amaxes
+    """(params, state, raw48, amaxes): torch_port_refs.unet_int8_model."""
+    return unet_int8_model()
+
+
+@functools.partial(jax.jit, static_argnames="scales")
+def _jax_features_to_dec3(qtree, x, scales):
+    return jq8.apply_features_int8_to_dec3(qtree, scales, x, blocked=True)[0]
 
 
 def test_walk_from_jax_stem_bit_equal(model):
@@ -88,7 +78,7 @@ def test_walk_from_jax_stem_bit_equal(model):
     jqt = jax.jit(jq8.quantize_unet_folded)(jax.jit(junet.fold)(params, state))
     scales = jq8.scales_from_amaxes(amaxes)
     x = jax_normalize_s2d4(raw48).astype(jnp.bfloat16)
-    ref = jax.jit(lambda q, xx: jq8.apply_features_int8_to_dec3(q, scales, xx, blocked=True)[0])(jqt, x)
+    ref = _jax_features_to_dec3(jqt, x, scales=tuple(scales))
     stem = jresnet.stem_folded_s2d4(jqt["encoder"]["conv1"], x)
 
     tq, _ = from_jax(_np(jqt), {})

@@ -17,15 +17,14 @@ import numpy as np
 import pytest
 import torch
 
-from robosat_tpu.models import int8 as jq8
 from robosat_tpu.models import unet as junet
 from robosat_tpu.models.layers import space_to_depth4 as jax_space_to_depth4
 from robosat_tpu.parallel.steps import make_int8_predict_step as jax_make_int8_predict_step
-from robosat_tpu.parallel.steps import normalize as jax_normalize
 from robosat_tpu_torch.checkpoint import from_jax
 from robosat_tpu_torch.models import unet
 from robosat_tpu_torch.parallel.steps import make_int8_predict_step
 from test_torch_port_predict import MAX_FLIP_SHARE, _assert_close_bins, _bin_distance, model  # noqa: F401
+from torch_port_refs import unet_calibration
 
 
 @pytest.fixture(scope="module")
@@ -35,9 +34,7 @@ def fine_model(model):
     params, state, _, _ = model
     raw = np.random.default_rng(7).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
     folded = jax.jit(junet.fold)(params, state)
-    amaxes = np.asarray(
-        jax.jit(lambda f, r: jq8.calibration_amaxes(f, jax_normalize(r), blocked=False, percentile=99.8))(folded, raw)
-    )
+    amaxes = np.asarray(unet_calibration(folded, raw, blocked=False, percentile=99.8))
     return params, state, raw, amaxes
 
 

@@ -28,6 +28,18 @@ from robosat_tpu.config import save_config
 from test_torch_port_predict import _assert_close_bins, _bin_distance, model  # noqa: F401
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two torch threads for this module: its float32 cases hold 0
+    differing pixels against the JAX tool, which the port's float sums
+    meet at 2 and 8 threads; at torch_port_refs.TORCH_THREADS (1) one
+    pixel of `fp32-strip` lands one bin off."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _predict_args(tmp_path, tiles, probs, checkpoint, **overrides):
     args = dict(
         batch_size=2, checkpoint=checkpoint, overlap=0, strip=1, tile_size=64, workers=2, shard=None,

@@ -46,6 +46,8 @@ BN state with var + eps == 1 (XLA:CPU's rsqrt and torch's differ in the
 last bit elsewhere, and the fold then moves int8 bins).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -67,9 +69,9 @@ from robosat_tpu_torch.ops.augment import normalize
 from robosat_tpu_torch.ops.losses import get_loss
 from robosat_tpu_torch.parallel.steps import make_qat_train_step
 from test_torch_checkpoint import _reference_style_state_dict
-from test_torch_port_bridge import _exact_var
 from test_torch_port_train import _flat, check_optax_step, update_agreement
-from test_torch_port_train_forward import COSINE_FLOORS, learnable_batch, torch_threads  # noqa: F401
+from test_torch_port_train_forward import COSINE_FLOORS, learnable_batch
+from torch_port_refs import exact_var, jit_call, unet_calibration_normalized
 
 LR = 1e-4
 STEPS = 3
@@ -85,7 +87,7 @@ def _np(tree):
 @pytest.fixture(scope="module")
 def weights():
     params, state = convert_torch_unet(_reference_style_state_dict())
-    return _np(params), _exact_var(_np(state))
+    return _np(params), exact_var(_np(state))
 
 
 @pytest.fixture(scope="module")
@@ -99,7 +101,7 @@ def scales(weights, batches):
     the first batch."""
     folded = jax.jit(junet.fold)(*weights)
     x = np.asarray(jax_normalize(batches[0][0]))
-    amaxes = jax.jit(lambda f, xx: jq8.calibration_amaxes(f, xx, percentile=99.8))(folded, x)
+    amaxes = unet_calibration_normalized(folded, x, blocked=False, percentile=99.8)
     return [float(s) for s in jq8.scales_from_amaxes(np.asarray(amaxes))]
 
 
@@ -193,14 +195,25 @@ def _bits(a):
     return (np.asarray(a, np.float32) + np.float32(0.0)).view(np.int32)
 
 
+@functools.partial(jax.jit, static_argnames="scale")
+def _jax_fake_quant_act_grad(a, g, scale):
+    """The gradient of sum(fake_quant_act(a, scale) * g) in a."""
+    return jax.grad(lambda v: jnp.sum(jq8.fake_quant_act(v, scale).astype(jnp.float32) * g))(a)
+
+
+@jax.jit
+def _jax_fake_quant_weight_grad(w, g):
+    """The gradient of sum(fake_quant_weight(w) * g) in w."""
+    return jax.grad(lambda v: jnp.sum(jq8.fake_quant_weight(v).astype(jnp.float32) * g))(w)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fake_quant_act_matches_jax(dtype):
     x, scale = _fq_inputs(1, dtype)
     g = np.random.default_rng(2).normal(size=x.shape).astype(np.float32)
     jx = jnp.asarray(x, dtype)
-    want = np.asarray(jax.jit(lambda a: jq8.fake_quant_act(a, scale))(jx).astype(jnp.float32))
-    want_grad = np.asarray(jax.jit(jax.grad(lambda a: jnp.sum(jq8.fake_quant_act(a, scale).astype(jnp.float32) * g)))(
-        jx).astype(jnp.float32))
+    want = np.asarray(jit_call(jq8.fake_quant_act, jx, scale=scale).astype(jnp.float32))
+    want_grad = np.asarray(_jax_fake_quant_act_grad(jx, g, scale=scale).astype(jnp.float32))
 
     tx = torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_(True)
     got = q8.fake_quant_act(tx, scale)
@@ -229,8 +242,7 @@ def test_fake_quant_weight_matches_jax(dtype, shape):
     g = rng.normal(size=shape).astype(np.float32)
     jw = jnp.asarray(w, dtype)
     want = np.asarray(jax.jit(jq8.fake_quant_weight)(jw).astype(jnp.float32))
-    want_grad = np.asarray(jax.jit(jax.grad(lambda a: jnp.sum(jq8.fake_quant_weight(a).astype(jnp.float32) * g)))(
-        jw).astype(jnp.float32))
+    want_grad = np.asarray(_jax_fake_quant_weight_grad(jw, g).astype(jnp.float32))
 
     tw = torch.from_numpy(np.array(jw.astype(jnp.float32))).to(getattr(torch, dtype)).requires_grad_(True)
     got = q8.fake_quant_weight(tw)

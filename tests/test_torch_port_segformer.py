@@ -61,9 +61,8 @@ from robosat_tpu_torch.checkpoint import from_jax
 from robosat_tpu_torch.models import int8 as q8
 from robosat_tpu_torch.models import qconv, segformer
 from robosat_tpu_torch.ops import int8_mm
-from test_torch_port_bridge import _exact_var
 from test_torch_port_predict import _assert_close_bins, _bin_distance
-from test_torch_port_train_forward import torch_threads  # noqa: F401
+from torch_port_refs import exact_var, family_calibration, jit_call
 
 SPREAD = 1.5  # the port's bf16 deviation, against the JAX package's own bf16 spread
 F32_INT8_FLIP_SHARE = 0.005
@@ -98,7 +97,7 @@ def net():
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
 def test_apply_matches_jax(net, train):
     params, state, _, x = net
-    want, want_state = jax.jit(lambda p, s, xx: jsegformer.apply(p, s, xx, train))(params, state, x)
+    want, want_state = jit_call(jsegformer.apply, params, state, x, train=train)
     tp, ts = from_jax(params, state)
     got, got_state = segformer.apply(tp, ts, torch.from_numpy(x), train)
     want, got = np.asarray(want), got.detach().numpy()
@@ -120,7 +119,7 @@ def test_fold_is_the_identity_pair(net):
 
 def test_predict_quantized_folded_matches_jax(net):
     params, state, _, x = net
-    want = np.asarray(jax.jit(lambda f, xx: jsegformer.predict_quantized_folded(f, xx, overlap=8))((params, state), x))
+    want = np.asarray(jit_call(jsegformer.predict_quantized_folded, (params, state), x, overlap=8))
     tp, ts = from_jax(params, state)
     got = segformer.predict_quantized_folded(segformer.fold(tp, ts), torch.from_numpy(x), overlap=8).numpy()
     assert got.shape == want.shape == (2, 48, 48)
@@ -140,9 +139,9 @@ def _held_to_jax_spread(label, got, want_bf16, want_f32):
 
 def test_bf16_predict_quantized_folded_counted(net):
     params, state, _, x = net
-    run = jax.jit(lambda f, xx: jsegformer.predict_quantized_folded(f, xx, overlap=8))
     jx, tx = _bf16(x)
-    want_bf16, want_f32 = np.asarray(run((params, state), jx)), np.asarray(run((params, state), x))
+    want_bf16, want_f32 = (np.asarray(jit_call(jsegformer.predict_quantized_folded, (params, state), xx, overlap=8))
+                           for xx in (jx, x))
     tp, ts = from_jax(params, state)
     got = segformer.predict_quantized_folded(segformer.fold(tp, ts), tx, overlap=8).numpy()
     _held_to_jax_spread("float predict", got, want_bf16, want_f32)
@@ -164,8 +163,7 @@ def test_patch0_s2d4_kernel_matches_jax(net):
 def test_calibration_amaxes_match_jax(net, blocked):
     params, state, _, x = net
     xin = np.asarray(jax_space_to_depth4(x)) if blocked else x
-    want = np.asarray(jax.jit(lambda f, xx: jsegformer.calibration_amaxes_int8(f, xx, blocked=blocked,
-                                                                               percentile=99.8))((params, state), xin))
+    want = np.asarray(family_calibration((params, state), xin, family=jsegformer, blocked=blocked, percentile=99.8))
     tp, ts = from_jax(params, state)
     got = segformer.calibration_amaxes_int8(segformer.fold(tp, ts), torch.from_numpy(xin), blocked=blocked,
                                             percentile=99.8)
@@ -178,9 +176,8 @@ def int8_net(net):
     """Exact-var weights, the JAX package's 99.8 calibration and qtree, and
     the port's qtree from its own fold (equal to JAX's, checked)."""
     params, _, _, x = net
-    state = _exact_var(net[1])
-    amaxes = np.asarray(jax.jit(lambda f, xx: jsegformer.calibration_amaxes_int8(f, xx, percentile=99.8))(
-        (params, state), x))
+    state = exact_var(net[1])
+    amaxes = np.asarray(family_calibration((params, state), x, family=jsegformer, blocked=False, percentile=99.8))
     tp, ts = from_jax(params, state)
     qtree = segformer.quantize_folded_int8(segformer.fold(tp, ts))
     jqt = _np(jax.jit(jsegformer.quantize_folded_int8)((params, state)))
@@ -222,8 +219,8 @@ def test_predict_quantized_int8_counted(int8_net, blocked):
     jx, tx = _bf16(xin)
 
     def run(xx, dtype):
-        return np.asarray(jax.jit(lambda t, v: jsegformer.predict_quantized_int8(
-            t, scales, v, overlap=8, blocked=blocked, compute_dtype=dtype))(jqt, xx))
+        return np.asarray(jit_call(jsegformer.predict_quantized_int8, jqt, scales=scales, x=xx, overlap=8,
+                                   blocked=blocked, compute_dtype=dtype))
 
     want_bf16, want_f32 = run(jx, jnp.bfloat16), run(xin, jnp.float32)
     got = segformer.predict_quantized_int8(qtree, scales, tx, overlap=8, blocked=blocked)
@@ -242,8 +239,8 @@ def test_int8_walk_with_float32_compute_matches_jax(int8_net, monkeypatch):
     conv epilogues patched to keep float32."""
     amaxes, jqt, qtree, x = int8_net
     scales = tuple(jq8.scales_from_amaxes(amaxes))
-    want = np.asarray(jax.jit(lambda t, v: jsegformer.predict_quantized_int8(
-        t, scales, v, overlap=8, compute_dtype=jnp.float32))(jqt, x))
+    want = np.asarray(jit_call(jsegformer.predict_quantized_int8, jqt, scales=scales, x=x, overlap=8,
+                               compute_dtype=jnp.float32))
     monkeypatch.setattr(int8_mm, "dequantize", lambda acc, sc, b: int8_mm.fma_f32(acc.float(), sc, b))
     monkeypatch.setattr(qconv, "_int8_conv", functools.partial(q8._int8_conv, compute_dtype=torch.float32))
     got = segformer.predict_quantized_int8(qtree, scales, torch.from_numpy(x), overlap=8).numpy()
@@ -267,7 +264,7 @@ def test_int8_dense_plain_matches_jax(k, n):
     jnode = _np(jsegformer._qdense(node))
     jx, tx = _bf16(rng.normal(size=(2, 9, 7, k)).astype(np.float32) * 1.5)
     scale = 3.0 / 127
-    want = jax.jit(lambda nn, xx: jsegformer._int8_dense(nn, xx, scale))(jnode, jx)
+    want = jit_call(jsegformer._int8_dense, jnode, jx, scale=scale)
     want_acc = lax.dot_general(jq8._quantize_act(jx, scale), jnode["wq"], (((3,), (0,)), ((), ())),
                                preferred_element_type=jnp.int32)
     tnode, _ = from_jax(jnode, {})
@@ -294,7 +291,7 @@ def test_sr_route_matches_int8_conv(r, c):
     side = 2 * r if r > 1 else 5
     jx, tx = _bf16(rng.normal(size=(2, side, side + r * (r > 1), c)).astype(np.float32))
     scale = 3.5 / 127
-    want = jax.jit(lambda nn, xx: jq8._int8_conv(nn, xx, scale, stride=r))(jnode, jx)
+    want = jit_call(jq8._int8_conv, jnode, jx, scale=scale, stride=r)
     want_acc = lax.conv_general_dilated(jq8._quantize_act(jx, scale), jnode["wq"], (r, r), "SAME",
                                         dimension_numbers=CONV_DIMS, preferred_element_type=jnp.int32)
     tnode, _ = from_jax(jnode, {})

@@ -6,7 +6,7 @@ checkpoint converter and the `train` and `predict` tools, on the CPU.
 - `make_train_step` over `segformer.apply` (CrossEntropy with
   dataset-parking's weights, augmentation off, 64 px, batch 2) for 3 steps
   from the JAX package's init against the JAX package's step, computed with
-  XLA:CPU capped at AVX2 (`test_torch_port_train.run_capped`): step 0's
+  XLA:CPU capped at AVX2 (`torch_port_refs.run_capped`): step 0's
   loss (taken before any update) within 1e-4 relative, steps 1-2 within 5%
   (the bound of tests/test_torch_port_train.py: Adam's first updates are
   ~lr * sign(grad)), the fuse's BN statistics after 3 steps within 5e-3.
@@ -50,15 +50,17 @@ from robosat_tpu_torch.models.registry import get_model
 from robosat_tpu_torch.ops.losses import get_loss
 from robosat_tpu_torch.parallel import steps
 from robosat_tpu_torch.tools import predict, train
-from test_torch_port_train import run_capped
-from test_torch_port_train_forward import WEIGHT, learnable_batch, torch_threads  # noqa: F401
+from test_torch_port_train_forward import WEIGHT, learnable_batch
 from test_torch_port_train_tool import _args, _write_split
 from test_torch_segformer_parity import TorchSegFormer
+from torch_port_refs import run_capped
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 1e-4
 SIZE = 64
 STEPS = 3
+# The capped child's limit: about three times its time in tier-1's run.
+STEPS_TIMEOUT = 180
 
 
 def _np(tree):
@@ -90,7 +92,7 @@ def _jax_steps(params, state, batches):
 def test_train_step_matches_jax():
     params, state = _np(jsegformer.init(0, num_classes=2))
     batches = [learnable_batch(40 + i) for i in range(STEPS)]
-    want_losses, want_bn = run_capped(_jax_steps, params, state, batches)
+    want_losses, want_bn = run_capped(_jax_steps, params, state, batches, timeout=STEPS_TIMEOUT)
     tparams, tstate = checkpoint.from_jax(params, state)
     step = steps.make_train_step(segformer, get_loss("CrossEntropy"), optim.adam(tparams, LR), weight=WEIGHT,
                                  augment=False)

@@ -107,13 +107,14 @@ def served(tmp_path_factory, configs, predictor):
         s.shutdown()
         s.server_close()
     for thread in threads:
-        thread.join(timeout=10)
+        thread.join(timeout=5)
+        assert not thread.is_alive()
 
 
 def _get(url):
     opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
     try:
-        with opener.open(url) as resp:
+        with opener.open(url, timeout=12) as resp:
             return resp.status, dict(resp.headers), resp.read()
     except urllib.error.HTTPError as e:
         return e.code, dict(e.headers), b""

@@ -18,10 +18,11 @@
   float64 run of the step less well (step-1 update cosine 0.986, against
   0.995 for its AVX2 code and for the port), and moves with the host's
   instruction set, which put the reference at the bound's edge
-  (`run_capped` serves the other modules' JAX train steps too). Per leaf the
-  updates cannot be held tighter: ~lr * sign(grad) flips with the float
-  summation order wherever a gradient is near zero (per-leaf cosines down
-  to 0.88 after step 1, 0.65 after step 2). With `remat` the port gives
+  (tests/torch_port_refs.py's `run_capped` serves the other modules' JAX
+  train steps too). Per leaf the updates cannot be held tighter: ~lr *
+  sign(grad) flips with the float summation order wherever a gradient is
+  near zero (per-leaf cosines down to 0.88 after step 1, 0.65 after step
+  2). With `remat` the port gives
   the same losses, weights and BN state bit for bit: the statistics come
   from the first forward.
 - `Adam` against optax.adam over 3 steps: weights and both moments within
@@ -39,12 +40,6 @@
   0 a norm 34% too large).
 """
 
-import os
-import pickle
-import subprocess
-import sys
-import tempfile
-
 import jax
 import numpy as np
 import optax
@@ -61,10 +56,13 @@ from robosat_tpu_torch.models import unet
 from robosat_tpu_torch.ops.losses import get_loss
 from robosat_tpu_torch.parallel.steps import make_train_step
 from test_torch_checkpoint import _reference_style_state_dict
-from test_torch_port_train_forward import WEIGHT, learnable_batch, torch_threads  # noqa: F401
+from test_torch_port_train_forward import WEIGHT, learnable_batch
+from torch_port_refs import run_capped
 
 LR = 1e-4
 STEPS = 3
+# The capped child's limit: about three times its time in tier-1's run.
+TRAJECTORY_TIMEOUT = 300
 
 
 def _np(tree):
@@ -82,45 +80,11 @@ def batches():
     return [learnable_batch(10 + i) for i in range(STEPS)]
 
 
-# XLA:CPU's instruction-set cap for the JAX reference trajectory (see the
-# module docstring): the same code on every x86-64 host the suite runs on.
-REFERENCE_ISA = "AVX2"
-
-
-def run_capped(func, *args):
-    """func(*args) in a child process whose XLA:CPU code is capped at
-    REFERENCE_ISA (it starts its own XLA backend): `func` is a module-level
-    function of a test module, its arguments and result pickled."""
-    with tempfile.TemporaryDirectory() as tmp:
-        inp, out = os.path.join(tmp, "args.pkl"), os.path.join(tmp, "out.pkl")
-        with open(inp, "wb") as f:
-            pickle.dump(args, f)
-        env = dict(os.environ, JAX_PLATFORMS="cpu",
-                   XLA_FLAGS="{} --xla_cpu_max_isa={}".format(os.environ.get("XLA_FLAGS", ""), REFERENCE_ISA))
-        here = os.path.dirname(os.path.abspath(__file__))
-        code = "import sys; sys.path[:0] = {!r}; import test_torch_port_train as t; t._child({!r}, {!r}, {!r}, {!r})"
-        subprocess.run([sys.executable, "-c", code.format([here, os.path.dirname(here)], func.__module__,
-                                                          func.__name__, inp, out)], env=env, check=True, timeout=900)
-        with open(out, "rb") as f:
-            return pickle.load(f)
-
-
-def _child(module, name, inp, out):
-    import importlib
-
-    jax.config.update("jax_platforms", "cpu")
-    with open(inp, "rb") as f:
-        args = pickle.load(f)
-    result = getattr(importlib.import_module(module), name)(*args)
-    with open(out, "wb") as f:
-        pickle.dump(result, f)
-
-
 def jax_trajectory(weights, batches, name):
     """The JAX package's train step over `batches` from `weights`: (losses,
     the params, state and opt_state leaves after steps 1 and 2, the final
     state), computed under `run_capped`."""
-    return run_capped(_jax_trajectory, weights, batches, name)
+    return run_capped(_jax_trajectory, weights, batches, name, timeout=TRAJECTORY_TIMEOUT)
 
 
 def _jax_trajectory(weights, batches, name):

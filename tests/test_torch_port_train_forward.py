@@ -43,6 +43,7 @@ from robosat_tpu_torch.ops.augment import normalize
 from robosat_tpu_torch.ops.losses import get_loss
 from robosat_tpu_torch.parallel.steps import make_eval_step, make_train_step
 from test_torch_checkpoint import _reference_style_state_dict
+import torch_port_refs  # noqa: F401  (torch's thread cap)
 
 WEIGHT = np.asarray([1.6248, 5.762827], np.float32)  # config/dataset-parking.toml
 # (leaf path, floor): tests/test_torch_train_parity.py's representative leaves.
@@ -53,18 +54,6 @@ COSINE_FLOORS = (
     (("encoder", "conv1", "w"), 0.99),
     (("encoder", "bn1", "scale"), 0.99),
 )
-
-
-@pytest.fixture(scope="module", autouse=True)
-def torch_threads():
-    """Two intra-op threads in the modules that train the full-width U-Net
-    on the CPU: tier-1 runs six xdist workers, and a full OpenMP pool in
-    each oversubscribes the cores (a 3-step run then takes minutes instead
-    of seconds)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 def learnable_batch(seed, batch=2, size=64):

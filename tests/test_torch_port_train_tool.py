@@ -63,7 +63,7 @@ from robosat_tpu_torch.ops.losses import get_loss
 from robosat_tpu_torch.parallel.steps import make_train_step
 from robosat_tpu_torch.tools import predict, train
 from test_torch_checkpoint import _reference_style_state_dict
-from test_torch_port_train_forward import learnable_batch, torch_threads  # noqa: F401
+from test_torch_port_train_forward import learnable_batch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 32

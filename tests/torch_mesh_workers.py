@@ -16,14 +16,20 @@ import pickle
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# A launch's default limit in seconds: about three times the slowest launch
+# that uses it in tier-1's run (~30 s).
+TIMEOUT = 90
 
 
-def launch(func, size, *args, timeout=600, env=None):
-    """[func(*args) on rank r for r in range(size)], each in its own process."""
+def launch(func, size, *args, timeout=TIMEOUT, env=None):
+    """[func(*args) on rank r for r in range(size)], each in its own process;
+    a rank still running `timeout` seconds after the start is killed and
+    the launch fails."""
     with tempfile.TemporaryDirectory() as tmp:
         inp = os.path.join(tmp, "args.pkl")
         with open(inp, "wb") as f:
@@ -40,9 +46,10 @@ def launch(func, size, *args, timeout=600, env=None):
                                   stderr=subprocess.STDOUT)
                  for r in range(size)]
         logs = []
+        deadline = time.monotonic() + timeout
         try:
             for p in procs:
-                logs.append(p.communicate(timeout=timeout)[0].decode(errors="replace"))
+                logs.append(p.communicate(timeout=max(deadline - time.monotonic(), 0.1))[0].decode(errors="replace"))
         finally:
             for p in procs:
                 if p.poll() is None:
